@@ -1,0 +1,254 @@
+"""Serving launcher: serve batched requests with packed (or FP) weights.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --reduced --method none --requests 8 --prompt-len 32 --gen 16
+
+``serve_requests`` is the uniform lock-step loop: one batch, one shared
+prompt length, a fixed ``gen`` for every row.  ``--method none`` serves the
+plain FP params (the fp16 baseline); ``--backend pallas`` routes every
+QTensor matmul and the decode attention through the hand-written kernels.
+Runs on ``--device cuda`` unless told otherwise; ``--device cpu`` runs the
+kernels' plain versions.
+
+Not ported yet, and raising: calibration methods (``--method tesseraq`` /
+``omniquant``, from ``quantize_model``), the continuous-batching scheduler
+(``--slots``), the paged store (``--store paged``) and tensor parallelism
+(``--tp``).
+"""
+from __future__ import annotations
+
+import argparse
+import re
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, get_reduced_config
+from repro_torch.configs.base import QuantConfig
+from repro_torch.core.pipeline import (pack_model, quantize_model,
+                                       quantized_memory_report)
+from repro_torch.core.qtensor import PACK_FACTOR
+from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                       calibration_batches)
+from repro_torch.launch.steps import make_serve_steps
+from repro_torch.models import get_model
+
+_QUANT_RE = re.compile(r"W(\d+)A(\d+)(?:g(\d+))?$")
+
+
+def parse_quant(tag: str, kernel_backend: str = "xla") -> QuantConfig:
+    """Parse a ``W<bits>A<act_bits>[g<group>]`` tag (e.g. ``W4A16g32``)."""
+    m = _QUANT_RE.match(tag)
+    if m is None:
+        raise ValueError(
+            f"malformed quant tag {tag!r}: expected W<bits>A<act_bits>"
+            f"[g<group>] with uppercase W/A, e.g. W4A16g32 or W2A16 "
+            f"(per-channel)")
+    bits, act, g = int(m.group(1)), int(m.group(2)), m.group(3)
+    if bits not in PACK_FACTOR:
+        raise ValueError(f"unsupported weight bits {bits} in {tag!r}: "
+                         f"packing supports {sorted(PACK_FACTOR)}")
+    if g is not None and int(g) <= 0:
+        raise ValueError(f"group size must be a positive integer, got "
+                         f"g{g} in {tag!r} (omit g for per-channel)")
+    return QuantConfig(bits=bits, group_size=int(g) if g else None,
+                       act_bits=None if act >= 16 else act,
+                       kernel_backend=kernel_backend)
+
+
+def _params_device(params) -> torch.device:
+    return params["embed"].device
+
+
+def build_params(cfg, params, qcfg: QuantConfig, data_cfg: DataConfig, *,
+                 method: str, init: str, calib_samples: int,
+                 verbose: bool = True):
+    """Calibrate + pack, or pass FP params through for ``method="none"``.
+
+    Returns (params_or_packed, memory_report_or_None)."""
+    if method == "none":
+        if verbose:
+            print(f"[serve] serving FP {cfg.name} (no quantization)")
+        return params, None
+    if verbose:
+        print(f"[serve] calibrating {cfg.name} to {qcfg.tag} "
+              f"with {method}+{init} ...")
+    t0 = time.time()
+    dev = _params_device(params)
+    calib = calibration_batches(data_cfg, 2, max(2, calib_samples // 2))
+    calib = [{"tokens": torch.as_tensor(b["tokens"][:, :-1], device=dev)}
+             for b in calib]
+    params_fq, qmeta, _ = quantize_model(cfg, params, calib, qcfg,
+                                         method=method, init=init)
+    packed = pack_model(cfg, params_fq, qmeta, qcfg)
+    report = quantized_memory_report(packed)
+    if verbose:
+        print(f"[serve] calibration done in {time.time()-t0:.1f}s; {report}")
+    return packed, report
+
+
+def compile_serve_steps(cfg, *, kernel_backend=None):
+    """The (prefill, decode) step pair for a serving configuration.  PyTorch
+    runs eagerly, so there is nothing to compile; the name is the
+    reference's."""
+    _, prefill_step, decode_step = make_serve_steps(
+        cfg, kernel_backend=kernel_backend)
+    return prefill_step, decode_step
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_requests(cfg, model, params, prompts, *, gen: int,
+                   kernel_backend=None, collect_logits=True, device="cuda"):
+    """Prefill + lock-step batched decode (uniform lengths, fixed ``gen``).
+
+    ``prompts``: (B, prompt_len) token ids (numpy or tensor); ``params``
+    must already live on ``device``.  Returns a
+    ``repro_torch.launch.scheduler.ServeResult`` whose ``tokens`` is the
+    (B, gen) token matrix and whose ``logits`` is the (B, gen, V) stack of
+    the prefill output plus each decode step's.  Argmax stays on the
+    device; device->host copies happen after both timing regions, which
+    end in ``torch.cuda.synchronize``."""
+    from repro_torch.launch.scheduler import ServeResult, _latency_stats
+    dev = resolve_device(device)
+    if _params_device(params).type != dev.type:
+        raise ValueError(f"serve_requests: params live on "
+                         f"{_params_device(params)}, device is {dev}")
+    B, prompt_len = prompts.shape
+    max_seq = prompt_len + gen
+    pstep, dstep = compile_serve_steps(cfg, kernel_backend=kernel_backend)
+
+    cache = model.init_cache(B, max_seq, device=dev)
+    toks_in = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        _sync(dev)   # reprolint: ok[host-sync] — opens the prefill timing region
+        t0 = time.perf_counter()
+        logits, cache = pstep(params, {"tokens": toks_in}, cache)
+        _sync(dev)   # reprolint: ok[host-sync] — prefill timing boundary
+        t_prefill = time.perf_counter() - t0
+
+        all_logits = [logits] if collect_logits else None
+        tok = torch.argmax(logits, -1)
+        pos = torch.full((B,), prompt_len, dtype=torch.int32, device=dev)
+        toks = [tok]
+        t0 = time.perf_counter()
+        for _ in range(gen - 1):
+            logits, cache = dstep(params, cache, tok, pos)
+            tok = torch.argmax(logits, -1)
+            pos = pos + 1
+            toks.append(tok)
+            if collect_logits:
+                all_logits.append(logits)
+        _sync(dev)   # reprolint: ok[host-sync] — closes the decode timing region
+        t_decode = time.perf_counter() - t0
+    # off-clock host fetches: both timing regions are closed
+    tok_mat = torch.stack(toks, 1).to(torch.int32).cpu().numpy()
+    lg_mat = (torch.stack(all_logits, 1).float().cpu().numpy()
+              if collect_logits else None)                     # (B, gen, V)
+    res = {b: {"tokens": tok_mat[b],
+               "logits": None if lg_mat is None else lg_mat[b],
+               "arrival": 0, "admit_step": 0, "finish_step": gen - 1,
+               "latency_steps": gen - 1}
+           for b in range(B)}
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    return ServeResult(
+        mode="uniform", store="dense", requests=res,
+        slots=B, max_seq=max_seq, steps=gen - 1,
+        useful_tokens=B * gen, decode_tokens=B * (gen - 1),
+        prefill_secs=t_prefill, decode_secs=t_decode,
+        prefill_tok_s=B * prompt_len / max(t_prefill, 1e-9),
+        decode_tok_s=(B * (gen - 1) / max(t_decode, 1e-9)
+                      if gen > 1 else 0.0),
+        occupancy=1.0,
+        latency_steps=_latency_stats([gen - 1] * B),
+        cache_stats={"store": "dense", "cache_bytes": cache_bytes,
+                     "slots": B, "max_seq": max_seq},
+    )
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--quant", default="W4A16g32")
+    ap.add_argument("--method", default="tesseraq",
+                    choices=["tesseraq", "omniquant", "none"])
+    ap.add_argument("--init", default="awq", choices=["awq", "rtn", "gptq"])
+    ap.add_argument("--backend", default="xla", choices=["xla", "pallas"],
+                    help="QTensor matmul dispatch for the serve steps")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=None,
+                    help="continuous-batching scheduler (not ported yet)")
+    ap.add_argument("--store", default="dense", choices=["dense", "paged"],
+                    help="KV cache store (paged: not ported yet)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=None)
+    ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--share-prefix", action="store_true")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="tensor-parallel serving (not ported yet)")
+    ap.add_argument("--calib-samples", type=int, default=8)
+    ap.add_argument("--par-iters", type=int, default=4,
+                    help="TesseraQ PAR iterations (TesseraQ: not ported yet)")
+    ap.add_argument("--par-steps", type=int, default=20,
+                    help="TesseraQ steps per iteration (not ported yet)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the kernels' plain versions")
+    args = ap.parse_args(argv)
+
+    if args.slots is not None:
+        raise NotImplementedError(
+            "--slots is not ported yet (ROADMAP queue 1, "
+            "'Continuous batching')")
+    if args.store == "paged" or args.prefill_chunk or args.share_prefix:
+        raise NotImplementedError(
+            "the paged store and chunked prefill are not ported yet "
+            "(ROADMAP queue 1, 'Paged KV + chunked prefill')")
+    if args.tp is not None:
+        raise NotImplementedError(
+            "--tp is not ported yet (ROADMAP queue 1, 'Parallelism')")
+
+    dev = resolve_device(args.device)
+    cfg = (get_reduced_config(args.arch) if args.reduced
+           else get_config(args.arch))
+    model = get_model(cfg)
+    params = model.init_params(args.seed, dev)
+
+    qcfg = parse_quant(args.quant, kernel_backend=args.backend)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.prompt_len,
+                          global_batch=args.requests, seed=args.seed)
+    served, _ = build_params(cfg, params, qcfg, data_cfg, method=args.method,
+                             init=args.init,
+                             calib_samples=args.calib_samples)
+
+    corpus = SyntheticCorpus(data_cfg)
+    prompts = corpus.batch(0)["tokens"][:, :args.prompt_len]
+    stats = serve_requests(cfg, model, served, prompts, gen=args.gen,
+                           kernel_backend=qcfg.kernel_backend, device=dev)
+    B, gen = args.requests, args.gen
+    dt = stats.prefill_secs + stats.decode_secs
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "CPU, plain versions")
+    print(f"[serve] {B} requests x {gen} tokens in {dt:.2f}s "
+          f"(prefill {stats.prefill_tok_s:.1f} tok/s, decode "
+          f"{stats.decode_tok_s:.1f} tok/s, backend={args.backend}, "
+          f"{where})")
+    print("[serve] sample generations (token ids):")
+    toks = stats.tokens
+    for b in range(min(B, 4)):
+        print(f"  req{b}: {np.asarray(prompts[b][-8:]).tolist()} -> "
+              f"{toks[b][:12].tolist()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

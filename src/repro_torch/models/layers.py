@@ -1,0 +1,171 @@
+"""Shared building blocks: matmul dispatch over plain / quantized (QTensor)
+weights, RMSNorm, RoPE and chunked (flash-style) attention.
+
+Functions over tensors and param dicts; weights use ``(in_features,
+out_features)``.  QTensor matmuls dispatch per call on ``backend``:
+"xla" dequantizes in the activation dtype and runs a dense matmul, "pallas"
+runs the hand-written kernels (their plain versions on a CPU tensor).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.qtensor import QTensor, qmatmul
+
+KERNEL_BACKENDS = ("xla", "pallas")
+
+
+def resolve_backend(backend: Optional[str]) -> str:
+    """Resolve the QTensor matmul backend for ONE dispatch; ``None`` falls
+    back to the ``REPRO_KERNEL_BACKEND`` env var (read at call time) and
+    then to "xla"."""
+    if backend is None:
+        import os
+        backend = os.environ.get("REPRO_KERNEL_BACKEND", "xla")
+    if backend not in KERNEL_BACKENDS:
+        raise ValueError(f"unknown kernel backend {backend!r}; "
+                         f"expected one of {KERNEL_BACKENDS}")
+    return backend
+
+
+def matmul(x: torch.Tensor, w, backend: Optional[str] = None) -> torch.Tensor:
+    if isinstance(w, QTensor):
+        if resolve_backend(backend) == "pallas":
+            from repro_torch.kernels.ops import qtensor_matmul
+            return qtensor_matmul(x, w)
+        return qmatmul(x, w)
+    return x @ w
+
+
+def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * g
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (B, S, H, D), positions: (B, S) or (S,)."""
+    d = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=x.device) / d))
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs                  # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# flash attention: online softmax over KV chunks (forward only here)
+# --------------------------------------------------------------------------
+
+def _mask_for(idx, csz, q_pos, valid_len):
+    k_pos = idx * csz + torch.arange(csz, dtype=torch.float32,
+                                     device=q_pos.device)
+    mask = k_pos[None, None, None, None, :] < valid_len[:, None, None, None, None]
+    return mask & (k_pos[None, None, None, None, :]
+                   <= q_pos[:, None, None, :, None])
+
+
+def _flash_core(q, k, v, q_pos, valid_len):
+    """q: (B,Hkv,G,Sq,D) f32 with the scale applied; k,v: (N,B,Hkv,C,D)."""
+    B, Hkv, G, Sq, D = q.shape
+    csz = k.shape[3]
+    m = torch.full((B, Hkv, G, Sq), float("-inf"), device=q.device)
+    l = torch.zeros((B, Hkv, G, Sq), device=q.device)
+    acc = torch.zeros((B, Hkv, G, Sq, D), device=q.device)
+    for idx in range(k.shape[0]):
+        s = torch.einsum("bhgqd,bhcd->bhgqc", q, k[idx].float())
+        mask = _mask_for(idx, csz, q_pos, valid_len)
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqc,bhcd->bhgqd", p, v[idx].float())
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    return acc / l[..., None]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_offset=0, kv_len: Optional[torch.Tensor] = None,
+                    chunk: int = 512, scale: Optional[float] = None,
+                    backend: Optional[str] = None,
+                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Chunked causal attention with GQA support (the dense family's
+    attention; the reference's non-causal and prefix-LM masks arrive with
+    the families that use them).
+
+    q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) with Hq % Hkv == 0.
+    ``q_offset``: absolute position of q[0] (int or (B,)) for causal masks
+    during decode.  ``kv_len``: (B,) valid KV length (cache masking).
+    ``backend``: for the Sq == 1 decode step, "pallas" runs the slot-aware
+    decode kernel (inactive slots in ``active`` come back zero); "xla" runs
+    the dense masked softmax.  Sq > 1 always runs the chunked online softmax
+    in plain torch ops.
+    """
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    Sk = k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+
+    if (Sq == 1 and kv_len is not None
+            and resolve_backend(backend) == "pallas"):
+        from repro_torch.kernels.decode_attention import decode_attention
+        q_pos = torch.as_tensor(q_offset, dtype=torch.int32,
+                                device=dev).reshape(-1).expand(B)
+        out = decode_attention(q.reshape(B, Hkv, G, D).contiguous(), k, v,
+                               kv_len=kv_len, q_pos=q_pos, active=active,
+                               scale=scale)
+        return out.reshape(B, Sq, Hq, D)
+
+    qf = q.reshape(B, Sq, Hkv, G, D).float() * scale
+    qf = qf.permute(0, 2, 3, 1, 4)                             # (B,Hkv,G,Sq,D)
+
+    if Sq == 1:
+        q_pos1 = torch.as_tensor(q_offset, dtype=torch.float32,
+                                 device=dev).reshape(-1)[:, None]
+        q_pos1 = q_pos1.expand(B, 1)
+        valid1 = (kv_len.float() if kv_len is not None
+                  else torch.full((B,), float(Sk), device=dev))
+        s = torch.einsum("bhgqd,bshd->bhgqs", qf, k.float())
+        k_pos = torch.arange(Sk, dtype=torch.float32, device=dev)
+        mask = ((k_pos[None, None, None, None, :]
+                 < valid1[:, None, None, None, None])
+                & (k_pos[None, None, None, None, :]
+                   <= q_pos1[:, None, None, :, None]))
+        s = torch.where(mask, s, -1e30)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgqs,bshd->bhgqd", p, v.float())
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+        return out.to(q.dtype)
+
+    csz = min(chunk, Sk)
+    pad = (-Sk) % csz
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    Skp = k.shape[1]
+    kc = k.reshape(B, Skp // csz, csz, Hkv, D).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(B, Skp // csz, csz, Hkv, D).permute(1, 0, 3, 2, 4)
+
+    q_pos = torch.as_tensor(q_offset, dtype=torch.float32, device=dev)[
+        ..., None] + torch.arange(Sq, dtype=torch.float32, device=dev)
+    if q_pos.ndim == 1:
+        q_pos = q_pos[None]
+    q_pos = q_pos.expand(B, Sq)
+    valid_len = (kv_len.float() if kv_len is not None
+                 else torch.full((B,), float(Sk), device=dev))
+
+    out = _flash_core(qf, kc, vc, q_pos, valid_len)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+    return out.to(q.dtype)

@@ -1,0 +1,202 @@
+"""Dense decoder-only transformer (llama family: tinyllama, llama2-7b).
+
+Params are nested dicts of tensors with the block weights stacked along a
+leading layer axis, as in the reference; the layer loop is a Python loop
+over that axis.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.common import Ctx, DEFAULT_CTX, take_layer, update_cache
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def model_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _normal(gen, shape, scale, dtype, device):
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+def init_block_params(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
+                      device) -> dict:
+    """Stacked (L, ...) decoder-block params."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
+            "'Remaining families')")
+    d, f = cfg.d_model, cfg.d_ff
+    hd = cfg.resolved_head_dim
+    dt = model_dtype(cfg)
+
+    def stack(shape):
+        return _normal(gen, (n_layers,) + shape, shape[-2] ** -0.5, dt, device)
+
+    return {
+        "ln1": torch.ones((n_layers, d), dtype=dt, device=device),
+        "wq": stack((d, cfg.num_heads * hd)),
+        "wk": stack((d, cfg.num_kv_heads * hd)),
+        "wv": stack((d, cfg.num_kv_heads * hd)),
+        "wo": stack((cfg.num_heads * hd, d)),
+        "ln2": torch.ones((n_layers, d), dtype=dt, device=device),
+        "w_gate": stack((d, f)),
+        "w_up": stack((d, f)),
+        "w_down": stack((f, d)),
+    }
+
+
+def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
+    """Random params from ``seed`` on ``device`` (a torch.Generator on that
+    device; the numbers differ from the reference's jax.random ones)."""
+    from repro_torch import resolve_device
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = model_dtype(cfg)
+    params = {
+        "embed": _normal(gen, (cfg.vocab_size, cfg.d_model),
+                         cfg.d_model ** -0.5, dt, device),
+        "blocks": init_block_params(cfg, gen, cfg.num_layers, device),
+        "ln_f": torch.ones((cfg.d_model,), dtype=dt, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = _normal(gen, (cfg.d_model, cfg.vocab_size),
+                                 cfg.d_model ** -0.5, dt, device)
+    return params
+
+
+# --------------------------------------------------------------------------
+# one decoder block (also the unit the calibration walk quantizes)
+# --------------------------------------------------------------------------
+
+def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
+              positions, kv_cache=None, cache_pos=None, kv_len=None,
+              active=None):
+    """Self-attention with optional KV cache.  Returns (out, new_kv or None);
+    the cache is written in place (see ``update_cache``)."""
+    Bb, S, d = x.shape
+    hd = cfg.resolved_head_dim
+    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    kb = ctx.kernel_backend
+    q = L.matmul(h, bp["wq"], kb).reshape(Bb, S, cfg.num_heads, hd)
+    k = L.matmul(h, bp["wk"], kb).reshape(Bb, S, cfg.num_kv_heads, hd)
+    v = L.matmul(h, bp["wv"], kb).reshape(Bb, S, cfg.num_kv_heads, hd)
+    if cfg.rope_theta:
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+
+    new_kv = None
+    if kv_cache is not None:
+        ck, cv = update_cache(kv_cache["k"], kv_cache["v"], k, v, cache_pos)
+        new_kv = {"k": ck, "v": cv}
+        attn_k, attn_v = ck, cv
+        q_offset = cache_pos
+        valid = kv_len if kv_len is not None else cache_pos + S
+    else:
+        attn_k, attn_v = k, v
+        q_offset = 0
+        valid = None
+
+    o = L.flash_attention(q, attn_k, attn_v, q_offset=q_offset, kv_len=valid,
+                          chunk=ctx.attn_chunk, backend=kb, active=active)
+    o = o.reshape(Bb, S, cfg.num_heads * hd)
+    return L.matmul(o, bp["wo"], kb), new_kv
+
+
+def ffn(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
+    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    kb = ctx.kernel_backend
+    g = L.matmul(h, bp["w_gate"], kb)
+    u = L.matmul(h, bp["w_up"], kb)
+    a = torch.nn.functional.silu(g) * u
+    return L.matmul(a, bp["w_down"], kb)
+
+
+def block(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX,
+          *, positions, kv_cache=None, cache_pos=None, kv_len=None,
+          active=None):
+    a, new_kv = attention(bp, x, cfg, ctx, positions=positions,
+                          kv_cache=kv_cache, cache_pos=cache_pos,
+                          kv_len=kv_len, active=active)
+    x = x + a
+    x = x + ffn(bp, x, cfg, ctx)
+    return x, new_kv
+
+
+# --------------------------------------------------------------------------
+# full model
+# --------------------------------------------------------------------------
+
+def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
+    return params["embed"][tokens]
+
+
+def unembed(params, cfg: ModelConfig, x, ctx: Ctx = DEFAULT_CTX) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    return L.matmul(x, params["head"], ctx.kernel_backend)
+
+
+def forward(params, cfg: ModelConfig, tokens, ctx: Ctx = DEFAULT_CTX) -> torch.Tensor:
+    """Prefill-style forward without cache.  Returns logits (B, S, V)."""
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.num_layers):
+        x, _ = block(take_layer(params["blocks"], i), x, cfg, ctx,
+                     positions=positions)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return unembed(params, cfg, x, ctx)
+
+
+# -- serving ----------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device="cuda"):
+    hd = cfg.resolved_head_dim
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _layer_cache(cache, i):
+    return {"k": cache["k"][i], "v": cache["v"][i]}
+
+
+def prefill(params, cfg: ModelConfig, tokens, cache, ctx: Ctx = DEFAULT_CTX, *,
+            start_pos=0):
+    """Fill the cache from position ``start_pos``; returns (last_logits,
+    cache).  The cache is updated in place and returned."""
+    x = embed_tokens(params, cfg, tokens)
+    B, S = x.shape[:2]
+    dev = x.device
+    positions = start_pos + torch.arange(S, device=dev)
+    pos0 = torch.full((B,), start_pos, dtype=torch.int32, device=dev)
+    for i in range(cfg.num_layers):
+        x, _ = block(take_layer(params["blocks"], i), x, cfg, ctx,
+                     positions=positions, kv_cache=_layer_cache(cache, i),
+                     cache_pos=pos0)
+    x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
+    return unembed(params, cfg, x, ctx)[:, 0], cache
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
+                ctx: Ctx = DEFAULT_CTX, *, active=None):
+    """One decode step. tokens: (B,), pos: (B,) int32 write position.
+    ``active``: (B,) slot occupancy (None = all live).  Returns (logits,
+    cache); the cache is updated in place."""
+    x = embed_tokens(params, cfg, tokens)[:, None, :]
+    for i in range(cfg.num_layers):
+        x, _ = block(take_layer(params["blocks"], i), x, cfg, ctx,
+                     positions=pos[:, None], kv_cache=_layer_cache(cache, i),
+                     cache_pos=pos, kv_len=pos + 1, active=active)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return unembed(params, cfg, x, ctx)[:, 0], cache

@@ -1,0 +1,166 @@
+"""The kernels' plain PyTorch versions (what the wrappers run on a CPU
+tensor) against the JAX reference on the same numpy inputs.
+
+* quant_matmul: against the reference's Pallas kernel in interpret mode
+  (``ops.quant_matmul_op``) and its jnp oracle (``ref.quant_matmul_ref``);
+* quant_gemv: against ``ref.quant_matmul_ref`` only — the reference's
+  Pallas GEMV does not run on the installed jax (ROADMAP fault 3.1);
+* decode_attention: against ``ops.decode_attention_op`` in interpret mode,
+  with ``chunk`` dividing S (ROADMAP fault 3.2).
+
+Tolerances: atol 1e-5 in f32 (summation order only); within 1 bf16 ulp in
+bf16 (f32 sums in another order may round to the neighbouring bf16 value).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.core import qtensor as jqt  # noqa: E402
+from repro_torch.core.qtensor import QTensor  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.quant_gemv import quant_gemv  # noqa: E402
+from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+from _torch_parity import assert_within_bf16_ulps  # noqa: E402
+
+_DTYPES = {"f32": (jnp.float32, torch.float32),
+           "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _operands(seed, M, K, N, bits, group_size):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 1 << bits, (K, N)).astype(np.uint8)
+    packed = np.array(jqt.pack(jnp.asarray(codes), bits))
+    ng = K // group_size
+    scale = rng.uniform(0.005, 0.05, (ng, N)).astype(np.float32)
+    zero = rng.integers(0, 1 << bits, (ng, N)).astype(np.float32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    return x, packed, scale, zero
+
+
+def _compare(got, want, dt):
+    got = got.float().numpy()
+    want = np.asarray(want).astype(np.float32)
+    if dt == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert_within_bf16_ulps(got, want, n=1)
+
+
+def _torch_args(x, packed, scale, zero, tdt):
+    return (torch.from_numpy(x).to(tdt), torch.from_numpy(packed),
+            torch.from_numpy(scale), torch.from_numpy(zero))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("bits,group_size,K,N", [
+    (2, 32, 128, 48), (3, 32, 96, 40), (4, 128, 256, 24),
+    (2, 64, 64, 20)], ids=["w2g32", "w3g32", "w4g128", "w2-per-channel"])
+def test_quant_matmul_plain_matches_reference(bits, group_size, K, N, dt):
+    M = 40
+    x, packed, scale, zero = _operands(bits * K + N, M, K, N, bits,
+                                       group_size)
+    jdt, tdt = _DTYPES[dt]
+    xj = jnp.asarray(x, jdt)
+    want_kernel = jops.quant_matmul_op(
+        xj, jnp.asarray(packed), jnp.asarray(scale), jnp.asarray(zero),
+        bits=bits, group_size=group_size)
+    want_ref = jref.quant_matmul_ref(
+        xj, jnp.asarray(packed), jnp.asarray(scale), jnp.asarray(zero),
+        bits=bits, group_size=group_size)
+    before = dict(build.LAUNCHES)
+    got = quant_matmul(*_torch_args(x, packed, scale, zero, tdt), bits=bits,
+                       group_size=group_size)
+    assert got.dtype == tdt and got.shape == (M, N)
+    assert build.LAUNCHES == before      # a CPU tensor launches nothing
+    _compare(got, want_kernel, dt)
+    _compare(got, want_ref, dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_quant_gemv_plain_matches_reference(bits, M, dt):
+    K, N, g = 128, 72, 32
+    x, packed, scale, zero = _operands(7 * bits + M, M, K, N, bits, g)
+    jdt, tdt = _DTYPES[dt]
+    want = jref.quant_matmul_ref(
+        jnp.asarray(x, jdt), jnp.asarray(packed), jnp.asarray(scale),
+        jnp.asarray(zero), bits=bits, group_size=g)
+    got = quant_gemv(*_torch_args(x, packed, scale, zero, tdt), bits=bits,
+                     group_size=g)
+    _compare(got, want, dt)
+
+
+def test_qtensor_matmul_dispatch_and_act_scale():
+    """M <= 32 rows take the GEMV, more rows the tiled matmul; both compute
+    the same function, and ``act_scale`` is divided out of x first."""
+    K, N, g, bits = 64, 16, 32, 4
+    x, packed, scale, zero = _operands(3, 40, K, N, bits, g)
+    act = np.random.default_rng(4).uniform(0.5, 2.0, (K,)).astype(np.float32)
+    w = QTensor(torch.from_numpy(packed), torch.from_numpy(scale),
+                torch.from_numpy(zero), bits, g, (K, N),
+                act_scale=torch.from_numpy(act))
+    want = jref.quant_matmul_ref(
+        jnp.asarray(x / act), jnp.asarray(packed), jnp.asarray(scale),
+        jnp.asarray(zero), bits=bits, group_size=g)
+    for rows in (3, 32, 33, 40):
+        got = tops.qtensor_matmul(torch.from_numpy(x[:rows]), w)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want)[:rows],
+                                   rtol=1e-5, atol=1e-5)
+    got3 = tops.qtensor_matmul(torch.from_numpy(x[:6]).reshape(2, 3, K), w)
+    assert got3.shape == (2, 3, N)
+
+
+def test_wrappers_validate_operands():
+    x, packed, scale, zero = _operands(0, 4, 64, 16, 2, 32)
+    args = _torch_args(x, packed, scale, zero, torch.float32)
+    with pytest.raises(ValueError, match="packed rows"):
+        quant_matmul(args[0], args[1][:-1], args[2], args[3], bits=2,
+                     group_size=32)
+    with pytest.raises(ValueError, match="scale/zero"):
+        quant_gemv(args[0], args[1], args[2][:1], args[3], bits=2,
+                   group_size=32)
+    with pytest.raises(ValueError, match="rows"):
+        quant_gemv(torch.zeros(33, 64), args[1], args[2], args[3], bits=2,
+                   group_size=32)
+    q = torch.zeros(2, 2, 1, 8)
+    with pytest.raises(ValueError, match="layout"):
+        decode_attention(q, torch.zeros(2, 5, 3, 8), torch.zeros(2, 5, 3, 8),
+                         kv_len=torch.ones(2, dtype=torch.int32),
+                         q_pos=torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,Hkv,G,D,chunk", [
+    (4, 48, 2, 1, 16, 16), (3, 40, 2, 4, 32, 8), (2, 24, 1, 8, 16, 24)],
+    ids=["mha", "gqa4", "mqa8-unchunked"])
+def test_decode_attention_plain_matches_reference(B, S, Hkv, G, D, chunk, dt):
+    rng = np.random.default_rng(B * S + G)
+    q = rng.standard_normal((B, Hkv, G, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    kv_len = rng.integers(1, S + 1, (B,)).astype(np.int32)
+    kv_len[0] = S                                   # one full lane
+    q_pos = (kv_len - 1).astype(np.int32)
+    q_pos[-1] = max(kv_len[-1] - 3, 0)              # causal cut inside kv_len
+    active = np.ones((B,), np.int32)
+    active[1] = 0                                   # one inactive slot
+    jdt, tdt = _DTYPES[dt]
+    want = jops.decode_attention_op(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        kv_len=jnp.asarray(kv_len.copy()), q_pos=jnp.asarray(q_pos.copy()),
+        active=jnp.asarray(active.copy()), chunk=chunk)
+    got = decode_attention(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt),
+        torch.from_numpy(v).to(tdt), kv_len=torch.from_numpy(kv_len),
+        q_pos=torch.from_numpy(q_pos), active=torch.from_numpy(active))
+    assert got.dtype == tdt
+    assert torch.all(got[1] == 0)                   # exact zeros
+    _compare(got, want, dt)
