@@ -19,8 +19,19 @@ Phases, each printing its own lines:
    rounding-level differences;
 4. parity: the reduced llama2/tinyllama configs served on the card and,
    from the same params, on the CPU (plain versions);
-5. a JSON line listing the ported kernels with their numbers;
-6. last line: ``{"ok": true, "device": {...}}``.
+5. calibrate: LLaMA-2-7B at full width, depth cut to 4 layers (random
+   weights from a seed), W2A16g128 on the ``"pallas"`` backend: AWQ
+   initialization, then TesseraQ (the paper's 20-rate PAR schedule, T cut
+   to 10 steps) on 32 x 512-token calibration samples, ``pack_model`` and
+   the perplexity of the packed and the fake-quant params; the launch
+   counts of that run prove every θ̂ and its gradient went through the
+   soft_round kernels and the packed perplexity through the quant-matmul
+   kernel; then where one Soften step's time goes at that width;
+6. calibration parity: the reduced llama2 config in f32 calibrated
+   (AWQ + TesseraQ, K=3, T=15) on the card and, from the same params, on
+   the CPU (plain versions): codes and hardened masks must agree;
+7. a JSON line listing the ported kernels with their numbers;
+8. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device, or without ``src/repro_torch`` beside this script,
@@ -220,6 +231,116 @@ def check_attention(gen, B, S, Hkv, G, D, kv_len, q_pos, active, flush, card,
     return rec
 
 
+# soft_round at the main path's leaves (g = 128): (ng, out, leaves per layer)
+SR_SHAPES = ((32, 4096, 4), (32, 11008, 2), (86, 4096, 1))
+SR_G = 128
+
+
+def f32_ulp(t):
+    a = t.abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 23)
+
+
+def sr_operands(gen, ng, g, n, bits):
+    """A TesseraQ leaf state as the soften loop sees it: about half of
+    ``hard`` frozen, with both signs."""
+    dev = "cuda"
+    qmax = (1 << bits) - 1
+    zero = torch.randint(0, qmax + 1, (ng, n), generator=gen,
+                         device=dev).float()
+    base = (torch.randint(-2, qmax + 2, (ng, g, n), generator=gen,
+                          device=dev).float() - zero[:, None, :])
+    nu = torch.randn((ng, g, n), generator=gen, device=dev) * 3
+    frz = torch.rand((ng, g, n), generator=gen, device=dev) < 0.5
+    sgn = torch.where(torch.rand((ng, g, n), generator=gen, device=dev)
+                      < 0.5, -1, 1)
+    hard = torch.where(frz, sgn, 0).to(torch.int8)
+    v = torch.randn((ng, n), generator=gen, device=dev) * 0.3
+    scale = torch.rand((ng, n), generator=gen, device=dev) * 0.02 + 0.005
+    dout = torch.randn((ng, g, n), generator=gen, device=dev)
+    return (base.contiguous(), nu, hard, v, scale, zero), dout
+
+
+def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False):
+    """soft_round forward and backward kernels vs their plain versions at
+    one leaf shape.  Tolerances (σ is computed by other code in the two
+    versions): θ̂ within 4 f32 ulps plus 4 ulps of (qmax + 1) times the
+    effective scale (σ's rounding moves u = base + zero + α by an ulp of u);
+    dν within 4 ulps plus 4·2^-24·|dout·s_eff| (σ' carries σ's absolute
+    rounding); dv the same allowance summed over the group plus 2^-16 times
+    the sum of |terms| (reduction order)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.soft_round import (soft_round, soft_round_bwd,
+                                                soft_round_bwd_plain,
+                                                soft_round_plain)
+    g = SR_G
+    qmax = (1 << bits) - 1
+    ops, dout = sr_operands(gen, ng, g, n, bits)
+    kw = dict(qmax=qmax, dst=dst)
+    n0 = (build.LAUNCHES["soft_round_fwd"], build.LAUNCHES["soft_round_bwd"])
+    got = soft_round(*ops, **kw)
+    gnu, gv = soft_round_bwd(dout, *ops, **kw)
+    torch.cuda.synchronize()
+    want = soft_round_plain(*ops, **kw)
+    wnu, wv = soft_round_bwd_plain(dout, *ops, **kw)
+    base, nu, hard, v, scale, zero = ops
+    s_eff = scale * (2.0 * torch.sigmoid(v)) if dst else scale
+    s_eff = s_eff[:, None, :]
+    chain = (dout * s_eff).abs()
+    lim = 4 * f32_ulp(torch.maximum(got.abs(), want.abs())) \
+        + 4 * f32_ulp(torch.tensor(float(qmax + 1))) * s_eff.abs()
+    err = (got - want).abs()
+    if not bool((err <= lim).all()):
+        fail(f"soft_round forward disagrees at ng={ng} n={n} bits={bits} "
+             f"dst={dst}: max |diff| {float(err.max())}")
+    lim_nu = 4 * f32_ulp(torch.maximum(gnu.abs(), wnu.abs())) \
+        + 4 * 2.0 ** -24 * chain
+    err_nu = (gnu - wnu).abs()
+    if not bool((err_nu <= lim_nu).all()):
+        fail(f"soft_round backward (dnu) disagrees at ng={ng} n={n} "
+             f"bits={bits} dst={dst}: max |diff| {float(err_nu.max())}")
+    err_v = 0.0
+    if dst:
+        q = want / s_eff + zero[:, None, :]
+        terms = (dout * (q - zero[:, None, :]) * s_eff).abs().sum(1)
+        lim_v = 4 * f32_ulp(torch.maximum(gv.abs(), wv.abs())) \
+            + REORDER * terms \
+            + 4 * f32_ulp(torch.tensor(float(qmax + 1))) * chain.sum(1)
+        ev = (gv - wv).abs()
+        err_v = float(ev.max())
+        if not bool((ev <= lim_v).all()):
+            fail(f"soft_round backward (dv) disagrees at ng={ng} n={n} "
+                 f"bits={bits}: max |diff| {err_v}")
+    elif gv is not None:
+        fail("soft_round backward returned dv without DST")
+    # determinism: the backward's fixed-order reduction repeats bit for bit
+    gnu2, gv2 = soft_round_bwd(dout, *ops, **kw)
+    if not torch.equal(gnu, gnu2) or (dst and not torch.equal(gv, gv2)):
+        fail("soft_round backward is not bit-for-bit repeatable")
+    rec = {"ng": ng, "g": g, "n": n, "bits": bits, "dst": dst,
+           "max_abs_err": float(err.max()), "max_abs_err_dnu":
+           float(err_nu.max()), "max_abs_err_dv": err_v, "main": main}
+    if main:
+        rec["fwd_ms"] = cuda_ms(lambda: soft_round(*ops, **kw), flush=flush)
+        rec["fwd_plain_ms"] = cuda_ms(lambda: soft_round_plain(*ops, **kw),
+                                      iters=5, flush=flush)
+        rec["bwd_ms"] = cuda_ms(lambda: soft_round_bwd(dout, *ops, **kw),
+                                flush=flush)
+        rec["bwd_plain_ms"] = cuda_ms(
+            lambda: soft_round_bwd_plain(dout, *ops, **kw), iters=5,
+            flush=flush)
+        elems, groups = ng * g * n, ng * n
+        rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(
+            elems * (4 + 4 + 1 + 4) + groups * 4 * (3 if dst else 2), 0)
+        rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound(
+            elems * (4 + 4 + 4 + 1 + 4)
+            + groups * 4 * (3 + (1 if dst else 0)), 0)
+    rec["launches"] = (build.LAUNCHES["soft_round_fwd"] - n0[0],
+                       build.LAUNCHES["soft_round_bwd"] - n0[1])
+    show("soft_round", rec, card)
+    return rec
+
+
 def kernel_phase(card):
     from repro_torch.kernels.quant_gemv import quant_gemv, quant_gemv_plain
     from repro_torch.kernels.quant_matmul import (quant_matmul,
@@ -249,6 +370,32 @@ def kernel_phase(card):
     out["decode_attention"].append(check_attention(
         gen, 4, 144, 4, 8, 128, [144, 77, 130, 9], [143, 76, 129, 5],
         [1, 0, 1, 1], flush, card))
+    out["soft_round"] = []
+    for ng, n, _ in SR_SHAPES:
+        for bits in (2, 3, 4):
+            for dst in (True, False):
+                out["soft_round"].append(check_soft_round(
+                    gen, ng, n, bits, dst, flush, card,
+                    main=bits == 2 and dst))
+    return out
+
+
+def summarize_soft_round(records, direction):
+    """One layer of the calibration's Soften step: the forward or backward
+    kernel over the layer's 7 leaves (W2 g128, DST on)."""
+    per_layer = {(ng, n): c for ng, n, c in SR_SHAPES}
+    timed = [r for r in records if r["main"]]
+    tot = lambda key: sum(per_layer[(r["ng"], r["n"])] * r[key]
+                          for r in timed)
+    err = "max_abs_err" if direction == "fwd" else "max_abs_err_dnu"
+    out = {"ms": tot(f"{direction}_ms"),
+           "plain_ms": tot(f"{direction}_plain_ms"),
+           "bound_ms": tot(f"{direction}_bound_ms"),
+           "bound_by": timed[0][f"{direction}_bound_by"],
+           "library_ms": None,
+           "max_abs_err": max(r[err] for r in records)}
+    if direction == "bwd":
+        out["max_abs_err_dv"] = max(r["max_abs_err_dv"] for r in records)
     return out
 
 
@@ -273,7 +420,8 @@ def summarize(records, name):
 # phase 3: full-width LLaMA-2-7B W2A16g128 serve through the kernels
 # --------------------------------------------------------------------------
 
-EXPECTED = {"quant_matmul": 224, "quant_gemv": 3360, "decode_attention": 480}
+EXPECTED = {"quant_matmul": 224, "quant_gemv": 3360, "decode_attention": 480,
+            "soft_round_fwd": 0, "soft_round_bwd": 0}
 REL_L2 = 5e-2
 
 
@@ -416,8 +564,223 @@ def parity_phase():
         same = bool((gpu.tokens == cpu.tokens).all())
         print(f"[parity] {cfg.name}: card vs CPU {gate}; tokens equal {same}; "
               f"card launches {counts}", flush=True)
-        if not gate["ok"] or not same or min(counts.values()) == 0:
+        served = min(counts[k] for k in ("quant_matmul", "quant_gemv",
+                                         "decode_attention"))
+        if not gate["ok"] or not same or served == 0:
             fail(f"{cfg.name}: card and CPU disagree")
+
+
+# --------------------------------------------------------------------------
+# phase 5: full-width calibration (AWQ + TesseraQ) through the kernels
+# --------------------------------------------------------------------------
+
+CAL_LAYERS = 4          # depth cut from 32; widths are LLaMA-2-7B's
+CAL_K, CAL_T = 20, 10   # the paper's 20-rate schedule; T cut from 250
+CAL_SAMPLES, CAL_SEQ, CAL_BS = 32, 512, 4
+EVAL_BATCHES = 4
+PPL_REL = 1e-2
+
+
+def calibrate_phase(card):
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import (pack_model, quantize_model,
+                                           quantized_memory_report)
+    from repro_torch.core.tesseraq import TesseraQConfig
+    from repro_torch.data.pipeline import (DataConfig, calibration_batches,
+                                           eval_batches)
+    from repro_torch.eval.ppl import perplexity
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.models import get_model
+
+    cfg = get_config("llama2-7b").replace(num_layers=CAL_LAYERS)
+    model = get_model(cfg)
+    qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
+    tcfg = TesseraQConfig(par_iterations=CAL_K, steps_per_iteration=CAL_T,
+                          batch_size=CAL_BS)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=CAL_SEQ,
+                          global_batch=CAL_BS, seed=0)
+    t0 = time.perf_counter()
+    calib = [{"tokens": torch.as_tensor(b["tokens"][:, :-1], device="cuda")}
+             for b in calibration_batches(data_cfg, CAL_SAMPLES // CAL_BS,
+                                          CAL_BS)]
+    evalb = eval_batches(data_cfg, EVAL_BATCHES, CAL_BS)
+    params = model.init_params(0, "cuda")
+    torch.cuda.synchronize()
+    print(f"[calibrate] {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+          f"ff={cfg.d_ff} V={cfg.vocab_size} {cfg.dtype}; {CAL_SAMPLES} x "
+          f"{CAL_SEQ} calibration tokens, {EVAL_BATCHES} x {CAL_BS} x "
+          f"{CAL_SEQ} eval; set-up {time.perf_counter() - t0:.3f}s",
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    pfq, qmeta, report = quantize_model(cfg, params, calib, qcfg,
+                                        method="tesseraq", init="awq",
+                                        tcfg=tcfg)
+    packed = pack_model(cfg, pfq, qmeta, qcfg)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    peak_cal = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    ppl_packed = perplexity(cfg, packed, evalb, backend="pallas")
+    ppl_fq = perplexity(cfg, pfq, evalb, backend="pallas")
+    t_ppl = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    steps = CAL_K * CAL_T
+    expected = {"quant_matmul": 7 * CAL_LAYERS * EVAL_BATCHES,
+                "quant_gemv": 0, "decode_attention": 0,
+                "soft_round_fwd": 7 * steps * CAL_LAYERS,
+                "soft_round_bwd": 7 * steps * CAL_LAYERS}
+    for b in report["blocks"]:
+        losses = [e["loss"] for e in b["log"]]
+        flips = sum(f["flipped"] for f in b["flips"].values())
+        total = sum(f["total"] for f in b["flips"].values())
+        awq = " ".join(f"{k}:{v['alpha']}/{v['clip']}"
+                       for k, v in b["awq"].items())
+        print(f"[calibrate] block {b['block']}: awq alpha/clip {awq}; "
+              f"recon_mse {b['recon_mse']:.6g}; PAR loss first "
+              f"{losses[0]:.6g} last {losses[-1]:.6g}; final soft rate "
+              f"{b['log'][-1]['soft_rate']}; {b['secs']:.3f}s "
+              f"(reconstruction {b['recon_secs']:.3f}s, "
+              f"{steps / b['recon_secs']:.3f} steps/s); flipped vs AWQ "
+              f"{flips}/{total} ({100 * flips / total:.4f}%)", flush=True)
+        if not all(np.isfinite(losses)) or not np.isfinite(b["recon_mse"]):
+            fail(f"non-finite loss in block {b['block']}")
+        if len(losses) != CAL_K or b["log"][-1]["soft_rate"] != 0.0:
+            fail(f"block {b['block']}: {len(losses)} PAR iterations, final "
+                 f"soft rate {b['log'][-1]['soft_rate']}")
+    mem = quantized_memory_report(packed)
+    print(f"[calibrate] walk + pack {t_cal:.3f}s; peak {peak_cal / 1e9:.3f} "
+          f"GB; perplexity packed {ppl_packed:.6g} fake-quant {ppl_fq:.6g} "
+          f"({t_ppl:.3f}s); packed {mem['quantized_bytes']} B; launches "
+          f"{counts}; card=[{card}]", flush=True)
+    if counts != expected:
+        fail(f"calibrate launch counts {counts}, expected {expected}")
+    if not (np.isfinite(ppl_packed) and np.isfinite(ppl_fq)
+            and abs(ppl_packed - ppl_fq) <= PPL_REL * ppl_fq):
+        fail(f"packed perplexity {ppl_packed} vs fake-quant {ppl_fq}")
+    step_profile(cfg, params, calib, qcfg, tcfg, card)
+    return counts, {"blocks": report["blocks"], "secs": t_cal,
+                    "peak_bytes": peak_cal}
+
+
+def step_profile(cfg, params, calib, qcfg, tcfg, card):
+    """Where one Soften step's time goes on the first block at full width:
+    the step (canonical_grad + AdamW) split into θ̂ materialization
+    (``prepare``: 7 soft_round forwards + reshape/act_scale), the
+    per-sample block forwards and backwards with their gradient sums, the
+    pullback through ``prepare`` (7 soft_round backwards), AdamW, and one
+    harden (once per T steps).  CUDA events around each piece, averaged."""
+    from repro_torch.core import recon_engine as RE
+    from repro_torch.core import tesseraq as tq
+    from repro_torch.core.awq import quantize_block_awq
+    from repro_torch.core.blocks import build_stages, get_path
+    from repro_torch.core.capture import (capture_block_inputs,
+                                          split_minibatches)
+    from repro_torch.optim.adam import AdamW
+
+    stage = build_stages(cfg)[0]
+    with torch.no_grad():
+        X = torch.cat([stage.init_x(params, b) for b in calib], 0)
+        bp = stage.get_block(params, 0)
+        parts = split_minibatches(X)
+        Y = torch.cat([stage.apply(bp, x) for x in parts], 0).float()
+        caps = capture_block_inputs(stage.apply, bp, parts)
+        _, meta = quantize_block_awq(bp, caps, qcfg)
+    states = {p: tq._leaf_state(get_path(bp, p), meta[p], qcfg)
+              for p in meta}
+    states = RE.harden_device(states, 0.5, False)
+    obj = tq._make_loss_fn(stage.apply, qcfg, tcfg)
+    tr = tq._trainables(states, True)
+    frozen = {"bp": bp, "sts": {p: {k: v for k, v in st.items()
+                                    if k not in ("nu", "v")}
+                                for p, st in states.items()}}
+    idx = torch.arange(CAL_BS, device="cuda")
+    xb, yb = X.index_select(0, idx), Y.index_select(0, idx)
+    chunks = RE.grad_chunk_count(CAL_BS, X.shape[0])
+    opt = AdamW(lr=tcfg.lr)
+    ost = opt.init(tr)
+
+    def prepare():
+        with torch.enable_grad():
+            req = {p: {k: t.detach().requires_grad_() for k, t in d.items()}
+                   for p, d in tr.items()}
+            obj.prepare(req, frozen)
+
+    def grad():
+        return RE.canonical_grad(obj, tr, frozen, xb, yb, chunks)
+
+    _, grads = grad()
+    t = {"prepare_ms": cuda_ms(prepare, iters=5),
+         "canonical_grad_ms": cuda_ms(grad, iters=5),
+         "adamw_ms": cuda_ms(lambda: opt.update(grads, ost, tr), iters=5),
+         "harden_ms": cuda_ms(lambda: RE.harden_device(states, 0.3, False),
+                              iters=3)}
+    t["step_ms"] = t["canonical_grad_ms"] + t["adamw_ms"]
+    print("[profile] one Soften step, block 0 at full width, bs "
+          f"{CAL_BS} x {CAL_SEQ}: " + " ".join(
+              f"{k}={v:.6g}" for k, v in t.items()) + f" card=[{card}]",
+          flush=True)
+    return t
+
+
+# --------------------------------------------------------------------------
+# phase 6: calibration parity, card vs CPU from the same params
+# --------------------------------------------------------------------------
+
+def calibration_parity_phase():
+    from repro_torch.bridge import params_to
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.tesseraq import TesseraQConfig
+    from repro_torch.data.pipeline import DataConfig, calibration_batches
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.models import get_model
+
+    cfg = get_reduced_config("llama2-7b").replace(dtype="float32")
+    qcfg = parse_quant("W2A16g32", kernel_backend="pallas")
+    tcfg = TesseraQConfig(par_iterations=3, steps_per_iteration=15)
+    params = get_model(cfg).init_params(0, "cpu")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                    seed=0)
+    calib = [b["tokens"][:, :-1] for b in calibration_batches(dc, 2, 4)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        build.reset_launch_counts()
+        p = params if dev == "cpu" else params_to(params, dev)
+        batches = [{"tokens": torch.as_tensor(c, dtype=torch.long,
+                                              device=dev)} for c in calib]
+        _, qmeta, rep = quantize_model(cfg, p, batches, qcfg,
+                                       method="tesseraq", init="awq",
+                                       tcfg=tcfg)
+        out[dev] = (qmeta, rep, dict(build.LAUNCHES))
+    (qc, rc, _), (qg, rg, counts) = out["cpu"], out["cuda"]
+    agree = {"codes": [0, 0], "hard": [0, 0]}
+    worst_scale = 0.0
+    for key in qc:
+        for f in agree:
+            a, b = qc[key][f], qg[key][f].cpu()
+            agree[f][0] += int((a == b).sum())
+            agree[f][1] += a.numel()
+        sa, sb = qc[key]["scale"], qg[key]["scale"].cpu()
+        worst_scale = max(worst_scale,
+                          float(((sa - sb).abs() / sa.abs()).max()))
+    same_awq = all(bc["awq"] == bg["awq"] for bc, bg in
+                   zip(rc["blocks"], rg["blocks"], strict=True))
+    frac = {f: a / t for f, (a, t) in agree.items()}
+    print(f"[calibration-parity] {cfg.name} f32 K=3 T=15 card vs CPU: codes "
+          f"agree {agree['codes'][0]}/{agree['codes'][1]} "
+          f"({frac['codes']:.6f}), hardened masks {agree['hard'][0]}/"
+          f"{agree['hard'][1]} ({frac['hard']:.6f}); folded scales max rel "
+          f"diff {worst_scale:.3g}; AWQ choices equal {same_awq}; card "
+          f"launches {counts}", flush=True)
+    if min(frac.values()) < 0.999 or worst_scale > 1e-4:
+        fail("calibration on the card and on the CPU disagree")
+    if counts["soft_round_fwd"] == 0 or counts["soft_round_bwd"] == 0:
+        fail("the card's calibration did not launch the soft_round kernels")
 
 
 def main():
@@ -443,26 +806,50 @@ def main():
 
     t0 = time.perf_counter()
     build.load_library(verbose=True)
-    print(f"[build] {len(build.KERNELS)} kernels built and loaded in "
-          f"{time.perf_counter() - t0:.3f}s", flush=True)
+    n_src = len(set(build.SOURCES.values()))
+    print(f"[build] {n_src} sources ({len(build.KERNELS)} kernels) built and "
+          f"loaded in {time.perf_counter() - t0:.3f}s", flush=True)
 
     recs = kernel_phase(card)
-    counts = serve_phase(card)
+    t0 = time.perf_counter()
+    serve_counts = serve_phase(card)
     parity_phase()
+    print(f"[time] serve + parity {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    t0 = time.perf_counter()
+    cal_counts, _ = calibrate_phase(card)
+    calibration_parity_phase()
+    print(f"[time] calibrate + calibration parity "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     sources = {"quant_matmul": "src/repro/kernels/quant_matmul.py:146",
                "quant_gemv": "src/repro/kernels/quant_gemv.py:120",
-               "decode_attention": "src/repro/kernels/decode_attention.py:227"}
+               "decode_attention": "src/repro/kernels/decode_attention.py:227",
+               "soft_round_fwd": "src/repro/kernels/soft_round.py:42",
+               "soft_round_bwd": "src/repro/kernels/soft_round.py:42"}
     per = {"quant_matmul": "one layer of the prefill: 7 launches, M=512, W2 g128",
            "quant_gemv": "one layer of a decode step: 7 launches, M=4, W2 g128",
            "decode_attention": "one layer of a decode step: 1 launch, B=4 "
-                               "Hkv=32 G=1 D=128 S=144 kv_len=136"}
+                               "Hkv=32 G=1 D=128 S=144 kv_len=136",
+           "soft_round_fwd": "one layer of a Soften step: 7 launches (4 x "
+                             "ng=32 out=4096, 2 x ng=32 out=11008, 1 x ng=86 "
+                             "out=4096; g=128, W2, DST on)",
+           "soft_round_bwd": "one layer of a Soften step: 7 launches, the "
+                             "shapes of soft_round_fwd"}
     kernels = []
     for name in build.KERNELS:
+        by_path = {"serve": serve_counts[name], "calibrate": cal_counts[name]}
+        if name.startswith("soft_round"):
+            nums = summarize_soft_round(recs["soft_round"], name[-3:])
+            nums["library_note"] = ("no single PyTorch call computes θ̂ or "
+                                    "its gradient")
+        else:
+            nums = summarize(recs[name], name)
         kernels.append({"name": name, "route": "cuda",
-                        "source": f"src/repro_torch/csrc/{name}.cu",
+                        "source": f"src/repro_torch/csrc/{build.SOURCES[name]}",
                         "replaces": sources[name],
-                        "launches": counts[name], **summarize(recs[name], name),
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, **nums,
                         "per": per[name], "card": card})
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -2,27 +2,39 @@
 
 ``quantize_model`` walks the architecture's stages block by block:
   1. collect the block's input stream X (paper Algorithm 1: from the FP
-     model) and the FP target block(theta_fp, X);
-  2. initialize scale/zero per linear (this slice: RTN);
-  3. optimize the rounding (not ported yet: ``method`` must be "none");
+     model; or, with ``input_source="quant"``, BRECQ-style from the
+     progressively-quantized model) and the FP target block(theta_fp, X);
+  2. initialize scale/zero per linear: RTN, or AWQ (activation-aware
+     scaling + clipping search on the captured inputs);
+  3. optimize the rounding with TesseraQ (``method="tesseraq"``, the
+     single-device engine) or keep the initialization (``method="none"``);
   4. write the fake-quantized block back and advance the streams.
 
-``pack_model`` then converts the calibrated model into the deployment form:
-stacked packed QTensors per linear.
+The streams stay on the params' device; captures and forwards run over
+minibatches of ``capture.CAPTURE_MINIBATCH`` samples, as the reference's
+single-device walk does.  ``pack_model`` then converts the calibrated
+model into the deployment form: stacked packed QTensors per linear, with
+DST folded into the scales.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, QuantConfig
+from repro_torch.core import awq as awq_mod
 from repro_torch.core import rtn as rtn_mod
+from repro_torch.core import tesseraq as tq_mod
 from repro_torch.core.blocks import build_stages, get_path, set_path
+from repro_torch.core.capture import (capture_block_inputs,
+                                      split_minibatches, stage_calibration)
 from repro_torch.core.qtensor import QTensor, pack
 from repro_torch.core.quantizer import resolve_group
 from repro_torch.models.common import Ctx, DEFAULT_CTX
+
+_NOT_PORTED = "ROADMAP queue 5, 'Remaining PTQ methods'"
 
 
 def _clone_tree(tree):
@@ -31,31 +43,48 @@ def _clone_tree(tree):
     return tree.clone()
 
 
+def _mse(outs, refs) -> float:
+    return float(torch.stack(
+        [((o.float() - f.float()) ** 2).mean()
+         for o, f in zip(outs, refs, strict=True)]).mean())
+
+
 def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
                    qcfg: QuantConfig, *, method: str = "tesseraq",
-                   init: str = "awq", ctx: Ctx = DEFAULT_CTX,
-                   input_source: str = "fp"):
+                   init: str = "awq",
+                   tcfg: Optional[tq_mod.TesseraQConfig] = None,
+                   ctx: Ctx = DEFAULT_CTX, input_source: str = "fp"):
     """Returns (params_fq, qmeta, report), as the reference does.
 
     ``batches``: list of batch dicts ({"tokens": (B, S) int tensor on the
-    params' device}).  This slice runs the data-free RTN row: ``method=
-    "none"``, ``init="rtn"``, ``input_source="fp"``; the walk still runs the
-    FP-stream forwards and reports each block's ``recon_mse``.  Every other
-    method, init and input source raises.  The caller's params are left as they
-    are: the walk quantizes a private copy of the block stack.
+    params' device}), the calibration set.
+    method: tesseraq | none (initialization only)
+    init:   awq | rtn
+    input_source: "fp" (paper Algorithm 1: block inputs from the FP model)
+        or "quant" (BRECQ/OmniQuant-style compounding: inputs from the
+        progressively-quantized stream, targets from the FP block on them)
+
+    Every block's report carries ``recon_mse`` (the written-back block
+    against the FP targets), ``secs``, ``recon_secs`` (the reconstruction
+    alone) and the engine ``log``; with AWQ also each linear's ``awq``
+    choices, and with TesseraQ the ``flips`` of its codes against the
+    initialization's (``tesseraq.flip_stats``).  ``init="gptq"`` and the
+    methods ``omniquant`` / ``signround`` are not ported yet and raise.
+    The caller's params are left as they are: the walk quantizes a private
+    copy of the block stack.
     """
-    if method != "none":
+    if method not in ("tesseraq", "none"):
         raise NotImplementedError(
             f"quantize_model: method {method!r} is not ported yet "
-            "(ROADMAP queue 1, 'Calibration: AWQ + TesseraQ')")
-    if init != "rtn":
+            f"({_NOT_PORTED})")
+    if init not in ("awq", "rtn"):
         raise NotImplementedError(
             f"quantize_model: init {init!r} is not ported yet "
-            "(ROADMAP queue 1, 'Calibration: AWQ + TesseraQ')")
-    if input_source != "fp":
-        raise NotImplementedError(
-            f"quantize_model: input_source {input_source!r} is not ported "
-            "yet (ROADMAP queue 1, 'Calibration: AWQ + TesseraQ')")
+            f"({_NOT_PORTED})")
+    if input_source not in ("fp", "quant"):
+        raise ValueError(f"quantize_model: unknown input_source "
+                         f"{input_source!r} (expected 'fp' or 'quant')")
+    tcfg = tcfg or tq_mod.TesseraQConfig()
     stages = build_stages(cfg, ctx)
     params_q = dict(params)
     params_q["blocks"] = _clone_tree(params["blocks"])
@@ -64,34 +93,67 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
 
     with torch.no_grad():
         for stage in stages:
-            parts = [stage.init_x(params_q, b) for b in batches]
-            X_parts = X_fp_parts = parts
+            X = torch.cat([stage.init_x(params_q, b) for b in batches], 0)
+            X_fp = X
+            # the reconstruction engine is reused for every block of a stage
+            recon_cache: Dict = {}
             for i in range(stage.n_blocks):
                 t0 = time.time()
-                same_stream = X_fp_parts is X_parts
+                same_stream = X_fp is X
+                # views into the walk's block stack: read them before
+                # set_block overwrites block i below
                 bp_fp = stage.get_block(params_q, i)
-                # FP targets over the FP stream; they are the next block's
-                # FP inputs too
-                fp_out = [stage.apply(bp_fp, x) for x in X_fp_parts]
-                bp_q, qmeta = rtn_mod.quantize_block_rtn(bp_fp, qcfg)
+                src = X_fp if input_source == "fp" else X
+                src_parts = split_minibatches(src)
+                # FP targets block(theta_fp, src); in fp mode they are the
+                # next block's FP inputs too
+                fp_out = [stage.apply(bp_fp, x) for x in src_parts]
+                Y = torch.cat(fp_out, 0)
+
+                entry = {"stage": stage.name, "block": i}
+                if init == "awq":
+                    caps = capture_block_inputs(stage.apply, bp_fp,
+                                                src_parts)
+                    bp_init, qmeta = awq_mod.quantize_block_awq(bp_fp, caps,
+                                                                qcfg)
+                    entry["awq"] = {".".join(p): {"alpha": m["alpha"],
+                                                  "clip": m["clip"]}
+                                    for p, m in qmeta.items()}
+                else:
+                    bp_init, qmeta = rtn_mod.quantize_block_rtn(bp_fp, qcfg)
+
+                log: list = []
+                tr0 = time.time()
+                if method == "tesseraq":
+                    init_meta = qmeta
+                    Xd, Yd = stage_calibration(src, Y)
+                    bp_q, qmeta = tq_mod.reconstruct_block(
+                        stage.apply, bp_fp, Xd, Yd, None, qmeta, qcfg, tcfg,
+                        log=log, cache=recon_cache)
+                else:
+                    bp_q = bp_init
+                recon_s = time.time() - tr0
                 params_q = stage.set_block(params_q, i, bp_q)
                 for p_, m_ in qmeta.items():
                     qmeta_all[stage.pack_target(i) + tuple(p_)] = m_
                 bq = stage.get_block(params_q, i)
-                out_q = [stage.apply(bq, x) for x in X_fp_parts]
-                err = float(torch.stack(
-                    [((o.float() - f.float()) ** 2).mean()
-                     for o, f in zip(out_q, fp_out, strict=True)]).mean())
-                report["blocks"].append(
-                    {"stage": stage.name, "block": i, "recon_mse": err,
-                     "secs": time.time() - t0, "log": []})
-                # advance the quantized stream (reusing the mse forward
-                # while it still runs over the same stream) and the FP one
-                if same_stream:
-                    X_parts = out_q
+                out_q = [stage.apply(bq, x) for x in src_parts]
+                if method == "tesseraq":
+                    entry["flips"] = {
+                        ".".join(p): f for p, f in
+                        tq_mod.flip_stats(init_meta, qmeta).items()}
+                entry.update({"recon_mse": _mse(out_q, fp_out),
+                              "secs": time.time() - t0,
+                              "recon_secs": recon_s, "log": log})
+                report["blocks"].append(entry)
+                # advance the quantized stream (reusing the mse forward when
+                # it ran over that stream) and the FP one
+                if input_source == "quant" or same_stream:
+                    X = torch.cat(out_q, 0)
                 else:
-                    X_parts = [stage.apply(bq, x) for x in X_parts]
-                X_fp_parts = fp_out
+                    X = torch.cat([stage.apply(bq, x)
+                                   for x in split_minibatches(X)], 0)
+                X_fp = Y if input_source == "fp" else X
     return params_q, qmeta_all, report
 
 

@@ -69,6 +69,14 @@ def dequantize_codes(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
     return w.reshape(q.shape).to(out_dtype)
 
 
+def fake_quantize(w: torch.Tensor, qcfg: QuantConfig, gamma=None, beta=None
+                  ) -> torch.Tensor:
+    """RTN round-trip (the plain baseline and the inner op of search loops)."""
+    scale, zero = compute_scale_zero(w, qcfg, gamma, beta)
+    q = quantize_codes(w, scale, zero, qcfg)
+    return dequantize_codes(q, scale, zero, qcfg, w.dtype)
+
+
 def make_qtensor(w: torch.Tensor, qcfg: QuantConfig, *,
                  scale: Optional[torch.Tensor] = None,
                  zero: Optional[torch.Tensor] = None,

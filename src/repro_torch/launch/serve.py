@@ -4,16 +4,19 @@
         --reduced --method none --requests 8 --prompt-len 32 --gen 16
 
 ``serve_requests`` is the uniform lock-step loop: one batch, one shared
-prompt length, a fixed ``gen`` for every row.  ``--method none`` serves the
-plain FP params (the fp16 baseline); ``--backend pallas`` routes every
-QTensor matmul and the decode attention through the hand-written kernels.
-Runs on ``--device cuda`` unless told otherwise; ``--device cpu`` runs the
-kernels' plain versions.
+prompt length, a fixed ``gen`` for every row.  ``--method tesseraq``
+(default, with ``--init awq``) calibrates the random-weight model on
+synthetic calibration segments with ``--par-iters`` PAR iterations of
+``--par-steps`` steps each, packs it and serves the packed model;
+``--method none`` serves the plain FP params (the fp16 baseline).
+``--backend pallas`` routes every QTensor matmul, the decode attention and
+the calibration's soft-rounding through the hand-written kernels.  Runs on
+``--device cuda`` unless told otherwise; ``--device cpu`` runs the kernels'
+plain versions.
 
-Not ported yet, and raising: calibration methods (``--method tesseraq`` /
-``omniquant``, from ``quantize_model``), the continuous-batching scheduler
-(``--slots``), the paged store (``--store paged``) and tensor parallelism
-(``--tp``).
+Not ported yet, and raising: ``--method omniquant``, ``--init gptq``, the
+continuous-batching scheduler (``--slots``), the paged store (``--store
+paged``) and tensor parallelism (``--tp``).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from repro_torch.configs.base import QuantConfig
 from repro_torch.core.pipeline import (pack_model, quantize_model,
                                        quantized_memory_report)
 from repro_torch.core.qtensor import PACK_FACTOR
+from repro_torch.core.tesseraq import TesseraQConfig
 from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
                                        calibration_batches)
 from repro_torch.launch.steps import make_serve_steps
@@ -64,8 +68,8 @@ def _params_device(params) -> torch.device:
 
 
 def build_params(cfg, params, qcfg: QuantConfig, data_cfg: DataConfig, *,
-                 method: str, init: str, calib_samples: int,
-                 verbose: bool = True):
+                 method: str, init: str, tcfg: TesseraQConfig,
+                 calib_samples: int, verbose: bool = True):
     """Calibrate + pack, or pass FP params through for ``method="none"``.
 
     Returns (params_or_packed, memory_report_or_None)."""
@@ -82,7 +86,7 @@ def build_params(cfg, params, qcfg: QuantConfig, data_cfg: DataConfig, *,
     calib = [{"tokens": torch.as_tensor(b["tokens"][:, :-1], device=dev)}
              for b in calib]
     params_fq, qmeta, _ = quantize_model(cfg, params, calib, qcfg,
-                                         method=method, init=init)
+                                         method=method, init=init, tcfg=tcfg)
     packed = pack_model(cfg, params_fq, qmeta, qcfg)
     report = quantized_memory_report(packed)
     if verbose:
@@ -197,9 +201,9 @@ def main(argv=None):
                     help="tensor-parallel serving (not ported yet)")
     ap.add_argument("--calib-samples", type=int, default=8)
     ap.add_argument("--par-iters", type=int, default=4,
-                    help="TesseraQ PAR iterations (TesseraQ: not ported yet)")
+                    help="TesseraQ PAR iterations")
     ap.add_argument("--par-steps", type=int, default=20,
-                    help="TesseraQ steps per iteration (not ported yet)")
+                    help="TesseraQ steps per PAR iteration")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
@@ -226,8 +230,10 @@ def main(argv=None):
     qcfg = parse_quant(args.quant, kernel_backend=args.backend)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.prompt_len,
                           global_batch=args.requests, seed=args.seed)
+    tcfg = TesseraQConfig(par_iterations=args.par_iters,
+                          steps_per_iteration=args.par_steps)
     served, _ = build_params(cfg, params, qcfg, data_cfg, method=args.method,
-                             init=args.init,
+                             init=args.init, tcfg=tcfg,
                              calib_samples=args.calib_samples)
 
     corpus = SyntheticCorpus(data_cfg)

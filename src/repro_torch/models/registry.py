@@ -3,8 +3,9 @@
     prefill(params, batch, cache, ctx) -> (logits, cache)
     decode_step(params, cache, tokens, pos, ctx, active) -> (logits, cache)
     init_cache(batch, max_seq, dtype, device) -> cache
-for family ``dense``.  Batches are dicts: {"tokens"}.  The training loss
-and the other families are not ported yet (ROADMAP queue 1).
+    loss_fn(params, batch, ctx) -> scalar next-token cross entropy
+for family ``dense``.  Batches are dicts: {"tokens", optional
+"loss_mask"}.  The other families are not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ class Model:
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
+    loss_fn: Callable
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -43,4 +45,6 @@ def get_model(cfg: ModelConfig) -> Model:
             transformer.decode_step(p, cfg, c, t, pos, ctx, active=active),
         init_cache=lambda batch, max_seq, dtype=torch.bfloat16, device="cuda":
             transformer.init_cache(cfg, batch, max_seq, dtype, device),
+        loss_fn=lambda p, b, ctx=DEFAULT_CTX: transformer.loss_fn(p, cfg, b,
+                                                                  ctx),
     )

@@ -157,6 +157,23 @@ def forward(params, cfg: ModelConfig, tokens, ctx: Ctx = DEFAULT_CTX) -> torch.T
     return unembed(params, cfg, x, ctx)
 
 
+def loss_fn(params, cfg: ModelConfig, batch, ctx: Ctx = DEFAULT_CTX):
+    """Next-token cross entropy in float32.  batch = {tokens, (optional)
+    loss_mask}; the forward runs on ``tokens[:, :-1]``."""
+    tokens = batch["tokens"]
+    logits = forward(params, cfg, tokens[:, :-1], ctx)
+    targets = tokens[:, 1:].long()
+    lw = batch.get("loss_mask")
+    lw = (lw[:, 1:].to(torch.float32) if lw is not None
+          else torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device))
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = (lse - gold) * lw
+    return nll.sum() / torch.clamp(lw.sum(), min=1.0)
+
+
 # -- serving ----------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,

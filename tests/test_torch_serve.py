@@ -43,6 +43,7 @@ from repro_torch.bridge import params_to_torch  # noqa: E402
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.configs.base import QuantConfig  # noqa: E402
 from repro_torch.core.pipeline import pack_model, quantize_model  # noqa: E402
+from repro_torch.core.tesseraq import TesseraQConfig  # noqa: E402
 from repro_torch.eval.harness import parity_gate  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
@@ -161,23 +162,43 @@ def test_cli_serves_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--method", "tesseraq"], ["--method", "none", "--slots", "2"],
+    ["--method", "tesseraq", "--init", "gptq"], ["--method", "omniquant"],
+    ["--method", "none", "--slots", "2"],
     ["--method", "none", "--store", "paged"], ["--method", "none", "--tp", "2"]],
-    ids=["tesseraq", "slots", "paged", "tp"])
+    ids=["tesseraq", "omniquant", "slots", "paged", "tp"])
 def test_cli_refuses_paths_not_ported(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserve.main(["--reduced", "--device", "cpu"] + argv)
+
+
+def test_cli_calibrates_with_tesseraq_on_cpu(capsys):
+    assert tserve.main(["--arch", "llama2-7b", "--reduced", "--quant",
+                        "W2A16g32", "--method", "tesseraq", "--init", "awq",
+                        "--par-iters", "2", "--par-steps", "3", "--device",
+                        "cpu", "--requests", "2", "--prompt-len", "8",
+                        "--gen", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "with tesseraq+awq" in out and "calibration done" in out
+    assert "2 requests x 3 tokens" in out
 
 
 def test_quantize_model_refuses_methods_not_ported():
     cfg = get_reduced_config("llama2-7b")
     params = get_model(cfg).init_params(0, "cpu")
     batches = [{"tokens": torch.zeros(1, 4, dtype=torch.long)}]
-    for kw in ({"method": "tesseraq", "init": "rtn"},
-               {"method": "none", "init": "awq"},
-               {"method": "none", "init": "rtn", "input_source": "quant"}):
+    for kw in ({"method": "omniquant", "init": "awq"},
+               {"method": "signround", "init": "rtn"},
+               {"method": "none", "init": "gptq"},
+               {"method": "tesseraq", "init": "gptq"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             quantize_model(cfg, params, batches, QuantConfig(), **kw)
+    for engine in ("reference", "legacy", "sharded"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            quantize_model(cfg, params, batches, QuantConfig(),
+                           method="tesseraq", init="rtn",
+                           tcfg=TesseraQConfig(par_iterations=1,
+                                               steps_per_iteration=1,
+                                               engine=engine))
 
 
 def test_cuda_entry_points_refuse_without_card():
