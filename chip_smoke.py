@@ -9,7 +9,8 @@ Phases, each printing its own lines:
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the main path's shapes, with times (kernel, plain version, one
    PyTorch library call as a yardstick) beside the least time the card
-   could take (``bound_ms``);
+   could take (``bound_ms``); the paged decode attention also against the
+   dense kernel on the gathered cache, bit for bit;
 3. serve: LLaMA-2-7B at full width and depth (random weights from a seed),
    RTN-quantized to W2A16g128 and packed, served by ``serve_requests`` on
    the ``"pallas"`` backend (4 requests x 128 prompt tokens, 16 generated);
@@ -30,8 +31,18 @@ Phases, each printing its own lines:
 6. calibration parity: the reduced llama2 config in f32 calibrated
    (AWQ + TesseraQ, K=3, T=15) on the card and, from the same params, on
    the CPU (plain versions): codes and hardened masks must agree;
-7. a JSON line listing the ported kernels with their numbers;
-8. last line: ``{"ok": true, "device": {...}}``.
+7. schedule: the serve phase's packed LLaMA-2-7B served by the
+   continuous-batching scheduler (``serve_scheduled``, 8 slots, 16 seeded
+   requests with prompts of 16..384 tokens and budgets of 4..48) on the
+   dense store and on the paged store (16-token pages), on a tight pool,
+   with chunked prefill, with copy-on-write prefix sharing, each request
+   alone, and the lock-step baseline; dense and paged tokens must be equal,
+   launch counts exact, and the decode steps free of host syncs; where
+   one decode step's time goes on each store (``torch.profiler``); then
+   the reduced llama2 config scheduled on the paged store on the card and
+   on the CPU;
+8. a JSON line listing the ported kernels with their numbers;
+9. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device, or without ``src/repro_torch`` beside this script,
@@ -231,6 +242,74 @@ def check_attention(gen, B, S, Hkv, G, D, kv_len, q_pos, active, flush, card,
     return rec
 
 
+def check_paged_attention(gen, B, W, psz, Hkv, G, D, kv_len, active, flush,
+                          card, main=False):
+    """Paged kernel vs its plain version, and vs the dense kernel on the
+    gathered cache (bit for bit), over a permuted page table."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, paged_decode_attention, paged_decode_attention_plain)
+    from repro_torch.models.common import gather_pages
+    dev = "cuda"
+    P = B * W + 5
+    q = torch.randn((B, Hkv, G, D), generator=gen, device=dev).to(torch.bfloat16)
+    kp = torch.randn((P, psz, Hkv, D), generator=gen, device=dev
+                     ).to(torch.bfloat16)
+    vp = torch.randn((P, psz, Hkv, D), generator=gen, device=dev
+                     ).to(torch.bfloat16)
+    ptab = torch.randperm(P, generator=gen, device=dev)[:B * W].reshape(
+        B, W).to(torch.int32)
+    q_pos = [n - 1 for n in kv_len]
+    as_i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    kw = dict(kv_len=as_i32(kv_len), q_pos=as_i32(q_pos),
+              active=as_i32(active))
+    n0 = build.LAUNCHES["paged_decode_attention"]
+    got = paged_decode_attention(q, kp, vp, ptab, **kw)
+    torch.cuda.synchronize()
+    want = paged_decode_attention_plain(q, kp, vp, ptab, **kw)
+    ok, err = within(got, want, REORDER * float(vp.float().abs().max()))
+    if not ok:
+        fail(f"paged_decode_attention disagrees with its plain version at "
+             f"B={B} W={W} psz={psz} Hkv={Hkv} G={G}: max |diff| {err}")
+    kg, vg = gather_pages(kp, ptab), gather_pages(vp, ptab)
+    if not torch.equal(got, decode_attention(q, kg, vg, **kw)):
+        fail(f"paged_decode_attention is not bit-identical to the dense "
+             f"kernel on the gathered cache at psz={psz} G={G}")
+    for b in range(B):
+        if active[b] == 0 and not bool((got[b] == 0).all()):
+            fail(f"paged_decode_attention: inactive slot {b} is not zeros")
+    rec = {"B": B, "W": W, "psz": psz, "Hkv": Hkv, "G": G, "D": D,
+           "kv_len": list(kv_len), "active": list(active),
+           "max_abs_err": err, "bit_identical_to_dense": True, "main": main}
+    rec["kernel_ms"] = cuda_ms(
+        lambda: paged_decode_attention(q, kp, vp, ptab, **kw), flush=flush)
+    rec["plain_ms"] = cuda_ms(
+        lambda: paged_decode_attention_plain(q, kp, vp, ptab, **kw),
+        flush=flush)
+    rec["dense_kernel_ms"] = cuda_ms(
+        lambda: decode_attention(q, kg, vg, **kw), flush=flush)
+    # yardstick, not the same function: SDPA with a boolean length mask over
+    # the gathered cache laid out (B, H, S, D) beforehand (gather and layout
+    # outside the timed region); it computes the inactive slot too
+    S = W * psz
+    qs = q.reshape(B, Hkv * G, 1, D)
+    ks = kg.permute(0, 2, 1, 3).repeat_interleave(G, 1).contiguous()
+    vs = vg.permute(0, 2, 1, 3).repeat_interleave(G, 1).contiguous()
+    mask = (torch.arange(S, device=dev)[None, :]
+            < kw["kv_len"][:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec["library_ms"] = cuda_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask),
+                                flush=flush)
+    live = sum(kv_len[b] for b in range(B) if active[b])
+    pages = sum(-(-kv_len[b] // psz) for b in range(B) if active[b])
+    nbytes = 2 * live * Hkv * D * 2 + 2 * B * Hkv * G * D * 2 + 3 * B * 4 \
+        + pages * 4
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * live * Hkv * G * D)
+    rec["launches"] = build.LAUNCHES["paged_decode_attention"] - n0
+    show("paged_decode_attention", rec, card)
+    return rec
+
+
 # soft_round at the main path's leaves (g = 128): (ng, out, leaves per layer)
 SR_SHAPES = ((32, 4096, 4), (32, 11008, 2), (86, 4096, 1))
 SR_G = 128
@@ -370,6 +449,18 @@ def kernel_phase(card):
     out["decode_attention"].append(check_attention(
         gen, 4, 144, 4, 8, 128, [144, 77, 130, 9], [143, 76, 129, 5],
         [1, 0, 1, 1], flush, card))
+    # the scheduled phase's shapes: 8 slots over 23 pages of 16 (its
+    # max_seq is 368), ragged lengths, slot 3 inactive; then GQA (G=8) and
+    # a page larger than the kernel's 32-position tile
+    lens = [368, 17, 300, 255, 96, 1, 351, 160]
+    act = [1, 1, 1, 0, 1, 1, 1, 1]
+    out["paged_decode_attention"] = [
+        check_paged_attention(gen, 8, 23, 16, 32, 1, 128, lens, act, flush,
+                              card, main=True),
+        check_paged_attention(gen, 8, 23, 16, 4, 8, 128, lens, act, flush,
+                              card),
+        check_paged_attention(gen, 4, 7, 64, 8, 4, 128, [448, 65, 64, 3],
+                              [1, 1, 0, 1], flush, card)]
     out["soft_round"] = []
     for ng, n, _ in SR_SHAPES:
         for bits in (2, 3, 4):
@@ -403,7 +494,7 @@ def summarize(records, name):
     """One layer of the main path: its W2 g128 shapes, each weighted by how
     often a layer runs it (attention: its one launch)."""
     timed = [r for r in records if r["main"]]
-    if name == "decode_attention":
+    if name.endswith("decode_attention"):
         weights = [1] * len(timed)
     else:
         per_layer = {(K, N): c for K, N, c in MAIN_SHAPES}
@@ -421,7 +512,8 @@ def summarize(records, name):
 # --------------------------------------------------------------------------
 
 EXPECTED = {"quant_matmul": 224, "quant_gemv": 3360, "decode_attention": 480,
-            "soft_round_fwd": 0, "soft_round_bwd": 0}
+            "soft_round_fwd": 0, "soft_round_bwd": 0,
+            "paged_decode_attention": 0}
 REL_L2 = 5e-2
 
 
@@ -522,7 +614,7 @@ def serve_phase(card):
     if not rel < REL_L2:
         fail(f"full-width logits differ from the xla backend by relative "
              f"L2 {rel}")
-    return counts
+    return counts, packed
 
 
 # --------------------------------------------------------------------------
@@ -632,7 +724,8 @@ def calibrate_phase(card):
     expected = {"quant_matmul": 7 * CAL_LAYERS * EVAL_BATCHES,
                 "quant_gemv": 0, "decode_attention": 0,
                 "soft_round_fwd": 7 * steps * CAL_LAYERS,
-                "soft_round_bwd": 7 * steps * CAL_LAYERS}
+                "soft_round_bwd": 7 * steps * CAL_LAYERS,
+                "paged_decode_attention": 0}
     for b in report["blocks"]:
         losses = [e["loss"] for e in b["log"]]
         flips = sum(f["flipped"] for f in b["flips"].values())
@@ -783,6 +876,394 @@ def calibration_parity_phase():
         fail("the card's calibration did not launch the soft_round kernels")
 
 
+# --------------------------------------------------------------------------
+# phase 7: continuous batching over the dense and paged stores
+# --------------------------------------------------------------------------
+
+SCHED_SLOTS, SCHED_PSZ, SCHED_CHUNK, SCHED_TIGHT = 8, 16, 128, 96
+SCHED_WORKLOAD = dict(n_requests=16, seed=0, prompt_lens=(16, 384),
+                      budgets=(4, 48), mean_gap=2.0)
+ALONE_RIDS = (0, 5, 10, 15)
+
+
+def prefill_calls(res, reqs, chunk=0):
+    """(rows, tokens) of every prefill call a scheduled run made (batch 1):
+    the whole prompt, or its chunks from the first position not served by
+    shared pages."""
+    calls = []
+    for r in reqs:
+        plen = len(r.prompt)
+        start = res.requests[r.rid]["shared_tokens"]
+        calls += ([min(chunk, plen - c) for c in range(start, plen, chunk)]
+                  if chunk else [plen])
+    return [(n, n) for n in calls]
+
+
+def expected_launches(cfg, calls, steps, attn, prefill_attn):
+    """Launch counts from the dispatch rules: 7 quantized projections per
+    layer for every prefill call and every decode step, to the GEMV at most
+    ``DECODE_GEMV_MAX_ROWS`` rows (``kernels/ops.py``; decode steps have at
+    most 8 slots) and to the tiled matmul above; one attention launch per
+    layer and decode step (``attn``), and per layer of a prefill call of a
+    single token, which takes the decode kernel too (``prefill_attn``:
+    dense on a batch-1 lane, paged on the pool).  ``calls`` holds each
+    prefill call's (rows, tokens).  The unpacked head is a library
+    matmul."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ops import DECODE_GEMV_MAX_ROWS
+    per = 7 * cfg.num_layers
+    e = {k: 0 for k in build.KERNELS}
+    for rows, tokens in calls:
+        e["quant_gemv" if rows <= DECODE_GEMV_MAX_ROWS
+          else "quant_matmul"] += per
+        if tokens == 1:
+            e[prefill_attn] += cfg.num_layers
+    e["quant_gemv"] += per * steps
+    e[attn] += cfg.num_layers * steps
+    return e
+
+
+def same_tokens(a, b, reqs):
+    return all(np.array_equal(a.requests[r.rid]["tokens"],
+                              b.requests[r.rid]["tokens"]) for r in reqs)
+
+
+def sync_counted(steps, run):
+    """``run(steps)`` under ``torch.cuda.set_sync_debug_mode("warn")``:
+    returns (result, syncs in the whole run, syncs inside decode steps,
+    {"file:line": syncs} of the Python lines that made them)."""
+    import collections
+    import dataclasses
+    import warnings
+    inside = [0]
+    with warnings.catch_warnings(record=True) as log:
+        warnings.simplefilter("always")
+
+        def syncs(ws):
+            return sum("synchroniz" in str(w.message) for w in ws)
+
+        def decode(*a, **k):
+            n0 = len(log)
+            out = steps.decode(*a, **k)
+            inside[0] += syncs(log[n0:])
+            return out
+
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = run(dataclasses.replace(steps, decode=decode))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        where = collections.Counter(
+            f"{os.path.basename(w.filename)}:{w.lineno}" for w in log
+            if "synchroniz" in str(w.message))
+        return res, syncs(log), inside[0], dict(where)
+
+
+def schedule_phase(card, packed):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.scheduler import (Request, compile_sched_steps,
+                                              make_workload, serve_lockstep,
+                                              serve_scheduled)
+    from repro_torch.launch.serve import compile_serve_steps, serve_requests
+    from repro_torch.models import get_model
+
+    cfg = get_config("llama2-7b")
+    model = get_model(cfg)
+    V = cfg.vocab_size
+    reqs = make_workload(V, **SCHED_WORKLOAD)
+    width = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    max_seq = width + (-width) % SCHED_PSZ
+    kw = dict(slots=SCHED_SLOTS, max_seq=max_seq, kernel_backend="pallas",
+              page_size=SCHED_PSZ, device="cuda")
+    steps_d = compile_sched_steps(cfg, max_seq=max_seq,
+                                  kernel_backend="pallas")
+    steps_p = compile_sched_steps(cfg, max_seq=max_seq,
+                                  kernel_backend="pallas",
+                                  page_size=SCHED_PSZ)
+    print(f"[schedule] {len(reqs)} requests, prompts "
+          f"{min(len(r.prompt) for r in reqs)}..{max(len(r.prompt) for r in reqs)}"
+          f" ({sum(len(r.prompt) for r in reqs)} tokens), budgets "
+          f"{min(r.max_new_tokens for r in reqs)}.."
+          f"{max(r.max_new_tokens for r in reqs)} "
+          f"({sum(r.max_new_tokens for r in reqs)} tokens), last arrival "
+          f"{reqs[-1].arrival}; {SCHED_SLOTS} slots, max_seq {max_seq} "
+          f"({max_seq // SCHED_PSZ} pages of {SCHED_PSZ})", flush=True)
+    warm = [Request(0, reqs[0].prompt[:24], 3), Request(1, reqs[1].prompt[:40],
+                                                        2, arrival=1)]
+    for steps, store in ((steps_d, "dense"), (steps_p, "paged")):
+        serve_scheduled(cfg, packed, warm, store=store, compiled=steps, **kw)
+
+    runs, counts = {}, {}
+
+    def run(name, fn, expect):
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        counts[name] = dict(build.LAUNCHES)
+        want = expect(res)
+        runs[name] = res
+        peak = torch.cuda.max_memory_allocated()
+        cs = res.cache_stats
+        print(f"[schedule] ({name}) {res.mode} {res.store}: {res.steps} decode "
+              f"steps, occupancy {res.occupancy:.4f}, prefill "
+              f"{res.prefill_secs:.3f}s ({res.prefill_tok_s:.1f} tok/s), "
+              f"decode {res.decode_secs:.3f}s ({res.decode_tok_s:.2f} useful "
+              f"tok/s), latency p50/p90 {res.latency_steps['p50']:.0f}/"
+              f"{res.latency_steps['p90']:.0f} steps; cache "
+              f"{cs.get('cache_bytes')} B {json.dumps({k: v for k, v in cs.items() if k not in ('store', 'cache_bytes')})}"
+              f"; peak {peak} B; launches {counts[name]}", flush=True)
+        if counts[name] != want:
+            fail(f"schedule run {name}: launches {counts[name]}, expected "
+                 f"{want}")
+        return res
+
+    def sched_expect(attn, chunk=0, rq=reqs):
+        # chunks of a paged run write the pool; every other prefill runs on
+        # a dense batch-1 lane
+        pre = attn if chunk else "decode_attention"
+        return lambda res: expected_launches(
+            cfg, prefill_calls(res, rq, chunk), res.steps, attn, pre)
+
+    # (a) dense and (b) paged, host syncs counted
+    syncs = {}
+    for name, steps, store, attn in (
+            ("a", steps_d, "dense", "decode_attention"),
+            ("b", steps_p, "paged", "paged_decode_attention")):
+        def fn(steps=steps, store=store, name=name):
+            res, n, inside, where = sync_counted(
+                steps, lambda st: serve_scheduled(cfg, packed, reqs,
+                                                  store=store, compiled=st,
+                                                  **kw))
+            syncs[name] = (n, inside, where)
+            return res
+        run(name, fn, sched_expect(attn))
+    for name in ("a", "b"):
+        n, inside, where = syncs[name]
+        res = runs[name]
+        print(f"[schedule] ({name}) host syncs: {n} in the run ({len(reqs)} "
+              f"admissions, {res.steps} decode steps), {inside} inside decode "
+              f"steps; by line {where}", flush=True)
+        if inside != 0 or n > 3 * len(reqs) + 4:
+            fail(f"run {name}: {n} host syncs ({inside} in decode steps) for "
+                 f"{len(reqs)} admissions and {res.steps} steps")
+    if not same_tokens(runs["a"], runs["b"], reqs):
+        fail("dense and paged scheduled tokens differ")
+
+    # (c) a tight pool: admissions wait for pages
+    run("c", lambda: serve_scheduled(cfg, packed, reqs, store="paged",
+                                     num_pages=SCHED_TIGHT, compiled=steps_p,
+                                     **kw),
+        sched_expect("paged_decode_attention"))
+    if runs["c"].cache_stats["refused_admissions"] == 0:
+        fail("the tight pool refused no admission")
+    if not same_tokens(runs["a"], runs["c"], reqs):
+        fail("tight-pool tokens differ from the dense run's")
+
+    # (d) chunked prefill on both stores
+    for name, steps, store, attn in (
+            ("d-dense", steps_d, "dense", "decode_attention"),
+            ("d-paged", steps_p, "paged", "paged_decode_attention")):
+        run(name, lambda steps=steps, store=store: serve_scheduled(
+            cfg, packed, reqs, store=store, prefill_chunk=SCHED_CHUNK,
+            compiled=steps, **kw), sched_expect(attn, SCHED_CHUNK))
+    if not same_tokens(runs["d-dense"], runs["d-paged"], reqs):
+        fail("chunked dense and chunked paged tokens differ")
+    agree = np.mean([np.mean(runs["d-dense"].requests[r.rid]["tokens"]
+                             == runs["a"].requests[r.rid]["tokens"])
+                     for r in reqs])
+    print(f"[schedule] chunked vs whole prefill: token agreement {agree:.4f} "
+          f"(allclose-level contract, not bit-identity)", flush=True)
+
+    # (e) 8 requests behind one 128-token prefix, paged + chunked
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, V, (128,)).astype(np.int32)
+    preqs = [Request(i, np.concatenate(
+        [prefix, rng.integers(0, V, (int(rng.integers(8, 65)),))]).astype(
+            np.int32), int(rng.integers(4, 25)), arrival=2 * i)
+        for i in range(8)]
+    pw = max(len(r.prompt) + r.max_new_tokens for r in preqs)
+    pkw = dict(kw, max_seq=pw + (-pw) % SCHED_PSZ)
+    for name, share in (("e-shared", True), ("e-plain", False)):
+        run(name, lambda share=share: serve_scheduled(
+            cfg, packed, preqs, store="paged", prefill_chunk=SCHED_CHUNK,
+            share_prefix=share, **pkw),
+            sched_expect("paged_decode_attention", SCHED_CHUNK, preqs))
+    hits = runs["e-shared"].cache_stats["shared_page_hits"]
+    if hits == 0 or not same_tokens(runs["e-shared"], runs["e-plain"], preqs):
+        fail(f"prefix sharing: {hits} hits, tokens equal "
+             f"{same_tokens(runs['e-shared'], runs['e-plain'], preqs)}")
+
+    # (f) alone parity: each request alone at the same slot count must give
+    # its scheduled tokens; serving it alone through serve_requests (batch
+    # 1, so the unpacked head runs at M=1) is printed beside
+    alone = {}
+    for rid in ALONE_RIDS:
+        r = reqs[rid]
+        one = serve_scheduled(cfg, packed, [r], store="dense",
+                              compiled=steps_d, **kw)
+        lock = serve_requests(cfg, model, packed, r.prompt[None],
+                              gen=r.max_new_tokens, max_seq=max_seq,
+                              kernel_backend="pallas", collect_logits=False,
+                              device="cuda")
+        want = runs["a"].requests[rid]["tokens"]
+        same_sched = np.array_equal(one.requests[rid]["tokens"], want)
+        same_lock = np.array_equal(lock.tokens[0], want)
+        diverge = (int(np.argmin(lock.tokens[0] == want))
+                   if not same_lock else None)
+        alone[rid] = (same_sched, same_lock)
+        print(f"[schedule] (f) request {rid} (prompt {len(r.prompt)}, budget "
+              f"{r.max_new_tokens}): alone at {SCHED_SLOTS} slots equal "
+              f"{same_sched}; serve_requests alone equal {same_lock}"
+              f"{'' if same_lock else f' (first difference at token {diverge})'}",
+              flush=True)
+        if not same_sched:
+            fail(f"request {rid} scheduled alone differs from its tokens "
+                 f"scheduled with the others")
+
+    # (g) the lock-step baseline on the same workload
+    run("g", lambda: serve_lockstep(
+        cfg, model, packed, reqs, slots=SCHED_SLOTS, kernel_backend="pallas",
+        compiled=compile_serve_steps(cfg, kernel_backend="pallas"),
+        device="cuda"), lambda res: lockstep_expect(cfg, reqs))
+    print(f"[schedule] useful-token decode rate: scheduler dense "
+          f"{runs['a'].decode_tok_s:.2f} tok/s, paged "
+          f"{runs['b'].decode_tok_s:.2f} tok/s, lock-step "
+          f"{runs['g'].decode_tok_s:.2f} tok/s ({runs['g'].steps} steps, "
+          f"{runs['g']['wasted_decode_tokens']} wasted decode tokens); "
+          f"card=[{card}]", flush=True)
+    profiles = {store: decode_profile(steps, packed, store, max_seq, card)
+                for steps, store in ((steps_d, "dense"), (steps_p, "paged"))}
+    schedule_parity_phase()
+    total = {k: counts["a"][k] + counts["b"][k] for k in counts["a"]}
+    return total, {"runs": runs, "syncs": syncs, "alone": alone,
+                   "profiles": profiles, "max_seq": max_seq}
+
+
+def decode_profile(steps, packed, store, max_seq, card, n=8):
+    """Where one scheduled decode step's time goes at full width: all 8
+    slots live from position 200, the step run ``n`` times.  Wall time per
+    step (host clock around synchronized runs), and the device's busy time
+    per step by kernel from ``torch.profiler`` (CUPTI); the difference is
+    time the card waits for the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.common import DenseCacheStore, PagedCacheStore
+    model = steps.model
+    if store == "paged":
+        cs = PagedCacheStore(model, slots=SCHED_SLOTS, max_seq=max_seq,
+                             page_size=SCHED_PSZ,
+                             num_pages=SCHED_SLOTS * max_seq // SCHED_PSZ,
+                             device="cuda")
+        for s in range(SCHED_SLOTS):
+            cs.try_admit(s, max_seq)
+        ptab = torch.tensor(cs.ptab_h, device="cuda")
+    else:
+        cs = DenseCacheStore(model, slots=SCHED_SLOTS, max_seq=max_seq,
+                             device="cuda")
+        ptab = None
+    state = {"cache": cs.cache,
+             "tok": torch.zeros((SCHED_SLOTS,), dtype=torch.int32,
+                                device="cuda"),
+             "pos": torch.full((SCHED_SLOTS,), 200, dtype=torch.int32,
+                               device="cuda")}
+    active = torch.ones((SCHED_SLOTS,), dtype=torch.bool, device="cuda")
+
+    def step():
+        _, state["tok"], state["pos"], state["cache"] = steps.decode(
+            packed, state["cache"], state["tok"], state["pos"], active, ptab)
+
+    with torch.no_grad():
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
+
+    def top(evs, key):
+        evs = sorted(evs, key=lambda e: -getattr(e, key))[:6]
+        return "; ".join(f"{e.key[:40]} x{e.count // n} "
+                         f"{getattr(e, key) / 1e3 / n:.3f}" for e in evs)
+
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    print(f"[schedule-profile] {store} decode step, 8 live slots at position "
+          f"200+: wall {wall:.3f} ms/step; device busy "
+          + (f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of wall); top "
+             f"kernels (launches/step, ms/step): "
+             f"{top(kern, 'self_device_time_total')}" if kern
+             else "not measured (the profiler saw no device activity)")
+          + f"; top host ops (calls/step, self CPU ms/step): "
+          f"{top(host, 'self_cpu_time_total')}; card=[{card}]", flush=True)
+    return {"wall_ms": wall, "busy_ms": busy if kern else None}
+
+
+def lockstep_expect(cfg, reqs):
+    """serve_lockstep: per group of SCHED_SLOTS, one padded prefill and
+    (max budget - 1) lock-step decode steps."""
+    order = sorted(reqs, key=lambda r: (r.arrival, r.rid))
+    e = None
+    for i in range(0, len(order), SCHED_SLOTS):
+        group = order[i:i + SCHED_SLOTS]
+        plen = max(len(r.prompt) for r in group)
+        g = expected_launches(cfg, [(len(group) * plen, plen)],
+                              max(r.max_new_tokens for r in group) - 1,
+                              "decode_attention", "decode_attention")
+        e = g if e is None else {k: e[k] + g[k] for k in e}
+    return e
+
+
+def schedule_parity_phase():
+    """Reduced llama2 W2A16g32, scheduled on the paged store with chunked
+    prefill on the card (kernels) and on the CPU (plain versions)."""
+    from repro_torch.bridge import params_to
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.pipeline import pack_model, quantize_model
+    from repro_torch.eval.harness import parity_gate
+    from repro_torch.kernels import build
+    from repro_torch.launch.scheduler import make_workload, serve_scheduled
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.models import get_model
+
+    cfg = get_reduced_config("llama2-7b")
+    qcfg = parse_quant("W2A16g32", kernel_backend="pallas")
+    params = get_model(cfg).init_params(0, "cpu")
+    calib = [{"tokens": torch.randint(
+        0, cfg.vocab_size, (2, 16),
+        generator=torch.Generator().manual_seed(1))}]
+    pfq, qmeta, _ = quantize_model(cfg, params, calib, qcfg, method="none",
+                                   init="rtn")
+    packed_cpu = pack_model(cfg, pfq, qmeta, qcfg)
+    reqs = make_workload(cfg.vocab_size, n_requests=6, seed=2,
+                         prompt_lens=(4, 40), budgets=(2, 8))
+    kw = dict(slots=3, max_seq=48, kernel_backend="pallas", store="paged",
+              page_size=8, prefill_chunk=16, collect_logits=True)
+    build.reset_launch_counts()
+    gpu = serve_scheduled(cfg, params_to(packed_cpu, "cuda"), reqs,
+                          device="cuda", **kw)
+    counts = dict(build.LAUNCHES)
+    cpu = serve_scheduled(cfg, packed_cpu, reqs, device="cpu", **kw)
+    lg = lambda res: np.concatenate([res.requests[r.rid]["logits"]
+                                     for r in reqs])
+    gate = parity_gate(lg(gpu), lg(cpu), atol=5e-2, rtol=2e-2)
+    same = same_tokens(gpu, cpu, reqs)
+    print(f"[schedule-parity] {cfg.name} paged + chunked: card vs CPU {gate}; "
+          f"tokens equal {same}; card launches {counts}", flush=True)
+    if not gate["ok"] or not same or counts["paged_decode_attention"] == 0:
+        fail(f"{cfg.name}: scheduled card and CPU runs disagree")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -812,10 +1293,16 @@ def main():
 
     recs = kernel_phase(card)
     t0 = time.perf_counter()
-    serve_counts = serve_phase(card)
+    serve_counts, packed = serve_phase(card)
     parity_phase()
     print(f"[time] serve + parity {time.perf_counter() - t0:.1f}s",
           flush=True)
+    t0 = time.perf_counter()
+    sched_counts, _ = schedule_phase(card, packed)
+    del packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] schedule {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     cal_counts, _ = calibrate_phase(card)
     calibration_parity_phase()
@@ -826,7 +1313,9 @@ def main():
                "quant_gemv": "src/repro/kernels/quant_gemv.py:120",
                "decode_attention": "src/repro/kernels/decode_attention.py:227",
                "soft_round_fwd": "src/repro/kernels/soft_round.py:42",
-               "soft_round_bwd": "src/repro/kernels/soft_round.py:42"}
+               "soft_round_bwd": "src/repro/kernels/soft_round.py:42",
+               "paged_decode_attention":
+                   "src/repro/kernels/decode_attention.py:185"}
     per = {"quant_matmul": "one layer of the prefill: 7 launches, M=512, W2 g128",
            "quant_gemv": "one layer of a decode step: 7 launches, M=4, W2 g128",
            "decode_attention": "one layer of a decode step: 1 launch, B=4 "
@@ -835,10 +1324,15 @@ def main():
                              "ng=32 out=4096, 2 x ng=32 out=11008, 1 x ng=86 "
                              "out=4096; g=128, W2, DST on)",
            "soft_round_bwd": "one layer of a Soften step: 7 launches, the "
-                             "shapes of soft_round_fwd"}
+                             "shapes of soft_round_fwd",
+           "paged_decode_attention": "one layer of a scheduled decode step: "
+                                     "1 launch, B=8 Hkv=32 G=1 D=128, 23 "
+                                     "pages of 16, kv_len up to 368, one "
+                                     "slot inactive"}
     kernels = []
     for name in build.KERNELS:
-        by_path = {"serve": serve_counts[name], "calibrate": cal_counts[name]}
+        by_path = {"serve": serve_counts[name], "calibrate": cal_counts[name],
+                   "schedule": sched_counts[name]}
         if name.startswith("soft_round"):
             nums = summarize_soft_round(recs["soft_round"], name[-3:])
             nums["library_note"] = ("no single PyTorch call computes θ̂ or "

@@ -33,12 +33,13 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("quant_matmul", "quant_gemv", "decode_attention",
-           "soft_round_fwd", "soft_round_bwd")
+           "soft_round_fwd", "soft_round_bwd", "paged_decode_attention")
 # kernel -> the csrc/ source that holds it
 SOURCES = {"quant_matmul": "quant_matmul.cu", "quant_gemv": "quant_gemv.cu",
            "decode_attention": "decode_attention.cu",
            "soft_round_fwd": "soft_round.cu",
-           "soft_round_bwd": "soft_round.cu"}
+           "soft_round_bwd": "soft_round.cu",
+           "paged_decode_attention": "decode_attention.cu"}
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -50,6 +51,10 @@ _SIGNATURES = {
     # q, k, v, kv_len, q_pos, active, out, B, S, Hkv, G, D, scale, stream
     "launch_decode_attention": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _P],
+    # q, k_pool, v_pool, ptab, kv_len, q_pos, active, out, B, W, psz, Hkv,
+    # G, D, scale, stream
+    "launch_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _F, _P],
     # base, nu, hard, v, scale, zero, out, ng, g, n, qmax, dst, stream
     "soft_round_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dout, base, nu, hard, v, scale, zero, dnu, dv, ng, g, n, qmax, dst,

@@ -4,7 +4,12 @@
         --reduced --method none --requests 8 --prompt-len 32 --gen 16
 
 ``serve_requests`` is the uniform lock-step loop: one batch, one shared
-prompt length, a fixed ``gen`` for every row.  ``--method tesseraq``
+prompt length, a fixed ``gen`` for every row.  ``--slots N`` serves a
+seeded heterogeneous workload through the continuous-batching scheduler
+(``launch/scheduler.py``) instead, on the dense store or, with ``--store
+paged``, on the paged KV pool (``--page-size``, ``--num-pages``), with
+optional chunked prefill (``--prefill-chunk``) and copy-on-write prefix
+sharing (``--share-prefix``).  ``--method tesseraq``
 (default, with ``--init awq``) calibrates the random-weight model on
 synthetic calibration segments with ``--par-iters`` PAR iterations of
 ``--par-steps`` steps each, packs it and serves the packed model;
@@ -14,9 +19,8 @@ the calibration's soft-rounding through the hand-written kernels.  Runs on
 ``--device cuda`` unless told otherwise; ``--device cpu`` runs the kernels'
 plain versions.
 
-Not ported yet, and raising: ``--method omniquant``, ``--init gptq``, the
-continuous-batching scheduler (``--slots``), the paged store (``--store
-paged``) and tensor parallelism (``--tp``).
+Not ported yet, and raising: ``--method omniquant``, ``--init gptq`` and
+tensor parallelism (``--tp``).
 """
 from __future__ import annotations
 
@@ -109,24 +113,34 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve_requests(cfg, model, params, prompts, *, gen: int,
-                   kernel_backend=None, collect_logits=True, device="cuda"):
+                   kernel_backend=None, compiled=None, collect_logits=True,
+                   max_seq=None, device="cuda"):
     """Prefill + lock-step batched decode (uniform lengths, fixed ``gen``).
 
     ``prompts``: (B, prompt_len) token ids (numpy or tensor); ``params``
     must already live on ``device``.  Returns a
     ``repro_torch.launch.scheduler.ServeResult`` whose ``tokens`` is the
     (B, gen) token matrix and whose ``logits`` is the (B, gen, V) stack of
-    the prefill output plus each decode step's.  Argmax stays on the
-    device; device->host copies happen after both timing regions, which
-    end in ``torch.cuda.synchronize``."""
+    the prefill output plus each decode step's.  ``compiled``: a
+    ``compile_serve_steps`` pair to reuse (built fresh otherwise).
+    ``max_seq`` overrides the cache width (default: exactly prompt + gen);
+    serving a request alone at the scheduler's width reduces over the same
+    cache extent as the scheduler.  Argmax stays on the device;
+    device->host copies happen after both timing regions, which end in
+    ``torch.cuda.synchronize``."""
     from repro_torch.launch.scheduler import ServeResult, _latency_stats
     dev = resolve_device(device)
     if _params_device(params).type != dev.type:
         raise ValueError(f"serve_requests: params live on "
                          f"{_params_device(params)}, device is {dev}")
     B, prompt_len = prompts.shape
-    max_seq = prompt_len + gen
-    pstep, dstep = compile_serve_steps(cfg, kernel_backend=kernel_backend)
+    if max_seq is None:
+        max_seq = prompt_len + gen
+    elif max_seq < prompt_len + gen:
+        raise ValueError(f"max_seq {max_seq} < prompt+gen "
+                         f"{prompt_len + gen}")
+    pstep, dstep = (compiled if compiled is not None else
+                    compile_serve_steps(cfg, kernel_backend=kernel_backend))
 
     cache = model.init_cache(B, max_seq, device=dev)
     toks_in = torch.as_tensor(prompts, dtype=torch.long, device=dev)
@@ -190,13 +204,22 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--slots", type=int, default=None,
-                    help="continuous-batching scheduler (not ported yet)")
+                    help="serve through the continuous-batching scheduler "
+                         "with this many slots over a seeded heterogeneous "
+                         "workload (prompt lens up to --prompt-len, budgets "
+                         "up to --gen); default: uniform lock-step loop")
     ap.add_argument("--store", default="dense", choices=["dense", "paged"],
-                    help="KV cache store (paged: not ported yet)")
+                    help="KV cache store for --slots serving: dense per-slot "
+                         "lanes, or the paged pool + page-table layout")
     ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--num-pages", type=int, default=None)
-    ap.add_argument("--prefill-chunk", type=int, default=0)
-    ap.add_argument("--share-prefix", action="store_true")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="paged pool size (default: dense-capacity parity)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunk long prompts into this many tokens per "
+                         "decode iteration")
+    ap.add_argument("--share-prefix", action="store_true",
+                    help="copy-on-write sharing of full prompt-prefix pages "
+                         "(paged store + chunked prefill only)")
     ap.add_argument("--tp", type=int, default=None,
                     help="tensor-parallel serving (not ported yet)")
     ap.add_argument("--calib-samples", type=int, default=8)
@@ -209,14 +232,6 @@ def main(argv=None):
                     help="torch device; 'cpu' runs the kernels' plain versions")
     args = ap.parse_args(argv)
 
-    if args.slots is not None:
-        raise NotImplementedError(
-            "--slots is not ported yet (ROADMAP queue 1, "
-            "'Continuous batching')")
-    if args.store == "paged" or args.prefill_chunk or args.share_prefix:
-        raise NotImplementedError(
-            "the paged store and chunked prefill are not ported yet "
-            "(ROADMAP queue 1, 'Paged KV + chunked prefill')")
     if args.tp is not None:
         raise NotImplementedError(
             "--tp is not ported yet (ROADMAP queue 1, 'Parallelism')")
@@ -236,14 +251,17 @@ def main(argv=None):
                              init=args.init, tcfg=tcfg,
                              calib_samples=args.calib_samples)
 
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "CPU, plain versions")
+    if args.slots is not None:
+        return _serve_scheduled_cli(args, cfg, served, qcfg, dev, where)
+
     corpus = SyntheticCorpus(data_cfg)
     prompts = corpus.batch(0)["tokens"][:, :args.prompt_len]
     stats = serve_requests(cfg, model, served, prompts, gen=args.gen,
                            kernel_backend=qcfg.kernel_backend, device=dev)
     B, gen = args.requests, args.gen
     dt = stats.prefill_secs + stats.decode_secs
-    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-             else "CPU, plain versions")
     print(f"[serve] {B} requests x {gen} tokens in {dt:.2f}s "
           f"(prefill {stats.prefill_tok_s:.1f} tok/s, decode "
           f"{stats.decode_tok_s:.1f} tok/s, backend={args.backend}, "
@@ -253,6 +271,48 @@ def main(argv=None):
     for b in range(min(B, 4)):
         print(f"  req{b}: {np.asarray(prompts[b][-8:]).tolist()} -> "
               f"{toks[b][:12].tolist()}")
+    return 0
+
+
+def _serve_scheduled_cli(args, cfg, served, qcfg, dev, where) -> int:
+    """``--slots``: a seeded heterogeneous workload through the scheduler."""
+    from repro_torch.launch.scheduler import make_workload, serve_scheduled
+    if args.prompt_len < 1 or args.gen < 1:
+        raise SystemExit("--slots needs --prompt-len and --gen >= 1")
+    # clamp the plan ranges so small --prompt-len/--gen stay valid
+    reqs = make_workload(cfg.vocab_size, n_requests=args.requests,
+                         seed=args.seed,
+                         prompt_lens=(min(max(4, args.prompt_len // 4),
+                                          args.prompt_len), args.prompt_len),
+                         budgets=(min(2, args.gen), args.gen))
+    sched = serve_scheduled(cfg, served, reqs, slots=args.slots,
+                            kernel_backend=qcfg.kernel_backend,
+                            store=args.store, page_size=args.page_size,
+                            num_pages=args.num_pages,
+                            prefill_chunk=args.prefill_chunk,
+                            share_prefix=args.share_prefix, device=dev)
+    lat = sched.latency_steps
+    print(f"[serve] scheduled {args.requests} requests over {args.slots} "
+          f"slots in {sched.steps} decode steps ({sched.useful_tokens} "
+          f"useful tokens, occupancy {sched.occupancy:.2f}, decode "
+          f"{sched.decode_tok_s:.1f} tok/s, backend={args.backend}, "
+          f"{where})")
+    print(f"[serve] latency (decode steps): mean {lat['mean']:.1f} p50 "
+          f"{lat['p50']:.0f} p90 {lat['p90']:.0f} p99 {lat['p99']:.0f}")
+    cs = sched.cache_stats
+    if sched.store == "paged":
+        print(f"[serve] paged cache: {cs['cache_bytes'] / 1e6:.2f} MB, "
+              f"{cs['num_pages']} pages x {cs['page_size']} tokens, peak in "
+              f"use {cs['peak_pages_in_use']}, refused "
+              f"{cs['refused_admissions']}, shared-page hits "
+              f"{cs['shared_page_hits']}")
+    else:
+        print(f"[serve] dense cache: {cs['cache_bytes'] / 1e6:.2f} MB")
+    for r in reqs[:4]:
+        rr = sched.requests[r.rid]
+        print(f"  req{r.rid}: plen={len(r.prompt)} budget={r.max_new_tokens} "
+              f"arrive@{r.arrival} admit@{rr['admit_step']} "
+              f"finish@{rr['finish_step']} -> {rr['tokens'][:8].tolist()}")
     return 0
 
 

@@ -98,7 +98,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset=0, kv_len: Optional[torch.Tensor] = None,
                     chunk: int = 512, scale: Optional[float] = None,
                     backend: Optional[str] = None,
-                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    active: Optional[torch.Tensor] = None,
+                    pages: Optional[tuple] = None) -> torch.Tensor:
     """Chunked causal attention with GQA support (the dense family's
     attention; the reference's non-causal and prefix-LM masks arrive with
     the families that use them).
@@ -110,23 +111,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     decode kernel (inactive slots in ``active`` come back zero); "xla" runs
     the dense masked softmax.  Sq > 1 always runs the chunked online softmax
     in plain torch ops.
+
+    ``pages = (ptab, page_size)`` marks k/v as page POOLS (P, page_size,
+    Hkv, D) indexed by the (B, W) page table ``ptab``.  The ``"pallas"``
+    decode step walks the table in the paged kernel (no gather); every other
+    path gathers the virtual slot-major cache — shaped exactly like the
+    dense lane, W * page_size == max_seq — and runs unchanged, which keeps
+    paged attention bit-identical to dense.
     """
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
-    Sk = k.shape[1]
     scale = scale if scale is not None else D ** -0.5
     dev = q.device
 
     if (Sq == 1 and kv_len is not None
             and resolve_backend(backend) == "pallas"):
-        from repro_torch.kernels.decode_attention import decode_attention
-        q_pos = torch.as_tensor(q_offset, dtype=torch.int32,
-                                device=dev).reshape(-1).expand(B)
-        out = decode_attention(q.reshape(B, Hkv, G, D).contiguous(), k, v,
-                               kv_len=kv_len, q_pos=q_pos, active=active,
-                               scale=scale)
+        from repro_torch.kernels import decode_attention as kernels
+        q4 = q.reshape(B, Hkv, G, D).contiguous()
+        kw = dict(kv_len=kv_len, active=active, scale=scale,
+                  q_pos=torch.as_tensor(q_offset, dtype=torch.int32,
+                                        device=dev).reshape(-1).expand(B))
+        out = (kernels.decode_attention(q4, k, v, **kw) if pages is None
+               else kernels.paged_decode_attention(q4, k, v, pages[0], **kw))
         return out.reshape(B, Sq, Hq, D)
+    if pages is not None:
+        from repro_torch.models.common import gather_pages
+        k = gather_pages(k, pages[0])
+        v = gather_pages(v, pages[0])
+    Sk = k.shape[1]
 
     qf = q.reshape(B, Sq, Hkv, G, D).float() * scale
     qf = qf.permute(0, 2, 3, 1, 4)                             # (B,Hkv,G,Sq,D)

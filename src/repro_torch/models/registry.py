@@ -1,11 +1,14 @@
 """Uniform model API: ``get_model(cfg)`` returns a ``Model`` with
     init_params(seed, device) -> params
-    prefill(params, batch, cache, ctx) -> (logits, cache)
-    decode_step(params, cache, tokens, pos, ctx, active) -> (logits, cache)
+    prefill(params, batch, cache, ctx, start_pos, ptab) -> (logits, cache)
+    decode_step(params, cache, tokens, pos, ctx, active, ptab) -> (logits, cache)
     init_cache(batch, max_seq, dtype, device) -> cache
     loss_fn(params, batch, ctx) -> scalar next-token cross entropy
+    cache_spec: CacheSpec                          (declared cache layout)
 for family ``dense``.  Batches are dicts: {"tokens", optional
-"loss_mask"}.  The other families are not ported yet (ROADMAP queue 1).
+"loss_mask"}.  ``ptab`` is the per-slot page table a paged ``CacheStore``
+threads through prefill and decode; dense runs pass None.  The other
+families are not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -16,7 +19,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
-from repro_torch.models.common import DEFAULT_CTX
+from repro_torch.models.common import (CacheSpec, DEFAULT_CTX, LEAF_TOKEN,
+                                       LeafSpec)
+
+_TOKEN = LeafSpec(LEAF_TOKEN, token_axis=2)
+
+# Family cache contracts.  dense: every per-position op is row-independent,
+# so prefill can stop and resume at any boundary, and full prompt-prefix
+# pages hold KV determined solely by the shared tokens -> both True.  The
+# other families' entries arrive with their model code.
+CACHE_SPECS = {
+    "dense": CacheSpec("dense", (("k", _TOKEN), ("v", _TOKEN)),
+                       chunkable=True, shareable=True),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +42,7 @@ class Model:
     decode_step: Callable
     init_cache: Callable
     loss_fn: Callable
+    cache_spec: CacheSpec
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -38,13 +54,15 @@ def get_model(cfg: ModelConfig) -> Model:
         cfg,
         init_params=lambda seed, device="cuda":
             transformer.init_params(cfg, seed, device),
-        prefill=lambda p, b, c, ctx=DEFAULT_CTX, start_pos=0:
+        prefill=lambda p, b, c, ctx=DEFAULT_CTX, start_pos=0, ptab=None:
             transformer.prefill(p, cfg, b["tokens"], c, ctx,
-                                start_pos=start_pos),
-        decode_step=lambda p, c, t, pos, ctx=DEFAULT_CTX, active=None:
-            transformer.decode_step(p, cfg, c, t, pos, ctx, active=active),
+                                start_pos=start_pos, ptab=ptab),
+        decode_step=lambda p, c, t, pos, ctx=DEFAULT_CTX, active=None,
+        ptab=None: transformer.decode_step(p, cfg, c, t, pos, ctx,
+                                           active=active, ptab=ptab),
         init_cache=lambda batch, max_seq, dtype=torch.bfloat16, device="cuda":
             transformer.init_cache(cfg, batch, max_seq, dtype, device),
         loss_fn=lambda p, b, ctx=DEFAULT_CTX: transformer.loss_fn(p, cfg, b,
                                                                   ctx),
+        cache_spec=CACHE_SPECS[cfg.family],
     )

@@ -10,7 +10,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.common import Ctx, DEFAULT_CTX, take_layer, update_cache
+from repro_torch.models.common import (Ctx, DEFAULT_CTX, page_update_cache,
+                                       take_layer, update_cache)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -80,9 +81,15 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
 
 def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
               positions, kv_cache=None, cache_pos=None, kv_len=None,
-              active=None):
+              active=None, ptab=None):
     """Self-attention with optional KV cache.  Returns (out, new_kv or None);
-    the cache is written in place (see ``update_cache``)."""
+    the cache is written in place (see ``update_cache``).
+
+    ``ptab`` (B, W) int32 with ``ctx.page_size > 0`` switches the cache to
+    paged mode: the k/v leaves are page POOLS shared across slots, writes
+    scatter through the page table, and reads either walk the table in the
+    paged decode kernel or gather a virtual slot-major cache shaped like
+    the dense lane."""
     Bb, S, d = x.shape
     hd = cfg.resolved_head_dim
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
@@ -95,8 +102,15 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
         k = L.rope(k, positions, cfg.rope_theta)
 
     new_kv = None
+    pages = None
     if kv_cache is not None:
-        ck, cv = update_cache(kv_cache["k"], kv_cache["v"], k, v, cache_pos)
+        if ctx.page_size > 0 and ptab is not None:
+            ck, cv = page_update_cache(kv_cache["k"], kv_cache["v"], k, v,
+                                       cache_pos, ptab, ctx.page_size)
+            pages = (ptab, ctx.page_size)
+        else:
+            ck, cv = update_cache(kv_cache["k"], kv_cache["v"], k, v,
+                                  cache_pos)
         new_kv = {"k": ck, "v": cv}
         attn_k, attn_v = ck, cv
         q_offset = cache_pos
@@ -107,7 +121,8 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
         valid = None
 
     o = L.flash_attention(q, attn_k, attn_v, q_offset=q_offset, kv_len=valid,
-                          chunk=ctx.attn_chunk, backend=kb, active=active)
+                          chunk=ctx.attn_chunk, backend=kb, active=active,
+                          pages=pages)
     o = o.reshape(Bb, S, cfg.num_heads * hd)
     return L.matmul(o, bp["wo"], kb), new_kv
 
@@ -123,10 +138,10 @@ def ffn(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
 
 def block(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX,
           *, positions, kv_cache=None, cache_pos=None, kv_len=None,
-          active=None):
+          active=None, ptab=None):
     a, new_kv = attention(bp, x, cfg, ctx, positions=positions,
                           kv_cache=kv_cache, cache_pos=cache_pos,
-                          kv_len=kv_len, active=active)
+                          kv_len=kv_len, active=active, ptab=ptab)
     x = x + a
     x = x + ffn(bp, x, cfg, ctx)
     return x, new_kv
@@ -189,9 +204,14 @@ def _layer_cache(cache, i):
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, ctx: Ctx = DEFAULT_CTX, *,
-            start_pos=0):
+            start_pos: int = 0, ptab=None):
     """Fill the cache from position ``start_pos``; returns (last_logits,
-    cache).  The cache is updated in place and returned."""
+    cache).  The cache is updated in place and returned.
+
+    ``start_pos > 0`` resumes a chunked prefill: this call's tokens are
+    positions [start_pos, start_pos + S) and attend causally over what
+    earlier chunks wrote (plus themselves).  ``ptab`` (B, W) names the
+    pages of a paged cache."""
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[:2]
     dev = x.device
@@ -200,20 +220,22 @@ def prefill(params, cfg: ModelConfig, tokens, cache, ctx: Ctx = DEFAULT_CTX, *,
     for i in range(cfg.num_layers):
         x, _ = block(take_layer(params["blocks"], i), x, cfg, ctx,
                      positions=positions, kv_cache=_layer_cache(cache, i),
-                     cache_pos=pos0)
+                     cache_pos=pos0, ptab=ptab)
     x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
     return unembed(params, cfg, x, ctx)[:, 0], cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
-                ctx: Ctx = DEFAULT_CTX, *, active=None):
+                ctx: Ctx = DEFAULT_CTX, *, active=None, ptab=None):
     """One decode step. tokens: (B,), pos: (B,) int32 write position.
-    ``active``: (B,) slot occupancy (None = all live).  Returns (logits,
-    cache); the cache is updated in place."""
+    ``active``: (B,) slot occupancy (None = all live); ``ptab``: (B, W)
+    page table when the cache is a page pool.  Returns (logits, cache); the
+    cache is updated in place."""
     x = embed_tokens(params, cfg, tokens)[:, None, :]
     for i in range(cfg.num_layers):
         x, _ = block(take_layer(params["blocks"], i), x, cfg, ctx,
                      positions=pos[:, None], kv_cache=_layer_cache(cache, i),
-                     cache_pos=pos, kv_len=pos + 1, active=active)
+                     cache_pos=pos, kv_len=pos + 1, active=active,
+                     ptab=ptab)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return unembed(params, cfg, x, ctx)[:, 0], cache

@@ -161,11 +161,23 @@ def test_cli_serves_on_cpu(capsys):
     assert "2 requests x 3 tokens" in out and "req1:" in out
 
 
+@pytest.mark.parametrize("store", ["dense", "paged"])
+def test_cli_schedules_on_cpu(capsys, store):
+    assert tserve.main(["--arch", "tinyllama-1.1b", "--reduced", "--method",
+                        "none", "--device", "cpu", "--requests", "4",
+                        "--prompt-len", "12", "--gen", "5", "--slots", "2",
+                        "--store", store, "--page-size", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "scheduled 4 requests over 2 slots" in out and "req3:" in out
+    assert f"{store} cache:" in out
+    if store == "paged":
+        assert "pages x 4 tokens" in out and "refused 0" in out
+
+
 @pytest.mark.parametrize("argv", [
     ["--method", "tesseraq", "--init", "gptq"], ["--method", "omniquant"],
-    ["--method", "none", "--slots", "2"],
-    ["--method", "none", "--store", "paged"], ["--method", "none", "--tp", "2"]],
-    ids=["tesseraq", "omniquant", "slots", "paged", "tp"])
+    ["--method", "none", "--tp", "2"]],
+    ids=["tesseraq", "omniquant", "tp"])
 def test_cli_refuses_paths_not_ported(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserve.main(["--reduced", "--device", "cpu"] + argv)
