@@ -7,10 +7,15 @@ Phases, each printing its own lines:
 
 1. build: compile ``src/repro_torch/csrc/*.cu`` for sm_90a and load them;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at the main path's shapes, with times (kernel, plain version, one
+   at the LLaMA and the MoE paths' shapes (Qwen3-30B-A3B's attention
+   projections at 512, 4 and 8 rows, soft_round over its folded expert
+   stacks and attention leaves), with times (kernel, plain version, one
    PyTorch library call as a yardstick) beside the least time the card
    could take (``bound_ms``); the paged decode attention also against the
-   dense kernel on the gathered cache, bit for bit;
+   dense kernel on the gathered cache, bit for bit, and the expert-batched
+   quant-matmul (Qwen3-30B-A3B's 128 experts, both projection shapes, every
+   capacity the MoE phases run: 8, 16, 24, 32, 40 and 160) also against
+   one ``quant_matmul`` launch per expert, bit for bit;
 3. serve: LLaMA-2-7B at full width and depth (random weights from a seed),
    RTN-quantized to W2A16g128 and packed, served by ``serve_requests`` on
    the ``"pallas"`` backend (4 requests x 128 prompt tokens, 16 generated);
@@ -41,8 +46,28 @@ Phases, each printing its own lines:
    one decode step's time goes on each store (``torch.profiler``); then
    the reduced llama2 config scheduled on the paged store on the card and
    on the CPU;
-8. a JSON line listing the ported kernels with their numbers;
-9. last line: ``{"ok": true, "device": {...}}``.
+8. MoE serve: Qwen3-30B-A3B at full width, depth cut to 16 of 48 layers
+   (random weights from a seed), RTN-quantized to W2A16g128 and packed,
+   served by ``serve_requests`` on ``"pallas"`` (4 requests x 128 prompt
+   tokens, 16 generated); exact launch counts (3 expert-batched launches
+   per layer per forward, 4 attention projections per layer through the
+   quant-matmul or GEMV kernel by row count, 1 decode attention per layer
+   per decode step) and the teacher-forced ``"xla"`` check of phase 3;
+9. MoE parity: the reduced qwen3 config served on the card and, from the
+   same params, on the CPU;
+10. MoE schedule: phase 8's packed model through ``serve_scheduled`` (8
+   slots, phase 7's workload at vocab 151936) on the dense and the paged
+   store and again on the dense store: tokens equal across the three,
+   exact launch counts, no host sync inside a decode step; a request for
+   chunked prefill and prefix sharing runs whole prefill, as the MoE cache
+   spec says;
+11. MoE calibrate: Qwen3-30B-A3B at full width, depth 1 block, AWQ +
+   TesseraQ (20-rate PAR schedule, T cut to 10) on 8 x 512-token samples,
+   ``pack_model`` and perplexity; exact soft_round launches over the
+   expert leaves and expert-kernel launches of the packed perplexity; then
+   where one Soften step's time goes;
+12. a JSON line listing the ported kernels with their numbers;
+13. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device, or without ``src/repro_torch`` beside this script,
@@ -74,6 +99,8 @@ ULPS = 2
 REORDER = 2.0 ** -16
 
 MAIN_SHAPES = ((4096, 4096, 4), (4096, 11008, 2), (11008, 4096, 1))  # K, N, per layer
+# Qwen3-30B-A3B's attention projections (q, k and v, o): K, N, per layer
+MOE_ATTN_SHAPES = ((2048, 4096, 1), (2048, 512, 2), (4096, 2048, 1))
 
 
 def fail(msg):
@@ -153,10 +180,11 @@ def show(name, rec, card):
 
 
 def check_quant(name, fn, plain, gen, M, K, N, bits, group_size, flush, card,
-                main=False):
+                main=False, moe=False):
     """Kernel vs plain version at one shape, then both timed with the
-    library matmul on the pre-dequantized weight; ``main`` marks the shapes
-    the main path runs (summed in the kernels line)."""
+    library matmul on the pre-dequantized weight; ``main`` and ``moe`` mark
+    the shapes the LLaMA and the MoE paths run (summed in the kernels
+    line)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.quant_matmul import dequantize_rows
     x, packed, scale, zero = quant_operands(gen, M, K, N, bits, group_size)
@@ -172,7 +200,7 @@ def check_quant(name, fn, plain, gen, M, K, N, bits, group_size, flush, card,
         fail(f"{name} disagrees with its plain version at M={M} K={K} N={N} "
              f"bits={bits} g={group_size}: max |diff| {err}")
     rec = {"M": M, "K": K, "N": N, "bits": bits, "g": group_size,
-           "max_abs_err": err, "main": main}
+           "max_abs_err": err, "main": main, "moe": moe}
     rec["kernel_ms"] = cuda_ms(lambda: fn(x, packed, scale, zero, **kw),
                                flush=flush)
     rec["plain_ms"] = cuda_ms(lambda: plain(x, packed, scale, zero, **kw),
@@ -312,6 +340,10 @@ def check_paged_attention(gen, B, W, psz, Hkv, G, D, kv_len, active, flush,
 
 # soft_round at the main path's leaves (g = 128): (ng, out, leaves per layer)
 SR_SHAPES = ((32, 4096, 4), (32, 11008, 2), (86, 4096, 1))
+# ... and at Qwen3-30B-A3B's: expert stacks fold to (E·ng, g, n) with E = 128
+# (gate and up, down), then q, k and v, o
+MOE_SR_SHAPES = ((2048, 768, 2), (768, 2048, 1), (16, 4096, 1), (16, 512, 2),
+                 (32, 2048, 1))
 SR_G = 128
 
 
@@ -340,7 +372,8 @@ def sr_operands(gen, ng, g, n, bits):
     return (base.contiguous(), nu, hard, v, scale, zero), dout
 
 
-def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False):
+def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False,
+                     moe=False):
     """soft_round forward and backward kernels vs their plain versions at
     one leaf shape.  Tolerances (σ is computed by other code in the two
     versions): θ̂ within 4 f32 ulps plus 4 ulps of (qmax + 1) times the
@@ -398,8 +431,9 @@ def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False):
         fail("soft_round backward is not bit-for-bit repeatable")
     rec = {"ng": ng, "g": g, "n": n, "bits": bits, "dst": dst,
            "max_abs_err": float(err.max()), "max_abs_err_dnu":
-           float(err_nu.max()), "max_abs_err_dv": err_v, "main": main}
-    if main:
+           float(err_nu.max()), "max_abs_err_dv": err_v, "main": main,
+           "moe": moe}
+    if main or moe:
         rec["fwd_ms"] = cuda_ms(lambda: soft_round(*ops, **kw), flush=flush)
         rec["fwd_plain_ms"] = cuda_ms(lambda: soft_round_plain(*ops, **kw),
                                       iters=5, flush=flush)
@@ -420,6 +454,100 @@ def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False):
     return rec
 
 
+# Qwen3-30B-A3B's expert products (E = 128): (K, N, launches per layer),
+# and the capacity rows of the MoE serve's prefill (4 x 128 tokens -> 40)
+# and decode (4 or 8 slots -> 8)
+EXPERTS = 128
+EXPERT_SHAPES = ((2048, 768, 2), (768, 2048, 1))
+EXPERT_C = (40, 8)
+# further capacities the MoE phases run: the schedule's batch-1 admission
+# prefills (40..333 tokens: C = 8..32) and the calibrate phase's packed
+# perplexity (4 x 512 tokens: C = 160, two 128-row tiles)
+MORE_EXPERT_C = (16, 24, 32, 160)
+
+
+def check_experts(gen, E, M, K, N, bits, group_size, flush, card,
+                  main=False):
+    """The expert-batched kernel vs its plain version, and vs one
+    ``quant_matmul`` launch per expert (bit for bit), then timed with the
+    unrolled launches and a ``torch.bmm`` yardstick on the pre-dequantized
+    bf16 weights (not the same function: no dequantization)."""
+    from repro_torch.core.qtensor import pack
+    from repro_torch.kernels import build
+    from repro_torch.kernels.quant_matmul import (
+        dequantize_rows, quant_matmul_experts, quant_matmul_experts_plain,
+        quant_matmul_experts_unrolled)
+    dev = "cuda"
+    codes = torch.randint(0, 1 << bits, (E, K, N), generator=gen, device=dev,
+                          dtype=torch.int32)
+    packed = pack(codes, bits)
+    del codes
+    ng = K // group_size
+    scale = torch.rand((E, ng, N), generator=gen, device=dev) * 0.015 + 0.005
+    zero = torch.randint(0, 1 << bits, (E, ng, N), generator=gen,
+                         device=dev).float()
+    x = torch.randn((E, M, K), generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(bits=bits, group_size=group_size)
+    n0 = build.LAUNCHES["quant_matmul_experts"]
+    got = quant_matmul_experts(x, packed, scale, zero, **kw)
+    torch.cuda.synchronize()
+    want = quant_matmul_experts_plain(x, packed, scale, zero, **kw)
+    w = dequantize_rows(packed, scale, zero, dtype=torch.bfloat16, **kw)
+    slack = REORDER * torch.bmm(x.float().abs(), w.float().abs())
+    ok, err = within(got, want, slack)
+    if not ok:
+        fail(f"quant_matmul_experts disagrees with its plain version at E={E} "
+             f"M={M} K={K} N={N} bits={bits} g={group_size}: max |diff| {err}")
+    unrolled = lambda: quant_matmul_experts_unrolled(x, packed, scale, zero,
+                                                     **kw)
+    if not torch.equal(got, unrolled()):
+        fail(f"quant_matmul_experts is not bit-identical to {E} quant_matmul "
+             f"launches at M={M} K={K} N={N} bits={bits}")
+    rec = {"E": E, "M": M, "K": K, "N": N, "bits": bits, "g": group_size,
+           "max_abs_err": err, "bit_identical_to_unrolled": True,
+           "main": main}
+    rec["kernel_ms"] = cuda_ms(
+        lambda: quant_matmul_experts(x, packed, scale, zero, **kw),
+        flush=flush)
+    rec["unrolled_ms"] = cuda_ms(unrolled, iters=5, flush=flush)
+    rec["plain_ms"] = cuda_ms(
+        lambda: quant_matmul_experts_plain(x, packed, scale, zero, **kw),
+        iters=3, flush=flush)
+    rec["library_ms"] = cuda_ms(lambda: torch.bmm(x, w), flush=flush)
+    ppb = {2: 4, 3: 2, 4: 2, 8: 1}[bits]
+    nbytes = E * (M * K * 2 + K * N // ppb + 2 * ng * N * 4 + M * N * 2)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * E * M * K * N)
+    rec["launches"] = build.LAUNCHES["quant_matmul_experts"] - n0
+    show("quant_matmul_experts", rec, card)
+    return rec
+
+
+def summarize_experts(records):
+    """One MoE layer's expert FFN at W2 g128: the 3 launches (2 x gate/up
+    shape, 1 x down shape) at the decode capacity (C = 8), with the
+    prefill capacity's (C = 40) times beside."""
+    per_layer = {(K, N): c for K, N, c in EXPERT_SHAPES}
+
+    def at(C, key):
+        return sum(per_layer[(r["K"], r["N"])] * r[key] for r in records
+                   if r["main"] and r["M"] == C)
+
+    out = {k: at(EXPERT_C[1], key) for k, key in (
+        ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+        ("library_ms", "library_ms"), ("bound_ms", "bound_ms"),
+        ("unrolled_ms", "unrolled_ms"))}
+    out["bound_by"] = next(r["bound_by"] for r in records
+                           if r["main"] and r["M"] == EXPERT_C[1])
+    out["max_abs_err"] = max(r["max_abs_err"] for r in records)
+    out["prefill"] = {k: at(EXPERT_C[0], key) for k, key in (
+        ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+        ("library_ms", "library_ms"), ("bound_ms", "bound_ms"),
+        ("unrolled_ms", "unrolled_ms"))}
+    out["prefill"]["bound_by"] = next(r["bound_by"] for r in records
+                                      if r["main"] and r["M"] == EXPERT_C[0])
+    return out
+
+
 def kernel_phase(card):
     from repro_torch.kernels.quant_gemv import quant_gemv, quant_gemv_plain
     from repro_torch.kernels.quant_matmul import (quant_matmul,
@@ -438,6 +566,14 @@ def kernel_phase(card):
                                              main=bits == 2))
         out[name].append(check_quant(name, fn, plain, gen, M, 4096, 4096, 2,
                                      4096, flush, card))
+        for K, N, _ in MOE_ATTN_SHAPES:
+            out[name].append(check_quant(name, fn, plain, gen, M, K, N, 2,
+                                         128, flush, card, moe=True))
+    # the MoE schedule's decode: 8 slots
+    for K, N, _ in MOE_ATTN_SHAPES:
+        out["quant_gemv"].append(check_quant(
+            "quant_gemv", quant_gemv, quant_gemv_plain, gen, 8, K, N, 2, 128,
+            flush, card))
     for M in (1, 32):
         out["quant_gemv"].append(check_quant(
             "quant_gemv", quant_gemv, quant_gemv_plain, gen, M, 4096, 11008,
@@ -461,6 +597,21 @@ def kernel_phase(card):
                               card),
         check_paged_attention(gen, 4, 7, 64, 8, 4, 128, [448, 65, 64, 3],
                               [1, 1, 0, 1], flush, card)]
+    out["quant_matmul_experts"] = []
+    for C in EXPERT_C:
+        for K, N, _ in EXPERT_SHAPES:
+            out["quant_matmul_experts"].append(check_experts(
+                gen, EXPERTS, C, K, N, 2, 128, flush, card, main=True))
+    # W3/W4 at the gate shape, and ragged M/N/K edges with per-channel groups
+    for bits in (3, 4):
+        out["quant_matmul_experts"].append(check_experts(
+            gen, EXPERTS, EXPERT_C[0], 2048, 768, bits, 128, flush, card))
+    out["quant_matmul_experts"].append(check_experts(
+        gen, 8, 13, 200, 300, 3, 200, flush, card))
+    for C in MORE_EXPERT_C:
+        for K, N, _ in EXPERT_SHAPES:
+            out["quant_matmul_experts"].append(check_experts(
+                gen, EXPERTS, C, K, N, 2, 128, flush, card))
     out["soft_round"] = []
     for ng, n, _ in SR_SHAPES:
         for bits in (2, 3, 4):
@@ -468,14 +619,18 @@ def kernel_phase(card):
                 out["soft_round"].append(check_soft_round(
                     gen, ng, n, bits, dst, flush, card,
                     main=bits == 2 and dst))
+    for ng, n, _ in MOE_SR_SHAPES:
+        out["soft_round"].append(check_soft_round(
+            gen, ng, n, 2, True, flush, card, moe=True))
     return out
 
 
-def summarize_soft_round(records, direction):
+def summarize_soft_round(records, direction, path="main", shapes=SR_SHAPES):
     """One layer of the calibration's Soften step: the forward or backward
-    kernel over the layer's 7 leaves (W2 g128, DST on)."""
-    per_layer = {(ng, n): c for ng, n, c in SR_SHAPES}
-    timed = [r for r in records if r["main"]]
+    kernel over the layer's 7 leaves (W2 g128, DST on), of the LLaMA
+    (``path="main"``) or the MoE (``path="moe"``, ``MOE_SR_SHAPES``) path."""
+    per_layer = {(ng, n): c for ng, n, c in shapes}
+    timed = [r for r in records if r[path]]
     tot = lambda key: sum(per_layer[(r["ng"], r["n"])] * r[key]
                           for r in timed)
     err = "max_abs_err" if direction == "fwd" else "max_abs_err_dnu"
@@ -490,14 +645,15 @@ def summarize_soft_round(records, direction):
     return out
 
 
-def summarize(records, name):
-    """One layer of the main path: its W2 g128 shapes, each weighted by how
-    often a layer runs it (attention: its one launch)."""
-    timed = [r for r in records if r["main"]]
+def summarize(records, name, path="main", shapes=MAIN_SHAPES):
+    """One layer of the main path (or, ``path="moe"``, of the MoE path's
+    attention, ``MOE_ATTN_SHAPES``): its W2 g128 shapes, each weighted by
+    how often a layer runs it (attention: its one launch)."""
+    timed = [r for r in records if r[path]]
     if name.endswith("decode_attention"):
         weights = [1] * len(timed)
     else:
-        per_layer = {(K, N): c for K, N, c in MAIN_SHAPES}
+        per_layer = {(K, N): c for K, N, c in shapes}
         weights = [per_layer[(r["K"], r["N"])] for r in timed]
     tot = lambda key: sum(w * r[key] for w, r in zip(weights, timed,
                                                     strict=True))
@@ -513,7 +669,7 @@ def summarize(records, name):
 
 EXPECTED = {"quant_matmul": 224, "quant_gemv": 3360, "decode_attention": 480,
             "soft_round_fwd": 0, "soft_round_bwd": 0,
-            "paged_decode_attention": 0}
+            "paged_decode_attention": 0, "quant_matmul_experts": 0}
 REL_L2 = 5e-2
 
 
@@ -523,10 +679,8 @@ def serve_phase(card):
                                            quantized_memory_report)
     from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
                                            calibration_batches)
-    from repro_torch.eval.harness import parity_gate
     from repro_torch.kernels import build
     from repro_torch.launch.serve import parse_quant, serve_requests
-    from repro_torch.launch.steps import make_serve_steps
     from repro_torch.models import get_model
 
     B, PROMPT, GEN = 4, 128, 16
@@ -584,13 +738,24 @@ def serve_phase(card):
           f"{mem['fp16_bytes']} B), kv cache {res.cache_stats['cache_bytes']} "
           f"B, peak during serve {peak} B; card=[{card}]", flush=True)
 
-    # teacher-forced "xla" backend over the same tokens, prefill and every
-    # decode step.  The two paths round differently (the "xla" path
-    # dequantizes in bf16, the kernels in f32 rounded once), and over 32
-    # layers that leaves max |diff| above the reference's small-model gate
-    # (0.10 measured against atol 5e-2); a wrong kernel would instead move
-    # the logits by O(1) of their norm.  Gate: relative L2 difference of all
-    # logits below REL_L2 (rounding-level differences are ~1e-2 or less).
+    teacher_forced_check("serve", cfg, model, packed, prompts, res)
+    return counts, packed
+
+
+def teacher_forced_check(tag, cfg, model, packed, prompts, res):
+    """Teacher-forced "xla" backend over the tokens of ``res``, prefill and
+    every decode step.  The two paths round differently (the "xla" path
+    dequantizes in bf16, the kernels in f32 rounded once), and over many
+    layers that leaves max |diff| above the reference's small-model gate
+    (0.10 measured against atol 5e-2 on LLaMA-2-7B); a wrong kernel would
+    instead move the logits by O(1) of their norm.  Gate: relative L2
+    difference of all logits below REL_L2 (rounding-level differences are
+    ~1e-2 or less)."""
+    from repro_torch.eval.harness import parity_gate
+    from repro_torch.launch.steps import make_serve_steps
+    B, GEN = res.tokens.shape
+    PROMPT = prompts.shape[1]
+    logits = res.logits
     _, xpre, xdec = make_serve_steps(cfg, kernel_backend="xla")
     toks = torch.as_tensor(res.tokens, dtype=torch.long, device="cuda")
     with torch.no_grad():
@@ -607,21 +772,20 @@ def serve_phase(card):
     gate = parity_gate(logits, ref, atol=5e-2, rtol=2e-2)
     rel = float(np.linalg.norm(logits - ref) / np.linalg.norm(ref))
     agree = float((ref.argmax(-1) == res.tokens).mean())
-    print(f"[serve] teacher-forced xla reference: relative L2 {rel:.6g} "
+    print(f"[{tag}] teacher-forced xla reference: relative L2 {rel:.6g} "
           f"(gate {REL_L2}); max |logit| {float(np.abs(ref).max()):.4g}; "
           f"parity_gate(5e-2, 2e-2) {gate}; argmax agreement {agree:.4f}",
           flush=True)
     if not rel < REL_L2:
-        fail(f"full-width logits differ from the xla backend by relative "
-             f"L2 {rel}")
-    return counts, packed
+        fail(f"{tag}: full-width logits differ from the xla backend by "
+             f"relative L2 {rel}")
 
 
 # --------------------------------------------------------------------------
 # phase 4: reduced configs, card vs CPU from the same params
 # --------------------------------------------------------------------------
 
-def parity_phase():
+def parity_phase(archs=("llama2-7b", "tinyllama-1.1b"), tag="parity"):
     from repro_torch.bridge import params_to
     from repro_torch.configs import get_reduced_config
     from repro_torch.core.pipeline import pack_model, quantize_model
@@ -631,7 +795,7 @@ def parity_phase():
     from repro_torch.launch.serve import parse_quant, serve_requests
     from repro_torch.models import get_model
 
-    for arch in ("llama2-7b", "tinyllama-1.1b"):
+    for arch in archs:
         cfg = get_reduced_config(arch)
         model = get_model(cfg)
         qcfg = parse_quant("W2A16g32", kernel_backend="pallas")
@@ -654,10 +818,11 @@ def parity_phase():
                              kernel_backend="pallas", device="cpu")
         gate = parity_gate(gpu.logits, cpu.logits, atol=5e-2, rtol=2e-2)
         same = bool((gpu.tokens == cpu.tokens).all())
-        print(f"[parity] {cfg.name}: card vs CPU {gate}; tokens equal {same}; "
-              f"card launches {counts}", flush=True)
-        served = min(counts[k] for k in ("quant_matmul", "quant_gemv",
-                                         "decode_attention"))
+        print(f"[{tag}] {cfg.name}: card vs CPU {gate}; tokens equal "
+              f"{same}; card launches {counts}", flush=True)
+        kernels = ("quant_matmul", "quant_gemv", "decode_attention") + (
+            ("quant_matmul_experts",) if cfg.family == "moe" else ())
+        served = min(counts[k] for k in kernels)
         if not gate["ok"] or not same or served == 0:
             fail(f"{cfg.name}: card and CPU disagree")
 
@@ -725,7 +890,7 @@ def calibrate_phase(card):
                 "quant_gemv": 0, "decode_attention": 0,
                 "soft_round_fwd": 7 * steps * CAL_LAYERS,
                 "soft_round_bwd": 7 * steps * CAL_LAYERS,
-                "paged_decode_attention": 0}
+                "paged_decode_attention": 0, "quant_matmul_experts": 0}
     for b in report["blocks"]:
         losses = [e["loss"] for e in b["log"]]
         flips = sum(f["flipped"] for f in b["flips"].values())
@@ -901,24 +1066,29 @@ def prefill_calls(res, reqs, chunk=0):
 
 def expected_launches(cfg, calls, steps, attn, prefill_attn):
     """Launch counts from the dispatch rules: 7 quantized projections per
-    layer for every prefill call and every decode step, to the GEMV at most
-    ``DECODE_GEMV_MAX_ROWS`` rows (``kernels/ops.py``; decode steps have at
-    most 8 slots) and to the tiled matmul above; one attention launch per
-    layer and decode step (``attn``), and per layer of a prefill call of a
-    single token, which takes the decode kernel too (``prefill_attn``:
-    dense on a batch-1 lane, paged on the pool).  ``calls`` holds each
-    prefill call's (rows, tokens).  The unpacked head is a library
-    matmul."""
+    layer (MoE: the 4 attention projections, and 3 expert-batched launches
+    for the FFN whatever the rows) for every prefill call and every decode
+    step, to the GEMV at most ``DECODE_GEMV_MAX_ROWS`` rows
+    (``kernels/ops.py``; decode steps have at most 8 slots) and to the
+    tiled matmul above; one attention launch per layer and decode step
+    (``attn``), and per layer of a prefill call of a single token, which
+    takes the decode kernel too (``prefill_attn``: dense on a batch-1 lane,
+    paged on the pool).  ``calls`` holds each prefill call's (rows,
+    tokens).  The unpacked head is a library matmul."""
     from repro_torch.kernels import build
     from repro_torch.kernels.ops import DECODE_GEMV_MAX_ROWS
-    per = 7 * cfg.num_layers
+    moe = cfg.family == "moe"
+    per = (4 if moe else 7) * cfg.num_layers
+    experts = 3 * cfg.num_layers if moe else 0
     e = {k: 0 for k in build.KERNELS}
     for rows, tokens in calls:
         e["quant_gemv" if rows <= DECODE_GEMV_MAX_ROWS
           else "quant_matmul"] += per
+        e["quant_matmul_experts"] += experts
         if tokens == 1:
             e[prefill_attn] += cfg.num_layers
     e["quant_gemv"] += per * steps
+    e["quant_matmul_experts"] += experts * steps
     e[attn] += cfg.num_layers * steps
     return e
 
@@ -1264,6 +1434,248 @@ def schedule_parity_phase():
         fail(f"{cfg.name}: scheduled card and CPU runs disagree")
 
 
+# --------------------------------------------------------------------------
+# phases 8-11: the MoE family (Qwen3-30B-A3B) through the expert kernel
+# --------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_LAYERS = 16         # depth cut from 48 (one card); widths are published
+MOE_CAL_SAMPLES = 8
+
+
+def moe_serve_phase(card):
+    """Phase 8: RTN W2A16g128 + pack at full width, depth 16, then
+    ``serve_requests`` on ``"pallas"`` with exact launch counts and the
+    teacher-forced ``"xla"`` check."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import (pack_model, quantize_model,
+                                           quantized_memory_report)
+    from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                           calibration_batches)
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import parse_quant, serve_requests
+    from repro_torch.models import get_model
+
+    B, PROMPT, GEN = 4, 128, 16
+    full = get_config(MOE_ARCH)
+    cfg = full.replace(num_layers=MOE_LAYERS)
+    model = get_model(cfg)
+    qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(0, "cuda")
+    torch.cuda.synchronize()
+    print(f"[moe-serve] init {cfg.name} depth cut {full.num_layers} -> "
+          f"{cfg.num_layers} layers (widths published: d={cfg.d_model} "
+          f"heads={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+          f"E={cfg.moe.num_experts} top-{cfg.moe.top_k} ff={cfg.d_ff} "
+          f"V={cfg.vocab_size}) in {time.perf_counter() - t0:.3f}s",
+          flush=True)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=PROMPT,
+                          global_batch=B, seed=0)
+    calib = [{"tokens": torch.as_tensor(b["tokens"][:, :-1], device="cuda")}
+             for b in calibration_batches(data_cfg, 2, 1)]
+    t0 = time.perf_counter()
+    pfq, qmeta, report = quantize_model(cfg, params, calib, qcfg,
+                                        method="none", init="rtn")
+    packed = pack_model(cfg, pfq, qmeta, qcfg)
+    torch.cuda.synchronize()
+    mse = [b["recon_mse"] for b in report["blocks"]]
+    if not all(np.isfinite(mse)):
+        fail("non-finite recon_mse in the MoE RTN walk")
+    print(f"[moe-serve] RTN walk + pack {qcfg.tag} in "
+          f"{time.perf_counter() - t0:.3f}s; recon_mse first/last "
+          f"{mse[0]:.4g}/{mse[-1]:.4g}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    mem = quantized_memory_report(packed)
+    del params, pfq, qmeta
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = SyntheticCorpus(data_cfg).batch(0)["tokens"][:, :PROMPT]
+
+    serve_requests(cfg, model, packed, prompts, gen=2,          # warm-up
+                   kernel_backend="pallas", collect_logits=False,
+                   device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = serve_requests(cfg, model, packed, prompts, gen=GEN,
+                         kernel_backend="pallas", device="cuda")
+    counts = dict(build.LAUNCHES)
+    want = expected_launches(cfg, [(B * PROMPT, PROMPT)], GEN - 1,
+                             "decode_attention", "decode_attention")
+    if counts != want:
+        fail(f"MoE serve launch counts {counts}, expected {want}")
+    logits = res.logits
+    if logits.shape != (B, GEN, cfg.vocab_size) or not np.isfinite(logits).all():
+        fail(f"bad MoE logits: shape {logits.shape}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[moe-serve] {B} x ({PROMPT} prompt + {GEN} generated) on pallas: "
+          f"prefill {res.prefill_tok_s:.1f} tok/s ({res.prefill_secs * 1e3:.3f} "
+          f"ms), decode {res.decode_secs * 1e3 / (GEN - 1):.3f} ms/step "
+          f"({res.decode_tok_s:.1f} tok/s), launches {counts}, packed "
+          f"{mem['quantized_bytes']} B (fp16 {mem['fp16_bytes']} B), peak "
+          f"during serve {peak / 1e9:.3f} GB; card=[{card}]", flush=True)
+    teacher_forced_check("moe-serve", cfg, model, packed, prompts, res)
+    return counts, packed, cfg
+
+
+def moe_schedule_phase(card, packed, cfg):
+    """Phase 10: continuous batching of the packed MoE on both stores."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.scheduler import (Request, compile_sched_steps,
+                                              make_workload, serve_scheduled)
+
+    reqs = make_workload(cfg.vocab_size, **SCHED_WORKLOAD)
+    width = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    max_seq = width + (-width) % SCHED_PSZ
+    kw = dict(slots=SCHED_SLOTS, max_seq=max_seq, kernel_backend="pallas",
+              page_size=SCHED_PSZ, device="cuda")
+    steps = {store: compile_sched_steps(
+        cfg, max_seq=max_seq, kernel_backend="pallas",
+        page_size=SCHED_PSZ if store == "paged" else 0)
+        for store in ("dense", "paged")}
+    print(f"[moe-schedule] {len(reqs)} requests at vocab {cfg.vocab_size}, "
+          f"prompts {min(len(r.prompt) for r in reqs)}.."
+          f"{max(len(r.prompt) for r in reqs)}, budgets "
+          f"{min(r.max_new_tokens for r in reqs)}.."
+          f"{max(r.max_new_tokens for r in reqs)}; {SCHED_SLOTS} slots, "
+          f"max_seq {max_seq}", flush=True)
+    warm = [Request(0, reqs[0].prompt[:24], 3),
+            Request(1, reqs[1].prompt[:40], 2, arrival=1)]
+    for store, st in steps.items():
+        serve_scheduled(cfg, packed, warm, store=store, compiled=st, **kw)
+
+    runs, counts, syncs = {}, {}, {}
+    for name, store, attn, extra in (
+            ("a", "dense", "decode_attention", {}),
+            ("b", "paged", "paged_decode_attention", {}),
+            ("a2", "dense", "decode_attention", {}),
+            ("c", "paged", "paged_decode_attention",
+             dict(prefill_chunk=SCHED_CHUNK, share_prefix=True))):
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res, n, inside, where = sync_counted(
+            steps[store], lambda st, store=store, extra=extra:
+            serve_scheduled(cfg, packed, reqs, store=store, compiled=st,
+                            **extra, **kw))
+        counts[name] = dict(build.LAUNCHES)
+        runs[name], syncs[name] = res, (n, inside, where)
+        # whole prefill in every run: the MoE cache spec is not chunkable
+        want = expected_launches(cfg, prefill_calls(res, reqs), res.steps,
+                                 attn, "decode_attention")
+        print(f"[moe-schedule] ({name}) {res.store}{' ' + json.dumps(extra) if extra else ''}: "
+              f"{res.steps} decode steps, occupancy {res.occupancy:.4f}, "
+              f"prefill {res.prefill_secs:.3f}s ({res.prefill_tok_s:.1f} "
+              f"tok/s), decode {res.decode_secs:.3f}s "
+              f"({res.decode_secs * 1e3 / max(res.steps, 1):.3f} ms/step, "
+              f"{res.decode_tok_s:.2f} useful tok/s), latency p50/p90 "
+              f"{res.latency_steps['p50']:.0f}/{res.latency_steps['p90']:.0f}"
+              f" steps; host syncs {n} ({inside} inside decode steps); peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
+              f"{counts[name]}; card=[{card}]", flush=True)
+        if counts[name] != want:
+            fail(f"MoE schedule run {name}: launches {counts[name]}, "
+                 f"expected {want}")
+        if inside != 0 or n > 3 * len(reqs) + 4:
+            fail(f"MoE schedule run {name}: {n} host syncs ({inside} in "
+                 f"decode steps) for {len(reqs)} admissions and {res.steps} "
+                 f"steps; by line {where}")
+    for name, what in (("b", "paged"), ("a2", "a second dense run"),
+                       ("c", "the chunk-and-share request")):
+        if not same_tokens(runs["a"], runs[name], reqs):
+            fail(f"MoE scheduled tokens of {what} differ from the dense run")
+    if runs["c"].cache_stats["shared_page_hits"] != 0:
+        fail("the MoE store shared prefix pages")
+    total = {k: sum(c[k] for c in counts.values()) for k in counts["a"]}
+    return total, runs
+
+
+def moe_calibrate_phase(card):
+    """Phase 11: AWQ + TesseraQ on one full-width MoE block, pack,
+    perplexity; exact launch counts; a Soften step's time split."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import (pack_model, quantize_model,
+                                           quantized_memory_report)
+    from repro_torch.core.tesseraq import TesseraQConfig
+    from repro_torch.data.pipeline import (DataConfig, calibration_batches,
+                                           eval_batches)
+    from repro_torch.eval.ppl import perplexity
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.models import get_model
+
+    cfg = get_config(MOE_ARCH).replace(num_layers=1)
+    model = get_model(cfg)
+    qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
+    tcfg = TesseraQConfig(par_iterations=CAL_K, steps_per_iteration=CAL_T,
+                          batch_size=CAL_BS)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=CAL_SEQ,
+                          global_batch=CAL_BS, seed=0)
+    calib = [{"tokens": torch.as_tensor(b["tokens"][:, :-1], device="cuda")}
+             for b in calibration_batches(
+                 data_cfg, MOE_CAL_SAMPLES // CAL_BS, CAL_BS)]
+    evalb = eval_batches(data_cfg, EVAL_BATCHES, CAL_BS)
+    params = model.init_params(0, "cuda")
+    torch.cuda.synchronize()
+    print(f"[moe-calibrate] {cfg.name} depth 1 block, full width; "
+          f"{MOE_CAL_SAMPLES} x {CAL_SEQ} calibration tokens, K={CAL_K} "
+          f"T={CAL_T}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    pfq, qmeta, report = quantize_model(cfg, params, calib, qcfg,
+                                        method="tesseraq", init="awq",
+                                        tcfg=tcfg)
+    packed = pack_model(cfg, pfq, qmeta, qcfg)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    peak_cal = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    ppl_packed = perplexity(cfg, packed, evalb, backend="pallas")
+    ppl_fq = perplexity(cfg, pfq, evalb, backend="pallas")
+    t_ppl = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    steps = CAL_K * CAL_T
+    expected = {k: 0 for k in build.KERNELS}
+    expected.update({"quant_matmul": 4 * EVAL_BATCHES,
+                     "quant_matmul_experts": 3 * EVAL_BATCHES,
+                     "soft_round_fwd": 7 * steps,
+                     "soft_round_bwd": 7 * steps})
+    b = report["blocks"][0]
+    losses = [e["loss"] for e in b["log"]]
+    flips = sum(f["flipped"] for f in b["flips"].values())
+    total = sum(f["total"] for f in b["flips"].values())
+    mem = quantized_memory_report(packed)
+    print(f"[moe-calibrate] awq alpha/clip "
+          + " ".join(f"{k}:{v['alpha']}/{v['clip']}"
+                     for k, v in b["awq"].items())
+          + f"; recon_mse {b['recon_mse']:.6g}; PAR loss first "
+          f"{losses[0]:.6g} last {losses[-1]:.6g}; block {b['secs']:.3f}s "
+          f"(reconstruction {b['recon_secs']:.3f}s, "
+          f"{b['recon_secs'] * 1e3 / steps:.3f} ms per Soften step incl. "
+          f"hardens); flipped vs AWQ {flips}/{total} "
+          f"({100 * flips / total:.4f}%); walk + pack {t_cal:.3f}s; peak "
+          f"{peak_cal / 1e9:.3f} GB; perplexity packed {ppl_packed:.6g} "
+          f"fake-quant {ppl_fq:.6g} ({t_ppl:.3f}s); packed "
+          f"{mem['quantized_bytes']} B; launches {counts}; card=[{card}]",
+          flush=True)
+    if not all(np.isfinite(losses)) or not np.isfinite(b["recon_mse"]):
+        fail("non-finite loss in the MoE block")
+    if len(losses) != CAL_K or b["log"][-1]["soft_rate"] != 0.0:
+        fail(f"MoE block: {len(losses)} PAR iterations, final soft rate "
+             f"{b['log'][-1]['soft_rate']}")
+    if counts != expected:
+        fail(f"MoE calibrate launch counts {counts}, expected {expected}")
+    if not (np.isfinite(ppl_packed) and np.isfinite(ppl_fq)
+            and abs(ppl_packed - ppl_fq) <= PPL_REL * ppl_fq):
+        fail(f"MoE packed perplexity {ppl_packed} vs fake-quant {ppl_fq}")
+    del pfq, packed, qmeta
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = step_profile(cfg, params, calib, qcfg, tcfg, card)
+    return counts, {"secs": t_cal, "peak_bytes": peak_cal, "profile": prof}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1308,6 +1720,21 @@ def main():
     calibration_parity_phase()
     print(f"[time] calibrate + calibration parity "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_serve_counts, moe_packed, moe_cfg = moe_serve_phase(card)
+    parity_phase((MOE_ARCH,), tag="moe-parity")
+    moe_sched_counts, _ = moe_schedule_phase(card, moe_packed, moe_cfg)
+    del moe_packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] MoE serve + parity + schedule "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    moe_cal_counts, _ = moe_calibrate_phase(card)
+    print(f"[time] MoE calibrate {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     sources = {"quant_matmul": "src/repro/kernels/quant_matmul.py:146",
                "quant_gemv": "src/repro/kernels/quant_gemv.py:120",
@@ -1315,30 +1742,55 @@ def main():
                "soft_round_fwd": "src/repro/kernels/soft_round.py:42",
                "soft_round_bwd": "src/repro/kernels/soft_round.py:42",
                "paged_decode_attention":
-                   "src/repro/kernels/decode_attention.py:185"}
-    per = {"quant_matmul": "one layer of the prefill: 7 launches, M=512, W2 g128",
-           "quant_gemv": "one layer of a decode step: 7 launches, M=4, W2 g128",
+                   "src/repro/kernels/decode_attention.py:185",
+               "quant_matmul_experts": "src/repro/kernels/quant_matmul.py:197"}
+    per = {"quant_matmul": "one layer of the prefill: 7 launches, M=512, W2 "
+                           "g128; 'moe' one Qwen3 layer's 4 attention "
+                           "projections",
+           "quant_gemv": "one layer of a decode step: 7 launches, M=4, W2 "
+                         "g128; 'moe' one Qwen3 layer's 4 attention "
+                         "projections",
            "decode_attention": "one layer of a decode step: 1 launch, B=4 "
                                "Hkv=32 G=1 D=128 S=144 kv_len=136",
            "soft_round_fwd": "one layer of a Soften step: 7 launches (4 x "
                              "ng=32 out=4096, 2 x ng=32 out=11008, 1 x ng=86 "
-                             "out=4096; g=128, W2, DST on)",
+                             "out=4096; g=128, W2, DST on); 'moe' one Qwen3 "
+                             "layer's 7 (2 x ng=2048 out=768, 1 x ng=768 "
+                             "out=2048, ng=16 out=4096, 2 x ng=16 out=512, "
+                             "ng=32 out=2048)",
            "soft_round_bwd": "one layer of a Soften step: 7 launches, the "
                              "shapes of soft_round_fwd",
            "paged_decode_attention": "one layer of a scheduled decode step: "
                                      "1 launch, B=8 Hkv=32 G=1 D=128, 23 "
                                      "pages of 16, kv_len up to 368, one "
-                                     "slot inactive"}
+                                     "slot inactive",
+           "quant_matmul_experts": "one MoE layer of a decode step: 3 "
+                                   "launches (2 x K=2048 N=768, 1 x K=768 "
+                                   "N=2048), E=128, C=8, W2 g128; 'prefill' "
+                                   "the same at C=40"}
     kernels = []
     for name in build.KERNELS:
         by_path = {"serve": serve_counts[name], "calibrate": cal_counts[name],
-                   "schedule": sched_counts[name]}
+                   "schedule": sched_counts[name],
+                   "moe_serve": moe_serve_counts[name],
+                   "moe_schedule": moe_sched_counts[name],
+                   "moe_calibrate": moe_cal_counts[name]}
         if name.startswith("soft_round"):
             nums = summarize_soft_round(recs["soft_round"], name[-3:])
+            nums["moe"] = summarize_soft_round(recs["soft_round"], name[-3:],
+                                               "moe", MOE_SR_SHAPES)
             nums["library_note"] = ("no single PyTorch call computes θ̂ or "
                                     "its gradient")
+        elif name == "quant_matmul_experts":
+            nums = summarize_experts(recs[name])
+            nums["library_note"] = ("torch.bmm on the pre-dequantized bf16 "
+                                    "weights: a yardstick, not the same "
+                                    "function")
         else:
             nums = summarize(recs[name], name)
+            if name in ("quant_matmul", "quant_gemv"):
+                nums["moe"] = summarize(recs[name], name, "moe",
+                                        MOE_ATTN_SHAPES)
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{build.SOURCES[name]}",
                         "replaces": sources[name],

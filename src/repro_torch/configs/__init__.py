@@ -1,10 +1,11 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_reduced_config(arch_id)``.
 
-The port's own copy of the reference registry, holding the dense llama
-architectures this slice serves.  Every architecture lives in its own module
-exposing ``CONFIG`` (the exact published shape) and ``reduced()`` (a tiny
-same-family config for CPU tests).  The other families arrive with their
-model code (ROADMAP queue 1, "Remaining families").
+The port's own copy of the reference registry, holding the architectures
+the port serves: the dense llama family and the qwen3 MoE.  Every
+architecture lives in its own module exposing ``CONFIG`` (the exact
+published shape) and ``reduced()`` (a tiny same-family config for CPU
+tests).  The other families arrive with their model code (ROADMAP
+queue 1, "Remaining families").
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.configs.base import (ModelConfig, MoEConfig, QuantConfig,
 ARCH_IDS = (
     "tinyllama-1.1b",
     "llama2-7b",
+    "qwen3-moe-30b-a3b",
 )
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

@@ -43,8 +43,15 @@ def _act_scale(mean_abs: torch.Tensor, alpha: float) -> torch.Tensor:
     return torch.clamp(s, 1e-4, 1e4).to(torch.float32)
 
 
+def _product(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """X (n, in) through a (in, out) weight, or through each expert of an
+    (E, in, out) stack (``einsum("ni,eio->eno")``, the reference's)."""
+    return X @ w if w.ndim == 2 else torch.einsum("ni,eio->eno", X, w)
+
+
 def awq_leaf(w: torch.Tensor, stats, qcfg: QuantConfig):
-    """Returns (fake-quant effective weight, qmeta).  w: (in, out)."""
+    """Returns (fake-quant effective weight, qmeta).  w: (..., in, out); an
+    expert stack (E, in, out) shares one per-input-channel act_scale."""
     wf = w.to(torch.float32)
     X = stats.sample                                     # (n, in)
     if X.shape[0] == 0 or X.shape[1] != wf.shape[-2]:
@@ -53,14 +60,14 @@ def awq_leaf(w: torch.Tensor, stats, qcfg: QuantConfig):
         return rtn_leaf(w, qcfg)
     cands, errs = [], []
     with _full_f32_matmul():
-        y_ref = X @ wf
+        y_ref = _product(X, wf)
         for alpha in ALPHA_GRID:
             s_ch = _act_scale(stats.mean_abs, alpha)
             wt = wf * s_ch[:, None]
             for clip in CLIP_GRID:
                 fq = Q.fake_quantize(wt, qcfg, gamma=clip, beta=clip)
                 w_eff = fq / s_ch[:, None]
-                errs.append(torch.mean((X @ w_eff - y_ref) ** 2))
+                errs.append(torch.mean((_product(X, w_eff) - y_ref) ** 2))
                 cands.append((alpha, clip))
     best = (None, None, float("inf"))
     for (alpha, clip), err in zip(cands, torch.stack(errs).cpu().tolist(),

@@ -4,9 +4,9 @@ An architecture is an ordered list of *stages*; each stage is a run of
 structurally identical blocks.  The calibration walk
 (``core/pipeline.quantize_model``) goes block by block: it collects the
 block's inputs X and FP outputs block(theta, X), quantizes the block, and
-writes it back.  This slice builds the stages of family ``dense``; the other
-families arrive with their model code (ROADMAP queue 1, "Remaining
-families").
+writes it back.  The families ``dense`` and ``moe`` are one stage of
+decoder blocks each; the other families arrive with their model code
+(ROADMAP queue 1, "Remaining families").
 """
 from __future__ import annotations
 
@@ -19,9 +19,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 from repro_torch.models.common import Ctx, DEFAULT_CTX, take_layer
 
-# Leaf names that are quantizable linear weights of the dense family (the
-# reference adds the rwkv and mamba names with those families).  Everything
-# else (norms, embeddings, the head) stays in the model dtype.
+# Leaf names that are quantizable linear weights of the dense and MoE
+# families (the reference adds the rwkv and mamba names with those
+# families); MoE expert weights reuse the dense names under "moe", with a
+# leading expert dim.  Everything else (norms, the f32 router, embeddings,
+# the head) stays as it is.
 QUANT_LEAF_NAMES = frozenset({
     "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
 })
@@ -92,7 +94,7 @@ def _stacked_getset(key):
 
 
 def build_stages(cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX) -> list:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"build_stages: family {cfg.family!r} is not ported yet "
             "(ROADMAP queue 1, 'Remaining families')")

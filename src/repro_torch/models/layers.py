@@ -2,7 +2,7 @@
 weights, RMSNorm, RoPE and chunked (flash-style) attention.
 
 Functions over tensors and param dicts; weights use ``(in_features,
-out_features)``.  QTensor matmuls dispatch per call on ``backend``:
+out_features)`` (experts: ``(E, in, out)``).  QTensor matmuls dispatch per call on ``backend``:
 "xla" dequantizes in the activation dtype and runs a dense matmul, "pallas"
 runs the hand-written kernels (their plain versions on a CPU tensor).
 """
@@ -37,6 +37,21 @@ def matmul(x: torch.Tensor, w, backend: Optional[str] = None) -> torch.Tensor:
             return qtensor_matmul(x, w)
         return qmatmul(x, w)
     return x @ w
+
+
+def expert_matmul(a: torch.Tensor, w, backend: Optional[str] = None
+                  ) -> torch.Tensor:
+    """Batched per-expert matmul: (E, C, d) x (E, d, f) -> (E, C, f).
+    ``"pallas"`` runs the expert-batched kernel; ``"xla"`` dequantizes in
+    the activation dtype and runs one batched product."""
+    if isinstance(w, QTensor):
+        if resolve_backend(backend) == "pallas":
+            from repro_torch.kernels.ops import qtensor_expert_matmul
+            return qtensor_expert_matmul(a, w)
+        if w.act_scale is not None:
+            a = a / w.act_scale.to(a.dtype)
+        w = w.dequantize(a.dtype)
+    return torch.einsum("ecd,edf->ecf", a, w)
 
 
 def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -100,7 +115,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     backend: Optional[str] = None,
                     active: Optional[torch.Tensor] = None,
                     pages: Optional[tuple] = None) -> torch.Tensor:
-    """Chunked causal attention with GQA support (the dense family's
+    """Chunked causal attention with GQA support (the dense and MoE families'
     attention; the reference's non-causal and prefix-LM masks arrive with
     the families that use them).
 

@@ -1,0 +1,121 @@
+"""Token-choice top-k MoE FFN with capacity-based dispatch (the reference's
+``models/moe.py``, single-shard path).
+
+Each token picks its top-k experts from an f32 router; every (token,
+choice) pair takes the next free row of its expert's capacity buffer in
+token-major order, pairs past an expert's capacity are dropped, and the
+experts run as one batched (E, C, d) x (E, d, f) product per projection
+(``layers.expert_matmul``: the expert-batched kernel under ``"pallas"``).
+Dispatch and combine are fixed-shape tensor ops on the device (a one-hot
+cumsum, a scatter into ``E*C + 1`` rows whose last row takes the dropped
+pairs, a gather back): no boolean indexing or ``nonzero``, so a decode step
+never waits on the host.  Inactive decode slots route and take capacity
+like live ones, as in the reference (determinism, not alone-parity).
+
+The reference's expert-parallel paths (``ctx.ep_axis``, ``ctx.ep_inner``)
+are not ported and raise (ROADMAP queue 7).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.common import Ctx
+
+
+def init_moe_ffn(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
+                 dtype, device) -> dict:
+    """Stacked (L, ...) router (f32) and expert weights (E, in, out)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+
+    def w(shape, fan_in, dt):
+        t = torch.randn((n_layers,) + shape, generator=gen,
+                        dtype=torch.float32, device=device)
+        return (t * fan_in ** -0.5).to(dt)
+
+    return {
+        "router": w((d, e), d, torch.float32),
+        "w_gate": w((e, d, f), d, dtype),
+        "w_up": w((e, d, f), d, dtype),
+        "w_down": w((e, f, d), f, dtype),
+    }
+
+
+def _route(x2d: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """Returns (expert_idx (T, k) int64, gate (T, k) f32): the top-k router
+    logits in descending order, softmax-normalized over the chosen k."""
+    logits = x2d.float() @ router_w.float()
+    gate, idx = torch.topk(logits, top_k, dim=-1, sorted=True)
+    return idx, torch.softmax(gate, dim=-1)
+
+
+def _capacity(tokens: int, num_experts: int, top_k: int, cf: float) -> int:
+    c = int(math.ceil(tokens * top_k / num_experts * cf))
+    return max(8, -(-c // 8) * 8)                     # round up to 8
+
+
+def _dispatch(idx: torch.Tensor, num_experts: int, capacity: int):
+    """(keep (T*k,) bool, slot (T*k,) int64) for the flat token-major list of
+    (token, choice) pairs: a pair takes the next free row of its expert's
+    queue (a cumsum over the one-hot expert column), and ``slot`` is its row
+    in the ``E*C + 1``-row buffer, the last row for a pair past its expert's
+    capacity.  (The reference also drops pairs routed to another shard's
+    experts; with every expert local no pair is.)"""
+    flat_e = idx.reshape(-1)
+    onehot = (flat_e[:, None] == torch.arange(
+        num_experts, device=idx.device)).to(torch.int64)         # (T*k, E)
+    pos = torch.cumsum(onehot, dim=0) - 1
+    pos = torch.sum(pos * onehot, dim=1)                         # (T*k,)
+    keep = pos < capacity
+    slot = torch.where(keep, flat_e * capacity + pos, num_experts * capacity)
+    return keep, slot
+
+
+def _expert_compute(x2d, idx, gate, w_gate, w_up, w_down, *,
+                    num_experts: int, capacity: int, backend=None):
+    """Capacity-gather the routed tokens, run the batched FFN, and
+    scatter-combine.
+
+    x2d: (T, d); idx/gate: (T, k); w_*: (E, d, f) / (E, f, d)."""
+    T, d = x2d.shape
+    k = idx.shape[1]
+    E = num_experts
+    keep, slot = _dispatch(idx, E, capacity)
+    tok_idx = torch.arange(T * k, device=x2d.device) // k
+    buf = torch.zeros((E * capacity + 1, d), dtype=x2d.dtype,
+                      device=x2d.device)
+    # kept pairs own distinct rows; dropped ones all land on the last row
+    buf[slot] = x2d[tok_idx]
+    h = buf[:-1].reshape(E, capacity, d)
+
+    g = (torch.nn.functional.silu(L.expert_matmul(h, w_gate, backend))
+         * L.expert_matmul(h, w_up, backend))
+    out = L.expert_matmul(g, w_down, backend)                    # (E, C, d)
+
+    out_flat = torch.cat([out.reshape(E * capacity, d),
+                          out.new_zeros((1, d))], 0)
+    contrib = out_flat[slot] * gate.reshape(-1)[:, None].to(out.dtype)
+    contrib = torch.where(keep[:, None], contrib, contrib.new_zeros(()))
+    return torch.sum(contrib.reshape(T, k, d), dim=1)
+
+
+def moe_ffn(mp: dict, x: torch.Tensor, cfg: ModelConfig,
+            ctx: Ctx) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d), every expert on this device."""
+    if ctx.ep_axis is not None or ctx.ep_inner is not None:
+        raise NotImplementedError(
+            "moe_ffn: expert parallelism (ctx.ep_axis / ctx.ep_inner) is not "
+            "ported yet (ROADMAP queue 7, 'Parallelism on "
+            "torch.distributed')")
+    B, S, d = x.shape
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    x2d = x.reshape(B * S, d)
+    idx, gate = _route(x2d, mp["router"], k)
+    cap = _capacity(B * S, e, k, cfg.moe.capacity_factor)
+    y = _expert_compute(x2d, idx, gate, mp["w_gate"], mp["w_up"],
+                        mp["w_down"], num_experts=e, capacity=cap,
+                        backend=ctx.kernel_backend)
+    return y.reshape(B, S, d)

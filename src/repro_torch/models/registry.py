@@ -5,10 +5,10 @@
     init_cache(batch, max_seq, dtype, device) -> cache
     loss_fn(params, batch, ctx) -> scalar next-token cross entropy
     cache_spec: CacheSpec                          (declared cache layout)
-for family ``dense``.  Batches are dicts: {"tokens", optional
-"loss_mask"}.  ``ptab`` is the per-slot page table a paged ``CacheStore``
-threads through prefill and decode; dense runs pass None.  The other
-families are not ported yet (ROADMAP queue 1).
+for the families ``dense`` and ``moe``.  Batches are dicts: {"tokens",
+optional "loss_mask"}.  ``ptab`` is the per-slot page table a paged
+``CacheStore`` threads through prefill and decode; dense runs pass None.
+The other families are not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -26,11 +26,15 @@ _TOKEN = LeafSpec(LEAF_TOKEN, token_axis=2)
 
 # Family cache contracts.  dense: every per-position op is row-independent,
 # so prefill can stop and resume at any boundary, and full prompt-prefix
-# pages hold KV determined solely by the shared tokens -> both True.  The
-# other families' entries arrive with their model code.
+# pages hold KV determined solely by the shared tokens -> both True.  moe:
+# expert capacity dispatch couples sequence positions (tokens compete for
+# per-expert capacity within one prefill call), so splitting prefill
+# changes outputs -> neither.  The other families' entries arrive with
+# their model code.
 CACHE_SPECS = {
     "dense": CacheSpec("dense", (("k", _TOKEN), ("v", _TOKEN)),
                        chunkable=True, shareable=True),
+    "moe": CacheSpec("moe", (("k", _TOKEN), ("v", _TOKEN))),
 }
 
 
@@ -46,7 +50,7 @@ class Model:
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in CACHE_SPECS:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
             "'Remaining families')")

@@ -1,4 +1,6 @@
-"""Dense decoder-only transformer (llama family: tinyllama, llama2-7b).
+"""Decoder-only transformer: the dense llama family (tinyllama, llama2-7b)
+and, with a token-choice MoE FFN in place of the dense one, the MoE family
+(qwen3-moe-30b-a3b).
 
 Params are nested dicts of tensors with the block weights stacked along a
 leading layer axis, as in the reference; the layer loop is a Python loop
@@ -12,6 +14,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.common import (Ctx, DEFAULT_CTX, page_update_cache,
                                        take_layer, update_cache)
+from repro_torch.models.moe import init_moe_ffn, moe_ffn
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -31,8 +34,9 @@ def _normal(gen, shape, scale, dtype, device):
 
 def init_block_params(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
                       device) -> dict:
-    """Stacked (L, ...) decoder-block params."""
-    if cfg.family != "dense":
+    """Stacked (L, ...) decoder-block params; family ``moe`` holds its FFN
+    under ``"moe"`` (router + expert-stacked weights)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
             "'Remaining families')")
@@ -43,17 +47,21 @@ def init_block_params(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
     def stack(shape):
         return _normal(gen, (n_layers,) + shape, shape[-2] ** -0.5, dt, device)
 
-    return {
+    p = {
         "ln1": torch.ones((n_layers, d), dtype=dt, device=device),
         "wq": stack((d, cfg.num_heads * hd)),
         "wk": stack((d, cfg.num_kv_heads * hd)),
         "wv": stack((d, cfg.num_kv_heads * hd)),
         "wo": stack((cfg.num_heads * hd, d)),
         "ln2": torch.ones((n_layers, d), dtype=dt, device=device),
-        "w_gate": stack((d, f)),
-        "w_up": stack((d, f)),
-        "w_down": stack((f, d)),
     }
+    if cfg.family == "moe":
+        p["moe"] = init_moe_ffn(cfg, gen, n_layers, dt, device)
+    else:
+        p["w_gate"] = stack((d, f))
+        p["w_up"] = stack((d, f))
+        p["w_down"] = stack((f, d))
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
@@ -129,6 +137,8 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
 
 def ffn(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        return moe_ffn(bp["moe"], h, cfg, ctx)
     kb = ctx.kernel_backend
     g = L.matmul(h, bp["w_gate"], kb)
     u = L.matmul(h, bp["w_up"], kb)

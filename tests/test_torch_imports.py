@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` nor
-``chip_smoke.py`` imports jax or anything of the JAX package ``repro``."""
+``chip_smoke.py``/``chip_ab.py`` imports jax or anything of the JAX package
+``repro``."""
 import ast
 import os
 
@@ -12,7 +13,8 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "chip_ab.py")]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -40,7 +42,9 @@ def _imports(path):
 
 def test_port_files_exist():
     files = _port_files()
-    assert os.path.exists(files[0]), "chip_smoke.py is missing"
+    for script in ("chip_smoke.py", "chip_ab.py"):
+        assert os.path.exists(os.path.join(ROOT, script)), \
+            f"{script} is missing"
     assert len(files) > 20
 
 
