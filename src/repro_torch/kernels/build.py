@@ -34,14 +34,15 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("quant_matmul", "quant_gemv", "decode_attention",
            "soft_round_fwd", "soft_round_bwd", "paged_decode_attention",
-           "quant_matmul_experts")
+           "quant_matmul_experts", "int8_matmul")
 # kernel -> the csrc/ source that holds it
 SOURCES = {"quant_matmul": "quant_matmul.cu", "quant_gemv": "quant_gemv.cu",
            "decode_attention": "decode_attention.cu",
            "soft_round_fwd": "soft_round.cu",
            "soft_round_bwd": "soft_round.cu",
            "paged_decode_attention": "decode_attention.cu",
-           "quant_matmul_experts": "quant_matmul.cu"}
+           "quant_matmul_experts": "quant_matmul.cu",
+           "int8_matmul": "int8_matmul.cu"}
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -60,6 +61,8 @@ _SIGNATURES = {
     # G, D, scale, stream
     "launch_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _F, _P],
+    # x_q, w_q, x_scale, w_scale, out, M, N, K, lda, out_f32, stream
+    "launch_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # base, nu, hard, v, scale, zero, out, ng, g, n, qmax, dst, stream
     "soft_round_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dout, base, nu, hard, v, scale, zero, dnu, dv, ng, g, n, qmax, dst,

@@ -221,23 +221,23 @@ def _prefill_len(cfg: ModelConfig, req: Request) -> int:
 
 
 # per-configuration step sets: every run over the same (cfg, width, backend,
-# store) reuses ONE SchedSteps
+# act_bits, store) reuses ONE SchedSteps
 _SCHED_STEP_CACHE: dict = {}
 
 
 def compile_sched_steps(cfg: ModelConfig, *, max_seq: int,
-                        kernel_backend=None,
+                        kernel_backend=None, act_bits=None,
                         page_size: int = 0) -> SchedSteps:
     """The scheduler's step set for a serving configuration, built once and
-    memoized per (cfg, width, backend, page_size).  PyTorch runs eagerly,
-    so nothing is compiled; the name is the reference's.  ``page_size > 0``
-    builds the paged-store step set (page-table-aware steps plus the paged
-    admission install step)."""
-    key = (cfg, max_seq, kernel_backend, page_size)
+    memoized per (cfg, width, backend, act_bits, page_size).  PyTorch runs
+    eagerly, so nothing is compiled; the name is the reference's.
+    ``page_size > 0`` builds the paged-store step set (page-table-aware
+    steps plus the paged admission install step)."""
+    key = (cfg, max_seq, kernel_backend, act_bits, page_size)
     if key not in _SCHED_STEP_CACHE:
         model, pstep, dstep = make_sched_steps(
-            cfg, max_seq=max_seq, kernel_backend=kernel_backend,
-            page_size=page_size)
+            cfg, max_seq=max_seq, act_bits=act_bits,
+            kernel_backend=kernel_backend, page_size=page_size)
         install = (make_paged_install_step(model, page_size=page_size)
                    if page_size else None)
         _SCHED_STEP_CACHE[key] = SchedSteps(
@@ -248,7 +248,8 @@ def compile_sched_steps(cfg: ModelConfig, *, max_seq: int,
 
 def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
                     slots: int, max_seq: Optional[int] = None,
-                    kernel_backend=None, collect_logits: bool = False,
+                    kernel_backend=None, act_bits=None,
+                    collect_logits: bool = False,
                     compiled: Optional[SchedSteps] = None,
                     store: str = "dense", page_size: int = 16,
                     num_pages: Optional[int] = None,
@@ -262,7 +263,7 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
     shared pages).  ``decode_tok_s`` counts USEFUL tokens only — every
     request's own budget, which is also the number actually generated; the
     lock-step baseline reports the same numerator.  ``params`` must already
-    live on ``device``.
+    live on ``device``; ``act_bits`` fake-quantizes activations per token.
 
     ``store="paged"``: token-leaf KV lives in a pool of ``num_pages`` pages
     of ``page_size`` tokens (default pool: capacity parity with the dense
@@ -295,7 +296,7 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
                 f"+ budget ({r.max_new_tokens}) exceeds max_seq ({max_seq})")
     steps_ = compiled if compiled is not None else compile_sched_steps(
         cfg, max_seq=max_seq, kernel_backend=kernel_backend,
-        page_size=page_size if paged else 0)
+        act_bits=act_bits, page_size=page_size if paged else 0)
     if steps_.page_size != (page_size if paged else 0):
         raise ValueError(
             f"step set was built for page_size={steps_.page_size}, run "
@@ -535,8 +536,9 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
 
 
 def serve_lockstep(cfg: ModelConfig, model, params, requests: List[Request],
-                   *, slots: int, kernel_backend=None, compiled=None,
-                   pad_id: int = 0, device="cuda") -> ServeResult:
+                   *, slots: int, kernel_backend=None, act_bits=None,
+                   compiled=None, pad_id: int = 0,
+                   device="cuda") -> ServeResult:
     """The pre-scheduler serve loop as a baseline.
 
     FCFS static batching: requests are grouped ``slots`` at a time in
@@ -548,7 +550,8 @@ def serve_lockstep(cfg: ModelConfig, model, params, requests: List[Request],
     baseline."""
     order = sorted(requests, key=lambda r: (r.arrival, r.rid))
     if compiled is None:
-        compiled = compile_serve_steps(cfg, kernel_backend=kernel_backend)
+        compiled = compile_serve_steps(cfg, kernel_backend=kernel_backend,
+                                       act_bits=act_bits)
     prefill_secs = decode_secs = 0.0
     raw_decode_tokens = 0
     prompt_tokens = 0

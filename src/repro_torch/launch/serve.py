@@ -16,7 +16,10 @@ sharing (``--share-prefix``).  ``--method tesseraq``
 (default, with ``--init awq``) calibrates the random-weight model on
 synthetic calibration segments with ``--par-iters`` PAR iterations of
 ``--par-steps`` steps each, packs it and serves the packed model;
-``--method none`` serves the plain FP params (the fp16 baseline).
+``--method none`` serves the plain FP params (the fp16 baseline).  An
+``A<act_bits>`` below 16 in ``--quant`` (``W4A8``, ``W4A4``) serves the
+quantized model with per-token activation fake-quant, as the reference's
+CLI does (not the FP baseline, and not the calibration).
 ``--backend pallas`` routes every QTensor matmul, the decode attention and
 the calibration's soft-rounding through the hand-written kernels.  Runs on
 ``--device cuda`` unless told otherwise; ``--device cpu`` runs the kernels'
@@ -101,12 +104,12 @@ def build_params(cfg, params, qcfg: QuantConfig, data_cfg: DataConfig, *,
     return packed, report
 
 
-def compile_serve_steps(cfg, *, kernel_backend=None):
-    """The (prefill, decode) step pair for a serving configuration.  PyTorch
-    runs eagerly, so there is nothing to compile; the name is the
-    reference's."""
+def compile_serve_steps(cfg, *, kernel_backend=None, act_bits=None):
+    """The (prefill, decode) step pair for a (backend, act_bits) serving
+    configuration.  PyTorch runs eagerly, so there is nothing to compile;
+    the name is the reference's."""
     _, prefill_step, decode_step = make_serve_steps(
-        cfg, kernel_backend=kernel_backend)
+        cfg, act_bits=act_bits, kernel_backend=kernel_backend)
     return prefill_step, decode_step
 
 
@@ -116,15 +119,16 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve_requests(cfg, model, params, prompts, *, gen: int,
-                   kernel_backend=None, compiled=None, collect_logits=True,
-                   max_seq=None, device="cuda"):
+                   kernel_backend=None, act_bits=None, compiled=None,
+                   collect_logits=True, max_seq=None, device="cuda"):
     """Prefill + lock-step batched decode (uniform lengths, fixed ``gen``).
 
     ``prompts``: (B, prompt_len) token ids (numpy or tensor); ``params``
     must already live on ``device``.  Returns a
     ``repro_torch.launch.scheduler.ServeResult`` whose ``tokens`` is the
     (B, gen) token matrix and whose ``logits`` is the (B, gen, V) stack of
-    the prefill output plus each decode step's.  ``compiled``: a
+    the prefill output plus each decode step's.  ``act_bits`` fake-quantizes
+    activations per token (W4A8 / W4A4).  ``compiled``: a
     ``compile_serve_steps`` pair to reuse (built fresh otherwise).
     ``max_seq`` overrides the cache width (default: exactly prompt + gen);
     serving a request alone at the scheduler's width reduces over the same
@@ -143,7 +147,8 @@ def serve_requests(cfg, model, params, prompts, *, gen: int,
         raise ValueError(f"max_seq {max_seq} < prompt+gen "
                          f"{prompt_len + gen}")
     pstep, dstep = (compiled if compiled is not None else
-                    compile_serve_steps(cfg, kernel_backend=kernel_backend))
+                    compile_serve_steps(cfg, kernel_backend=kernel_backend,
+                                        act_bits=act_bits))
 
     cache = model.init_cache(B, max_seq, device=dev)
     toks_in = torch.as_tensor(prompts, dtype=torch.long, device=dev)
@@ -254,15 +259,19 @@ def main(argv=None):
                              init=args.init, tcfg=tcfg,
                              calib_samples=args.calib_samples)
 
+    # activations are quantized only for a quantized model, as the
+    # reference's CLI does
+    act = qcfg.act_bits if args.method != "none" else None
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "CPU, plain versions")
     if args.slots is not None:
-        return _serve_scheduled_cli(args, cfg, served, qcfg, dev, where)
+        return _serve_scheduled_cli(args, cfg, served, qcfg, act, dev, where)
 
     corpus = SyntheticCorpus(data_cfg)
     prompts = corpus.batch(0)["tokens"][:, :args.prompt_len]
     stats = serve_requests(cfg, model, served, prompts, gen=args.gen,
-                           kernel_backend=qcfg.kernel_backend, device=dev)
+                           kernel_backend=qcfg.kernel_backend, act_bits=act,
+                           device=dev)
     B, gen = args.requests, args.gen
     dt = stats.prefill_secs + stats.decode_secs
     print(f"[serve] {B} requests x {gen} tokens in {dt:.2f}s "
@@ -277,7 +286,7 @@ def main(argv=None):
     return 0
 
 
-def _serve_scheduled_cli(args, cfg, served, qcfg, dev, where) -> int:
+def _serve_scheduled_cli(args, cfg, served, qcfg, act, dev, where) -> int:
     """``--slots``: a seeded heterogeneous workload through the scheduler."""
     from repro_torch.launch.scheduler import make_workload, serve_scheduled
     if args.prompt_len < 1 or args.gen < 1:
@@ -290,7 +299,8 @@ def _serve_scheduled_cli(args, cfg, served, qcfg, dev, where) -> int:
                          budgets=(min(2, args.gen), args.gen))
     sched = serve_scheduled(cfg, served, reqs, slots=args.slots,
                             kernel_backend=qcfg.kernel_backend,
-                            store=args.store, page_size=args.page_size,
+                            act_bits=act, store=args.store,
+                            page_size=args.page_size,
                             num_pages=args.num_pages,
                             prefill_chunk=args.prefill_chunk,
                             share_prefix=args.share_prefix, device=dev)

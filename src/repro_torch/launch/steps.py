@@ -10,19 +10,21 @@ from repro_torch.models.common import (CACHE_SLOT_AXIS, _get_leaf, make_ctx,
                                        page_rows)
 
 
-def make_serve_steps(cfg: ModelConfig, *, attn_chunk: int = 512,
-                     kernel_backend=None, page_size: int = 0):
+def make_serve_steps(cfg: ModelConfig, *, act_bits=None,
+                     attn_chunk: int = 512, kernel_backend=None,
+                     page_size: int = 0):
     """Returns (model, prefill_step, decode_step).
 
     ``kernel_backend`` ("xla" | "pallas" | None = env/default) selects the
-    QTensor matmul and decode-attention path for both steps; ``attn_chunk``
-    is the prefill attention's KV chunk.  ``page_size > 0`` builds
-    paged-cache steps: prefill accepts ``start_pos``/``ptab`` (chunked
-    prefill over a page table) and decode accepts ``ptab``.  Meshes and
-    tensor parallelism are not ported yet (ROADMAP queue 1)."""
+    QTensor matmul and decode-attention path for both steps; ``act_bits``
+    fake-quantizes activations per token in both (W4A8 / W4A4);
+    ``attn_chunk`` is the prefill attention's KV chunk.  ``page_size > 0``
+    builds paged-cache steps: prefill accepts ``start_pos``/``ptab``
+    (chunked prefill over a page table) and decode accepts ``ptab``.
+    Meshes and tensor parallelism are not ported yet (ROADMAP queue 1)."""
     model = get_model(cfg)
     ctx = make_ctx(attn_chunk=attn_chunk, kernel_backend=kernel_backend,
-                   page_size=page_size)
+                   act_bits=act_bits, page_size=page_size)
 
     def prefill_step(params, batch, cache, start_pos=0, ptab=None):
         return model.prefill(params, batch, cache, ctx, start_pos=start_pos,
@@ -63,8 +65,9 @@ def make_paged_install_step(model, *, page_size: int):
     return install
 
 
-def make_sched_steps(cfg: ModelConfig, *, max_seq: int, attn_chunk: int = 512,
-                     kernel_backend=None, page_size: int = 0):
+def make_sched_steps(cfg: ModelConfig, *, max_seq: int, act_bits=None,
+                     attn_chunk: int = 512, kernel_backend=None,
+                     page_size: int = 0):
     """Step pair for the slot scheduler (``repro_torch.launch.scheduler``).
 
     Returns ``(model, prefill_step, sched_decode_step)``.  The decode step
@@ -83,8 +86,8 @@ def make_sched_steps(cfg: ModelConfig, *, max_seq: int, attn_chunk: int = 512,
     pos, same kv_len), which is what makes scheduled decode bit-compatible
     with serving a request alone."""
     model, prefill_step, decode_step = make_serve_steps(
-        cfg, attn_chunk=attn_chunk, kernel_backend=kernel_backend,
-        page_size=page_size)
+        cfg, act_bits=act_bits, attn_chunk=attn_chunk,
+        kernel_backend=kernel_backend, page_size=page_size)
 
     def sched_decode_step(params, cache, tok, pos, active, ptab=None):
         write_pos = torch.where(active, pos, max_seq)

@@ -30,11 +30,14 @@ class Ctx:
     falls back to ``resolve_backend``'s default.  ``attn_chunk`` is the KV
     chunk of the prefill online softmax.  ``page_size > 0`` marks the cache
     as page pools read through a page table (the paged store).
-    ``ep_axis`` / ``ep_inner`` name the reference's expert-parallel mesh
-    axes; expert parallelism is not ported, so ``models.moe.moe_ffn``
-    raises when either is set (ROADMAP queue 7).
+    ``act_bits`` turns on per-token activation fake-quant
+    (``layers.fake_quant_act``) at the inputs of the quantized projections
+    (W4A4, W4A8).  ``ep_axis`` / ``ep_inner`` name the reference's
+    expert-parallel mesh axes; expert parallelism is not ported, so
+    ``models.moe.moe_ffn`` raises when either is set (ROADMAP queue 7).
     """
     kernel_backend: Optional[str] = None
+    act_bits: Optional[int] = None
     attn_chunk: int = 512
     page_size: int = 0
     ep_axis: Optional[str] = None
@@ -48,9 +51,8 @@ _CTX_FIELDS = {f.name for f in dataclasses.fields(Ctx)}
 
 def make_ctx(**fields) -> Ctx:
     """THE :class:`Ctx` constructor for every serving call site: validates
-    the fields and rejects unknown names (the reference's per-token
-    activation quantization and int8 KV cache are not ported yet, so they
-    are unknown here)."""
+    the fields and rejects unknown names (the reference's int8 KV cache is
+    not ported yet, so ``kv_bits`` is unknown here)."""
     unknown = set(fields) - _CTX_FIELDS
     if unknown:
         raise TypeError(f"make_ctx: unknown Ctx field(s) {sorted(unknown)}; "

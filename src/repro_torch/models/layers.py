@@ -1,5 +1,6 @@
 """Shared building blocks: matmul dispatch over plain / quantized (QTensor)
-weights, RMSNorm, RoPE and chunked (flash-style) attention.
+weights, per-token activation fake-quant, RMSNorm, RoPE and chunked
+(flash-style) attention.
 
 Functions over tensors and param dicts; weights use ``(in_features,
 out_features)`` (experts: ``(E, in, out)``).  QTensor matmuls dispatch per call on ``backend``:
@@ -52,6 +53,33 @@ def expert_matmul(a: torch.Tensor, w, backend: Optional[str] = None
             a = a / w.act_scale.to(a.dtype)
         w = w.dequantize(a.dtype)
     return torch.einsum("ecd,edf->ecf", a, w)
+
+
+def fake_quant_act(x: torch.Tensor, bits: int,
+                   symmetric: bool = True) -> torch.Tensor:
+    """Per-token dynamic activation quantization (simulated): quantize over
+    the last dim per token in f32, dequantize, cast back to x.dtype.
+
+    Its gradient reaches x only through the scale (round's gradient is 0);
+    ``torch.amax``/``amin`` split it evenly among tied extremes, as the
+    reference's ``jnp.max``/``jnp.min`` do, so the calibration's backward
+    through this function matches the reference's too.  The floor of the
+    range is a scalar clamp (no tensor made per call, so no host-to-device
+    copy in a decode step); it differs from the reference's
+    ``jnp.maximum`` only at a range of exactly 1e-8."""
+    qmax = (1 << bits) - 1
+    xf = x.float()
+    if symmetric:
+        amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+        scale = torch.clamp(amax, min=1e-8) / ((qmax - 1) / 2)
+        q = torch.clamp(torch.round(xf / scale), -(qmax + 1) // 2, qmax // 2)
+        return (q * scale).to(x.dtype)
+    lo = torch.amin(xf, dim=-1, keepdim=True)
+    hi = torch.amax(xf, dim=-1, keepdim=True)
+    scale = torch.clamp(hi - lo, min=1e-8) / qmax
+    zero = torch.round(-lo / scale)
+    q = torch.clamp(torch.round(xf / scale) + zero, 0, qmax)
+    return ((q - zero) * scale).to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -75,9 +75,12 @@ def _dispatch(idx: torch.Tensor, num_experts: int, capacity: int):
 
 
 def _expert_compute(x2d, idx, gate, w_gate, w_up, w_down, *,
-                    num_experts: int, capacity: int, backend=None):
+                    num_experts: int, capacity: int, act_bits=None,
+                    backend=None):
     """Capacity-gather the routed tokens, run the batched FFN, and
-    scatter-combine.
+    scatter-combine.  ``act_bits`` fake-quantizes the capacity buffer (its
+    zero padding rows included, as in the reference) and the gated
+    activation before ``w_down``.
 
     x2d: (T, d); idx/gate: (T, k); w_*: (E, d, f) / (E, f, d)."""
     T, d = x2d.shape
@@ -90,9 +93,13 @@ def _expert_compute(x2d, idx, gate, w_gate, w_up, w_down, *,
     # kept pairs own distinct rows; dropped ones all land on the last row
     buf[slot] = x2d[tok_idx]
     h = buf[:-1].reshape(E, capacity, d)
+    if act_bits:
+        h = L.fake_quant_act(h, act_bits)
 
     g = (torch.nn.functional.silu(L.expert_matmul(h, w_gate, backend))
          * L.expert_matmul(h, w_up, backend))
+    if act_bits:
+        g = L.fake_quant_act(g, act_bits)
     out = L.expert_matmul(g, w_down, backend)                    # (E, C, d)
 
     out_flat = torch.cat([out.reshape(E * capacity, d),
@@ -117,5 +124,5 @@ def moe_ffn(mp: dict, x: torch.Tensor, cfg: ModelConfig,
     cap = _capacity(B * S, e, k, cfg.moe.capacity_factor)
     y = _expert_compute(x2d, idx, gate, mp["w_gate"], mp["w_up"],
                         mp["w_down"], num_experts=e, capacity=cap,
-                        backend=ctx.kernel_backend)
+                        act_bits=ctx.act_bits, backend=ctx.kernel_backend)
     return y.reshape(B, S, d)

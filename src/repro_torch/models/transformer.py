@@ -101,6 +101,8 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     Bb, S, d = x.shape
     hd = cfg.resolved_head_dim
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    if ctx.act_bits:
+        h = L.fake_quant_act(h, ctx.act_bits)
     kb = ctx.kernel_backend
     q = L.matmul(h, bp["wq"], kb).reshape(Bb, S, cfg.num_heads, hd)
     k = L.matmul(h, bp["wk"], kb).reshape(Bb, S, cfg.num_kv_heads, hd)
@@ -132,17 +134,23 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
                           chunk=ctx.attn_chunk, backend=kb, active=active,
                           pages=pages)
     o = o.reshape(Bb, S, cfg.num_heads * hd)
+    if ctx.act_bits:
+        o = L.fake_quant_act(o, ctx.act_bits)
     return L.matmul(o, bp["wo"], kb), new_kv
 
 
 def ffn(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    if ctx.act_bits:
+        h = L.fake_quant_act(h, ctx.act_bits)
     if cfg.family == "moe":
         return moe_ffn(bp["moe"], h, cfg, ctx)
     kb = ctx.kernel_backend
     g = L.matmul(h, bp["w_gate"], kb)
     u = L.matmul(h, bp["w_up"], kb)
     a = torch.nn.functional.silu(g) * u
+    if ctx.act_bits:
+        a = L.fake_quant_act(a, ctx.act_bits)
     return L.matmul(a, bp["w_down"], kb)
 
 
