@@ -21,13 +21,22 @@ Phases, each printing its own lines:
    and a ragged shape, timed beside ``torch._int_mm``; the quant-matmul,
    GEMV and soft_round kernels also at phase 12's W4 per-channel shapes
    (one group of K rows: soft_round's backward sums up to 11008 rows);
+   the quant-matmul kernel also on every path of its body (``QM_PATHS``:
+   admission prefills of 33 and 384 rows, ragged 100x200x300 at 3 bits
+   with one 200-row group, 8 bits, an x base off 16-byte alignment,
+   groups of 8 rows, groups of 16, 32 and 48 rows by TMA and by plain
+   loads), each record naming the tile, ring, group path and TMA use the
+   kernel's host code chose (``kernel_config``, which the expert records
+   also hold equal to one single-matrix launch's);
 3. serve: LLaMA-2-7B at full width and depth (random weights from a seed),
    RTN-quantized to W2A16g128 and packed, served by ``serve_requests`` on
    the ``"pallas"`` backend (4 requests x 128 prompt tokens, 16 generated);
    the launch counts of that run prove every prefill projection, decode
    projection and decode attention went through the kernels, and a
    teacher-forced run of the ``"xla"`` backend holds its logits to
-   rounding-level differences;
+   rounding-level differences; one more prefill under ``torch.profiler``
+   prints where its time goes (device busy time, kernel launches, the top
+   kernels and host operators);
 4. parity: the reduced llama2/tinyllama configs served on the card and,
    from the same params, on the CPU (plain versions);
 5. calibrate: LLaMA-2-7B at full width, depth cut to 2 layers (random
@@ -199,15 +208,21 @@ def show(name, rec, card):
 
 
 def check_quant(name, fn, plain, gen, M, K, N, bits, group_size, flush, card,
-                main=False, moe=False, wa=False):
+                main=False, moe=False, wa=False, x_offset=0):
     """Kernel vs plain version at one shape, then both timed with the
     library matmul on the pre-dequantized weight; ``main``, ``moe`` and
     ``wa`` mark the shapes the LLaMA (W2 g128), the MoE and the
     weight-activation (W4 per-channel) paths run (summed in the kernels
-    line)."""
+    line).  ``x_offset`` > 0 takes x as rows ``x_offset:`` of a wider
+    buffer (a base the kernel cannot load by TMA when 2 * K * x_offset is
+    not a multiple of 16).  The quant-matmul records name the configuration
+    the kernel's host code chose (``kernel_config``)."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.quant_matmul import dequantize_rows
-    x, packed, scale, zero = quant_operands(gen, M, K, N, bits, group_size)
+    from repro_torch.kernels.quant_matmul import (dequantize_rows,
+                                                  kernel_config)
+    x, packed, scale, zero = quant_operands(gen, M + x_offset, K, N, bits,
+                                            group_size)
+    x = x[x_offset:]
     kw = dict(bits=bits, group_size=group_size)
     n0 = build.LAUNCHES[name]
     got = fn(x, packed, scale, zero, **kw)
@@ -221,6 +236,8 @@ def check_quant(name, fn, plain, gen, M, K, N, bits, group_size, flush, card,
              f"bits={bits} g={group_size}: max |diff| {err}")
     rec = {"M": M, "K": K, "N": N, "bits": bits, "g": group_size,
            "max_abs_err": err, "main": main, "moe": moe, "wa": wa}
+    if name == "quant_matmul":
+        rec["config"] = kernel_config(x, packed, scale, zero, **kw)
     rec["kernel_ms"] = cuda_ms(lambda: fn(x, packed, scale, zero, **kw),
                                flush=flush)
     rec["plain_ms"] = cuda_ms(lambda: plain(x, packed, scale, zero, **kw),
@@ -497,8 +514,8 @@ def check_experts(gen, E, M, K, N, bits, group_size, flush, card,
     from repro_torch.core.qtensor import pack
     from repro_torch.kernels import build
     from repro_torch.kernels.quant_matmul import (
-        dequantize_rows, quant_matmul_experts, quant_matmul_experts_plain,
-        quant_matmul_experts_unrolled)
+        dequantize_rows, kernel_config, quant_matmul_experts,
+        quant_matmul_experts_plain, quant_matmul_experts_unrolled)
     dev = "cuda"
     codes = torch.randint(0, 1 << bits, (E, K, N), generator=gen, device=dev,
                           dtype=torch.int32)
@@ -525,9 +542,18 @@ def check_experts(gen, E, M, K, N, bits, group_size, flush, card,
     if not torch.equal(got, unrolled()):
         fail(f"quant_matmul_experts is not bit-identical to {E} quant_matmul "
              f"launches at M={M} K={K} N={N} bits={bits}")
+    # the choices that set the order of accumulation are those of one
+    # single-matrix launch (TMA or plain loads change no arithmetic)
+    config = kernel_config(x, packed, scale, zero, **kw)
+    single = kernel_config(x[0], packed[0], scale[0], zero[0], **kw)
+    order = ("tile", "stages", "groups", "lut")
+    if ([config[k] for k in order] != [single[k] for k in order]
+            or config["grid"][:2] != single["grid"][:2]):
+        fail(f"quant_matmul_experts configuration {config} differs from one "
+             f"quant_matmul launch's {single} at M={M} K={K} N={N}")
     rec = {"E": E, "M": M, "K": K, "N": N, "bits": bits, "g": group_size,
            "max_abs_err": err, "bit_identical_to_unrolled": True,
-           "main": main}
+           "main": main, "config": config}
     rec["kernel_ms"] = cuda_ms(
         lambda: quant_matmul_experts(x, packed, scale, zero, **kw),
         flush=flush)
@@ -661,6 +687,22 @@ def summarize_int8(records):
     return out
 
 
+# quant_matmul on every path of its body: the scheduler's admission
+# prefills (33 and 384 rows), ragged M/N/K with one 200-row group at 3 bits
+# (plain-loaded weights), 8 bits, an x base off 16-byte alignment (a row
+# slice of a wider buffer: plain-loaded x), groups shorter than a 16-deep k
+# chunk (per-element scale and zero), and groups of 16, 32 and 48 rows
+# (several group rows per 64-deep stage, the group constants reloaded per
+# 16-deep chunk): by TMA with a 4-row box that runs past the last group
+# (g = 32 and K = 48, g = 16), by plain loads (N = 300, g = 48), and g = 16
+# at LLaMA-2-7B's width.  M, K, N, bits, group_size, x offset
+QM_PATHS = ((33, 4096, 4096, 2, 128, 0), (384, 4096, 4096, 2, 128, 0),
+            (100, 200, 300, 3, 200, 0), (512, 4096, 4096, 8, 128, 0),
+            (64, 100, 256, 4, 100, 1), (100, 256, 256, 2, 8, 0),
+            (100, 256, 256, 2, 32, 0), (64, 192, 300, 3, 48, 0),
+            (40, 48, 256, 4, 16, 0), (512, 4096, 4096, 2, 16, 0))
+
+
 def kernel_phase(card):
     from repro_torch.kernels.quant_gemv import quant_gemv, quant_gemv_plain
     from repro_torch.kernels.quant_matmul import (quant_matmul,
@@ -686,6 +728,11 @@ def kernel_phase(card):
         for K, N, _ in MOE_ATTN_SHAPES:
             out[name].append(check_quant(name, fn, plain, gen, M, K, N, 2,
                                          128, flush, card, moe=True))
+    # every path of the quant-matmul kernel (QM_PATHS)
+    for M, K, N, bits, g, off in QM_PATHS:
+        out["quant_matmul"].append(check_quant(
+            "quant_matmul", quant_matmul, quant_matmul_plain, gen, M, K, N,
+            bits, g, flush, card, x_offset=off))
     # the MoE schedule's decode: 8 slots
     for K, N, _ in MOE_ATTN_SHAPES:
         out["quant_gemv"].append(check_quant(
@@ -888,9 +935,53 @@ def serve_phase(card, quant="W2A16g128", limit=REL_L2, tag="serve"):
           f"{mem['fp16_bytes']} B), kv cache {res.cache_stats['cache_bytes']} "
           f"B, peak during serve {peak} B; card=[{card}]", flush=True)
 
+    if tag == "serve":
+        prefill_profile(tag, cfg, model, packed, prompts, card)
     teacher_forced_check(tag, cfg, model, packed, prompts, res,
                          act_bits=act, limit=limit)
     return counts, packed, cfg, model, prompts
+
+
+def prefill_profile(tag, cfg, model, packed, prompts, card):
+    """Where one prefill of the served batch spends its time: one forward
+    under ``torch.profiler`` (after a warm one), printed as the wall time
+    (profiler on), the device's busy time, the kernel launches, and the
+    kernels and host operators that take the most time.  A reading only:
+    it checks nothing, and its launches fall outside every count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import compile_serve_steps
+
+    B, S = prompts.shape
+    pstep, _ = compile_serve_steps(cfg, kernel_backend="pallas")
+    toks = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        pstep(packed, {"tokens": toks},
+              model.init_cache(B, S + 2, device="cuda"))
+        cache = model.init_cache(B, S + 2, device="cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pstep(packed, {"tokens": toks}, cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev = sorted((e for e in events if e.device_type.name == "CUDA"),
+                 key=lambda e: -e.self_device_time_total)
+    host = sorted((e for e in events if e.device_type.name == "CPU"),
+                  key=lambda e: -e.self_cpu_time_total)
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    print(f"[{tag}] prefill profile ({B} x {S} tokens, one forward, "
+          f"profiler on): wall {wall * 1e3:.3f} ms, device busy "
+          f"{sum(e.self_device_time_total for e in dev) / 1e3:.3f} ms, "
+          f"{launches} kernel launches; card=[{card}]", flush=True)
+    for kind, top, attr in (("device", dev, "self_device_time_total"),
+                            ("host", host, "self_cpu_time_total")):
+        print(f"[{tag}] prefill profile, {kind} time by "
+              f"{'kernel' if kind == 'device' else 'operator'}: " + "; ".join(
+                  f"{e.key[:60]} x{e.count} {getattr(e, attr) / 1e3:.3f} ms"
+                  for e in top[:8]), flush=True)
 
 
 def teacher_forced_check(tag, cfg, model, packed, prompts, res,

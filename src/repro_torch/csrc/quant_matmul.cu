@@ -9,200 +9,743 @@
 //   scale, zero (K/group_size, N) f32
 //   out    (M, N)      bf16
 // launch_quant_matmul_experts runs the same kernel body over E experts in
-// ONE launch: every operand gains a leading expert dim (x (E, M, K), packed
-// (E, K/ppb, N), scale/zero (E, K/group_size, N), out (E, M, N)), the
-// expert is blockIdx.z, and each block first offsets its five pointers by
-// its expert's stride (the kExperts instantiation; the single-matrix one
-// has no offset arithmetic: with it, that kernel measured ~4% slower on an
-// H100).  Past that offset a block runs exactly the arithmetic of a
-// single-matrix launch on that expert's operands, so the batched result is
+// ONE launch: every operand gains a leading expert dim and the expert is
+// blockIdx.z (the tensor maps' third coordinate; the kExperts instantiation
+// also offsets the pointers of the plain-load fallback and of the output).
+// Past that a block runs exactly the arithmetic of a single-matrix launch
+// on that expert's operands, and every choice that sets the order of
+// accumulation (the tile, the K-stage order, no split of K) is a function
+// of (M, N, K, bits, group_size) alone, so the batched result is
 // bit-identical to E separate quant_matmul launches (the reference's
-// fused-vs-unrolled contract).  Like the reference, every expert's tiles
-// are read even when its capacity rows are all zero.
+// fused-vs-unrolled contract).  Like the reference, every expert's tiles are
+// read even when its capacity rows are all zero.
 // The dequantized weight (code - zero) * scale is computed in f32 and rounded
-// to bf16 BEFORE the product (the reference's rounding contract); products
-// accumulate in f32 and the output is rounded to bf16 once.
+// to bf16 BEFORE the product (the reference's rounding contract: code - zero
+// is exact, then one f32 multiply, then one rounding); products accumulate
+// in f32 and the output is rounded to bf16 once.
 //
 // What bounds it on an H100: at the prefill shape (M = 512 rows) the product
-// is compute-bound (2*M*K*N operations against K*N/ppb weight bytes).  The
-// design feeds the tensor cores through WMMA (bf16 16x16x16 fragments, f32
-// accumulators): each 256-thread block owns a 128x128 output tile, walks K in
-// 32-deep steps, stages the x tile and the freshly dequantized weight tile in
-// shared memory, and keeps the accumulators in registers.  Each packed byte
-// is read once per block row; the dequantization is redone by every block
-// row (M / 128 of them), which is cheap next to the tensor-core work.  There
-// is no software pipelining yet (loads and MMAs alternate behind
-// __syncthreads), which is what a later PR speeds up (cp.async/TMA ring,
-// wgmma).
+// is bound by the tensor cores (2*M*K*N operations against K*N/ppb weight
+// bytes: 0.210 ms per LLaMA-2-7B layer at 989 TFLOP/s).  Next come the
+// dequantization (code -> bf16 weight, redone by each 128-row block of M)
+// and the register-operand wgmma, which holds its warp until it has read
+// the A registers, so a warpgroup's dequantization and its MMA do not
+// overlap; the two warpgroups of a block overlap each other's.  For the MoE
+// expert products at C = 8 rows the bound is the packed-weight bytes, but
+// one 128-row tile per expert and the dequantization of every expert's
+// weight set the time.
 //
-// For the MoE expert products (M = capacity rows, 8..40 on the main path)
-// one 128-row tile covers M, so every weight byte is read and dequantized
-// once: the batched product is bound by the packed-weight bytes at decode
-// and by dequantization work at prefill, not by the tensor cores.
+// Design (swap-AB: out^T = W^T x^T, so the weight is the MMA's A operand):
+// - The dequantized weight never touches shared memory.  Each warp owns 16
+//   output columns; each thread unpacks its own codes straight into the A
+//   fragment of wgmma's register (.rs) form, m64n128k16.  A thread's two
+//   fragment rows are adjacent columns, so one 16-bit load brings both
+//   columns' code byte; its byte offsets are computed once per kernel.
+//   Scale and zero come from group rows staged with each 64-deep K stage;
+//   their per-column constants are rebuilt only when the group changes (or
+//   per 16-deep chunk for groups shorter than a stage): no per-element
+//   division and no per-element global load.  At 2 bits each column's four
+//   weights are computed once per group, and per code byte one permute
+//   builds both columns' selectors and two more pick their weight pairs.
+// - x is the B operand, read by wgmma from shared memory: x is row-major
+//   (M, K), i.e. K-major for B; each stage holds 128 rows x 64 k (128
+//   bytes, one swizzle atom) in the 128-byte swizzle the descriptor
+//   declares.
+// - Loads are TMA, issued by a producer warp (3-D tensor maps, the expert
+//   as the third dimension; the hardware swizzles, zero-fills rows past the
+//   edges and signals an mbarrier) into a 4-stage ring with full and empty
+//   mbarriers, so the two consumer warpgroups never meet at a block-wide
+//   barrier.  Per-thread 16-byte cp.async copies were tried first: at
+//   ~1,200 copies per stage a block moved ~19 KB per microsecond whether
+//   the rows were real or zero-filled, twice the MMA time.
+// - A consumer warpgroup dequantizes stage kt, issues its four wgmma and
+//   waits for them (wait_group 0) before it writes the A registers again.
+//   Measured on an H100, this plain order beat a double-buffered A (ptxas
+//   serializes wgmma whose register inputs are written while another is in
+//   flight, C7513), an enforced ping-pong of the two warpgroups, A staged
+//   through shared memory for the SS form, and two stages per wait.
+// - Block: 288 threads = 2 consumer warpgroups (64 output columns each) and
+//   the producer warp; tile 128 n x 128 m; accumulators stay in registers.
+// - Epilogue: accumulators go through shared memory as an (m, n) bf16 tile
+//   and leave as coalesced 16-byte stores, masked at the ragged edges.
 //
-// Edges: ragged M and N edges and a K that is not a multiple of the K step
-// are masked here (zero-filled tiles, guarded stores), so the wrapper needs
-// no padding.  The group row of input row k is k / group_size, which covers
-// groups smaller or larger than the K step and per-channel (group_size == K).
+// Edges: ragged M, N and K are masked here (zero-filled stages, guarded
+// stores), so the wrapper needs no padding.  TMA needs 16-byte aligned rows:
+// x takes it when K % 8 == 0 and its base is aligned, the weight operands
+// when N % 16 == 0 and their bases are aligned; otherwise the producer warp
+// fills that part of the stage with plain loads in the same layout (same
+// arithmetic).  The staged group rows serve any group_size that is a
+// multiple of 16 or equals K (one group per 16-deep k chunk); any other
+// group size reads scale and zero per element (kGeneral).  One host
+// function, make_plan, makes these choices for the launch, and
+// quant_matmul_config reports them without launching.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int THREADS = 256;      // 8 warps: 4 along M x 2 along N
-constexpr int WM = 32;            // warp tile rows (2 fragments)
-constexpr int WN = 64;            // warp tile cols (4 fragments)
-constexpr int A_LD = BK + 8;      // padded smem row strides (bf16 elements)
-constexpr int B_LD = BN + 8;
+constexpr int BN = 128;          // output columns n per block (A rows)
+constexpr int BM = 128;          // x rows m per block (wgmma's N)
+constexpr int BK = 64;           // K per stage: one 128-byte x row
+constexpr int STAGES = 4;
+constexpr int THREADS = 256;     // consumers: 2 warpgroups, 16 n rows a warp
+constexpr int MAX_GROUPS = 4;    // group rows a stage spans (g % 16 == 0)
+constexpr int C_LD = BN + 8;     // epilogue tile row stride (bf16)
 
-template <bool kExperts>
-__global__ void __launch_bounds__(THREADS)
-quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
+template <int PPB>
+struct Layout {
+  static constexpr int X_BYTES = BM * BK * 2;      // 128 rows of 128 bytes
+  static constexpr int P_BYTES = (BK / PPB) * BN;  // rows of 128 bytes
+  static constexpr int SZ_FLOATS = MAX_GROUPS * BN;  // per scale / zero
+  static constexpr int STAGE = X_BYTES + P_BYTES + 2 * SZ_FLOATS * 4;
+  static constexpr int SMEM = STAGES * STAGE + 16 * STAGES + 1024;
+  static_assert(STAGE % 1024 == 0, "swizzled tiles need 1024-byte bases");
+  static_assert(BM * C_LD * 2 <= STAGES * STAGE, "epilogue tile");
+};
+
+struct TmaMaps {
+  CUtensorMap x, packed, scale, zero;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// offset of byte (row r, byte b) in a tile of 128-byte rows stored with the
+// 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8))
+__device__ __forceinline__ int swz(int r, int b) {
+  return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving or reusing registers that an in-flight
+// wgmma reads or writes
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[c][j])::"memory");
+}
+
+// shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart (SBO); LBO is unused for swizzled K-major layouts
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// D (64 n x 128 m, f32) += A (64 n x 16 k, bf16, registers) * B (16 k x
+// 128 m, bf16, shared memory via desc)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+struct Operands {
+  const __nv_bfloat16* x;
+  const uint8_t* packed;
+  const float* scale;
+  const float* zero;
+  int M, N, K, group_size;
+  int m0, n0, e;
+  bool x_tma, w_tma;
+  bool one_group;  // every stage lies in one group (g % BK == 0 or g == K)
+};
+
+// Fill ring slot `st` with K stage kt and arm its mbarrier (run by the
+// producer warp): the x tile (BM x BK), the packed rows (BK/PPB x BN), both
+// 128-byte swizzled, and, unless kGeneral, the group rows of scale and zero
+// from the stage's first group on (one row, or MAX_GROUPS when groups are
+// shorter than a stage).  TMA where the operand allows it (lane 0 issues);
+// otherwise the warp's lanes load that part plainly, and lane 0 arrives
+// only after they have.
+template <int PPB, bool kGeneral>
+__device__ __forceinline__ void load_stage(uint8_t* st, uint32_t bar, int kt,
+                                           const Operands& o,
+                                           const TmaMaps& maps, int lane) {
+  const int k0 = kt * BK;
+  uint8_t* ps = st + Layout<PPB>::X_BYTES;
+  float* ss = reinterpret_cast<float*>(ps + Layout<PPB>::P_BYTES);
+  float* zs = ss + Layout<PPB>::SZ_FLOATS;
+  const int rows = kGeneral ? 0 : (o.one_group ? 1 : MAX_GROUPS);
+  const int g0 = kGeneral ? 0 : k0 / o.group_size;
+  if (!o.x_tma) {
+    __nv_bfloat16* xp = reinterpret_cast<__nv_bfloat16*>(st);
+    for (int i = lane; i < BM * BK; i += 32) {
+      const int r = i / BK, kk = i % BK;
+      const int gm = o.m0 + r, gk = k0 + kk;
+      xp[swz(r, 2 * kk) / 2] = (gm < o.M && gk < o.K)
+                                   ? o.x[(size_t)gm * o.K + gk]
+                                   : __float2bfloat16(0.0f);
+    }
+  }
+  if (!o.w_tma) {
+    constexpr int PR = BK / PPB;
+    const int kp_rows = o.K / PPB, pr0 = k0 / PPB;
+    for (int i = lane; i < PR * BN; i += 32) {
+      const int r = i / BN, n = i % BN;
+      const int gr = pr0 + r, gn = o.n0 + n;
+      ps[swz(r, n)] =
+          (gr < kp_rows && gn < o.N) ? o.packed[(size_t)gr * o.N + gn] : 0;
+    }
+    const int ng = o.K / o.group_size;
+    for (int i = lane; i < 2 * rows * BN; i += 32) {
+      const int which = i / (rows * BN);
+      const int j = (i / BN) % rows, n = i % BN;
+      const int gg = g0 + j, gn = o.n0 + n;
+      const float* src = which ? o.zero : o.scale;
+      (which ? zs : ss)[j * BN + n] =
+          (gg < ng && gn < o.N) ? src[(size_t)gg * o.N + gn] : 0.0f;
+    }
+  }
+  if (!o.x_tma || !o.w_tma) {
+    fence_proxy_async();  // plain stores, before wgmma reads them
+    __syncwarp();
+  }
+  if (lane == 0) {
+    const uint32_t bytes =
+        (o.x_tma ? Layout<PPB>::X_BYTES : 0) +
+        (o.w_tma ? Layout<PPB>::P_BYTES + 2 * rows * BN * 4 : 0);
+    mbar_expect_tx(bar, bytes);  // the one arrival; completes with the bytes
+    if (o.x_tma) tma_load_3d(smem_u32(st), &maps.x, k0, o.m0, o.e, bar);
+    if (o.w_tma) {
+      tma_load_3d(smem_u32(ps), &maps.packed, o.n0, k0 / PPB, o.e, bar);
+      if (rows) {
+        tma_load_3d(smem_u32(ss), &maps.scale, o.n0, g0, o.e, bar);
+        tma_load_3d(smem_u32(zs), &maps.zero, o.n0, g0, o.e, bar);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float code_f(uint32_t bits) {
+  return __uint_as_float(bits | 0x4B000000u);  // 2^23 + bits, exactly
+}
+
+__device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
+  uint16_t v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// w = (code - z) * s for the two codes of a pair; cf holds 2^23 + code.
+// With an integral z, 2^23 + z is exact and one subtraction gives code - z
+// exactly, as the plain two-step form does.
+__device__ __forceinline__ uint32_t dequant_pair(float cf0, float cf1,
+                                                 float s, float z, float zp,
+                                                 bool zint) {
+  float d0, d1;
+  if (zint) {
+    d0 = __fsub_rn(cf0, zp);
+    d1 = __fsub_rn(cf1, zp);
+  } else {
+    d0 = __fsub_rn(__fsub_rn(cf0, 8388608.0f), z);
+    d1 = __fsub_rn(__fsub_rn(cf1, 8388608.0f), z);
+  }
+  return pack_bf16x2(__fmul_rn(d0, s), __fmul_rn(d1, s));
+}
+
+// Scale and zero of the thread's two columns for one group, with what the
+// integral-zero shortcut needs; at 2 bits also each column's four weights
+// as bf16 (lut[i][0] = w(0) | w(1) << 16, lut[i][1] = w(2) | w(3) << 16),
+// computed by dequant_pair like every other weight.
+template <int PPB>
+struct GroupConst {
+  float2 s, z;
+  float zp0, zp1;  // 2^23 + z
+  bool zint;       // both zeros integral and |z| < 2^22
+  uint32_t lut[2][2];
+};
+
+// `sz` is the stage's scale rows (shared address); zero rows follow them
+template <int PPB>
+__device__ __forceinline__ GroupConst<PPB> group_const(uint32_t sz, int row,
+                                                       int nl) {
+  GroupConst<PPB> g;
+  g.s = lds_f2(sz + 4 * (row * BN + nl));
+  g.z = lds_f2(sz + 4 * (MAX_GROUPS * BN + row * BN + nl));
+  g.zint = g.z.x == rintf(g.z.x) && g.z.y == rintf(g.z.y) &&
+           fabsf(g.z.x) < 4194304.0f && fabsf(g.z.y) < 4194304.0f;
+  g.zp0 = __fadd_rn(g.z.x, 8388608.0f);
+  g.zp1 = __fadd_rn(g.z.y, 8388608.0f);
+  if constexpr (PPB == 4) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        g.lut[i][h] = dequant_pair(code_f(2 * h), code_f(2 * h + 1),
+                                   i ? g.s.y : g.s.x, i ? g.z.y : g.z.x,
+                                   i ? g.zp1 : g.zp0, g.zint);
+  }
+  return g;
+}
+
+// Offsets in a ring slot of the code bytes a thread reads each stage: chunk
+// c, half h, and (8 bits only) the second k of the pair
+template <int PPB>
+struct CodeOffsets {
+  uint32_t v[4][2][PPB == 1 ? 2 : 1];
+};
+
+template <int PPB>
+__device__ __forceinline__ CodeOffsets<PPB> code_offsets(int nl, int t) {
+  CodeOffsets<PPB> off;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < (PPB == 1 ? 2 : 1); ++e)
+        off.v[c][h][e] =
+            Layout<PPB>::X_BYTES + swz((16 * c + 8 * h + 2 * t + e) / PPB, nl);
+  return off;
+}
+
+// The warp's A fragments of one stage (4 chunks of 16 k), laid out as
+// wgmma .rs (and mma.m16n8k16) take A: the thread holds fragment rows g and
+// g + 8 (g = lane / 4) at k = 2t, 2t+1, 2t+8, 2t+9 of each chunk (t =
+// lane % 4).  Rows g and g + 8 stand for the adjacent output columns nl and
+// nl + 1 (nl = 16 * warp + 2g), so one 16-bit load brings both columns'
+// code bytes and one 8-byte load their scale (or zero).
+template <int PPB, bool kGeneral>
+__device__ __forceinline__ void dequant(uint32_t (&a)[4][4], uint32_t st,
+                                        int kt, const Operands& o,
+                                        GroupConst<PPB>& g, bool refresh,
+                                        const CodeOffsets<PPB>& off, int nl,
+                                        int t) {
+  constexpr int FB = 8 / PPB;
+  constexpr uint32_t MASK = (1u << FB) - 1;
+  const uint32_t sz = st + Layout<PPB>::X_BYTES + Layout<PPB>::P_BYTES;
+  const int k0 = kt * BK;
+  if (!kGeneral && refresh) g = group_const<PPB>(sz, 0, nl);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (!kGeneral && !o.one_group && c > 0) {
+      // one group per 16-deep chunk; a chunk past K reads a staged row
+      // (its x is zero)
+      const int j = min(k0 + 16 * c, o.K - 1) / o.group_size -
+                    k0 / o.group_size;
+      g = group_const<PPB>(sz, j, nl);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kl = 16 * c + 8 * h + 2 * t;  // even: a pair shares a byte
+      // bytes of columns nl (low) and nl + 1 (high) for k = kl and kl + 1
+      const uint32_t w0 = lds_u16(st + off.v[c][h][0]);
+      const uint32_t w1 = PPB == 1 ? lds_u16(st + off.v[c][h][PPB == 1])
+                                   : w0;
+      const int sh0 = (kl % PPB) * FB, sh1 = ((kl + 1) % PPB) * FB;
+      if (PPB == 4 && !kGeneral) {
+        // 2 bits: codes c0 | c1 << 2 of each column pick two of its four
+        // weights.  Spread to nibbles (c0, c1, c0', c1'), the first permute
+        // turns them into the byte selectors (2c0, 2c0 + 1, 2c1, 2c1 + 1)
+        // of both columns, one per half word.
+        const uint32_t x = w0 >> sh0;
+        const uint32_t n = ((x << 2) & 0x3030u) | (x & 0x0303u);
+        const uint32_t sel = prmt(0x76543210u, 0, n);
+        a[c][2 * h] = prmt(g.lut[0][0], g.lut[0][1], sel);
+        a[c][1 + 2 * h] = prmt(g.lut[1][0], g.lut[1][1], sel >> 16);
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // column nl + i = fragment row g + 8i
+        const uint32_t c0 = (w0 >> (8 * i + sh0)) & MASK;
+        const uint32_t c1 = (w1 >> (8 * i + sh1)) & MASK;
+        if (kGeneral) {
+          float w[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int gk = k0 + kl + e, gn = o.n0 + nl + i;
+            w[e] = 0.0f;
+            if (gk < o.K && gn < o.N) {
+              const size_t gi = (size_t)(gk / o.group_size) * o.N + gn;
+              w[e] = __fmul_rn(
+                  __fsub_rn(__fsub_rn(code_f(e ? c1 : c0), 8388608.0f),
+                            o.zero[gi]),
+                  o.scale[gi]);
+            }
+          }
+          a[c][i + 2 * h] = pack_bf16x2(w[0], w[1]);
+        } else {
+          a[c][i + 2 * h] = dequant_pair(code_f(c0), code_f(c1),
+                                         i ? g.s.y : g.s.x, i ? g.z.y : g.z.x,
+                                         i ? g.zp1 : g.zp0, g.zint);
+        }
+      }
+    }
+  }
+}
+
+// Warps 0-7 are two consumer warpgroups (64 output columns each), warp 8
+// the producer.  Stage kt lives in ring slot kt % STAGES behind two
+// mbarriers: full (the producer's one arrival plus the TMA bytes) and empty
+// (one arrival per consumer warp once its wgmma has read the slot).  The
+// two consumer warpgroups run free of each other; the producer keeps up to
+// STAGES stages in flight.
+template <int PPB, bool kExperts, bool kGeneral>
+__global__ void __launch_bounds__(THREADS + 32, 1)
+quant_matmul_kernel(const __grid_constant__ TmaMaps maps,
+                    const __nv_bfloat16* __restrict__ x,
                     const uint8_t* __restrict__ packed,
                     const float* __restrict__ scale,
                     const float* __restrict__ zero,
                     __nv_bfloat16* __restrict__ out,
-                    int M, int N, int K, int ppb, int group_size, int vec_x) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM * A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK * B_LD];
-  __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
-
-  const int fbits = 8 / ppb;
-  const int fmask = (1 << fbits) - 1;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int wm = (warp % 4) * WM;
-  const int wn = (warp / 4) * WN;
-  const int kp_rows = K / ppb;
+                    int M, int N, int K, int group_size, int x_tma,
+                    int w_tma) {
+  extern __shared__ uint8_t dsmem[];
+  uint8_t* ring = dsmem + ((1024 - (smem_u32(dsmem) & 1023)) & 1023);
+  const uint32_t full = smem_u32(ring + STAGES * Layout<PPB>::STAGE);
+  const uint32_t empty = full + 8 * STAGES;
 
   if constexpr (kExperts) {
     // blockIdx.z names the expert
     const size_t ex = blockIdx.z;
     x += ex * (size_t)M * K;
-    packed += ex * (size_t)kp_rows * N;
+    packed += ex * (size_t)(K / PPB) * N;
     scale += ex * (size_t)(K / group_size) * N;
     zero += ex * (size_t)(K / group_size) * N;
     out += ex * (size_t)M * N;
   }
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  Operands o{x, packed, scale, zero, M, N, K, group_size,
+             (int)blockIdx.y * BM, (int)blockIdx.x * BN, (int)blockIdx.z,
+             x_tma != 0, w_tma != 0,
+             group_size % BK == 0 || group_size == K};
+  const int KT = (K + BK - 1) / BK;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // x tile (BM x BK) in 8-element chunks
-    for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-      const int r = c / (BK / 8);
-      const int kc = (c % (BK / 8)) * 8;
-      const int gm = m0 + r;
-      const int gk = k0 + kc;
-      __nv_bfloat16* dst = &As[r * A_LD + kc];
-      if (vec_x && gm < M && gk + 8 <= K) {
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(&x[(size_t)gm * K + gk]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = (gm < M && gk + e < K) ? x[(size_t)gm * K + gk + e]
-                                          : __float2bfloat16(0.0f);
-      }
+  if (warp == THREADS / 32) {  // producer
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % STAGES;
+      if (kt >= STAGES) mbar_wait(empty + 8 * s, (kt / STAGES - 1) & 1);
+      load_stage<PPB, kGeneral>(ring + s * Layout<PPB>::STAGE, full + 8 * s,
+                                kt, o, maps, lane);
     }
-    // dequantized weight tile (BK x BN): one packed byte per step
-    const int prow0 = k0 / ppb;
-    const int prows = BK / ppb;
-    for (int idx = tid; idx < prows * BN; idx += THREADS) {
-      const int pr = idx / BN;
-      const int n = idx % BN;
-      const int gpr = prow0 + pr;
-      const int gn = n0 + n;
-      const uint32_t byte =
-          (gpr < kp_rows && gn < N) ? packed[(size_t)gpr * N + gn] : 0u;
-      for (int f = 0; f < ppb; ++f) {
-        const int kk = pr * ppb + f;
-        const int gk = k0 + kk;
-        float w = 0.0f;
-        if (gk < K && gn < N) {
-          const size_t gi = (size_t)(gk / group_size) * N + gn;
-          const float code = (float)((byte >> (f * fbits)) & fmask);
-          w = (code - zero[gi]) * scale[gi];
-        }
-        Bs[kk * B_LD + n] = __float2bfloat16(w);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[(wm + i * 16) * A_LD + kk], A_LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[kk * B_LD + wn + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
 
-  // epilogue: each warp stages one 16x16 fragment at a time and stores the
-  // in-bounds part as bf16
-  float* cs = Cs[warp];
+  const int nl = warp * 16 + 2 * (lane >> 2);  // this thread's columns nl, +1
+  const int t = lane & 3;
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  uint32_t a[4][4];
+  const CodeOffsets<PPB> off = code_offsets<PPB>(nl, t);
+  const uint32_t ring_s = smem_u32(ring);
+  // stages per group: the group constants are rebuilt only when it changes
+  const int per_group = !o.one_group ? 1
+                        : group_size == K ? KT
+                                          : group_size / BK;
+  GroupConst<PPB> g{};
+  int left = 0;  // stages before the group changes
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % STAGES;
+    const uint32_t st = ring_s + s * Layout<PPB>::STAGE;
+    mbar_wait(full + 8 * s, (kt / STAGES) & 1);
+    const bool refresh = left == 0;
+    left = (refresh ? per_group : left) - 1;
+    dequant<PPB, kGeneral>(a, st, kt, o, g, refresh, off, nl, t);
+    fence_regs(acc);
+    fence_regs(a);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = m0 + wm + i * 16 + e / 16;
-        const int gn = n0 + wn + j * 16 + e % 16;
-        if (gm < M && gn < N)
-          out[(size_t)gm * N + gn] = __float2bfloat16(cs[e]);
-      }
-      __syncwarp();
+    for (int c = 0; c < 4; ++c)
+      wgmma_m64n128k16(acc, a[c], smem_desc(st + 32 * c));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(a);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  // epilogue: accumulators (columns nl, nl + 1; rows m = 8j + 2t, + 1) into
+  // an (m, n) bf16 tile over the ring, then coalesced row stores; a named
+  // barrier holds the 256 consumer threads (the producer has left)
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+  __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(ring);
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j) {
+    const int m = 8 * j + 2 * t;
+    *reinterpret_cast<uint32_t*>(cs + m * C_LD + nl) =
+        pack_bf16x2(acc[4 * j], acc[4 * j + 2]);
+    *reinterpret_cast<uint32_t*>(cs + (m + 1) * C_LD + nl) =
+        pack_bf16x2(acc[4 * j + 1], acc[4 * j + 3]);
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+  const bool vec_out = (N % 8) == 0;
+  for (int c = tid; c < BM * (BN / 8); c += THREADS) {
+    const int r = c / (BN / 8), ch = c % (BN / 8);
+    const int gm = o.m0 + r, gn = o.n0 + ch * 8;
+    if (gm >= M || gn >= N) continue;
+    const __nv_bfloat16* src = cs + r * C_LD + ch * 8;
+    __nv_bfloat16* dst = out + (size_t)gm * N + gn;
+    if (vec_out && gn + 8 <= N) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && gn + e < N; ++e) dst[e] = src[e];
     }
   }
 }
 
-}  // namespace
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
 
-namespace {
+// cuTensorMapEncodeTiled through the runtime (the library links no libcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map (d0 innermost, d2 = experts) read in boxes of b0 x b1 x 1;
+// false where TMA cannot take the operand (the kernel then loads it plainly)
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
+              const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+              uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || d0 == 0 || d1 == 0 ||
+      (reinterpret_cast<uintptr_t>(base) & 15) != 0 || (d0 * esize) % 16)
+    return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * esize, d0 * d1 * esize};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box,
+                step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What one launch takes for these operands (E = 1 for a single matrix):
+// the group path, the group rows a stage holds, the 2-bit table, and which
+// operands come by TMA, with their tensor maps.  The launch runs on it and
+// quant_matmul_config reports it, so the two cannot differ.  Everything but
+// the TMA flags (which change no arithmetic) is a function of (M, N, K,
+// bits, group_size) alone.
+struct Plan {
+  int ppb;
+  int staged;      // group rows staged per K stage (g % 16 == 0 or g == K)
+  int group_rows;  // rows a stage holds: 1, MAX_GROUPS (g < BK), 0 if not
+  int lut;         // 2 bits, staged: the per-group table of the 4 weights
+  int x_tma, w_tma;
+  TmaMaps maps;
+};
+
+Plan make_plan(const void* x, const void* packed, const void* scale,
+               const void* zero, int E, int M, int N, int K, int bits,
+               int group_size) {
+  Plan p = {};
+  p.ppb = bits == 2 ? 4 : bits == 8 ? 1 : 2;
+  // staged group rows serve any group that is constant over each 16-deep
+  // k chunk; any other group size reads scale and zero per element
+  p.staged = group_size % 16 == 0 || group_size == K;
+  p.group_rows = !p.staged ? 0
+                 : (group_size % BK == 0 || group_size == K) ? 1
+                                                             : MAX_GROUPS;
+  p.lut = p.ppb == 4 && p.staged;
+  p.x_tma = make_map(&p.maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M,
+                     E, BK, BM, CU_TENSOR_MAP_SWIZZLE_128B);
+  const int ng = K / group_size;
+  p.w_tma = (N % 16 == 0) &&
+            make_map(&p.maps.packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed,
+                     N, K / p.ppb, E, BN, BK / p.ppb,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (p.w_tma && p.staged)
+    p.w_tma = make_map(&p.maps.scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                       scale, N, ng, E, BN, p.group_rows,
+                       CU_TENSOR_MAP_SWIZZLE_NONE) &&
+              make_map(&p.maps.zero, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, zero,
+                       N, ng, E, BN, p.group_rows, CU_TENSOR_MAP_SWIZZLE_NONE);
+  return p;
+}
+
+template <int PPB, bool kExperts, bool kGeneral>
+int launch_cfg(const Plan& p, const void* x, const void* packed,
+               const void* scale, const void* zero, void* out, int E, int M,
+               int N, int K, int group_size, cudaStream_t stream) {
+  auto kern = quant_matmul_kernel<PPB, kExperts, kGeneral>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<PPB>::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
+  kern<<<grid, THREADS + 32, Layout<PPB>::SMEM, stream>>>(
+      p.maps, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const uint8_t*>(packed), static_cast<const float*>(scale),
+      static_cast<const float*>(zero), static_cast<__nv_bfloat16*>(out), M, N,
+      K, group_size, p.x_tma, p.w_tma);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kExperts, bool kGeneral>
+int launch_ppb(const Plan& p, const void* x, const void* packed,
+               const void* scale, const void* zero, void* out, int E, int M,
+               int N, int K, int group_size, cudaStream_t stream) {
+  if (p.ppb == 4)
+    return launch_cfg<4, kExperts, kGeneral>(p, x, packed, scale, zero, out,
+                                             E, M, N, K, group_size, stream);
+  if (p.ppb == 1)
+    return launch_cfg<1, kExperts, kGeneral>(p, x, packed, scale, zero, out,
+                                             E, M, N, K, group_size, stream);
+  return launch_cfg<2, kExperts, kGeneral>(p, x, packed, scale, zero, out, E,
+                                           M, N, K, group_size, stream);
+}
 
 template <bool kExperts>
 int launch(const void* x, const void* packed, const void* scale,
            const void* zero, void* out, int E, int M, int N, int K, int bits,
            int group_size, void* stream) {
-  const int ppb = bits == 2 ? 4 : (bits == 8 ? 1 : 2);
-  // 16-byte x loads: K % 8 == 0 keeps every row (and every expert's
-  // (M, K) slab) 16-byte aligned once the base pointer is
-  const int vec_x = (K % 8 == 0) && ((reinterpret_cast<uintptr_t>(x) & 15) == 0);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
-  quant_matmul_kernel<kExperts>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scale), static_cast<const float*>(zero),
-      static_cast<__nv_bfloat16*>(out), M, N, K, ppb, group_size, vec_x);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plan p =
+      make_plan(x, packed, scale, zero, E, M, N, K, bits, group_size);
+  if (p.staged)
+    return launch_ppb<kExperts, false>(p, x, packed, scale, zero, out, E, M,
+                                       N, K, group_size, s);
+  return launch_ppb<kExperts, true>(p, x, packed, scale, zero, out, E, M, N,
+                                    K, group_size, s);
 }
 
 }  // namespace
@@ -222,4 +765,20 @@ extern "C" int launch_quant_matmul_experts(const void* x, const void* packed,
                                            void* stream) {
   return launch<true>(x, packed, scale, zero, out, E, M, N, K, bits,
                       group_size, stream);
+}
+
+// The configuration the launch with these arguments takes (E = 1: the
+// single-matrix launch), into cfg[0..8]: BN, BM, BK, STAGES, staged group
+// rows, group rows per stage, 2-bit table, x by TMA, weights by TMA.
+// Launches nothing.
+extern "C" int quant_matmul_config(const void* x, const void* packed,
+                                   const void* scale, const void* zero, int E,
+                                   int M, int N, int K, int bits,
+                                   int group_size, int* cfg) {
+  const Plan p =
+      make_plan(x, packed, scale, zero, E, M, N, K, bits, group_size);
+  const int v[9] = {BN, BM, BK, STAGES, p.staged, p.group_rows, p.lut,
+                    p.x_tma, p.w_tma};
+  for (int i = 0; i < 9; ++i) cfg[i] = v[i];
+  return 0;
 }

@@ -54,6 +54,8 @@ _SIGNATURES = {
     # x, packed, scale, zero, out, E, M, N, K, bits, group_size, stream
     "launch_quant_matmul_experts": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _I, _P],
+    # x, packed, scale, zero, E, M, N, K, bits, group_size, int cfg[9]
+    "quant_matmul_config": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, kv_len, q_pos, active, out, B, S, Hkv, G, D, scale, stream
     "launch_decode_attention": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _P],

@@ -11,6 +11,8 @@ PyTorch: the wrappers run them for a tensor on the CPU, and
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core.qtensor import PACK_FACTOR, unpack
@@ -39,6 +41,31 @@ def quant_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     w = dequantize_rows(packed, scale, zero, bits=bits,
                         group_size=group_size, dtype=x.dtype)
     return (x.float() @ w.float()).to(x.dtype)
+
+
+def kernel_config(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                  zero: torch.Tensor, *, bits: int, group_size: int) -> dict:
+    """The configuration the CUDA kernel takes for these operands, as its
+    own host code chooses it (``quant_matmul_config`` in
+    ``csrc/quant_matmul.cu``; launches nothing): the tile, the ring depth,
+    the group path, the 2-bit table, and which operands come by TMA.  2-D
+    operands name a :func:`quant_matmul` launch, 3-D ones (a leading
+    expert dim) a :func:`quant_matmul_experts` launch.  CUDA tensors only."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel_config: CUDA tensors only, got {x.device}")
+    E = x.shape[0] if x.ndim == 3 else 1
+    M, K = x.shape[-2:]
+    N = packed.shape[-1]
+    cfg = (ctypes.c_int * 9)()
+    lib = build.load_library()
+    build.check("quant_matmul_config", lib.quant_matmul_config(
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+        E, M, N, K, bits, group_size, cfg))
+    bn, bm, bk, stages, staged, rows, lut, x_tma, w_tma = cfg
+    return {"tile": f"{bn}n x {bm}m x {bk}k", "stages": stages,
+            "groups": f"staged, {rows} row(s) a stage" if staged
+            else "per-element", "lut": bool(lut), "x_tma": bool(x_tma),
+            "w_tma": bool(w_tma), "grid": [-(-N // bn), -(-M // bm), E]}
 
 
 def check_operands(name: str, x, packed, scale, zero, bits: int,

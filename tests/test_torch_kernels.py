@@ -9,7 +9,10 @@ tensor) against the JAX reference on the same numpy inputs.
   with ``chunk`` dividing S (ROADMAP fault 3.2).
 
 Tolerances: atol 1e-5 in f32 (summation order only); within 1 bf16 ulp in
-bf16 (f32 sums in another order may round to the neighbouring bf16 value).
+bf16 (f32 sums in another order may round to the neighbouring bf16 value);
+the quant_matmul cases taken from chip_smoke.py's kernel paths also allow
+the f32 reordering term chip_smoke.py allows (2^-16 x sum of |terms|),
+since a cancelling sum can move by more than half a bf16 ulp of its result.
 """
 import numpy as np
 import pytest
@@ -26,8 +29,9 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.quant_gemv import quant_gemv  # noqa: E402
-from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
-from _torch_parity import assert_within_bf16_ulps  # noqa: E402
+from repro_torch.kernels.quant_matmul import (  # noqa: E402
+    dequantize_rows, quant_matmul)
+from _torch_parity import assert_within_bf16_ulps, bf16_ulp  # noqa: E402
 
 _DTYPES = {"f32": (jnp.float32, torch.float32),
            "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -58,12 +62,45 @@ def _torch_args(x, packed, scale, zero, tdt):
             torch.from_numpy(scale), torch.from_numpy(zero))
 
 
+def _compare_reordered(got, want, dt, x, packed, scale, zero, bits,
+                       group_size):
+    """``_compare``, but in bf16 each element may also differ by the f32
+    reordering allowance chip_smoke.py holds the kernel to, 2^-16 times the
+    sum of |terms|: where a sum cancels, two f32 summation orders can differ
+    by more than half a bf16 ulp of the (small) result."""
+    if dt == "f32":
+        return _compare(got, want, dt)
+    w = dequantize_rows(torch.from_numpy(packed), torch.from_numpy(scale),
+                        torch.from_numpy(zero), bits=bits,
+                        group_size=group_size, dtype=torch.bfloat16)
+    x_bf = torch.from_numpy(x).to(torch.bfloat16).double()
+    slack = 2.0 ** -16 * (x_bf.abs() @ w.double().abs()).numpy()
+    got = got.double().numpy()
+    want = np.asarray(want).astype(np.float64)
+    diff = np.abs(got - want)
+    lim = bf16_ulp(np.maximum(np.abs(got), np.abs(want))) + slack
+    assert (diff <= lim).all(), float((diff - lim).max())
+
+
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("bits,group_size,K,N", [
-    (2, 32, 128, 48), (3, 32, 96, 40), (4, 128, 256, 24),
-    (2, 64, 64, 20)], ids=["w2g32", "w3g32", "w4g128", "w2-per-channel"])
-def test_quant_matmul_plain_matches_reference(bits, group_size, K, N, dt):
-    M = 40
+@pytest.mark.parametrize("bits,group_size,K,N,M,reordered", [
+    (2, 32, 128, 48, 40, False), (3, 32, 96, 40, 40, False),
+    (4, 128, 256, 24, 40, False), (2, 64, 64, 20, 40, False),
+    # chip_smoke.py's QM_PATHS, cut to size: an admission prefill of 33
+    # rows, ragged M/N/K with one 200-row group at 3 bits, a per-channel
+    # K of 100 (held with the reordering allowance: see _compare_reordered)
+    (2, 32, 128, 48, 33, True), (3, 200, 200, 300, 100, True),
+    (4, 100, 100, 72, 40, True),
+    # QM_PATHS' groups of 32, 48 and 16 rows (several groups per 64-deep
+    # stage of the kernel; at K = 48 fewer groups than a stage holds),
+    # held to the 1-ulp bound
+    (2, 32, 256, 64, 100, False), (3, 48, 192, 300, 64, False),
+    (4, 16, 48, 40, 40, False)],
+    ids=["w2g32", "w3g32", "w4g128", "w2-per-channel", "w2g32-m33",
+         "w3-ragged-k200", "w4-per-channel-k100", "w2g32-k256-m100",
+         "w3g48-n300", "w4g16-k48"])
+def test_quant_matmul_plain_matches_reference(bits, group_size, K, N, M,
+                                              reordered, dt):
     x, packed, scale, zero = _operands(bits * K + N, M, K, N, bits,
                                        group_size)
     jdt, tdt = _DTYPES[dt]
@@ -79,8 +116,13 @@ def test_quant_matmul_plain_matches_reference(bits, group_size, K, N, dt):
                        group_size=group_size)
     assert got.dtype == tdt and got.shape == (M, N)
     assert build.LAUNCHES == before      # a CPU tensor launches nothing
-    _compare(got, want_kernel, dt)
-    _compare(got, want_ref, dt)
+    if reordered:
+        args = (x, packed, scale, zero, bits, group_size)
+        _compare_reordered(got, want_kernel, dt, *args)
+        _compare_reordered(got, want_ref, dt, *args)
+    else:
+        _compare(got, want_kernel, dt)
+        _compare(got, want_ref, dt)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
