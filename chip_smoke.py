@@ -122,6 +122,12 @@ INT8_OP_PER_S = 1979e12
 # (about sqrt(K) f32 roundings at K <= 11008).
 ULPS = 2
 REORDER = 2.0 ** -16
+# ~0.15 ms of device spin before each timed launch of phase 2 (cuda_ms):
+# longer than the host path of any wrapper timed there.  The quant-matmul,
+# GEMV and decode-attention records also carry the same launches timed
+# without it (``*_ms_nospin``), so a time can be set beside one taken by
+# events alone.
+SPIN_CYCLES = 300_000
 
 MAIN_SHAPES = ((4096, 4096, 4), (4096, 11008, 2), (11008, 4096, 1))  # K, N, per layer
 # Qwen3-30B-A3B's attention projections (q, k and v, o): K, N, per layer
@@ -154,9 +160,14 @@ def within(got, want, slack):
     return bool((diff <= lim).all()), float(diff.max())
 
 
-def cuda_ms(fn, iters=20, flush=None):
+def cuda_ms(fn, iters=20, flush=None, spin=SPIN_CYCLES):
     """Mean device time of ``fn`` over ``iters`` launches (CUDA events),
-    after warm-up; ``flush`` (outside the timed region) evicts L2."""
+    after warm-up.  ``flush`` (outside the timed region) evicts L2, and a
+    spin of ``spin`` cycles on the device then keeps it busy while the host
+    enqueues ``fn``, so a launch shorter than its host-side path is timed
+    on the device and not by the host's pace.  ``spin=0`` times by the
+    events alone: where the host path of ``fn`` outlasts its device time,
+    that reads the host's pace."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -164,6 +175,8 @@ def cuda_ms(fn, iters=20, flush=None):
     for _ in range(iters):
         if flush is not None:
             flush()
+            if spin:
+                torch.cuda._sleep(spin)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -208,16 +221,18 @@ def show(name, rec, card):
 
 
 def check_quant(name, fn, plain, gen, M, K, N, bits, group_size, flush, card,
-                main=False, moe=False, wa=False, x_offset=0):
+                main=False, moe=False, wa=False, sched=False, x_offset=0):
     """Kernel vs plain version at one shape, then both timed with the
-    library matmul on the pre-dequantized weight; ``main``, ``moe`` and
-    ``wa`` mark the shapes the LLaMA (W2 g128), the MoE and the
-    weight-activation (W4 per-channel) paths run (summed in the kernels
-    line).  ``x_offset`` > 0 takes x as rows ``x_offset:`` of a wider
-    buffer (a base the kernel cannot load by TMA when 2 * K * x_offset is
-    not a multiple of 16).  The quant-matmul records name the configuration
-    the kernel's host code chose (``kernel_config``)."""
+    library matmul on the pre-dequantized weight; ``main``, ``moe``, ``wa``
+    and ``sched`` mark the shapes the LLaMA (W2 g128, M=4), the MoE, the
+    weight-activation (W4 per-channel) and the scheduled decode (W2 g128,
+    M=8) paths run (summed in the kernels line).  ``x_offset`` > 0 takes x
+    as rows ``x_offset:`` of a wider buffer (a base the kernel cannot load
+    by TMA or 16-byte copies when 2 * K * x_offset is not a multiple of
+    16).  Each record names the configuration the kernel's host code chose
+    (``kernel_config`` / ``gemv_config``)."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.quant_gemv import gemv_config
     from repro_torch.kernels.quant_matmul import (dequantize_rows,
                                                   kernel_config)
     x, packed, scale, zero = quant_operands(gen, M + x_offset, K, N, bits,
@@ -235,14 +250,19 @@ def check_quant(name, fn, plain, gen, M, K, N, bits, group_size, flush, card,
         fail(f"{name} disagrees with its plain version at M={M} K={K} N={N} "
              f"bits={bits} g={group_size}: max |diff| {err}")
     rec = {"M": M, "K": K, "N": N, "bits": bits, "g": group_size,
-           "max_abs_err": err, "main": main, "moe": moe, "wa": wa}
-    if name == "quant_matmul":
-        rec["config"] = kernel_config(x, packed, scale, zero, **kw)
+           "max_abs_err": err, "main": main, "moe": moe, "wa": wa,
+           "sched": sched}
+    config = kernel_config if name == "quant_matmul" else gemv_config
+    rec["config"] = config(x, packed, scale, zero, **kw)
     rec["kernel_ms"] = cuda_ms(lambda: fn(x, packed, scale, zero, **kw),
                                flush=flush)
     rec["plain_ms"] = cuda_ms(lambda: plain(x, packed, scale, zero, **kw),
                               iters=5, flush=flush)
     rec["library_ms"] = cuda_ms(lambda: torch.matmul(x, w), flush=flush)
+    rec["kernel_ms_nospin"] = cuda_ms(
+        lambda: fn(x, packed, scale, zero, **kw), flush=flush, spin=0)
+    rec["library_ms_nospin"] = cuda_ms(lambda: torch.matmul(x, w),
+                                       flush=flush, spin=0)
     ppb = {2: 4, 3: 2, 4: 2, 8: 1}[bits]
     nbytes = M * K * 2 + K * N // ppb + 2 * (K // group_size) * N * 4 \
         + M * N * 2
@@ -285,12 +305,14 @@ def check_attention(gen, B, S, Hkv, G, D, kv_len, q_pos, active, flush, card,
            "main": main}
     rec["kernel_ms"] = cuda_ms(lambda: decode_attention(q, k, v, **kw),
                                flush=flush)
+    rec["kernel_ms_nospin"] = cuda_ms(
+        lambda: decode_attention(q, k, v, **kw), flush=flush, spin=0)
     rec["plain_ms"] = cuda_ms(lambda: decode_attention_plain(q, k, v, **kw),
                               flush=flush)
     # SDPA over the live positions, K/V laid out (B, H, n, D) beforehand: one
     # call computes the same function only when every slot is live at one
     # length (causal q_pos = kv_len - 1)
-    rec["library_ms"] = None
+    rec["library_ms"] = rec["library_ms_nospin"] = None
     n = kv_len[0]
     if min(active) == 1 and all(kv_len[b] == n and q_pos[b] == n - 1
                                 for b in range(B)):
@@ -299,6 +321,8 @@ def check_attention(gen, B, S, Hkv, G, D, kv_len, q_pos, active, flush, card,
         vs = v[:, :n].permute(0, 2, 1, 3).repeat_interleave(G, 1).contiguous()
         sdpa = torch.nn.functional.scaled_dot_product_attention
         rec["library_ms"] = cuda_ms(lambda: sdpa(qs, ks, vs), flush=flush)
+        rec["library_ms_nospin"] = cuda_ms(lambda: sdpa(qs, ks, vs),
+                                           flush=flush, spin=0)
     live = sum(min(kv_len[b], q_pos[b] + 1) for b in range(B) if active[b])
     nbytes = 2 * live * Hkv * D * 2 + 2 * B * Hkv * G * D * 2 + 3 * B * 4
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * live * Hkv * G * D)
@@ -703,6 +727,79 @@ QM_PATHS = ((33, 4096, 4096, 2, 128, 0), (384, 4096, 4096, 2, 128, 0),
             (40, 48, 256, 4, 16, 0), (512, 4096, 4096, 2, 16, 0))
 
 
+# quant_gemv on every path of its body: each row template (M = 1..32 run as
+# 1..4 tiles of 8 rows) at LLaMA-2-7B's widest projection; 8 bits; groups
+# of 8 rows (per-element scale/zero); 16 (8 group rows a 128-deep stage,
+# constants per 16-deep chunk); 48 with ragged N = 300 (plain-loaded
+# weights); 200 at K = 1000 (per-element, K not a multiple of a stage or
+# of the split); N = 512 (32-column tiles, 8 splits) at 32 rows;
+# per-channel K = 100 with an x base off 16-byte alignment (plain-loaded
+# x); per-channel W3 at K = 11008 (8 splits of 11 stages, the last of 9).
+# M, K, N, bits, group_size, x offset
+GEMV_PATHS = tuple((M, 4096, 11008, 2, 128, 0)
+                   for M in (1, 2, 3, 4, 5, 8, 16, 17, 24, 32)) + (
+    (4, 4096, 4096, 8, 128, 0), (4, 256, 256, 2, 8, 0),
+    (8, 4096, 4096, 2, 16, 0), (4, 192, 300, 3, 48, 0),
+    (4, 1000, 512, 4, 200, 0), (32, 2048, 512, 2, 128, 0),
+    (4, 100, 256, 4, 100, 1), (8, 11008, 4096, 3, 11008, 0))
+# batch invariance and determinism of the GEMV: K, N, bits, group_size
+GEMV_INVARIANCE = ((4096, 11008, 2, 128), (2048, 512, 2, 128),
+                   (4096, 4096, 4, 4096))
+
+
+def check_gemv_invariance(gen, K, N, bits, group_size, card):
+    """The GEMV's batch invariance and determinism on the card: rows
+    0..M-1 of launches at M = 1, 4, 8 and 32 on the same x rows are bit
+    for bit equal (each row's order of accumulation is a function of (N,
+    K, bits, group_size) only), rows 5, 17 and 31 launched alone equal
+    their rows of the 32-row launch, and two launches on the same operands
+    (M = 32 and M = 8) are bit for bit equal."""
+    from repro_torch.kernels.quant_gemv import quant_gemv
+    x, packed, scale, zero = quant_operands(gen, 32, K, N, bits, group_size)
+    run = lambda xs: quant_gemv(xs, packed, scale, zero, bits=bits,
+                                group_size=group_size)
+    full = run(x)
+    same = lambda a, b: torch.equal(a.view(torch.int16),
+                                    b.view(torch.int16))
+    for M in (1, 4, 8):
+        if not same(run(x[:M]), full[:M]):
+            fail(f"quant_gemv rows at M={M} differ from the M=32 launch "
+                 f"(K={K} N={N} bits={bits} g={group_size})")
+    for r in (5, 17, 31):
+        if not same(run(x[r:r + 1].contiguous()), full[r:r + 1]):
+            fail(f"quant_gemv row {r} alone differs from the M=32 launch "
+                 f"(K={K} N={N} bits={bits} g={group_size})")
+    if not same(run(x), full) or not same(run(x[:8]), run(x[:8])):
+        fail(f"quant_gemv: two launches on the same operands differ (K={K} "
+             f"N={N} bits={bits} g={group_size})")
+    torch.cuda.synchronize()
+    rec = {"K": K, "N": N, "bits": bits, "g": group_size,
+           "rows_bit_equal_at_M": [1, 4, 8, 32], "alone_rows": [5, 17, 31],
+           "two_launches_bit_equal": True}
+    print(f"[kernels] quant_gemv invariance {rec} card=[{card}]", flush=True)
+    return rec
+
+
+def check_gemv_empty_k(card, M=4, N=512):
+    """K = 0 is an empty sum: the GEMV returns zeros of (M, N) on the card
+    without a launch, and its plan (``gemv_config``) still answers."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.quant_gemv import gemv_config, quant_gemv
+    x = torch.zeros((M, 0), dtype=torch.bfloat16, device="cuda")
+    packed = torch.zeros((0, N), dtype=torch.uint8, device="cuda")
+    scale = torch.zeros((0, N), device="cuda")
+    n0 = build.LAUNCHES["quant_gemv"]
+    got = quant_gemv(x, packed, scale, scale, bits=2, group_size=128)
+    config = gemv_config(x, packed, scale, scale, bits=2, group_size=128)
+    torch.cuda.synchronize()
+    if tuple(got.shape) != (M, N) or bool(got.any()):
+        fail(f"quant_gemv at K=0 is not zeros of ({M}, {N})")
+    if build.LAUNCHES["quant_gemv"] != n0:
+        fail("quant_gemv at K=0 launched its kernel")
+    print(f"[kernels] quant_gemv K=0 M={M} N={N}: zeros, no launch, "
+          f"config={config} card=[{card}]", flush=True)
+
+
 def kernel_phase(card):
     from repro_torch.kernels.quant_gemv import quant_gemv, quant_gemv_plain
     from repro_torch.kernels.quant_matmul import (quant_matmul,
@@ -733,15 +830,24 @@ def kernel_phase(card):
         out["quant_matmul"].append(check_quant(
             "quant_matmul", quant_matmul, quant_matmul_plain, gen, M, K, N,
             bits, g, flush, card, x_offset=off))
-    # the MoE schedule's decode: 8 slots
+    # the MoE schedule's decode: 8 slots; the dense schedule's: the 'sched'
+    # summary
     for K, N, _ in MOE_ATTN_SHAPES:
         out["quant_gemv"].append(check_quant(
             "quant_gemv", quant_gemv, quant_gemv_plain, gen, 8, K, N, 2, 128,
             flush, card))
-    for M in (1, 32):
+    for K, N, _ in MAIN_SHAPES:
         out["quant_gemv"].append(check_quant(
-            "quant_gemv", quant_gemv, quant_gemv_plain, gen, M, 4096, 11008,
-            2, 128, flush, card))
+            "quant_gemv", quant_gemv, quant_gemv_plain, gen, 8, K, N, 2, 128,
+            flush, card, sched=True))
+    # every path of the GEMV body (GEMV_PATHS), then its batch invariance
+    for M, K, N, bits, g, off in GEMV_PATHS:
+        out["quant_gemv"].append(check_quant(
+            "quant_gemv", quant_gemv, quant_gemv_plain, gen, M, K, N, bits, g,
+            flush, card, x_offset=off))
+    out["gemv_invariance"] = [check_gemv_invariance(gen, *shape, card)
+                              for shape in GEMV_INVARIANCE]
+    check_gemv_empty_k(card)
     # main-path shape: kv_len 136 is the middle of the decode steps' 129..143
     out["decode_attention"].append(check_attention(
         gen, 4, 144, 32, 1, 128, [136] * 4, [135] * 4, [1] * 4, flush, card,
@@ -835,7 +941,8 @@ def summarize(records, name, path="main", shapes=MAIN_SHAPES):
     """One layer of the main path at W2 g128 (or, ``path="moe"``, of the
     MoE path's attention, ``MOE_ATTN_SHAPES``; ``path="wa"``, of the main
     path at W4 per-channel), each shape weighted by how often a layer runs
-    it (attention: its one launch)."""
+    it (attention: its one launch).  Records timed without the device spin
+    too add ``ms_nospin`` and ``library_ms_nospin``."""
     timed = [r for r in records if r[path]]
     if name.endswith("decode_attention"):
         weights = [1] * len(timed)
@@ -844,10 +951,14 @@ def summarize(records, name, path="main", shapes=MAIN_SHAPES):
         weights = [per_layer[(r["K"], r["N"])] for r in timed]
     tot = lambda key: sum(w * r[key] for w, r in zip(weights, timed,
                                                     strict=True))
-    return {"ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
-            "library_ms": tot("library_ms"), "bound_ms": tot("bound_ms"),
-            "bound_by": timed[0]["bound_by"],
-            "max_abs_err": max(r["max_abs_err"] for r in records)}
+    out = {"ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
+           "library_ms": tot("library_ms"), "bound_ms": tot("bound_ms"),
+           "bound_by": timed[0]["bound_by"],
+           "max_abs_err": max(r["max_abs_err"] for r in records)}
+    if all("kernel_ms_nospin" in r for r in timed):
+        out["ms_nospin"] = tot("kernel_ms_nospin")
+        out["library_ms_nospin"] = tot("library_ms_nospin")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2269,12 +2380,17 @@ def main():
                "int8_matmul": "src/repro/kernels/int8_matmul.py:52"}
     per = {"quant_matmul": "one layer of the prefill: 7 launches, M=512, W2 "
                            "g128; 'moe' one Qwen3 layer's 4 attention "
-                           "projections; 'wa' the 7 at W4 per-channel",
+                           "projections; 'wa' the 7 at W4 per-channel; "
+                           "'*_nospin' timed without the device spin",
            "quant_gemv": "one layer of a decode step: 7 launches, M=4, W2 "
-                         "g128; 'moe' one Qwen3 layer's 4 attention "
-                         "projections; 'wa' the 7 at W4 per-channel",
+                         "g128; 'sched' the same at M=8 (the scheduled "
+                         "decode's 8 slots); 'moe' one Qwen3 layer's 4 "
+                         "attention projections; 'wa' the 7 at W4 "
+                         "per-channel; '*_nospin' the same launches timed "
+                         "by events alone, without the device spin",
            "decode_attention": "one layer of a decode step: 1 launch, B=4 "
-                               "Hkv=32 G=1 D=128 S=144 kv_len=136",
+                               "Hkv=32 G=1 D=128 S=144 kv_len=136; "
+                               "'*_nospin' timed without the device spin",
            "soft_round_fwd": "one layer of a Soften step: 7 launches (4 x "
                              "ng=32 out=4096, 2 x ng=32 out=11008, 1 x ng=86 "
                              "out=4096; g=128, W2, DST on); 'moe' one Qwen3 "
@@ -2332,6 +2448,9 @@ def main():
                 nums["moe"] = summarize(recs[name], name, "moe",
                                         MOE_ATTN_SHAPES)
                 nums["wa"] = summarize(recs[name], name, "wa")
+            if name == "quant_gemv":
+                nums["sched"] = summarize(recs[name], name, "sched")
+                nums["invariance"] = recs["gemv_invariance"]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{build.SOURCES[name]}",
                         "replaces": sources[name],

@@ -1,0 +1,85 @@
+// Dequantization helpers shared by quant_matmul.cu and quant_gemv.cu.
+//
+// Both kernels build the dequantized weight straight into the A register
+// fragment of a tensor-core MMA (wgmma .rs or mma.sync m16n8k16), two
+// adjacent output columns per thread, with the rounding contract of the
+// plain version: (code - zero) in f32 (exact), one f32 multiply by scale,
+// one rounding to bf16.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float code_f(uint32_t bits) {
+  return __uint_as_float(bits | 0x4B000000u);  // 2^23 + bits, exactly
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// w = (code - z) * s for the two codes of a pair; cf holds 2^23 + code.
+// With an integral z, 2^23 + z is exact and one subtraction gives code - z
+// exactly, as the plain two-step form does.
+__device__ __forceinline__ uint32_t dequant_pair(float cf0, float cf1,
+                                                 float s, float z, float zp,
+                                                 bool zint) {
+  float d0, d1;
+  if (zint) {
+    d0 = __fsub_rn(cf0, zp);
+    d1 = __fsub_rn(cf1, zp);
+  } else {
+    d0 = __fsub_rn(__fsub_rn(cf0, 8388608.0f), z);
+    d1 = __fsub_rn(__fsub_rn(cf1, 8388608.0f), z);
+  }
+  return pack_bf16x2(__fmul_rn(d0, s), __fmul_rn(d1, s));
+}
+
+// Scale and zero of a thread's two columns for one group, with what the
+// integral-zero shortcut needs; at 2 bits (PPB == 4) also each column's four
+// weights as bf16 (lut[i][0] = w(0) | w(1) << 16, lut[i][1] = w(2) | w(3)
+// << 16), computed by dequant_pair like every other weight.
+template <int PPB>
+struct GroupConst {
+  float2 s, z;
+  float zp0, zp1;  // 2^23 + z
+  bool zint;       // both zeros integral and |z| < 2^22
+  uint32_t lut[2][2];
+};
+
+template <int PPB>
+__device__ __forceinline__ GroupConst<PPB> make_group_const(float2 s,
+                                                            float2 z) {
+  GroupConst<PPB> g;
+  g.s = s;
+  g.z = z;
+  g.zint = z.x == rintf(z.x) && z.y == rintf(z.y) &&
+           fabsf(z.x) < 4194304.0f && fabsf(z.y) < 4194304.0f;
+  g.zp0 = __fadd_rn(z.x, 8388608.0f);
+  g.zp1 = __fadd_rn(z.y, 8388608.0f);
+  if constexpr (PPB == 4) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        g.lut[i][h] = dequant_pair(code_f(2 * h), code_f(2 * h + 1),
+                                   i ? s.y : s.x, i ? z.y : z.x,
+                                   i ? g.zp1 : g.zp0, g.zint);
+  }
+  return g;
+}
+
+}  // namespace

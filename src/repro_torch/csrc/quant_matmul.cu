@@ -84,6 +84,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dequant.cuh"
+
 namespace {
 
 constexpr int BN = 128;          // output columns n per block (A rows)
@@ -108,10 +110,6 @@ struct Layout {
 struct TmaMaps {
   CUtensorMap x, packed, scale, zero;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // offset of byte (row r, byte b) in a tile of 128-byte rows stored with the
 // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8))
@@ -240,11 +238,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 struct Operands {
   const __nv_bfloat16* x;
   const uint8_t* packed;
@@ -322,10 +315,6 @@ __device__ __forceinline__ void load_stage(uint8_t* st, uint32_t bar, int kt,
   }
 }
 
-__device__ __forceinline__ float code_f(uint32_t bits) {
-  return __uint_as_float(bits | 0x4B000000u);  // 2^23 + bits, exactly
-}
-
 __device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
   uint16_t v;
   asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
@@ -340,62 +329,15 @@ __device__ __forceinline__ float2 lds_f2(uint32_t addr) {
   return v;
 }
 
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-  return d;
-}
-
-// w = (code - z) * s for the two codes of a pair; cf holds 2^23 + code.
-// With an integral z, 2^23 + z is exact and one subtraction gives code - z
-// exactly, as the plain two-step form does.
-__device__ __forceinline__ uint32_t dequant_pair(float cf0, float cf1,
-                                                 float s, float z, float zp,
-                                                 bool zint) {
-  float d0, d1;
-  if (zint) {
-    d0 = __fsub_rn(cf0, zp);
-    d1 = __fsub_rn(cf1, zp);
-  } else {
-    d0 = __fsub_rn(__fsub_rn(cf0, 8388608.0f), z);
-    d1 = __fsub_rn(__fsub_rn(cf1, 8388608.0f), z);
-  }
-  return pack_bf16x2(__fmul_rn(d0, s), __fmul_rn(d1, s));
-}
-
-// Scale and zero of the thread's two columns for one group, with what the
-// integral-zero shortcut needs; at 2 bits also each column's four weights
-// as bf16 (lut[i][0] = w(0) | w(1) << 16, lut[i][1] = w(2) | w(3) << 16),
-// computed by dequant_pair like every other weight.
-template <int PPB>
-struct GroupConst {
-  float2 s, z;
-  float zp0, zp1;  // 2^23 + z
-  bool zint;       // both zeros integral and |z| < 2^22
-  uint32_t lut[2][2];
-};
-
-// `sz` is the stage's scale rows (shared address); zero rows follow them
+// Scale and zero of the thread's two columns for one group (GroupConst in
+// dequant.cuh); `sz` is the stage's scale rows (shared address), zero rows
+// follow them
 template <int PPB>
 __device__ __forceinline__ GroupConst<PPB> group_const(uint32_t sz, int row,
                                                        int nl) {
-  GroupConst<PPB> g;
-  g.s = lds_f2(sz + 4 * (row * BN + nl));
-  g.z = lds_f2(sz + 4 * (MAX_GROUPS * BN + row * BN + nl));
-  g.zint = g.z.x == rintf(g.z.x) && g.z.y == rintf(g.z.y) &&
-           fabsf(g.z.x) < 4194304.0f && fabsf(g.z.y) < 4194304.0f;
-  g.zp0 = __fadd_rn(g.z.x, 8388608.0f);
-  g.zp1 = __fadd_rn(g.z.y, 8388608.0f);
-  if constexpr (PPB == 4) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        g.lut[i][h] = dequant_pair(code_f(2 * h), code_f(2 * h + 1),
-                                   i ? g.s.y : g.s.x, i ? g.z.y : g.z.x,
-                                   i ? g.zp1 : g.zp0, g.zint);
-  }
-  return g;
+  return make_group_const<PPB>(
+      lds_f2(sz + 4 * (row * BN + nl)),
+      lds_f2(sz + 4 * (MAX_GROUPS * BN + row * BN + nl)));
 }
 
 // Offsets in a ring slot of the code bytes a thread reads each stage: chunk

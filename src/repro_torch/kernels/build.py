@@ -56,6 +56,8 @@ _SIGNATURES = {
                                     _I, _P],
     # x, packed, scale, zero, E, M, N, K, bits, group_size, int cfg[9]
     "quant_matmul_config": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, packed, scale, zero, N, K, bits, group_size, int cfg[12]
+    "quant_gemv_config": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, kv_len, q_pos, active, out, B, S, Hkv, G, D, scale, stream
     "launch_decode_attention": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _P],

@@ -26,11 +26,12 @@ def dequantize_rows(packed: torch.Tensor, scale: torch.Tensor,
     ``dtype`` (the kernels' rounding contract); leading dims (experts) are
     elementwise."""
     K = packed.shape[-2] * PACK_FACTOR[bits]
+    N = packed.shape[-1]
     lead = tuple(packed.shape[:-2])
     codes = unpack(packed, bits, K, axis=-2).to(torch.float32)
-    cg = codes.reshape(lead + (K // group_size, group_size, -1))
+    cg = codes.reshape(lead + (K // group_size, group_size, N))
     w = (cg - zero[..., :, None, :].float()) * scale[..., :, None, :].float()
-    return w.reshape(lead + (K, -1)).to(dtype)
+    return w.reshape(lead + (K, N)).to(dtype)
 
 
 def quant_matmul_plain(x: torch.Tensor, packed: torch.Tensor,

@@ -126,10 +126,24 @@ def test_quant_matmul_plain_matches_reference(bits, group_size, K, N, M,
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("M", [1, 4, 32])
-@pytest.mark.parametrize("bits", [2, 3, 4])
-def test_quant_gemv_plain_matches_reference(bits, M, dt):
-    K, N, g = 128, 72, 32
+@pytest.mark.parametrize("bits,M,K,N,g", [
+    pytest.param(bits, M, 128, 72, 32, id=f"{bits}-{M}")
+    for bits in (2, 3, 4) for M in (1, 4, 32)] + [
+    # chip_smoke.py's GEMV_PATHS, cut to size: every other row template of
+    # the kernel (M = 1..32 as 1..4 tiles of 8 rows), 8 bits, groups of 8
+    # (per-element), 16 (per 16-deep chunk), 48 at ragged N = 300, 200 at
+    # K = 400 (not a multiple of the kernel's 128-deep stage), per-channel
+    # K = 100 and K = 256 at N = 512
+    pytest.param(2, M, 128, 72, 32, id=f"2-{M}")
+    for M in (2, 3, 5, 8, 16, 17, 24)] + [
+    pytest.param(8, 4, 128, 72, 128, id="w8g128"),
+    pytest.param(2, 4, 64, 40, 8, id="w2g8"),
+    pytest.param(2, 8, 128, 48, 16, id="w2g16"),
+    pytest.param(3, 4, 192, 300, 48, id="w3g48-n300"),
+    pytest.param(4, 4, 400, 72, 200, id="w4g200-k400"),
+    pytest.param(4, 4, 100, 72, 100, id="w4-per-channel-k100"),
+    pytest.param(2, 32, 256, 512, 256, id="w2-per-channel-n512-m32")])
+def test_quant_gemv_plain_matches_reference(bits, M, K, N, g, dt):
     x, packed, scale, zero = _operands(7 * bits + M, M, K, N, bits, g)
     jdt, tdt = _DTYPES[dt]
     want = jref.quant_matmul_ref(
@@ -138,6 +152,20 @@ def test_quant_gemv_plain_matches_reference(bits, M, dt):
     got = quant_gemv(*_torch_args(x, packed, scale, zero, tdt), bits=bits,
                      group_size=g)
     _compare(got, want, dt)
+
+
+@pytest.mark.parametrize("M,N", [(1, 72), (4, 300), (32, 512)])
+def test_quant_gemv_empty_k_returns_zeros(M, N):
+    """K = 0 passes the operand checks (any group size divides it) and is
+    an empty sum: zeros of (M, N).  The CUDA wrapper returns them without a
+    launch; the reference's reshape cannot take K = 0, so the expected value
+    is the empty sum itself."""
+    x = torch.zeros(M, 0, dtype=torch.bfloat16)
+    packed = torch.zeros(0, N, dtype=torch.uint8)
+    scale = torch.zeros(0, N)
+    got = quant_gemv(x, packed, scale, scale.clone(), bits=2, group_size=32)
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    assert torch.equal(got, torch.zeros(M, N, dtype=torch.bfloat16))
 
 
 def test_qtensor_matmul_dispatch_and_act_scale():
