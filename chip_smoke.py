@@ -27,7 +27,15 @@ Phases, each printing its own lines:
    groups of 8 rows, groups of 16, 32 and 48 rows by TMA and by plain
    loads), each record naming the tile, ring, group path and TMA use the
    kernel's host code chose (``kernel_config``, which the expert records
-   also hold equal to one single-matrix launch's);
+   also hold equal to one single-matrix launch's); decode attention also
+   at Qwen3's decode shape and the long lane (S = 4096) beside SDPA, on
+   every path of its body (``ATTN_PATHS``: G = 1..12, D = 20..1024, slot
+   lengths at the edges of the plan's warp and split runs, a causal cut,
+   an inactive slot; ``PAGED_PATHS``: pages of 2, 8, 16 and 64 positions,
+   each bit for bit against the dense kernel), each record naming the
+   plan (``attention_config``), and batch-invariant (each slot alone
+   equals its row of a B=8 launch, bit for bit, as do two launches and
+   ``active=None`` against every slot active);
 3. serve: LLaMA-2-7B at full width and depth (random weights from a seed),
    RTN-quantized to W2A16g128 and packed, served by ``serve_requests`` on
    the ``"pallas"`` backend (4 requests x 128 prompt tokens, 16 generated);
@@ -282,9 +290,16 @@ def attention_operands(gen, B, S, Hkv, G, D, kv_len, q_pos, active):
 
 
 def check_attention(gen, B, S, Hkv, G, D, kv_len, q_pos, active, flush, card,
-                    main=False):
+                    main=False, moe=False, long=False, timed=True):
+    """Kernel vs plain version at one shape (inactive slots exact zeros),
+    then, if ``timed``, both timed with SDPA over the live positions where
+    one call computes the same function.  ``main``, ``moe`` and ``long``
+    mark the LLaMA decode shape, the Qwen3 shape and the long lane (summed
+    in the kernels line).  Each record names the plan the kernel's host
+    code chose (``attention_config``)."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.decode_attention import (decode_attention,
+    from repro_torch.kernels.decode_attention import (attention_config,
+                                                      decode_attention,
                                                       decode_attention_plain)
     q, k, v, kl, qp, act = attention_operands(gen, B, S, Hkv, G, D, kv_len,
                                               q_pos, active)
@@ -296,13 +311,30 @@ def check_attention(gen, B, S, Hkv, G, D, kv_len, q_pos, active, flush, card,
     ok, err = within(got, want, REORDER * float(v.float().abs().max()))
     if not ok:
         fail(f"decode_attention disagrees with its plain version at "
-             f"B={B} S={S} Hkv={Hkv} G={G}: max |diff| {err}")
+             f"B={B} S={S} Hkv={Hkv} G={G} D={D} kv_len={list(kv_len)}: "
+             f"max |diff| {err}")
     for b in range(B):
         if active[b] == 0 and not bool((got[b] == 0).all()):
             fail(f"decode_attention: inactive slot {b} is not exact zeros")
     rec = {"B": B, "S": S, "Hkv": Hkv, "G": G, "D": D,
-           "kv_len": list(kv_len), "active": list(active), "max_abs_err": err,
-           "main": main}
+           "kv_len": list(kv_len), "q_pos": list(q_pos),
+           "active": list(active), "max_abs_err": err, "main": main,
+           "moe": moe, "long": long,
+           "config": attention_config(q, k, v)}
+    if timed:
+        time_attention(rec, q, k, v, kw, flush)
+    rec["launches"] = build.LAUNCHES["decode_attention"] - n0
+    show("decode_attention", rec, card)
+    return rec
+
+
+def time_attention(rec, q, k, v, kw, flush):
+    """Kernel, plain version and (where one call computes the same
+    function) SDPA times of one check_attention record, and its bound."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    B, Hkv, G, D = q.shape
+    kv_len, q_pos, active = rec["kv_len"], rec["q_pos"], rec["active"]
     rec["kernel_ms"] = cuda_ms(lambda: decode_attention(q, k, v, **kw),
                                flush=flush)
     rec["kernel_ms_nospin"] = cuda_ms(
@@ -323,21 +355,21 @@ def check_attention(gen, B, S, Hkv, G, D, kv_len, q_pos, active, flush, card,
         rec["library_ms"] = cuda_ms(lambda: sdpa(qs, ks, vs), flush=flush)
         rec["library_ms_nospin"] = cuda_ms(lambda: sdpa(qs, ks, vs),
                                            flush=flush, spin=0)
+        del ks, vs
     live = sum(min(kv_len[b], q_pos[b] + 1) for b in range(B) if active[b])
     nbytes = 2 * live * Hkv * D * 2 + 2 * B * Hkv * G * D * 2 + 3 * B * 4
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * live * Hkv * G * D)
-    rec["launches"] = build.LAUNCHES["decode_attention"] - n0
-    show("decode_attention", rec, card)
-    return rec
 
 
 def check_paged_attention(gen, B, W, psz, Hkv, G, D, kv_len, active, flush,
-                          card, main=False):
+                          card, main=False, timed=True):
     """Paged kernel vs its plain version, and vs the dense kernel on the
-    gathered cache (bit for bit), over a permuted page table."""
+    gathered cache (bit for bit, on the same plan), over a permuted page
+    table; then, if ``timed``, the times."""
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import (
-        decode_attention, paged_decode_attention, paged_decode_attention_plain)
+        attention_config, decode_attention, paged_decode_attention,
+        paged_decode_attention_plain)
     from repro_torch.models.common import gather_pages
     dev = "cuda"
     P = B * W + 5
@@ -364,38 +396,147 @@ def check_paged_attention(gen, B, W, psz, Hkv, G, D, kv_len, active, flush,
     if not torch.equal(got, decode_attention(q, kg, vg, **kw)):
         fail(f"paged_decode_attention is not bit-identical to the dense "
              f"kernel on the gathered cache at psz={psz} G={G}")
+    config = attention_config(q, kp, vp, S=W * psz)
+    if config != attention_config(q, kg, vg):
+        fail(f"paged and dense decode attention take different plans at "
+             f"psz={psz}: {config} vs {attention_config(q, kg, vg)}")
     for b in range(B):
         if active[b] == 0 and not bool((got[b] == 0).all()):
             fail(f"paged_decode_attention: inactive slot {b} is not zeros")
     rec = {"B": B, "W": W, "psz": psz, "Hkv": Hkv, "G": G, "D": D,
            "kv_len": list(kv_len), "active": list(active),
-           "max_abs_err": err, "bit_identical_to_dense": True, "main": main}
-    rec["kernel_ms"] = cuda_ms(
-        lambda: paged_decode_attention(q, kp, vp, ptab, **kw), flush=flush)
-    rec["plain_ms"] = cuda_ms(
-        lambda: paged_decode_attention_plain(q, kp, vp, ptab, **kw),
-        flush=flush)
-    rec["dense_kernel_ms"] = cuda_ms(
-        lambda: decode_attention(q, kg, vg, **kw), flush=flush)
-    # yardstick, not the same function: SDPA with a boolean length mask over
-    # the gathered cache laid out (B, H, S, D) beforehand (gather and layout
-    # outside the timed region); it computes the inactive slot too
-    S = W * psz
-    qs = q.reshape(B, Hkv * G, 1, D)
-    ks = kg.permute(0, 2, 1, 3).repeat_interleave(G, 1).contiguous()
-    vs = vg.permute(0, 2, 1, 3).repeat_interleave(G, 1).contiguous()
-    mask = (torch.arange(S, device=dev)[None, :]
-            < kw["kv_len"][:, None])[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rec["library_ms"] = cuda_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask),
-                                flush=flush)
-    live = sum(kv_len[b] for b in range(B) if active[b])
-    pages = sum(-(-kv_len[b] // psz) for b in range(B) if active[b])
-    nbytes = 2 * live * Hkv * D * 2 + 2 * B * Hkv * G * D * 2 + 3 * B * 4 \
-        + pages * 4
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * live * Hkv * G * D)
+           "max_abs_err": err, "bit_identical_to_dense": True, "main": main,
+           "config": config}
+    if timed:
+        rec["kernel_ms"] = cuda_ms(
+            lambda: paged_decode_attention(q, kp, vp, ptab, **kw),
+            flush=flush)
+        rec["kernel_ms_nospin"] = cuda_ms(
+            lambda: paged_decode_attention(q, kp, vp, ptab, **kw),
+            flush=flush, spin=0)
+        rec["plain_ms"] = cuda_ms(
+            lambda: paged_decode_attention_plain(q, kp, vp, ptab, **kw),
+            flush=flush)
+        rec["dense_kernel_ms"] = cuda_ms(
+            lambda: decode_attention(q, kg, vg, **kw), flush=flush)
+        # yardstick, not the same function: SDPA with a boolean length mask
+        # over the gathered cache laid out (B, H, S, D) beforehand (gather
+        # and layout outside the timed region); it computes the inactive
+        # slot too
+        S = W * psz
+        qs = q.reshape(B, Hkv * G, 1, D)
+        ks = kg.permute(0, 2, 1, 3).repeat_interleave(G, 1).contiguous()
+        vs = vg.permute(0, 2, 1, 3).repeat_interleave(G, 1).contiguous()
+        mask = (torch.arange(S, device=dev)[None, :]
+                < kw["kv_len"][:, None])[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rec["library_ms"] = cuda_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask),
+                                    flush=flush)
+        rec["library_ms_nospin"] = cuda_ms(
+            lambda: sdpa(qs, ks, vs, attn_mask=mask), flush=flush, spin=0)
+        live = sum(kv_len[b] for b in range(B) if active[b])
+        pages = sum(-(-kv_len[b] // psz) for b in range(B) if active[b])
+        nbytes = 2 * live * Hkv * D * 2 + 2 * B * Hkv * G * D * 2 \
+            + 3 * B * 4 + pages * 4
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes,
+                                                 4 * live * Hkv * G * D)
     rec["launches"] = build.LAUNCHES["paged_decode_attention"] - n0
     show("paged_decode_attention", rec, card)
+    return rec
+
+
+# decode attention on every path of its body, each at one shape (S, Hkv, G,
+# D; the plan each takes is printed with its record): the LLaMA decode
+# shape (one split of 8 warps x 18 positions), GQA at G = 4 and 8 (Qwen3: 2
+# splits), S = 100 (not a multiple of a split's run), the long lane S = 4096
+# (8 splits of 8 warps x 64), S = 368 (the scheduled max_seq, 8 x 46), D
+# = 64 (4 rows a warp step), D = 72 (lanes past D masked), D = 20 (not a
+# multiple of 8: plain loads) with G = 12 (six blocks of 2 query rows along
+# G), D = 512 and 1024 (16 and 32 values a lane per row).  Each shape runs
+# one launch whose slots see n_b = 1, one below, at and one past a warp's
+# run and a split's run, and S, plus a causal cut (q_pos < kv_len - 1) and
+# an inactive slot (``attention_lengths``).
+ATTN_PATHS = ((144, 32, 1, 128), (144, 8, 4, 128), (144, 4, 8, 128),
+              (100, 32, 1, 128), (4096, 32, 1, 128), (4096, 4, 8, 128),
+              (368, 32, 1, 128), (144, 4, 8, 64), (40, 2, 4, 72),
+              (33, 2, 12, 20), (64, 2, 2, 512), (48, 1, 3, 1024))
+# the paged walk at 8, 16 and 64 positions a page, and 2 (a warp's run spans
+# more than 32 pages: the table read per row), each over a permuted table
+# and bit for bit against the dense kernel: B, W, psz, Hkv, G, D
+PAGED_PATHS = ((8, 46, 8, 32, 1, 128), (8, 23, 16, 4, 8, 128),
+               (8, 6, 64, 8, 4, 128), (4, 2048, 2, 8, 1, 128))
+
+
+def attention_lengths(S, config):
+    """kv_len, q_pos, active of a launch that covers the plan's edges at
+    sequence width S: n_b = 1, a warp's run and a split's run one below,
+    at and one past, and S; then S with a causal cut at S // 2 + 1,
+    and an inactive slot."""
+    run = config["run"]
+    split = config["warps"] * run
+    lens = sorted({n for n in (1, run - 1, run, run + 1, split - 1, split,
+                               split + 1, S) if 1 <= n <= S})
+    kv_len = lens + [S, S]
+    q_pos = [n - 1 for n in lens] + [S // 2, S - 1]
+    active = [1] * (len(lens) + 1) + [0]
+    return kv_len, q_pos, active
+
+
+def check_attention_path(gen, S, Hkv, G, D, flush, card):
+    """check_attention on ``attention_lengths`` of the plan at this shape
+    (untimed)."""
+    from repro_torch.kernels.decode_attention import attention_config
+    probe = torch.empty((1, S, Hkv, D), dtype=torch.bfloat16, device="cuda")
+    qp = torch.empty((1, Hkv, G, D), dtype=torch.bfloat16, device="cuda")
+    kv_len, q_pos, active = attention_lengths(
+        S, attention_config(qp, probe, probe))
+    return check_attention(gen, len(kv_len), S, Hkv, G, D, kv_len, q_pos,
+                           active, flush, card, timed=False)
+
+
+# batch invariance of decode attention: S, Hkv, G, D
+ATTN_INVARIANCE = ((144, 32, 1, 128), (144, 4, 8, 128), (368, 32, 1, 128))
+
+
+def check_attention_invariance(gen, S, Hkv, G, D, card):
+    """Decode attention's batch invariance and determinism on the card: each
+    slot of a B=8 launch (ragged lengths, a causal cut, an inactive slot)
+    launched alone (B=1, same S) equals its row bit for bit, two launches
+    on the same operands are bit-equal, and ``active=None`` (the kernel's
+    null pointer: every slot live) equals an all-ones ``active``."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    lens = [S, 1, S // 2, 17, S - 1, 40, S, 96][:8]
+    kv_len = [min(n, S) for n in lens]
+    q_pos = [n - 1 for n in kv_len]
+    q_pos[6] = S // 3
+    active = [1, 1, 1, 1, 1, 0, 1, 1]
+    q, k, v, kl, qp, act = attention_operands(gen, 8, S, Hkv, G, D, kv_len,
+                                              q_pos, active)
+    same = lambda a, b: torch.equal(a.view(torch.int16), b.view(torch.int16))
+    full = decode_attention(q, k, v, kv_len=kl, q_pos=qp, active=act)
+    for b in range(8):
+        one = decode_attention(q[b:b + 1].contiguous(),
+                               k[b:b + 1].contiguous(),
+                               v[b:b + 1].contiguous(), kv_len=kl[b:b + 1],
+                               q_pos=qp[b:b + 1], active=act[b:b + 1])
+        if not same(one, full[b:b + 1]):
+            fail(f"decode_attention slot {b} alone differs from its row of "
+                 f"the B=8 launch (S={S} Hkv={Hkv} G={G} D={D})")
+    if not same(decode_attention(q, k, v, kv_len=kl, q_pos=qp, active=act),
+                full):
+        fail(f"decode_attention: two launches on the same operands differ "
+             f"(S={S} Hkv={Hkv} G={G} D={D})")
+    ones = torch.ones_like(act)
+    if not same(decode_attention(q, k, v, kv_len=kl, q_pos=qp),
+                decode_attention(q, k, v, kv_len=kl, q_pos=qp, active=ones)):
+        fail(f"decode_attention: active=None differs from every slot active "
+             f"(S={S} Hkv={Hkv} G={G} D={D})")
+    torch.cuda.synchronize()
+    rec = {"S": S, "Hkv": Hkv, "G": G, "D": D, "kv_len": kv_len,
+           "alone_rows_bit_equal": True, "two_launches_bit_equal": True,
+           "null_active_bit_equal": True}
+    print(f"[kernels] decode_attention invariance {rec} card=[{card}]",
+          flush=True)
     return rec
 
 
@@ -855,9 +996,25 @@ def kernel_phase(card):
     out["decode_attention"].append(check_attention(
         gen, 4, 144, 4, 8, 128, [144, 77, 130, 9], [143, 76, 129, 5],
         [1, 0, 1, 1], flush, card))
+    # library-timed: Qwen3's decode shape and the long lane, every slot live
+    # at one length
+    out["decode_attention"].append(check_attention(
+        gen, 4, 144, 4, 8, 128, [136] * 4, [135] * 4, [1] * 4, flush, card,
+        moe=True))
+    out["decode_attention"].append(check_attention(
+        gen, 4, 4096, 32, 1, 128, [4096] * 4, [4095] * 4, [1] * 4, flush,
+        card, long=True))
+    # every path of the attention body (ATTN_PATHS), then its batch
+    # invariance
+    for shape in ATTN_PATHS:
+        out["decode_attention"].append(check_attention_path(gen, *shape,
+                                                            flush, card))
+    out["attention_invariance"] = [check_attention_invariance(gen, *shape,
+                                                              card)
+                                   for shape in ATTN_INVARIANCE]
     # the scheduled phase's shapes: 8 slots over 23 pages of 16 (its
     # max_seq is 368), ragged lengths, slot 3 inactive; then GQA (G=8) and
-    # a page larger than the kernel's 32-position tile
+    # a page of 64 positions
     lens = [368, 17, 300, 255, 96, 1, 351, 160]
     act = [1, 1, 1, 0, 1, 1, 1, 1]
     out["paged_decode_attention"] = [
@@ -867,6 +1024,12 @@ def kernel_phase(card):
                               card),
         check_paged_attention(gen, 4, 7, 64, 8, 4, 128, [448, 65, 64, 3],
                               [1, 1, 0, 1], flush, card)]
+    for B, W, psz, Hkv, G, D in PAGED_PATHS:
+        S = W * psz
+        lens = [S, 1, psz - 1, psz, psz + 1, S // 2 + 3, S - 1, 40][:B]
+        act = [1] * (B - 1) + [0]
+        out["paged_decode_attention"].append(check_paged_attention(
+            gen, B, W, psz, Hkv, G, D, lens, act, flush, card, timed=False))
     out["quant_matmul_experts"] = []
     for C in EXPERT_C:
         for K, N, _ in EXPERT_SHAPES:
@@ -1723,6 +1886,9 @@ def decode_profile(steps, packed, store, max_seq, card, n=8):
     events = prof.key_averages()
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
+    launches = sum(e.count for e in kern) / n
+    attn = sum(e.self_device_time_total for e in kern
+               if "decode_attention" in e.key) / 1e3 / n
 
     def top(evs, key):
         evs = sorted(evs, key=lambda e: -getattr(e, key))[:6]
@@ -1732,13 +1898,15 @@ def decode_profile(steps, packed, store, max_seq, card, n=8):
     host = [e for e in events if e.device_type == DeviceType.CPU]
     print(f"[schedule-profile] {store} decode step, 8 live slots at position "
           f"200+: wall {wall:.3f} ms/step; device busy "
-          + (f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of wall); top "
-             f"kernels (launches/step, ms/step): "
+          + (f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of wall), "
+             f"{launches:.1f} kernel launches/step, decode attention "
+             f"{attn:.3f} ms/step; top kernels (launches/step, ms/step): "
              f"{top(kern, 'self_device_time_total')}" if kern
              else "not measured (the profiler saw no device activity)")
           + f"; top host ops (calls/step, self CPU ms/step): "
           f"{top(host, 'self_cpu_time_total')}; card=[{card}]", flush=True)
-    return {"wall_ms": wall, "busy_ms": busy if kern else None}
+    return {"wall_ms": wall, "busy_ms": busy if kern else None,
+            "launches": launches if kern else None}
 
 
 def lockstep_expect(cfg, reqs):
@@ -2389,7 +2557,11 @@ def main():
                          "per-channel; '*_nospin' the same launches timed "
                          "by events alone, without the device spin",
            "decode_attention": "one layer of a decode step: 1 launch, B=4 "
-                               "Hkv=32 G=1 D=128 S=144 kv_len=136; "
+                               "Hkv=32 G=1 D=128 S=144 kv_len=136; 'moe' "
+                               "Qwen3's: B=4 Hkv=4 G=8 D=128 S=144 "
+                               "kv_len=136; 'long' the long lane: B=4 "
+                               "Hkv=32 G=1 D=128 S=kv_len=4096 (SDPA over "
+                               "the live positions in all three); "
                                "'*_nospin' timed without the device spin",
            "soft_round_fwd": "one layer of a Soften step: 7 launches (4 x "
                              "ng=32 out=4096, 2 x ng=32 out=11008, 1 x ng=86 "
@@ -2403,7 +2575,10 @@ def main():
            "paged_decode_attention": "one layer of a scheduled decode step: "
                                      "1 launch, B=8 Hkv=32 G=1 D=128, 23 "
                                      "pages of 16, kv_len up to 368, one "
-                                     "slot inactive",
+                                     "slot inactive (SDPA with a length "
+                                     "mask on the gathered cache: a "
+                                     "yardstick); '*_nospin' timed without "
+                                     "the device spin",
            "quant_matmul_experts": "one MoE layer of a decode step: 3 "
                                    "launches (2 x K=2048 N=768, 1 x K=768 "
                                    "N=2048), E=128, C=8, W2 g128; 'prefill' "
@@ -2451,6 +2626,10 @@ def main():
             if name == "quant_gemv":
                 nums["sched"] = summarize(recs[name], name, "sched")
                 nums["invariance"] = recs["gemv_invariance"]
+            if name == "decode_attention":
+                nums["moe"] = summarize(recs[name], name, "moe")
+                nums["long"] = summarize(recs[name], name, "long")
+                nums["invariance"] = recs["attention_invariance"]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{build.SOURCES[name]}",
                         "replaces": sources[name],

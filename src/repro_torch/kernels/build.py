@@ -58,13 +58,16 @@ _SIGNATURES = {
     "quant_matmul_config": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, packed, scale, zero, N, K, bits, group_size, int cfg[12]
     "quant_gemv_config": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, kv_len, q_pos, active, out, B, S, Hkv, G, D, scale, stream
+    # q, k, v, kv_len, q_pos, active (or null: every slot live), out, B, S,
+    # Hkv, G, D, scale, stream
     "launch_decode_attention": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _P],
     # q, k_pool, v_pool, ptab, kv_len, q_pos, active, out, B, W, psz, Hkv,
     # G, D, scale, stream
     "launch_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _F, _P],
+    # k, v, S, Hkv, G, D, int cfg[9]
+    "decode_attention_config": [_P, _P, _I, _I, _I, _I, _P],
     # x_q, w_q, x_scale, w_scale, out, M, N, K, lda, out_f32, stream
     "launch_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # base, nu, hard, v, scale, zero, out, ng, g, n, qmax, dst, stream
@@ -172,4 +175,7 @@ def check(name: str, err: int) -> None:
 
 
 def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream of CUDA ``device`` (a tensor's
+    device, so indexed), read without building a ``torch.cuda.Stream``
+    object: that costs a few microseconds on every launch's host path."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -250,10 +250,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
     page table when the cache is a page pool.  Returns (logits, cache); the
     cache is updated in place."""
     x = embed_tokens(params, cfg, tokens)[:, None, :]
+    kv_len = pos + 1  # once per step, not once per layer
     for i in range(cfg.num_layers):
         x, _ = block(take_layer(params["blocks"], i), x, cfg, ctx,
                      positions=pos[:, None], kv_cache=_layer_cache(cache, i),
-                     cache_pos=pos, kv_len=pos + 1, active=active,
+                     cache_pos=pos, kv_len=kv_len, active=active,
                      ptab=ptab)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return unembed(params, cfg, x, ctx)[:, 0], cache

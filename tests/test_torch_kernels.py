@@ -234,3 +234,58 @@ def test_decode_attention_plain_matches_reference(B, S, Hkv, G, D, chunk, dt):
     assert got.dtype == tdt
     assert torch.all(got[1] == 0)                   # exact zeros
     _compare(got, want, dt)
+
+
+# The shapes chip_smoke.py's ATTN_PATHS hold the CUDA kernel to its plain
+# version at, with a small D: G = 8 over one KV head, G = 12 (six of the
+# kernel's 2-row query blocks), S not a multiple of 8, D not a multiple of
+# 8; one launch covers n_b = 1, lengths at and past 8 and 16 positions
+# (the edges of a warp's run at these widths), S - 1 and S, a causal cut
+# (q_pos < kv_len - 1) and an inactive slot.  ``chunk`` divides S or is at
+# least S (ROADMAP fault 3.2).  Tolerances as above.
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("S,Hkv,G,D,chunk", [
+    (37, 1, 8, 16, 64), (36, 2, 4, 8, 12), (40, 2, 1, 24, 8),
+    (33, 2, 12, 20, 33)],
+    ids=["mqa8-s37", "gqa4-s36", "mha-d24", "g12-d20"])
+def test_decode_attention_plain_matches_reference_at_plan_edges(
+        S, Hkv, G, D, chunk, dt):
+    rng = np.random.default_rng(S * G + D)
+    lens = sorted({1, 8, 9, 16, 17, S - 1, S})
+    kv_len = np.array(lens + [S, S], np.int32)
+    q_pos = np.array([n - 1 for n in lens] + [S // 2, S - 1], np.int32)
+    active = np.ones(len(kv_len), np.int32)
+    active[-1] = 0                                  # one inactive slot
+    B = len(kv_len)
+    q = rng.standard_normal((B, Hkv, G, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    jdt, tdt = _DTYPES[dt]
+    want = jops.decode_attention_op(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        kv_len=jnp.asarray(kv_len.copy()), q_pos=jnp.asarray(q_pos.copy()),
+        active=jnp.asarray(active.copy()), chunk=chunk)
+    got = decode_attention(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt),
+        torch.from_numpy(v).to(tdt), kv_len=torch.from_numpy(kv_len),
+        q_pos=torch.from_numpy(q_pos), active=torch.from_numpy(active))
+    assert got.dtype == tdt
+    assert torch.all(got[-1] == 0)                  # exact zeros
+    _compare(got, want, dt)
+
+
+def test_decode_attention_null_active_is_every_slot_live():
+    """``active=None`` (the CUDA kernel's null pointer) is every slot live:
+    bit for bit the all-ones result on the CPU path, without a launch."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(torch.bfloat16)
+               for sh in ((3, 2, 4, 16), (3, 24, 2, 16), (3, 24, 2, 16)))
+    kv_len = torch.tensor([24, 1, 13], dtype=torch.int32)
+    q_pos = torch.tensor([23, 0, 9], dtype=torch.int32)
+    before = dict(build.LAUNCHES)
+    got = decode_attention(q, k, v, kv_len=kv_len, q_pos=q_pos)
+    want = decode_attention(q, k, v, kv_len=kv_len, q_pos=q_pos,
+                            active=torch.ones(3, dtype=torch.int32))
+    assert torch.equal(got, want)
+    assert dict(build.LAUNCHES) == before

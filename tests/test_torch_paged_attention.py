@@ -53,8 +53,9 @@ def _torch(a, tdt=None):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("psz", [4, 8, 16])
-@pytest.mark.parametrize("Hkv,G", [(2, 1), (1, 4)], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("psz", [4, 8, 16, 64])
+@pytest.mark.parametrize("Hkv,G", [(2, 1), (1, 4), (1, 8)],
+                         ids=["mha", "gqa4", "mqa8"])
 def test_paged_plain_matches_reference(Hkv, G, psz, dt):
     q, kp, vp, ptab, kv_len, q_pos, active = _operands(Hkv, G, psz, psz + G)
     jdt, tdt = _DTYPES[dt]
