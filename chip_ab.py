@@ -2,7 +2,8 @@
 """Same-call A/B of a kernel between two checkouts on one GPU.
 
     python3 chip_ab.py PARENT_DIR
-        [--kernel quant_matmul|quant_gemv|decode_attention|decode_step]
+        [--kernel quant_matmul|quant_gemv|decode_attention|decode_step|
+                  int8_matmul]
 
 ``quant_matmul`` (the default) times ``chip_smoke.check_quant`` over
 LLaMA-2-7B's prefill projections (M=512, W2 g128, ``MAIN_SHAPES``, summed
@@ -16,7 +17,18 @@ pages of 16, ragged lengths, one slot inactive), beside SDPA;
 ``decode_step`` profiles one scheduled dense decode step of the RTN-packed
 LLaMA-2-7B (8 live slots at position 200, max_seq 368, as
 ``chip_smoke.decode_profile``) and prints its wall and device-busy ms,
-kernel launches and decode attention's device ms per step.  Each runs in
+kernel launches and decode attention's device ms per step;
+``int8_matmul`` times ``chip_smoke.check_int8`` over LLaMA-2-7B's 7
+per-channel linears (f32 out) at M=512 and M=4, with ``torch._int_mm``
+beside (timed here alike for both; at M=4 on x zero-padded to 17 rows, a
+yardstick), the kernel's share of a g128 ``w4a8_matmul`` call (32
+launches of K=128 column slices at M=512, N=4096), the M=512 layer again
+through the checkout's own ``chip_smoke.cuda_ms`` and then at the end of
+the process, the host path per call at M=4 (the wrapper,
+``int8_matmul_config`` alone, ``torch._int_mm``), and hashes kernel 1's
+outputs (``quant_matmul`` over
+``chip_smoke.QM_PATHS`` and the prefill shapes, one expert-batched call):
+the hashes must agree between the checkouts.  Each runs in
 a fresh process per checkout: parent, this checkout, this checkout,
 parent.  Each process builds its own checkout's kernels and
 checks them against the plain version first.  The timing is this script's
@@ -143,9 +155,113 @@ def step_profile(n=8):
             f"decode_attention {attn}")
 
 
+def qm_digest():
+    # kernel 1's outputs (quant_matmul over QM_PATHS and the LLaMA prefill
+    # shapes, quant_matmul_experts at E=8) hashed bit for bit, so a change
+    # that only moves its helpers can be shown to leave them as they were
+    import hashlib
+    from repro_torch.core.qtensor import pack
+    from repro_torch.kernels.quant_matmul import quant_matmul_experts
+    h = hashlib.sha256()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    paths = c.QM_PATHS + tuple((512, K, N, 2, 128, 0)
+                               for K, N, _ in c.MAIN_SHAPES)
+    for M, K, N, bits, gs, off in paths:
+        x, packed, scale, zero = c.quant_operands(g, M + off, K, N, bits, gs)
+        y = quant_matmul(x[off:], packed, scale, zero, bits=bits,
+                         group_size=gs)
+        h.update(y.view(torch.int16).cpu().numpy().tobytes())
+    codes = torch.randint(0, 4, (8, 2048, 768), generator=g, device="cuda",
+                          dtype=torch.int32)
+    scale = torch.rand((8, 16, 768), generator=g, device="cuda") + 0.005
+    zero = torch.randint(0, 4, (8, 16, 768), generator=g,
+                         device="cuda").float()
+    x = torch.randn((8, 40, 2048), generator=g, device="cuda").bfloat16()
+    y = quant_matmul_experts(x, pack(codes, 2), scale, zero, bits=2,
+                             group_size=128)
+    h.update(y.view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 name = sys.argv[2]
 out = []
-if name == "decode_step":
+if name == "int8_matmul":
+    # one LLaMA-2-7B layer's 7 per-channel linears (f32 out) through the
+    # checkout's check_int8 at M=512 and M=4, with torch._int_mm timed here
+    # alike for both checkouts (w_q column-major; at M=4 on x zero-padded
+    # to 17 rows, the smallest M it takes: a yardstick)
+    smoke_ms = c.cuda_ms  # the checkout's own timer, read once below
+
+    def int8_layer(M, library=True):
+        kern = nospin = lib = 0.0
+        for K, N, cnt in c.MAIN_SHAPES:
+            rec = c.check_int8(gen, M, K, N, l2.zero_, card,
+                               path="main" if M > 16 else "decode")
+            kern += cnt * rec["kernel_ms"]
+            nospin += cnt * rec.get("kernel_ms_nospin", float("nan"))
+            if not library:
+                continue
+            xp = torch.zeros((max(M, 17), K), dtype=torch.int8,
+                             device="cuda")
+            xp[:M] = torch.randint(-128, 128, (M, K), generator=gen,
+                                   device="cuda", dtype=torch.int8)
+            wc = torch.randint(-128, 128, (K, N), generator=gen,
+                               device="cuda",
+                               dtype=torch.int8).t().contiguous().t()
+            lib += cnt * c.cuda_ms(lambda: torch._int_mm(xp, wc),
+                                   flush=l2.zero_)
+        return kern, nospin, lib
+
+    for M in (512, 4):
+        for reading, spin in (("spin", SPIN_CYCLES), ("nospin", 0)):
+            c.cuda_ms = timer(spin)  # check_int8 times through this name
+            kern, _, lib = int8_layer(M)
+            out.append(f"M={M} {reading} {kern} library {lib}")
+    # the kernel's share of one w4a8_matmul g128 call at prefill: 32
+    # launches of K = 128 column slices (lda 4096) at M=512, N=4096
+    for reading, spin in (("spin", SPIN_CYCLES), ("nospin", 0)):
+        c.cuda_ms = timer(spin)
+        rec = c.check_int8(gen, 512, 128, 4096, l2.zero_, card, lda=4096)
+        out.append(f"g128 {reading} {32 * rec['kernel_ms']}")
+    # the M=512 layer again: through the checkout's own chip_smoke.cuda_ms
+    # (its spun reading, and the events alone where its check_int8 records
+    # them), then through this script's timer at the end of the process, so
+    # a gap between chip_smoke's and this script's readings can be put on
+    # the timer or on the process's history
+    c.cuda_ms = smoke_ms
+    kern, nospin, _ = int8_layer(512, library=False)
+    out.append(f"M=512 smoke_timer {kern} nospin {nospin}")
+    c.cuda_ms = timer(SPIN_CYCLES)
+    kern, _, _ = int8_layer(512, library=False)
+    out.append(f"M=512 spin_again {kern}")
+    # the host path per call (host clock over 200 enqueues, no sync between
+    # them) at M=4, N=K=4096: the wrapper, its plan and tensor-map encodes
+    # alone (int8_matmul_config, where the checkout has it), torch._int_mm
+    import repro_torch.kernels.int8_matmul as i8
+    xq = torch.randint(-128, 128, (4, 4096), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-128, 128, (4096, 4096), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    xs = torch.rand((4, 1), generator=gen, device="cuda") + 1e-3
+    ws = torch.rand((1, 4096), generator=gen, device="cuda") + 1e-3
+    x17 = torch.zeros((17, 4096), dtype=torch.int8, device="cuda")
+    calls = {"int8_matmul": lambda: i8.int8_matmul(xq, wq, xs, ws,
+                                                   out_dtype=torch.float32),
+             "_int_mm": lambda: torch._int_mm(x17, wq)}
+    if hasattr(i8, "int8_matmul_config"):
+        calls["config"] = lambda: i8.int8_matmul_config(xq, wq)
+    for tag, fn in calls.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        us = (time.perf_counter() - t0) * 1e6 / 200
+        torch.cuda.synchronize()
+        out.append(f"host_us {tag} {us}")
+    out.append(f"qm_digest {qm_digest()}")
+elif name == "decode_step":
     out.append(step_profile())
 elif name == "decode_attention":
     lens = [368, 17, 300, 255, 96, 1, 351, 160]
@@ -187,7 +303,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("parent", help="checkout of the commit to compare with")
     ap.add_argument("--kernel", choices=("quant_matmul", "quant_gemv",
-                                         "decode_attention", "decode_step"),
+                                         "decode_attention", "decode_step",
+                                         "int8_matmul"),
                     default="quant_matmul")
     args = ap.parse_args()
     parent = os.path.abspath(args.parent)
@@ -198,6 +315,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
+    digests = set()
     for tag, where in (("parent", parent), ("change", HERE),
                        ("change", HERE), ("parent", parent)):
         out = subprocess.run([sys.executable, "-c", CHILD, tag, args.kernel],
@@ -211,6 +329,14 @@ def main():
                   file=sys.stderr)
             return 1
         print(lines[0], flush=True)
+        digests.update(part.split()[1] for part in lines[0].split("; ")
+                       if part.startswith("qm_digest"))
+    if args.kernel == "int8_matmul":
+        same = len(digests) == 1
+        print(f"quant_matmul outputs {'bit-identical' if same else 'DIFFER'}"
+              f" between the checkouts: {sorted(digests)}", flush=True)
+        if not same:
+            return 1
     return 0
 
 

@@ -767,6 +767,17 @@ def summarize_experts(records):
 INT8_M = (512, 4)
 INT8_SLICE = (512, 128, 11008, 4096)      # M, K, N, lda
 INT8_RAGGED = (13, 200, 300)
+# every plan and edge of the int8 kernel, bit for bit against the plain
+# version (untimed): M = 16 / 17 (the boundary between the decode plan and
+# the main plan), ragged M > 16 tiles by TMA and by plain loads, lda % 16
+# != 0 (plain-loaded x), an x base off 16-byte alignment (plain-loaded x),
+# N % 16 != 0 (plain-loaded w), K not a multiple of 32 (by TMA: lda = 256),
+# a ragged decode tile.  M, K, N, lda, x offset, f32 out
+INT8_PATHS = ((16, 4096, 11008, 4096, 0, False),
+              (17, 4096, 4096, 4096, 0, True), (37, 208, 304, 208, 0, True),
+              (37, 200, 300, 200, 0, False), (40, 100, 256, 100, 0, True),
+              (24, 128, 512, 144, 1, False), (64, 250, 304, 256, 0, True),
+              (64, 256, 300, 256, 0, False), (4, 250, 300, 250, 0, True))
 
 
 def int_mm_ok(M, K, N):
@@ -776,19 +787,30 @@ def int_mm_ok(M, K, N):
 
 
 def check_int8(gen, M, K, N, flush, card, lda=None, out_dtype=torch.float32,
-               path=None):
+               path=None, x_offset=0, timed=True):
     """The int8 kernel vs its plain version, bit for bit, then timed with
     the plain version and ``torch._int_mm`` (the int32 product alone, where
-    its shape rules allow: a yardstick, no epilogue).  ``lda > K`` passes
-    x_q as a column slice of a wider matrix; ``path`` ("main" at M=512,
-    "decode" at M=4) marks the rows summed per layer in the kernels line."""
+    its shape rules allow: a yardstick, no epilogue; at M <= 16, which it
+    refuses, on x zero-padded to 17 rows, the same weight bytes: a
+    yardstick of the decode shape).  ``lda > K`` passes x_q as a column
+    slice of a wider matrix, ``x_offset`` > 0 starts it that many bytes
+    into a buffer (a base off 16-byte alignment); ``path`` ("main" at
+    M=512, "decode" at M=4) marks the rows summed per layer in the kernels
+    line.  Each record names the plan the kernel's host code chose
+    (``int8_matmul_config``)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                                 int8_matmul_config,
                                                  int8_matmul_plain)
     dev = "cuda"
     lda = lda or K
-    x_q = torch.randint(-128, 128, (M, lda), generator=gen, device=dev,
-                        dtype=torch.int8)[:, :K]
+    if x_offset:
+        x_q = torch.randint(-128, 128, (M * lda + x_offset,), generator=gen,
+                            device=dev, dtype=torch.int8)[x_offset:]
+        x_q = x_q.view(M, lda)[:, :K]
+    else:
+        x_q = torch.randint(-128, 128, (M, lda), generator=gen, device=dev,
+                            dtype=torch.int8)[:, :K]
     w_q = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
                         dtype=torch.int8)
     x_scale = torch.rand((M, 1), generator=gen, device=dev) * 0.01 + 1e-3
@@ -800,15 +822,21 @@ def check_int8(gen, M, K, N, flush, card, lda=None, out_dtype=torch.float32,
     want = int8_matmul_plain(*args, out_dtype=out_dtype)
     if not torch.equal(got, want):
         fail(f"int8_matmul is not bit-identical to its plain version at M={M} "
-             f"K={K} N={N} lda={lda} {out_dtype}: max |diff| "
-             f"{float((got.float() - want.float()).abs().max())}")
+             f"K={K} N={N} lda={lda} x_offset={x_offset} {out_dtype}: max "
+             f"|diff| {float((got.float() - want.float()).abs().max())}")
     out_b = 4 if out_dtype == torch.float32 else 2
-    rec = {"M": M, "K": K, "N": N, "lda": lda,
+    rec = {"M": M, "K": K, "N": N, "lda": lda, "x_offset": x_offset,
            "out": str(out_dtype).replace("torch.", ""), "max_abs_err": 0.0,
            "bit_identical": True, "main": path == "main",
-           "decode": path == "decode"}
-    rec["kernel_ms"] = cuda_ms(lambda: int8_matmul(*args, out_dtype=out_dtype),
-                               flush=flush)
+           "decode": path == "decode",
+           "config": int8_matmul_config(x_q, w_q)}
+    if not timed:
+        rec["launches"] = build.LAUNCHES["int8_matmul"] - n0
+        show("int8_matmul", rec, card)
+        return rec
+    run = lambda: int8_matmul(*args, out_dtype=out_dtype)
+    rec["kernel_ms"] = cuda_ms(run, flush=flush)
+    rec["kernel_ms_nospin"] = cuda_ms(run, flush=flush, spin=0)
     rec["plain_ms"] = cuda_ms(
         lambda: int8_matmul_plain(*args, out_dtype=out_dtype), iters=5,
         flush=flush)
@@ -816,13 +844,20 @@ def check_int8(gen, M, K, N, flush, card, lda=None, out_dtype=torch.float32,
     # column-major (cuBLASLt's preferred int8 layout); the faster is the
     # yardstick
     rec["library_ms"] = None
-    if int_mm_ok(M, K, N):
-        xc, w_col = x_q.contiguous(), w_q.t().contiguous().t()
-        rec["library_row_ms"], rec["library_col_ms"] = (
-            cuda_ms(lambda: torch._int_mm(xc, w), flush=flush)
-            for w in (w_q, w_col))
-        rec["library_ms"] = min(rec["library_row_ms"],
-                                rec["library_col_ms"])
+    if int_mm_ok(max(M, 17), K, N):
+        xc = x_q.contiguous()
+        if M <= 16:
+            xc = torch.zeros((17, K), device=dev, dtype=torch.int8)
+            xc[:M] = x_q
+            rec["library_yardstick"] = f"torch._int_mm on x zero-padded " \
+                                       f"from {M} to 17 rows"
+        w_col = w_q.t().contiguous().t()
+        for reading, spin in (("", SPIN_CYCLES), ("_nospin", 0)):
+            row, col = (cuda_ms(lambda: torch._int_mm(xc, w), flush=flush,
+                                spin=spin) for w in (w_q, w_col))
+            rec[f"library_row_ms{reading}"] = row
+            rec[f"library_col_ms{reading}"] = col
+            rec[f"library_ms{reading}"] = min(row, col)
     nbytes = M * K + K * N + 4 * (M + N) + M * N * out_b
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * M * K * N,
                                              INT8_OP_PER_S)
@@ -831,20 +866,54 @@ def check_int8(gen, M, K, N, flush, card, lda=None, out_dtype=torch.float32,
     return rec
 
 
+def check_int8_invariance(gen, card, K=4096, N=4096):
+    """The int8 kernel's rows do not depend on the plan or the batch: rows
+    of launches at M = 1 and 4 (the decode plan) and row 5 alone equal
+    their rows of an M = 16 launch, whose rows equal the first 16 of an M =
+    17 launch (the main plan; splits differ), and two launches are bit for
+    bit equal (the int32 sums are exact in any order)."""
+    from repro_torch.kernels.int8_matmul import int8_matmul
+    x = torch.randint(-128, 128, (17, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    xs = torch.rand((17, 1), generator=gen, device="cuda") * 0.01 + 1e-3
+    ws = torch.rand((1, N), generator=gen, device="cuda") * 0.01 + 1e-3
+    run = lambda a, b: int8_matmul(x[a:b], w, xs[a:b], ws,
+                                   out_dtype=torch.float32)
+    full, main = run(0, 16), run(0, 17)
+    checks = {"M=1": torch.equal(run(0, 1), full[:1]),
+              "M=4": torch.equal(run(0, 4), full[:4]),
+              "row 5 alone": torch.equal(run(5, 6), full[5:6]),
+              "M=16 vs M=17": torch.equal(full, main[:16]),
+              "two launches": torch.equal(run(0, 16), full)}
+    torch.cuda.synchronize()
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"int8_matmul rows differ across launches: {bad} (K={K} N={N})")
+    rec = {"K": K, "N": N, "bit_equal": list(checks)}
+    print(f"[kernels] int8_matmul invariance {rec} card=[{card}]", flush=True)
+    return rec
+
+
 def summarize_int8(records):
     """One LLaMA-2-7B layer's 7 per-channel linears through the int8 kernel
     (f32 out, as ``w4a8_matmul`` calls it) at M=512; ``decode`` the same at
-    M=4, where ``torch._int_mm`` refuses M <= 16."""
+    M=4, where ``torch._int_mm`` refuses M <= 16: its library time is the
+    yardstick on x zero-padded to 17 rows.  ``*_nospin``: timed by events
+    alone."""
     per_layer = {(K, N): c for K, N, c in MAIN_SHAPES}
 
     def at(path):
         timed = [r for r in records if r[path]]
         tot = lambda key: sum(per_layer[(r["K"], r["N"])] * r[key]
                               for r in timed)
-        lib = [r["library_ms"] for r in timed]
-        return {"ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
-                "bound_ms": tot("bound_ms"), "bound_by": timed[0]["bound_by"],
-                "library_ms": (None if None in lib else tot("library_ms"))}
+        return {"ms": tot("kernel_ms"), "ms_nospin": tot("kernel_ms_nospin"),
+                "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+                "bound_by": timed[0]["bound_by"],
+                "library_ms": tot("library_ms"),
+                "library_ms_nospin": tot("library_ms_nospin"),
+                "config": timed[0]["config"]}
 
     out = at("main")
     out["decode"] = at("decode")
@@ -1071,6 +1140,13 @@ def kernel_phase(card):
                                              out_dtype=dt))
     out["int8_matmul"].append(check_int8(gen, 512, 4096, 4096, flush, card,
                                          out_dtype=torch.bfloat16))
+    # every plan and edge of the int8 kernel (INT8_PATHS), then its rows'
+    # independence of the plan and the batch
+    for M, K, N, lda, off, f32 in INT8_PATHS:
+        out["int8_matmul"].append(check_int8(
+            gen, M, K, N, flush, card, lda=lda, x_offset=off, timed=False,
+            out_dtype=torch.float32 if f32 else torch.bfloat16))
+    out["int8_invariance"] = check_int8_invariance(gen, card)
     return out
 
 
@@ -2586,7 +2662,8 @@ def main():
            "int8_matmul": "one LLaMA-2-7B layer's 7 per-channel linears "
                           "(4 x K=4096 N=4096, 2 x K=4096 N=11008, 1 x "
                           "K=11008 N=4096), M=512, f32 out; 'decode' the "
-                          "same at M=4"}
+                          "same at M=4; '*_nospin' timed without the device "
+                          "spin"}
     kernels = []
     for name in build.KERNELS:
         by_path = {"serve": serve_counts[name], "calibrate": cal_counts[name],
@@ -2608,10 +2685,13 @@ def main():
                                     "its gradient")
         elif name == "int8_matmul":
             nums = summarize_int8(recs[name])
+            nums["invariance"] = recs["int8_invariance"]
             nums["library_note"] = ("torch._int_mm: the int32 product "
                                     "without the scale epilogue, the "
                                     "faster of row- and column-major w_q; "
-                                    "a yardstick; it refuses M <= 16")
+                                    "a yardstick; it refuses M <= 16, so "
+                                    "'decode' times it on x zero-padded to "
+                                    "17 rows")
         elif name == "quant_matmul_experts":
             nums = summarize_experts(recs[name])
             nums["library_note"] = ("torch.bmm on the pre-dequantized bf16 "

@@ -10,11 +10,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-namespace {
+#include "sm90.cuh"
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+namespace {
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -23,12 +21,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 __device__ __forceinline__ float code_f(uint32_t bits) {
   return __uint_as_float(bits | 0x4B000000u);  // 2^23 + bits, exactly
-}
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-  return d;
 }
 
 // w = (code - z) * s for the two codes of a pair; cf holds 2^23 + code.

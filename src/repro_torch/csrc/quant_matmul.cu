@@ -85,6 +85,7 @@
 #include <stdint.h>
 
 #include "dequant.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -110,93 +111,6 @@ struct Layout {
 struct TmaMaps {
   CUtensorMap x, packed, scale, zero;
 };
-
-// offset of byte (row r, byte b) in a tile of 128-byte rows stored with the
-// 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8))
-__device__ __forceinline__ int swz(int r, int b) {
-  return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving or reusing registers that an in-flight
-// wgmma reads or writes
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[c][j])::"memory");
-}
-
-// shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart (SBO); LBO is unused for swizzled K-major layouts
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
 
 // D (64 n x 128 m, f32) += A (64 n x 16 k, bf16, registers) * B (16 k x
 // 128 m, bf16, shared memory via desc)
@@ -557,49 +471,16 @@ quant_matmul_kernel(const __grid_constant__ TmaMaps maps,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime (the library links no libcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 3-D map (d0 innermost, d2 = experts) read in boxes of b0 x b1 x 1;
-// false where TMA cannot take the operand (the kernel then loads it plainly)
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
-              const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
-              uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr || d0 == 0 || d1 == 0 ||
-      (reinterpret_cast<uintptr_t>(base) & 15) != 0 || (d0 * esize) % 16)
-    return false;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * esize, d0 * d1 * esize};
-  const cuuint32_t box[3] = {b0, b1, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box,
-                step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// A 3-D map of contiguous rows (d0 innermost, d2 = experts) read in boxes
+// of b0 x b1 x 1; false where TMA cannot take the operand (the kernel then
+// loads it plainly)
+bool make_map3(CUtensorMap* map, CUtensorMapDataType type, int esize,
+               const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+               uint32_t b0, uint32_t b1, CUtensorMapSwizzle swizzle) {
+  const uint64_t dims[3] = {d0, d1, d2};
+  const uint64_t strides[2] = {d0 * esize, d0 * d1 * esize};
+  const uint32_t box[3] = {b0, b1, 1};
+  return make_map(map, type, base, 3, dims, strides, box, swizzle);
 }
 
 // What one launch takes for these operands (E = 1 for a single matrix):
@@ -629,19 +510,20 @@ Plan make_plan(const void* x, const void* packed, const void* scale,
                  : (group_size % BK == 0 || group_size == K) ? 1
                                                              : MAX_GROUPS;
   p.lut = p.ppb == 4 && p.staged;
-  p.x_tma = make_map(&p.maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M,
-                     E, BK, BM, CU_TENSOR_MAP_SWIZZLE_128B);
+  p.x_tma = make_map3(&p.maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K,
+                      M, E, BK, BM, CU_TENSOR_MAP_SWIZZLE_128B);
   const int ng = K / group_size;
   p.w_tma = (N % 16 == 0) &&
-            make_map(&p.maps.packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed,
-                     N, K / p.ppb, E, BN, BK / p.ppb,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
+            make_map3(&p.maps.packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                      packed, N, K / p.ppb, E, BN, BK / p.ppb,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
   if (p.w_tma && p.staged)
-    p.w_tma = make_map(&p.maps.scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                       scale, N, ng, E, BN, p.group_rows,
-                       CU_TENSOR_MAP_SWIZZLE_NONE) &&
-              make_map(&p.maps.zero, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, zero,
-                       N, ng, E, BN, p.group_rows, CU_TENSOR_MAP_SWIZZLE_NONE);
+    p.w_tma = make_map3(&p.maps.scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                        scale, N, ng, E, BN, p.group_rows,
+                        CU_TENSOR_MAP_SWIZZLE_NONE) &&
+              make_map3(&p.maps.zero, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                        zero, N, ng, E, BN, p.group_rows,
+                        CU_TENSOR_MAP_SWIZZLE_NONE);
   return p;
 }
 

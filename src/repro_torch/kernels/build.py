@@ -70,6 +70,8 @@ _SIGNATURES = {
     "decode_attention_config": [_P, _P, _I, _I, _I, _I, _P],
     # x_q, w_q, x_scale, w_scale, out, M, N, K, lda, out_f32, stream
     "launch_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x_q, w_q, M, N, K, lda, int cfg[11]
+    "int8_matmul_config": [_P, _P, _I, _I, _I, _I, _P],
     # base, nu, hard, v, scale, zero, out, ng, g, n, qmax, dst, stream
     "soft_round_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dout, base, nu, hard, v, scale, zero, dnu, dv, ng, g, n, qmax, dst,

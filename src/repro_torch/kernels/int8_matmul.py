@@ -19,6 +19,8 @@ passes its per-group slices without a copy.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
@@ -67,8 +69,9 @@ def check_operands(name: str, x_q, w_q, x_scale, w_scale, out_dtype):
     if out_dtype not in OUT_DTYPES:
         raise TypeError(f"{name}: out_dtype must be one of {OUT_DTYPES}, "
                         f"got {out_dtype}")
+    dev = x_q.get_device()  # an int: cheaper than comparing torch.device
     for nm, t in (("w_q", w_q), ("x_scale", x_scale), ("w_scale", w_scale)):
-        if t.device != x_q.device:
+        if t.get_device() != dev:
             raise ValueError(f"{name}: {nm} is on {t.device}, x_q on "
                              f"{x_q.device}")
     lda = x_q.stride(0) if M > 1 else K
@@ -81,6 +84,33 @@ def check_operands(name: str, x_q, w_q, x_scale, w_scale, out_dtype):
     return M, N, K, lda
 
 
+def int8_matmul_config(x_q: torch.Tensor, w_q: torch.Tensor) -> dict:
+    """The plan the CUDA kernel takes for these operands, as its own host
+    code chooses it (``int8_matmul_config`` in ``csrc/int8_matmul.cu``;
+    launches nothing): the m tile (16 at M <= 16: the decode plan; else the
+    main plan), the n tile, the K bytes a stage and the ring's stages, the
+    split of K (blocks per thread-block cluster) and the K stages, the
+    output tiles, whether x and w come by TMA (else by plain loads), and
+    the SM count the split is sized for (the H100 SXM's 132, whatever the
+    card).  A function of (M, N, K, lda) and of the bases' alignment.  CUDA
+    tensors only."""
+    if x_q.device.type != "cuda":
+        raise ValueError(f"int8_matmul_config: CUDA tensors only, got "
+                         f"{x_q.device}")
+    M, K = x_q.shape
+    N = w_q.shape[1]
+    lda = x_q.stride(0) if M > 1 else K
+    cfg = (ctypes.c_int * 11)()
+    lib = build.load_library()
+    build.check("int8_matmul_config", lib.int8_matmul_config(
+        x_q.data_ptr(), w_q.data_ptr(), M, N, K, lda, cfg))
+    bm, bn, bk, stages, splits, kt, mt, nt, x_tma, w_tma, sms = cfg
+    return {"plan": "decode" if bm == 16 else "main", "bm": bm, "bn": bn,
+            "bk": bk, "stages": stages, "splits": splits, "k_stages": kt,
+            "blocks": splits * mt * nt, "x_tma": bool(x_tma),
+            "w_tma": bool(w_tma), "split_for_sms": sms}
+
+
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                 w_scale: torch.Tensor, *,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
@@ -91,19 +121,20 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
     :func:`int8_matmul_plain`."""
     M, N, K, lda = check_operands("int8_matmul", x_q, w_q, x_scale, w_scale,
                                   out_dtype)
-    if x_q.device.type == "cpu":
+    dev = x_q.device
+    if dev.type == "cpu":
         return int8_matmul_plain(x_q, w_q, x_scale, w_scale,
                                  out_dtype=out_dtype)
-    if x_q.device.type != "cuda":
-        raise ValueError(f"int8_matmul: unsupported device {x_q.device}")
-    out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
+    if dev.type != "cuda":
+        raise ValueError(f"int8_matmul: unsupported device {dev}")
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0 or N == 0:
         return out
     lib = build.load_library()
     err = lib.launch_int8_matmul(
         x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(),
         w_scale.data_ptr(), out.data_ptr(), M, N, K, lda,
-        int(out_dtype == torch.float32), build.stream_ptr(x_q.device))
+        int(out_dtype == torch.float32), build.stream_ptr(dev))
     build.check("int8_matmul", err)
     build.LAUNCHES["int8_matmul"] += 1
     return out

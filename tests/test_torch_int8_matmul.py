@@ -94,6 +94,39 @@ def test_int8_matmul_plain_matches_oracle_where_pallas_refuses(M, K, N, dt):
     np.testing.assert_array_equal(got.float().numpy(), _f32(want))
 
 
+# The CUDA kernel's plan edges (chip_smoke.py's INT8_PATHS), cut to shapes
+# whose every dim the reference's blocks (256 x 512 x 256) divide: M = 16 /
+# 17 (the decode / main plan boundary), 1 and 37 (a ragged m tile), K = 32,
+# 200 (not a multiple of a 32-deep chunk) and 480 (a ragged last stage of
+# 128), N = 48 (a ragged n tile) and 200 (N % 16 != 0: the kernel's plain-
+# loaded weight), and a column slice (lda = 480 > K = 128).  M, K, N, lda
+_PLAN_EDGES = [(1, 32, 48, 32), (16, 480, 48, 480), (17, 480, 200, 480),
+               (37, 200, 200, 200), (16, 200, 200, 200), (37, 32, 48, 32),
+               (17, 128, 48, 480), (4, 480, 200, 480)]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("M,K,N,lda", _PLAN_EDGES,
+                         ids=[f"M{m}-K{k}-N{n}-lda{a}"
+                              for m, k, n, a in _PLAN_EDGES])
+def test_int8_matmul_plain_matches_reference_at_plan_edges(M, K, N, lda, dt):
+    """At the kernel's plan edges, ``int8_matmul`` (a CPU tensor: the plain
+    version) equals the reference's Pallas kernel in interpret mode, x_q
+    passed as a column slice of an (M, lda) matrix where lda > K."""
+    jdt, tdt = _DTYPES[dt]
+    xw, wq, sx, sw = _int8_operands(M * 7 + K + N + lda, M, lda, N)
+    xq, wq = xw[:, :K], wq[:K]
+    want = jops.int8_matmul_op(*(jnp.asarray(np.ascontiguousarray(a))
+                                 for a in (xq, wq, sx, sw)), out_dtype=jdt)
+    x_t = torch.from_numpy(xw)[:, :K]
+    assert x_t.stride(0) == lda
+    got = int8_matmul(x_t, torch.from_numpy(np.ascontiguousarray(wq)),
+                      torch.from_numpy(sx), torch.from_numpy(sw),
+                      out_dtype=tdt)
+    assert got.dtype == tdt and got.shape == (M, N)
+    np.testing.assert_array_equal(got.float().numpy(), _f32(want))
+
+
 def test_int8_matmul_takes_column_slices_and_checks_operands():
     """x_q may be a column slice of a wider matrix (row stride > K), as
     ``w4a8_matmul`` passes its groups; everything else is refused."""
