@@ -3,7 +3,7 @@
 
     python3 chip_ab.py PARENT_DIR
         [--kernel quant_matmul|quant_gemv|decode_attention|decode_step|
-                  int8_matmul]
+                  int8_matmul|soft_round]
 
 ``quant_matmul`` (the default) times ``chip_smoke.check_quant`` over
 LLaMA-2-7B's prefill projections (M=512, W2 g128, ``MAIN_SHAPES``, summed
@@ -30,8 +30,20 @@ outputs (``quant_matmul`` over
 ``chip_smoke.QM_PATHS`` and the prefill shapes, one expert-batched call):
 the hashes must agree between the checkouts.  Each runs in
 a fresh process per checkout: parent, this checkout, this checkout,
-parent.  Each process builds its own checkout's kernels and
-checks them against the plain version first.  The timing is this script's
+parent.  ``soft_round`` times ``chip_smoke.check_soft_round`` over the
+three calibration paths' leaves (LLaMA-2-7B W2 g128, Qwen3-30B-A3B's
+folded expert stacks and attention leaves, the W4 per-channel leaves),
+forward and backward summed per layer in both readings; one LLaMA layer's
+``soft_weight`` forward, and forward plus backward, with AWQ's act_scale
+(the parent divides outside the kernels, this checkout in them), on the
+device (a ~15 ms spin: the host's autograd path no longer sets the
+reading) and by the events alone; a hash of
+θ̂, dν and dv at one leaf, fused and unfused (the kernels with the division
+outside), which must agree in every process; and one Soften step on
+LLaMA-2-7B's block 0 at full width split into prepare and its pullback
+(device time), the per-sample loop and AdamW by this script's own code.  Each process builds
+its own checkout's kernels and checks them against the plain version
+first.  The timing is this script's
 own, the same in every process whatever its checkout's ``cuda_ms`` does:
 CUDA events around each launch after an L2 flush, read twice, with a
 device spin after the flush (``spin``: the device waits for the host, so a
@@ -183,6 +195,154 @@ def qm_digest():
     return h.hexdigest()[:16]
 
 
+def sr_leaf(g2, K, N, bits=2, gs=128):
+    # one leaf's TesseraQ state as soft_weight reads it, with AWQ's
+    # act_scale, and a cotangent for θ̂ (K, N)
+    ops, dout = c.sr_operands(g2, K // gs, gs, N, bits)
+    st = dict(zip(("base", "nu", "hard", "v", "scale", "zero"), ops))
+    st["act_scale"] = torch.rand(K, generator=g2, device="cuda") + 0.5
+    return st, dout.reshape(K, N)
+
+
+def soft_weight_pass(st, cot, qc):
+    # soft_weight forward (and, with cot, the pullback to ν and v), as the
+    # Soften step calls it
+    from repro_torch.core import tesseraq as tq
+    if cot is None:
+        return tq.soft_weight(st, qc, True)
+    nu = st["nu"].detach().requires_grad_()
+    v = st["v"].detach().requires_grad_()
+    with torch.enable_grad():
+        w = tq.soft_weight({**st, "nu": nu, "v": v}, qc, True)
+        return (w,) + torch.autograd.grad(w, (nu, v), grad_outputs=cot)
+
+
+# ~15 ms of device spin: longer than the host takes to enqueue one layer's
+# soft_weight passes with their autograd, so the events read device time
+LONG_SPIN = 100 * SPIN_CYCLES
+
+
+def soft_weight_layer():
+    # one LLaMA-2-7B layer's 7 leaves (W2 g128, DST on, act_scale as AWQ
+    # leaves it): soft_weight forward alone, and forward plus backward,
+    # device time (the long spin) and by the events alone
+    from repro_torch.configs.base import QuantConfig
+    qc = QuantConfig(bits=2, group_size=128, kernel_backend="pallas")
+    leaves = [sr_leaf(gen, K, N) for K, N, cnt in c.MAIN_SHAPES
+              for _ in range(cnt)]
+    out = []
+    for reading, spin in (("device", LONG_SPIN), ("nospin", 0)):
+        t = timer(spin)
+        fwd = t(lambda: [soft_weight_pass(st, None, qc)
+                         for st, _ in leaves], flush=l2.zero_)
+        both = t(lambda: [soft_weight_pass(st, cot, qc)
+                          for st, cot in leaves], flush=l2.zero_)
+        out.append(f"soft_weight_layer {reading} fwd {fwd} fwd_bwd {both}")
+    return "; ".join(out)
+
+
+def soft_round_digest():
+    # θ̂, dν and dv of soft_weight with act_scale at one LLaMA leaf (32 x
+    # 128 x 4096, W2), hashed bit for bit, beside the unfused reading: the
+    # kernels with the division outside them
+    import hashlib
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels.soft_round import soft_round, soft_round_bwd
+    qc = QuantConfig(bits=2, group_size=128, kernel_backend="pallas")
+    st, cot = sr_leaf(torch.Generator(device="cuda").manual_seed(1), 4096,
+                      4096)
+    act = st["act_scale"]
+    fused = soft_weight_pass(st, cot, qc)
+    ops = [st[k] for k in ("base", "nu", "hard", "v", "scale", "zero")]
+    kw = dict(qmax=3, dst=True)
+    unfused = (soft_round(*ops, **kw).reshape(4096, 4096) / act[:, None],
+               *soft_round_bwd((cot / act[:, None]).reshape(32, 128, 4096),
+                               *ops, **kw))
+    h = lambda t: hashlib.sha256(t.detach().contiguous().view(
+        torch.int32).cpu().numpy().tobytes()).hexdigest()[:16]
+    return "digest " + " ".join(f"{k} {h(a)} {h(b)}" for k, a, b in zip(
+        ("theta", "dnu", "dv"), fused, unfused, strict=True))
+
+
+def soften_split():
+    # one Soften step on LLaMA-2-7B's block 0 at full width (AWQ init,
+    # half the variables hardened, batch 4 x 512), split as the smoke's
+    # step profile splits it, with the same code for both checkouts:
+    # prepare (θ̂ of the 7 leaves), its pullback under a fixed cotangent,
+    # the per-sample loop (canonical_grad less both), AdamW
+    from repro_torch.configs import get_config
+    from repro_torch.core import recon_engine as RE
+    from repro_torch.core import tesseraq as tq
+    from repro_torch.core.awq import quantize_block_awq
+    from repro_torch.core.blocks import build_stages, get_path
+    from repro_torch.core.capture import (capture_block_inputs,
+                                          split_minibatches)
+    from repro_torch.data.pipeline import DataConfig, calibration_batches
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.models import get_model
+    from repro_torch.optim.adam import AdamW
+    cfg = get_config("llama2-7b").replace(num_layers=1)
+    params = get_model(cfg).init_params(0, "cuda")
+    qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
+    tcfg = tq.TesseraQConfig(par_iterations=c.CAL_K,
+                             steps_per_iteration=c.CAL_T,
+                             batch_size=c.CAL_BS)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=c.CAL_SEQ,
+                    global_batch=c.CAL_BS, seed=0)
+    calib = [{"tokens": torch.as_tensor(b["tokens"][:, :-1], device="cuda")}
+             for b in calibration_batches(dc, c.CAL_SAMPLES // c.CAL_BS,
+                                          c.CAL_BS)]
+    stage = build_stages(cfg)[0]
+    with torch.no_grad():
+        X = torch.cat([stage.init_x(params, b) for b in calib], 0)
+        bp = stage.get_block(params, 0)
+        parts = split_minibatches(X)
+        Y = torch.cat([stage.apply(bp, x) for x in parts], 0).float()
+        _, meta = quantize_block_awq(bp, capture_block_inputs(
+            stage.apply, bp, parts), qcfg)
+    states = RE.harden_device({p: tq._leaf_state(get_path(bp, p), meta[p],
+                                                 qcfg) for p in meta},
+                              0.5, False)
+    obj = tq._make_loss_fn(stage.apply, qcfg, tcfg)
+    tr = tq._trainables(states, True)
+    frozen = {"bp": bp, "sts": {p: {k: v for k, v in st.items()
+                                    if k not in ("nu", "v")}
+                                for p, st in states.items()}}
+    xb, yb = X[:c.CAL_BS], Y[:c.CAL_BS]
+    chunks = RE.grad_chunk_count(c.CAL_BS, X.shape[0])
+    g2 = torch.Generator(device="cuda").manual_seed(3)
+    cot = {p: torch.randn(tq._wshape(d["nu"]), generator=g2, device="cuda")
+           for p, d in tr.items()}
+
+    def prepare(pull=False):
+        with torch.enable_grad():
+            req = {p: {k: t.detach().requires_grad_() for k, t in d.items()}
+                   for p, d in tr.items()}
+            inter = obj.prepare(req, frozen)
+            if pull:
+                torch.autograd.grad(
+                    [inter[("w",) + p] for p in req],
+                    [t for d in req.values() for t in d.values()],
+                    grad_outputs=[cot[p] for p in req])
+
+    def grad():
+        return RE.canonical_grad(obj, tr, frozen, xb, yb, chunks)
+
+    opt = AdamW(lr=tcfg.lr)
+    ost = opt.init(tr)
+    _, grads = grad()
+    # prepare and its pullback on the device (an L2 flush, then the long
+    # spin); the step's pieces as the smoke's step profile reads them
+    dev = timer(LONG_SPIN)  # spins after each flush
+    prep = dev(prepare, iters=5, flush=l2.zero_)
+    pull = dev(lambda: prepare(True), iters=5, flush=l2.zero_) - prep
+    cg = c.cuda_ms(grad, iters=5)
+    adam = c.cuda_ms(lambda: opt.update(grads, ost, tr), iters=5)
+    return (f"soften_step prepare {prep} pullback {pull} per_sample "
+            f"{cg - prep - pull} canonical_grad {cg} adamw {adam} step "
+            f"{cg + adam}")
+
+
 name = sys.argv[2]
 out = []
 if name == "int8_matmul":
@@ -261,6 +421,32 @@ if name == "int8_matmul":
         torch.cuda.synchronize()
         out.append(f"host_us {tag} {us}")
     out.append(f"qm_digest {qm_digest()}")
+elif name == "soft_round":
+    # the three paths' forward and backward per layer through the
+    # checkout's check_soft_round (the LLaMA W2 g128 leaves, Qwen3's folded
+    # expert stacks and attention leaves, the W4 per-channel leaves), summed
+    # as its kernels line sums them, in both readings
+    paths = (
+        ("main", [(ng, c.SR_G, n, 2) for ng, n, _ in c.SR_SHAPES],
+         c.sr_layer(c.SR_SHAPES, c.SR_G)),
+        ("moe", [(ng, c.SR_G, n, 2) for ng, n, _ in c.MOE_SR_SHAPES],
+         c.sr_layer(c.MOE_SR_SHAPES, c.SR_G)),
+        ("wa", [(1, K, N, 4) for K, N, _ in c.MAIN_SHAPES],
+         {(1, K, N): cnt for K, N, cnt in c.MAIN_SHAPES}))
+    for reading, spin in (("spin", SPIN_CYCLES), ("nospin", 0)):
+        c.cuda_ms = timer(spin)  # check_soft_round times through this name
+        for tag, shapes, per_layer in paths:
+            recs = [c.check_soft_round(gen, ng, n, bits, True, l2.zero_, card,
+                                       **{tag: True}, g=g)
+                    for ng, g, n, bits in shapes]
+            f, b = (c.summarize_soft_round(recs, d, tag, per_layer)
+                    for d in ("fwd", "bwd"))
+            out.append(f"{tag} {reading} fwd {f['ms']} bwd {b['ms']} bound "
+                       f"{f['bound_ms']} {b['bound_ms']}")
+    c.cuda_ms = timer(SPIN_CYCLES)
+    out.append(soft_weight_layer())
+    out.append(soft_round_digest())
+    out.append(soften_split())
 elif name == "decode_step":
     out.append(step_profile())
 elif name == "decode_attention":
@@ -304,7 +490,7 @@ def main():
     ap.add_argument("parent", help="checkout of the commit to compare with")
     ap.add_argument("--kernel", choices=("quant_matmul", "quant_gemv",
                                          "decode_attention", "decode_step",
-                                         "int8_matmul"),
+                                         "int8_matmul", "soft_round"),
                     default="quant_matmul")
     args = ap.parse_args()
     parent = os.path.abspath(args.parent)
@@ -316,6 +502,7 @@ def main():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
     digests = set()
+    sr_digests = []
     for tag, where in (("parent", parent), ("change", HERE),
                        ("change", HERE), ("parent", parent)):
         out = subprocess.run([sys.executable, "-c", CHILD, tag, args.kernel],
@@ -331,6 +518,25 @@ def main():
         print(lines[0], flush=True)
         digests.update(part.split()[1] for part in lines[0].split("; ")
                        if part.startswith("qm_digest"))
+        for part in lines[0].split("; "):
+            if part.startswith("digest "):
+                words = part.split()[1:]
+                sr_digests.append((tag, {words[i]: words[i + 1:i + 3]
+                                         for i in range(0, len(words), 3)}))
+    if args.kernel == "soft_round":
+        # in every process the fused reading equals the unfused one; across
+        # the checkouts θ̂ and dν are elementwise (equal), dv's order of
+        # summation is the kernel's own
+        bad = [(tag, k) for tag, d in sr_digests for k, (a, b) in d.items()
+               if a != b]
+        for k in ("theta", "dnu", "dv"):
+            seen = sorted({d[k][0] for _, d in sr_digests})
+            print(f"soft_weight {k} hashes across the checkouts: {seen}",
+                  flush=True)
+        print(f"soft_weight with act_scale: fused == unfused in every "
+              f"process: {not bad} {bad}", flush=True)
+        if bad:
+            return 1
     if args.kernel == "int8_matmul":
         same = len(digests) == 1
         print(f"quant_matmul outputs {'bit-identical' if same else 'DIFFER'}"

@@ -35,7 +35,15 @@ Phases, each printing its own lines:
    each bit for bit against the dense kernel), each record naming the
    plan (``attention_config``), and batch-invariant (each slot alone
    equals its row of a B=8 launch, bit for bit, as do two launches and
-   ``active=None`` against every slot active);
+   ``active=None`` against every slot active); the soft_round pair also on
+   every plan edge (``SR_PATHS``: per-channel leaves whose rows split over
+   a cluster, g = 128 without a split, row counts off the split and the
+   pass, g = 1 and 8, n = 1, 3, 5, 127, 129, ragged tiles, base off
+   16-byte alignment, DST off, AWQ's act_scale on a leaf and on an expert
+   fold), each record naming both launches' plan (``soft_round_config``),
+   the backward repeated bit for bit, and the act_scale division folded
+   into both launches bit for bit against the outside division at every
+   timed shape;
 3. serve: LLaMA-2-7B at full width and depth (random weights from a seed),
    RTN-quantized to W2A16g128 and packed, served by ``serve_requests`` on
    the ``"pallas"`` backend (4 requests x 128 prompt tokens, 16 generated);
@@ -54,7 +62,8 @@ Phases, each printing its own lines:
    the perplexity of the packed and the fake-quant params; the launch
    counts of that run prove every θ̂ and its gradient went through the
    soft_round kernels and the packed perplexity through the quant-matmul
-   kernel; then where one Soften step's time goes at that width;
+   kernel; then where one Soften step's time goes at that width (θ̂'s
+   ``prepare`` beside its pullback, the per-sample loop, AdamW);
 6. calibration parity: the reduced llama2 config in f32 calibrated
    (AWQ + TesseraQ, K=3, T=15) on the card and, from the same params, on
    the CPU (plain versions): codes and hardened masks must agree;
@@ -547,6 +556,8 @@ SR_SHAPES = ((32, 4096, 4), (32, 11008, 2), (86, 4096, 1))
 MOE_SR_SHAPES = ((2048, 768, 2), (768, 2048, 1), (16, 4096, 1), (16, 512, 2),
                  (32, 2048, 1))
 SR_G = 128
+# the folded expert stacks of MOE_SR_SHAPES: experts sharing one act_scale
+MOE_SR_EXPERTS = {(2048, 768): 128, (768, 2048): 128}
 
 
 def f32_ulp(t):
@@ -554,9 +565,11 @@ def f32_ulp(t):
     return torch.exp2(torch.floor(torch.log2(a)) - 23)
 
 
-def sr_operands(gen, ng, g, n, bits):
+def sr_operands(gen, ng, g, n, bits, offset=0):
     """A TesseraQ leaf state as the soften loop sees it: about half of
-    ``hard`` frozen, with both signs."""
+    ``hard`` frozen, with both signs.  ``offset`` > 0 places ``base`` that
+    many f32 past the start of its buffer (off 16-byte alignment for 1..3:
+    the kernels' scalar edge path)."""
     dev = "cuda"
     qmax = (1 << bits) - 1
     zero = torch.randint(0, qmax + 1, (ng, n), generator=gen,
@@ -571,54 +584,120 @@ def sr_operands(gen, ng, g, n, bits):
     v = torch.randn((ng, n), generator=gen, device=dev) * 0.3
     scale = torch.rand((ng, n), generator=gen, device=dev) * 0.02 + 0.005
     dout = torch.randn((ng, g, n), generator=gen, device=dev)
+    if offset:
+        buf = torch.empty(ng * g * n + offset, device=dev)
+        base = buf[offset:].view(ng, g, n).copy_(base)
     return (base.contiguous(), nu, hard, v, scale, zero), dout
 
 
+def sr_act(gen, ng, g, fold):
+    """AWQ's act_scale for a leaf of ``ng`` groups folded from ``fold``
+    experts that share it: length ng / fold · g, in [0.5, 1.5)."""
+    return torch.rand(ng // fold * g, generator=gen, device="cuda") + 0.5
+
+
+def sr_fused_check(ops, dout, act, fold, kw, timed):
+    """act_scale folded into both launches against the unfused reading, as
+    ``soft_weight`` computed it before the fold: the kernel, then the
+    division of the flat (E, in, out) weight by act[:, None] (forward); that
+    division of the cotangent, then the kernel (backward).  Bit for bit;
+    ``timed`` adds the four times."""
+    from repro_torch.kernels.soft_round import soft_round, soft_round_bwd
+    ng, g, n = ops[0].shape
+    flat = (fold, ng // fold * g, n)
+
+    def fused_f():
+        return soft_round(*ops, **kw, act_scale=act)
+
+    def fused_b():
+        return soft_round_bwd(dout, *ops, **kw, act_scale=act)
+
+    def unfused_f():
+        return (soft_round(*ops, **kw).reshape(flat)
+                / act[:, None]).reshape(ng, g, n)
+
+    def unfused_b():
+        return soft_round_bwd((dout.reshape(flat) / act[:, None]).reshape(
+            ng, g, n), *ops, **kw)
+
+    (fnu, fv), (unu, uv) = fused_b(), unfused_b()
+    if not torch.equal(fused_f(), unfused_f()) or not torch.equal(fnu, unu) \
+            or (fv is not None and not torch.equal(fv, uv)):
+        fail(f"soft_round with act_scale folded in is not bit-identical to "
+             f"the outside division at ng={ng} g={g} n={n} fold={fold}")
+    rec = {"act_fold": fold, "act_fused_bit_identical": True}
+    if timed:
+        rec["fwd_act_ms"] = cuda_ms(fused_f, flush=timed)
+        rec["fwd_act_unfused_ms"] = cuda_ms(unfused_f, flush=timed)
+        rec["bwd_act_ms"] = cuda_ms(fused_b, flush=timed)
+        rec["bwd_act_unfused_ms"] = cuda_ms(unfused_b, flush=timed)
+    return rec
+
+
 def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False,
-                     moe=False, wa=False, g=None):
+                     moe=False, wa=False, g=None, fold=None, offset=0,
+                     experts=1):
     """soft_round forward and backward kernels vs their plain versions at
     one leaf shape (``g`` rows per group, ``SR_G`` if None; ``wa`` marks
     the per-channel leaves of the W4A4 calibration, ng = 1 and g = K).
+    ``fold`` (experts sharing one act_scale) passes AWQ's act_scale to both
+    versions; ``offset`` puts ``base`` off 16-byte alignment.
     Tolerances (σ is computed by other code in the two versions): θ̂ within
     4 f32 ulps plus 4 ulps of (qmax + 1) times the effective scale (σ's
-    rounding moves u = base + zero + α by an ulp of u); dν within 4 ulps
-    plus 4·2^-24·|dout·s_eff| (σ' carries σ's absolute rounding); dv the
-    same allowance summed over the group plus 2^-16 times the sum of
-    |terms| (reduction order)."""
+    rounding moves u = base + zero + α by an ulp of u; over act_scale's
+    row where it divides); dν within 4 ulps plus 4·2^-24·|d·s_eff| (σ'
+    carries σ's absolute rounding; d the cotangent after act_scale's
+    division); dv the same allowance summed over the group plus 2^-16 times
+    the sum of |terms| (reduction order).  Then the backward again, bit for
+    bit; with act_scale, or at a timed shape (``main``/``moe``/``wa``: one
+    vector shared by ``experts``), the fused launches bit for bit against
+    the outside division (:func:`sr_fused_check`).  Each record names the plan of both
+    launches (``soft_round_config``)."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.soft_round import (soft_round, soft_round_bwd,
+    from repro_torch.kernels.soft_round import (divide_rows, soft_round,
+                                                soft_round_bwd,
                                                 soft_round_bwd_plain,
+                                                soft_round_config,
                                                 soft_round_plain)
     g = g or SR_G
     qmax = (1 << bits) - 1
-    ops, dout = sr_operands(gen, ng, g, n, bits)
+    ops, dout = sr_operands(gen, ng, g, n, bits, offset)
+    timed = main or moe or wa
+    act = sr_act(gen, ng, g, fold) if fold else None
     kw = dict(qmax=qmax, dst=dst)
     n0 = (build.LAUNCHES["soft_round_fwd"], build.LAUNCHES["soft_round_bwd"])
-    got = soft_round(*ops, **kw)
-    gnu, gv = soft_round_bwd(dout, *ops, **kw)
+    got = soft_round(*ops, **kw, act_scale=act)
+    gnu, gv = soft_round_bwd(dout, *ops, **kw, act_scale=act)
     torch.cuda.synchronize()
-    want = soft_round_plain(*ops, **kw)
-    wnu, wv = soft_round_bwd_plain(dout, *ops, **kw)
+    want = soft_round_plain(*ops, **kw, act_scale=act)
+    wnu, wv = soft_round_bwd_plain(dout, *ops, **kw, act_scale=act)
     base, nu, hard, v, scale, zero = ops
     s_eff = scale * (2.0 * torch.sigmoid(v)) if dst else scale
     s_eff = s_eff[:, None, :]
-    chain = (dout * s_eff).abs()
+    d, want0, row = dout, want, 1.0
+    if act is not None:
+        d = divide_rows(dout, act)
+        want0 = soft_round_plain(*ops, **kw)
+        row = divide_rows(torch.ones_like(dout), act)
+    chain = (d * s_eff).abs()
     lim = 4 * f32_ulp(torch.maximum(got.abs(), want.abs())) \
-        + 4 * f32_ulp(torch.tensor(float(qmax + 1))) * s_eff.abs()
+        + 4 * f32_ulp(torch.tensor(float(qmax + 1))) * s_eff.abs() * row
     err = (got - want).abs()
     if not bool((err <= lim).all()):
         fail(f"soft_round forward disagrees at ng={ng} g={g} n={n} "
-             f"bits={bits} dst={dst}: max |diff| {float(err.max())}")
+             f"bits={bits} dst={dst} fold={fold} offset={offset}: max "
+             f"|diff| {float(err.max())}")
     lim_nu = 4 * f32_ulp(torch.maximum(gnu.abs(), wnu.abs())) \
         + 4 * 2.0 ** -24 * chain
     err_nu = (gnu - wnu).abs()
     if not bool((err_nu <= lim_nu).all()):
         fail(f"soft_round backward (dnu) disagrees at ng={ng} g={g} n={n} "
-             f"bits={bits} dst={dst}: max |diff| {float(err_nu.max())}")
+             f"bits={bits} dst={dst} fold={fold} offset={offset}: max "
+             f"|diff| {float(err_nu.max())}")
     err_v = 0.0
     if dst:
-        q = want / s_eff + zero[:, None, :]
-        terms = (dout * (q - zero[:, None, :]) * s_eff).abs().sum(1)
+        q = want0 / s_eff + zero[:, None, :]
+        terms = (d * (q - zero[:, None, :]) * s_eff).abs().sum(1)
         lim_v = 4 * f32_ulp(torch.maximum(gv.abs(), wv.abs())) \
             + REORDER * terms \
             + 4 * f32_ulp(torch.tensor(float(qmax + 1))) * chain.sum(1)
@@ -626,18 +705,28 @@ def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False,
         err_v = float(ev.max())
         if not bool((ev <= lim_v).all()):
             fail(f"soft_round backward (dv) disagrees at ng={ng} g={g} n={n} "
-                 f"bits={bits}: max |diff| {err_v}")
+                 f"bits={bits} fold={fold} offset={offset}: max |diff| "
+                 f"{err_v}")
     elif gv is not None:
         fail("soft_round backward returned dv without DST")
     # determinism: the backward's fixed-order reduction repeats bit for bit
-    gnu2, gv2 = soft_round_bwd(dout, *ops, **kw)
+    gnu2, gv2 = soft_round_bwd(dout, *ops, **kw, act_scale=act)
     if not torch.equal(gnu, gnu2) or (dst and not torch.equal(gv, gv2)):
         fail("soft_round backward is not bit-for-bit repeatable")
     rec = {"ng": ng, "g": g, "n": n, "bits": bits, "dst": dst,
+           "fold": fold, "offset": offset,
            "max_abs_err": float(err.max()), "max_abs_err_dnu":
            float(err_nu.max()), "max_abs_err_dv": err_v, "main": main,
-           "moe": moe, "wa": wa}
-    if main or moe or wa:
+           "moe": moe, "wa": wa,
+           "config": {"fwd": soft_round_config(base, nu, hard, got),
+                      "bwd": soft_round_config(base, nu, hard, gnu,
+                                               dout=dout)}}
+    if act is not None or timed:
+        f = fold or experts
+        rec.update(sr_fused_check(
+            ops, dout, act if act is not None else sr_act(gen, ng, g, f), f,
+            kw, flush if timed else None))
+    if timed:
         rec["fwd_ms"] = cuda_ms(lambda: soft_round(*ops, **kw), flush=flush)
         rec["fwd_plain_ms"] = cuda_ms(lambda: soft_round_plain(*ops, **kw),
                                       iters=5, flush=flush)
@@ -646,6 +735,10 @@ def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False,
         rec["bwd_plain_ms"] = cuda_ms(
             lambda: soft_round_bwd_plain(dout, *ops, **kw), iters=5,
             flush=flush)
+        rec["fwd_ms_nospin"] = cuda_ms(lambda: soft_round(*ops, **kw),
+                                       flush=flush, spin=0)
+        rec["bwd_ms_nospin"] = cuda_ms(
+            lambda: soft_round_bwd(dout, *ops, **kw), flush=flush, spin=0)
         elems, groups = ng * g * n, ng * n
         rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(
             elems * (4 + 4 + 1 + 4) + groups * 4 * (3 if dst else 2), 0)
@@ -656,6 +749,27 @@ def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False,
                        build.LAUNCHES["soft_round_bwd"] - n0[1])
     show("soft_round", rec, card)
     return rec
+
+
+# every plan edge of the soft_round pair: (ng, g, n, bits, dst, fold,
+# offset); fold None runs without act_scale, else with one vector shared
+# by ``fold`` experts.  Per-channel leaves (ng = 1) split their rows over
+# a cluster (4096 and 11008 rows; 86 tiles split 6 ways); g = 128 at
+# LLaMA's widths does not split; g = 1000 / 999 / 130 are no multiple of
+# the rows per split or of a pass (the last split shorter); g = 1 and 8 take
+# 1 and 2 warps; n = 1, 3, 5, 127, 129, 4098 (n % 4 != 0: the scalar path)
+# and a ragged last tile (300, 132); base off 16-byte alignment; DST off;
+# act_scale on a leaf and on an expert fold of 4
+SR_PATHS = ((1, 4096, 4096, 4, True, 1, 0), (1, 11008, 4096, 4, True, None, 0),
+            (1, 4096, 11008, 4, False, None, 0),
+            (32, 128, 4096, 2, True, None, 0),
+            (2, 1000, 300, 3, True, 2, 0), (1, 999, 132, 2, True, None, 0),
+            (3, 130, 4098, 2, True, None, 0), (64, 1, 256, 2, True, 1, 0),
+            (16, 8, 384, 3, True, None, 0), (4, 128, 1, 2, True, None, 0),
+            (4, 128, 3, 2, True, None, 0), (4, 128, 5, 3, False, None, 0),
+            (4, 128, 127, 2, True, 1, 0), (4, 128, 129, 4, True, None, 0),
+            (32, 128, 4096, 2, True, None, 1), (8, 128, 256, 2, True, 4, 0),
+            (8, 128, 256, 2, False, 4, 0))
 
 
 # Qwen3-30B-A3B's expert products (E = 128): (K, N, launches per layer),
@@ -1123,11 +1237,22 @@ def kernel_phase(card):
                     main=bits == 2 and dst))
     for ng, n, _ in MOE_SR_SHAPES:
         out["soft_round"].append(check_soft_round(
-            gen, ng, n, 2, True, flush, card, moe=True))
+            gen, ng, n, 2, True, flush, card, moe=True,
+            experts=MOE_SR_EXPERTS.get((ng, n), 1)))
     # the W4A4 calibration's per-channel leaves: dv sums all K rows
     for K, N, _ in MAIN_SHAPES:
         out["soft_round"].append(check_soft_round(
             gen, 1, N, 4, True, flush, card, wa=True, g=K))
+    # every plan edge of the pair (SR_PATHS); the per-channel leaves split
+    # their rows over a cluster, LLaMA's g = 128 leaves do not
+    for ng, g, n, bits, dst, fold, off in SR_PATHS:
+        rec = check_soft_round(gen, ng, n, bits, dst, flush, card, g=g,
+                               fold=fold, offset=off)
+        splits = rec["config"]["bwd"]["splits"]
+        if (ng, g) in ((1, 4096), (1, 11008), (32, 128)) \
+                and (ng == 1) != (splits > 1):
+            fail(f"soft_round plan at ng={ng} g={g} n={n}: {splits} splits")
+        out["soft_round"].append(rec)
     out["int8_matmul"] = []
     for M, path in zip(INT8_M, ("main", "decode")):
         for K, N, _ in MAIN_SHAPES:
@@ -1159,7 +1284,10 @@ def summarize_soft_round(records, direction, path="main", per_layer=None):
     """One layer of the calibration's Soften step: the forward or backward
     kernel over the layer's 7 leaves (DST on), of the LLaMA (``path=
     "main"``, W2 g128), the MoE (``"moe"``, ``MOE_SR_SHAPES``) or the W4A4
-    (``"wa"``, per-channel) path; ``per_layer`` as :func:`sr_layer`."""
+    (``"wa"``, per-channel) path; ``per_layer`` as :func:`sr_layer`.
+    ``ms_nospin`` is timed without the device spin, ``act_ms`` with AWQ's
+    act_scale folded into the launches, ``act_unfused_ms`` the launches
+    followed (preceded) by the division."""
     per_layer = per_layer or sr_layer()
     timed = [r for r in records if r[path]]
     tot = lambda key: sum(per_layer[(r["ng"], r["g"], r["n"])] * r[key]
@@ -1170,7 +1298,10 @@ def summarize_soft_round(records, direction, path="main", per_layer=None):
            "bound_ms": tot(f"{direction}_bound_ms"),
            "bound_by": timed[0][f"{direction}_bound_by"],
            "library_ms": None,
-           "max_abs_err": max(r[err] for r in records)}
+           "max_abs_err": max(r[err] for r in records),
+           "ms_nospin": tot(f"{direction}_ms_nospin"),
+           "act_ms": tot(f"{direction}_act_ms"),
+           "act_unfused_ms": tot(f"{direction}_act_unfused_ms")}
     if direction == "bwd":
         out["max_abs_err_dv"] = max(r["max_abs_err_dv"] for r in records)
     return out
@@ -1528,10 +1659,13 @@ def calibrate_phase(card):
 def step_profile(cfg, params, calib, qcfg, tcfg, card):
     """Where one Soften step's time goes on the first block at full width:
     the step (canonical_grad + AdamW) split into θ̂ materialization
-    (``prepare``: 7 soft_round forwards + reshape/act_scale), the
-    per-sample block forwards and backwards with their gradient sums, the
-    pullback through ``prepare`` (7 soft_round backwards), AdamW, and one
-    harden (once per T steps).  CUDA events around each piece, averaged."""
+    (``prepare``: 7 soft_round forwards, AWQ's act_scale divided in the
+    launch), the per-sample block forwards and backwards with their
+    gradient sums, the pullback through ``prepare`` (7 soft_round
+    backwards: ``pullback_ms``, ``prepare`` and its pullback under a fixed
+    cotangent less ``prepare``), AdamW, and one harden (once per T steps).
+    CUDA events around each piece, averaged; ``per_sample_ms`` is
+    canonical_grad less both."""
     from repro_torch.core import recon_engine as RE
     from repro_torch.core import tesseraq as tq
     from repro_torch.core.awq import quantize_block_awq
@@ -1562,21 +1696,33 @@ def step_profile(cfg, params, calib, qcfg, tcfg, card):
     opt = AdamW(lr=tcfg.lr)
     ost = opt.init(tr)
 
-    def prepare():
+    def prepare(pull=False):
         with torch.enable_grad():
             req = {p: {k: t.detach().requires_grad_() for k, t in d.items()}
                    for p, d in tr.items()}
-            obj.prepare(req, frozen)
+            inter = obj.prepare(req, frozen)
+            if pull:
+                ws = [inter[("w",) + p] for p in req]
+                torch.autograd.grad(ws, [t for d in req.values()
+                                         for t in d.values()],
+                                    grad_outputs=[cot[p] for p in req])
 
     def grad():
         return RE.canonical_grad(obj, tr, frozen, xb, yb, chunks)
 
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cot = {p: torch.randn(tq._wshape(d["nu"]), generator=gen, device="cuda")
+           for p, d in tr.items()}
     _, grads = grad()
     t = {"prepare_ms": cuda_ms(prepare, iters=5),
+         "pullback_ms": cuda_ms(lambda: prepare(True), iters=5),
          "canonical_grad_ms": cuda_ms(grad, iters=5),
          "adamw_ms": cuda_ms(lambda: opt.update(grads, ost, tr), iters=5),
          "harden_ms": cuda_ms(lambda: RE.harden_device(states, 0.3, False),
                               iters=3)}
+    t["pullback_ms"] -= t["prepare_ms"]
+    t["per_sample_ms"] = (t["canonical_grad_ms"] - t["prepare_ms"]
+                          - t["pullback_ms"])
     t["step_ms"] = t["canonical_grad_ms"] + t["adamw_ms"]
     print("[profile] one Soften step, block 0 at full width, bs "
           f"{CAL_BS} x {CAL_SEQ}: " + " ".join(
@@ -2647,7 +2793,11 @@ def main():
                              "ng=32 out=2048); 'wa' the LLaMA layer's 7 at "
                              "W4 per-channel (ng=1, g=K)",
            "soft_round_bwd": "one layer of a Soften step: 7 launches, the "
-                             "shapes of soft_round_fwd",
+                             "shapes of soft_round_fwd; 'ms_nospin' timed "
+                             "without the device spin; 'act_ms' with AWQ's "
+                             "act_scale divided in the launch, "
+                             "'act_unfused_ms' the launch and the division "
+                             "outside it (each direction)",
            "paged_decode_attention": "one layer of a scheduled decode step: "
                                      "1 launch, B=8 Hkv=32 G=1 D=128, 23 "
                                      "pages of 16, kv_len up to 368, one "
@@ -2683,6 +2833,11 @@ def main():
                 {(1, K, N): c for K, N, c in MAIN_SHAPES})
             nums["library_note"] = ("no single PyTorch call computes θ̂ or "
                                     "its gradient")
+            nums["plans"] = {
+                f"{r['ng']}x{r['g']}x{r['n']}": r["config"][name[-3:]]
+                for r in recs["soft_round"] if r["main"] or r["moe"]
+                or r["wa"]}
+            nums["edges_checked"] = len(SR_PATHS)
         elif name == "int8_matmul":
             nums = summarize_int8(recs[name])
             nums["invariance"] = recs["int8_invariance"]

@@ -122,19 +122,22 @@ def soft_weight(st, qcfg: QuantConfig, dst: bool) -> torch.Tensor:
     under ``"pallas"`` (``SoftRound``) and from plain torch under ``"xla"``.
     Leading dims (experts) fold into the group dim, (E*ng, g, out) with
     v/scale/zero (E*ng, out): groups are independent, so one launch covers
-    an expert stack.  The reshapes and the act_scale division stay outside
-    the kernel."""
+    an expert stack.  Under ``"pallas"`` AWQ's act_scale division is folded
+    into both launches (the stack's experts share the vector); under
+    ``"xla"`` it follows the plain function, as in the reference."""
     g, n = st["nu"].shape[-2:]
+    act = st["act_scale"]
     args = [st["base"].reshape(-1, g, n), st["nu"].reshape(-1, g, n),
             st["hard"].reshape(-1, g, n)] + [
         st[k].reshape(-1, n) for k in ("v", "scale", "zero")]
     if resolve_backend(qcfg.kernel_backend) == "pallas":
-        w = SoftRound.apply(*args, qcfg.qmax, dst)
-    else:
-        w = soft_round_plain(*args, qmax=qcfg.qmax, dst=dst)
-    w = w.reshape(_wshape(st["nu"]))
-    if st["act_scale"] is not None:
-        w = w / st["act_scale"][..., :, None]
+        return SoftRound.apply(*args, qcfg.qmax, dst,
+                               None if act is None else act.reshape(-1)
+                               ).reshape(_wshape(st["nu"]))
+    w = soft_round_plain(*args, qmax=qcfg.qmax, dst=dst).reshape(
+        _wshape(st["nu"]))
+    if act is not None:
+        w = w / act[..., :, None]
     return w
 
 

@@ -72,12 +72,16 @@ _SIGNATURES = {
     "launch_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x_q, w_q, M, N, K, lda, int cfg[11]
     "int8_matmul_config": [_P, _P, _I, _I, _I, _I, _P],
-    # base, nu, hard, v, scale, zero, out, ng, g, n, qmax, dst, stream
-    "soft_round_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # dout, base, nu, hard, v, scale, zero, dnu, dv, ng, g, n, qmax, dst,
-    # stream
-    "soft_round_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _P],
+    # base, nu, hard, v, scale, zero, act (or null), out, ng, g, n, act_ng,
+    # qmax, dst, stream
+    "soft_round_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _P],
+    # dout, base, nu, hard, v, scale, zero, act (or null), dnu, dv, ng, g,
+    # n, act_ng, qmax, dst, stream
+    "soft_round_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _P],
+    # dout (or null), base, nu, hard, out, ng, g, n, int cfg[8]
+    "soft_round_config": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

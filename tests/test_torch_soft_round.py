@@ -11,7 +11,14 @@ against the JAX reference on the same numpy inputs.
   forward) against ``jax.grad`` of the reference's ``soft_weight`` under a
   fixed random cotangent, for ν and v, with frozen entries and with u on
   the clip's bounds (jnp.clip passes 1/2 there);
-* ``torch.autograd.gradcheck`` of the plain backward in float64.
+* ``torch.autograd.gradcheck`` of the plain backward in float64;
+* AWQ's ``act_scale`` folded into the launch: the plain forward and
+  backward with it are bit-identical to the plain function followed
+  (forward) or preceded (backward) by the outside division, for one leaf
+  and for an expert fold sharing one vector; the port's ``soft_weight``
+  under ``"pallas"`` on an expert stack against the reference's value and
+  ``jax.grad``; the wrapper's refusals (act_scale length, dtype, device;
+  the launch's grid limits).
 
 Tolerances (σ is computed by different code in the two packages and
 differs by up to an ulp): forward |diff| <= 4 ulps of the output plus
@@ -36,8 +43,8 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.configs.base import QuantConfig  # noqa: E402
 from repro_torch.core import tesseraq as ttq  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.soft_round import (SoftRound, soft_round,  # noqa: E402
-                                            soft_round_bwd,
+from repro_torch.kernels.soft_round import (SoftRound, check_grid,  # noqa: E402
+                                            soft_round, soft_round_bwd,
                                             soft_round_bwd_plain,
                                             soft_round_plain)
 
@@ -237,3 +244,131 @@ def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError, match="base must be"):
         soft_round(st["base"][0], st["nu"], st["hard"], st["v"],
                    st["scale"], st["zero"], qmax=3)
+
+
+# (E, ng_e, g, out): one leaf (E = 1) and an expert fold of 4 sharing one
+# act_scale of length ng_e * g
+ACT_CASES = [(1, 3, 8, 20), (4, 2, 8, 12)]
+
+
+@pytest.mark.parametrize("dst", [True, False])
+@pytest.mark.parametrize("shape", ACT_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_act_scale_fused_plain_is_bit_identical(shape, dst):
+    """With act_scale the plain forward is the plain function, then the
+    division of the flat (E, in, out) weight by act_scale[:, None]; the
+    plain backward is that division of the cotangent, then the plain
+    backward: bit for bit, as the fused launch must be on the card."""
+    E, ng_e, g, n = shape
+    st = _t(_state(21 + E, E * ng_e, g, n, 3))
+    rng = np.random.default_rng(E)
+    act = torch.from_numpy((rng.random(ng_e * g) + 0.5).astype(np.float32))
+    dout = torch.from_numpy(rng.standard_normal(
+        (E * ng_e, g, n)).astype(np.float32))
+    args = [st[k] for k in ORDER]
+    flat = (E, ng_e * g, n)
+    fused = soft_round(*args, qmax=7, dst=dst, act_scale=act)
+    outside = (soft_round_plain(*args, qmax=7, dst=dst).reshape(flat)
+               / act[:, None]).reshape(fused.shape)
+    assert torch.equal(fused, outside)
+    dnu, dv = soft_round_bwd(dout, *args, qmax=7, dst=dst, act_scale=act)
+    pre = (dout.reshape(flat) / act[:, None]).reshape(dout.shape)
+    wnu, wv = soft_round_bwd_plain(pre, *args, qmax=7, dst=dst)
+    assert torch.equal(dnu, wnu)
+    assert (dv is None and wv is None) or torch.equal(dv, wv)
+
+
+@pytest.mark.parametrize("dst", [True, False])
+def test_soft_weight_expert_stack_act_scale_matches_jax(dst):
+    """The port's soft_weight under "pallas" (on the CPU: SoftRound over the
+    plain versions, act_scale folded in) on an (E, in, out) expert stack
+    with one shared act_scale, against the reference's soft_weight and
+    jax.grad for ν and v, at the file's tolerances."""
+    E, ng_e, g, n, bits = 4, 2, 8, 24, 2
+    flat = _state(5, E * ng_e, g, n, bits)
+    st = {k: (v.reshape((E, ng_e) + v.shape[1:]) if k not in ("v", "scale",
+                                                               "zero")
+              else v.reshape(E, ng_e, n)) for k, v in flat.items()}
+    rng = np.random.default_rng(9)
+    act = (rng.random(ng_e * g) + 0.5).astype(np.float32)
+    cot = rng.standard_normal((E, ng_e * g, n)).astype(np.float32)
+    qc_j = JQuantConfig(bits=bits, group_size=g)
+    js = {k: jnp.asarray(v) for k, v in st.items()}
+    js["act_scale"] = jnp.asarray(act)
+
+    def f(nu, v):
+        w = jtq.soft_weight({**js, "nu": nu, "v": v}, qc_j, dst)
+        return jnp.sum(w * jnp.asarray(cot)), w
+    (_, jw), (jnu, jv) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        js["nu"], js["v"])
+    qc = QuantConfig(bits=bits, group_size=g, kernel_backend="pallas")
+    ts = _t(st)
+    ts["nu"].requires_grad_(True)
+    ts["v"].requires_grad_(True)
+    ts["act_scale"] = torch.from_numpy(act)
+    before = dict(build.LAUNCHES)
+    w = ttq.soft_weight(ts, qc, dst)
+    (w * torch.from_numpy(cot)).sum().backward()
+    assert build.LAUNCHES == before          # a CPU tensor launches nothing
+    assert tuple(w.shape) == (E, ng_e * g, n)
+    qmax = (1 << bits) - 1
+    s_eff = _s_eff(flat, dst)
+    # θ̂ before the division: the forward tolerance, then one more rounding
+    got = w.detach().numpy().astype(np.float64)
+    want = np.asarray(jw, np.float64)
+    lim = (4 * _ulp(np.maximum(np.abs(got), np.abs(want)))
+           + 4 * _ulp(qmax + 1) * np.abs(s_eff).reshape(E, ng_e, 1, n)
+           .repeat(g, 2).reshape(E, ng_e * g, n) / act[:, None])
+    assert (np.abs(got - want) <= lim).all()
+    dout = (cot / act[:, None]).reshape(E * ng_e, g, n).astype(np.float64)
+    chain = np.abs(dout * s_eff)
+    jnu = np.asarray(jnu, np.float64).reshape(E * ng_e, g, n)
+    tnu = ts["nu"].grad.numpy().reshape(E * ng_e, g, n)
+    assert (np.abs(tnu - jnu) <= 4 * _ulp(jnu) + 4 * 2.0 ** -24 * chain).all()
+    if not dst:
+        assert ts["v"].grad is None or not ts["v"].grad.any()
+        return
+    jv = np.asarray(jv, np.float64).reshape(E * ng_e, n)
+    tv = ts["v"].grad.numpy().reshape(E * ng_e, n)
+    alpha = np.where(flat["hard"] == 0, 1 / (1 + np.exp(-flat["nu"].astype(
+        np.float64))), flat["hard"] > 0)
+    z = flat["zero"][:, None, :]
+    q = np.clip(flat["base"] + z + alpha, 0, qmax)
+    terms = np.abs(dout * (q - z) * s_eff)
+    lim_v = (4 * _ulp(jv) + 2.0 ** -16 * terms.sum(1)
+             + 4 * _ulp(qmax + 1) * chain.sum(1))
+    assert (np.abs(tv - jv) <= lim_v).all()
+
+
+BAD_ACT = {
+    "length": (lambda g: torch.ones(3 * g + 1), ValueError, "length"),
+    "not_dividing": (lambda g: torch.ones(3 * g), ValueError, "length"),
+    "2d": (lambda g: torch.ones(2, g), ValueError, "1-D"),
+    "dtype": (lambda g: torch.ones(2 * g, dtype=torch.float64), TypeError,
+              "act_scale must be"),
+    "device": (lambda g: torch.ones(2 * g, device="meta"), ValueError,
+               "act_scale is on"),
+}
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("case", sorted(BAD_ACT))
+def test_wrapper_rejects_bad_act_scale(case, bwd):
+    st = _t(_state(0, 4, 4, 8, 2))
+    make, err, match = BAD_ACT[case]
+    args = [st[k] for k in ORDER]
+    with pytest.raises(err, match=match):
+        if bwd:
+            soft_round_bwd(st["nu"], *args, qmax=3, act_scale=make(4))
+        else:
+            soft_round(*args, qmax=3, act_scale=make(4))
+
+
+def test_launch_limits():
+    """The grid is one-dimensional: ng is no longer held to 65535; the
+    limits are C ints for ng, g, out and 2^31 - 1 blocks."""
+    check_grid("t", 65536, 128, 4096)          # 2^21 blocks: accepted
+    check_grid("t", 1, 11008, 4096)
+    with pytest.raises(ValueError, match="limits"):
+        check_grid("t", 2 ** 24, 1, 128 * 2 ** 7)   # 2^31 blocks
+    with pytest.raises(ValueError, match="limits"):
+        check_grid("t", 1, 2 ** 31, 4)
