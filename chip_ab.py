@@ -3,7 +3,7 @@
 
     python3 chip_ab.py PARENT_DIR
         [--kernel quant_matmul|quant_gemv|decode_attention|decode_step|
-                  int8_matmul|soft_round]
+                  int8_matmul|soft_round|quant_matmul_experts|moe_step]
 
 ``quant_matmul`` (the default) times ``chip_smoke.check_quant`` over
 LLaMA-2-7B's prefill projections (M=512, W2 g128, ``MAIN_SHAPES``, summed
@@ -17,7 +17,9 @@ pages of 16, ragged lengths, one slot inactive), beside SDPA;
 ``decode_step`` profiles one scheduled dense decode step of the RTN-packed
 LLaMA-2-7B (8 live slots at position 200, max_seq 368, as
 ``chip_smoke.decode_profile``) and prints its wall and device-busy ms,
-kernel launches and decode attention's device ms per step;
+kernel launches and decode attention's device ms per step; ``moe_step``
+the same for Qwen3-30B-A3B at depth 16 (phase 10's profile: each slot on
+its own token), with the expert kernel's device ms and launches per step;
 ``int8_matmul`` times ``chip_smoke.check_int8`` over LLaMA-2-7B's 7
 per-channel linears (f32 out) at M=512 and M=4, with ``torch._int_mm``
 beside (timed here alike for both; at M=4 on x zero-padded to 17 rows, a
@@ -28,7 +30,17 @@ the process, the host path per call at M=4 (the wrapper,
 ``int8_matmul_config`` alone, ``torch._int_mm``), and hashes kernel 1's
 outputs (``quant_matmul`` over
 ``chip_smoke.QM_PATHS`` and the prefill shapes, one expert-batched call):
-the hashes must agree between the checkouts.  Each runs in
+the hashes must agree between the checkouts.
+``quant_matmul_experts`` times one Qwen3-30B-A3B MoE layer's 3 expert
+launches (E=128, W2 g128) on weights and traffic made by this script alike
+for both checkouts: C=8 with every row live, and routed traffic (a seeded
+uniform top-8 router, the capacity buffer zero past each expert's kept
+rows) of 4 and 8 decode slots (C=8) and 512 prefill tokens (C=40), the
+kept-row counts passed as ``rows`` where the checkout's wrapper takes them;
+it hashes the routed outputs (equal across the checkouts, or the run
+fails), kernel 1's outputs in two hashes, the paths at M >= 128 (equal,
+or the run fails) and the rest (reported), and the GEMV's at M = 4 and 8
+(equal, or the run fails: it shares the 2-bit table's code).  Each runs in
 a fresh process per checkout: parent, this checkout, this checkout,
 parent.  ``soft_round`` times ``chip_smoke.check_soft_round`` over the
 three calibration paths' leaves (LLaMA-2-7B W2 g128, Qwen3-30B-A3B's
@@ -101,12 +113,15 @@ def timer(spin):
 
 
 
-def step_profile(n=8):
-    # the phase-7 decode-step profile of chip_smoke.decode_profile on the
-    # dense store, counted here alike for both checkouts: LLaMA-2-7B RTN
-    # W2A16g128 packed from seed 0, 8 live slots at position 200, max_seq
-    # 368; wall and device-busy ms, kernel launches and decode attention's
-    # device ms per step
+def step_profile(arch="llama2-7b", layers=None, n=8):
+    # the decode-step profile of chip_smoke.decode_profile on the dense
+    # store, counted here alike for both checkouts: the model RTN W2A16g128
+    # packed from seed 0 (LLaMA-2-7B, phase 7; Qwen3-30B-A3B cut to
+    # `layers`, phase 10, each slot on its own token so the slots route to
+    # different experts), 8 live slots at position 200, max_seq 368; wall
+    # and device-busy ms, kernel launches, decode attention's device ms and
+    # the expert kernel's (for an MoE: at 8 slots every launch of
+    # quant_matmul_kernel in a decode step is an expert one) per step
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -116,7 +131,9 @@ def step_profile(n=8):
     from repro_torch.launch.serve import parse_quant
     from repro_torch.models import get_model
     from repro_torch.models.common import DenseCacheStore
-    cfg = get_config("llama2-7b")
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     model = get_model(cfg)
     qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
     params = model.init_params(0, "cuda")
@@ -133,8 +150,11 @@ def step_profile(n=8):
     steps = compile_sched_steps(cfg, max_seq=max_seq, kernel_backend="pallas")
     cs = DenseCacheStore(steps.model, slots=slots, max_seq=max_seq,
                          device="cuda")
-    state = {"cache": cs.cache,
-             "tok": torch.zeros((slots,), dtype=torch.int32, device="cuda"),
+    tok = torch.zeros((slots,), dtype=torch.int32, device="cuda")
+    if layers:
+        tok = torch.arange(1, slots + 1, dtype=torch.int32,
+                           device="cuda") * 1009 % cfg.vocab_size
+    state = {"cache": cs.cache, "tok": tok,
              "pos": torch.full((slots,), 200, dtype=torch.int32,
                                device="cuda")}
     active = torch.ones((slots,), dtype=torch.bool, device="cuda")
@@ -163,18 +183,27 @@ def step_profile(n=8):
     attn = sum(e.self_device_time_total for e in kern
                if "decode_attention" in e.key) / 1e3 / n
     launches = sum(e.count for e in kern) / n
+    qmm = [e for e in kern if "quant_matmul_kernel" in e.key]
+    experts = sum(e.self_device_time_total for e in qmm) / 1e3 / n
+    expert_launches = sum(e.count for e in qmm) / n
     return (f"wall {wall} busy {busy} launches {launches} "
-            f"decode_attention {attn}")
+            f"decode_attention {attn}"
+            + (f" experts {experts} expert_launches {expert_launches}"
+               if layers else ""))
 
 
 def qm_digest():
     # kernel 1's outputs (quant_matmul over QM_PATHS and the LLaMA prefill
     # shapes, quant_matmul_experts at E=8) hashed bit for bit, so a change
-    # that only moves its helpers can be shown to leave them as they were
+    # that only moves its helpers can be shown to leave them as they were:
+    # one hash of the paths at M >= 128 rows (the 128-row tile), one of the
+    # rest (QM_PATHS' M = 33, 40, 64, 100 and the experts at C = 40); and
+    # one of quant_gemv at the decode rows (M = 4 and 8 over the LLaMA
+    # layer, 2 bits at g128 and g32), which shares the 2-bit table's code
     import hashlib
     from repro_torch.core.qtensor import pack
     from repro_torch.kernels.quant_matmul import quant_matmul_experts
-    h = hashlib.sha256()
+    big, small, gemv = hashlib.sha256(), hashlib.sha256(), hashlib.sha256()
     g = torch.Generator(device="cuda").manual_seed(1)
     paths = c.QM_PATHS + tuple((512, K, N, 2, 128, 0)
                                for K, N, _ in c.MAIN_SHAPES)
@@ -182,7 +211,8 @@ def qm_digest():
         x, packed, scale, zero = c.quant_operands(g, M + off, K, N, bits, gs)
         y = quant_matmul(x[off:], packed, scale, zero, bits=bits,
                          group_size=gs)
-        h.update(y.view(torch.int16).cpu().numpy().tobytes())
+        (big if M >= 128 else small).update(
+            y.view(torch.int16).cpu().numpy().tobytes())
     codes = torch.randint(0, 4, (8, 2048, 768), generator=g, device="cuda",
                           dtype=torch.int32)
     scale = torch.rand((8, 16, 768), generator=g, device="cuda") + 0.005
@@ -191,8 +221,90 @@ def qm_digest():
     x = torch.randn((8, 40, 2048), generator=g, device="cuda").bfloat16()
     y = quant_matmul_experts(x, pack(codes, 2), scale, zero, bits=2,
                              group_size=128)
-    h.update(y.view(torch.int16).cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
+    small.update(y.view(torch.int16).cpu().numpy().tobytes())
+    for M in (4, 8):
+        for K, N, _ in c.MAIN_SHAPES:
+            for gs in (128, 32):
+                x, packed, scale, zero = c.quant_operands(g, M, K, N, 2, gs)
+                y = quant_gemv(x, packed, scale, zero, bits=2, group_size=gs)
+                gemv.update(y.view(torch.int16).cpu().numpy().tobytes())
+    return (f"{big.hexdigest()[:16]} {small.hexdigest()[:16]} "
+            f"{gemv.hexdigest()[:16]}")
+
+
+def expert_layer():
+    # one Qwen3-30B-A3B MoE layer's 3 expert launches (2 x K=2048 N=768,
+    # 1 x K=768 N=2048; E=128, W2 g128) on weights and traffic made here
+    # alike for both checkouts: C=8 with every row live (random x), and
+    # routed traffic (a seeded uniform top-8 router, the capacity buffer
+    # zero past each expert's kept rows, dispatched here as the port's
+    # moe._dispatch does) of 4 and 8 decode slots (C=8) and 512 prefill
+    # tokens (C=40).  The checkout's wrapper gets the counts as rows where
+    # it takes them; without them the result is the same function on these
+    # inputs, so the routed outputs are hashed and must agree across the
+    # checkouts.  Device time per layer in both readings.
+    import hashlib
+    import inspect
+    from repro_torch.core.qtensor import pack
+    from repro_torch.kernels.quant_matmul import quant_matmul_experts
+    E, top_k = 128, 8
+    takes_rows = "rows" in inspect.signature(
+        quant_matmul_experts).parameters
+    g = torch.Generator(device="cuda").manual_seed(2)
+    weights = {}
+    for K, N, _ in c.EXPERT_SHAPES:
+        codes = torch.randint(0, 4, (E, K, N), generator=g, device="cuda",
+                              dtype=torch.int32)
+        scale = torch.rand((E, K // 128, N), generator=g,
+                           device="cuda") * 0.015 + 0.005
+        zero = torch.randint(0, 4, (E, K // 128, N), generator=g,
+                             device="cuda").float()
+        weights[(K, N)] = (pack(codes, 2), scale, zero)
+        del codes
+
+    def routed(tokens, C):
+        logits = torch.randn((tokens, E), generator=g, device="cuda")
+        idx = torch.topk(logits, top_k, dim=-1, sorted=True).indices
+        flat = idx.reshape(-1)
+        onehot = (flat[:, None] == torch.arange(E, device="cuda")).long()
+        count = torch.cumsum(onehot, dim=0)
+        pos = torch.sum((count - 1) * onehot, dim=1)
+        slot = torch.where(pos < C, flat * C + pos, E * C)
+        rows = torch.clamp(count[-1], max=C).to(torch.int32)
+        tok = torch.arange(tokens * top_k, device="cuda") // top_k
+        xs = {}
+        for K in {K for K, _, _ in c.EXPERT_SHAPES}:
+            t = torch.randn((tokens, K), generator=g, device="cuda")
+            buf = torch.zeros((E * C + 1, K), dtype=torch.bfloat16,
+                              device="cuda")
+            buf[slot] = t.to(torch.bfloat16)[tok]
+            xs[K] = buf[:-1].reshape(E, C, K)
+        return xs, rows
+
+    full = {K: torch.randn((E, 8, K), generator=g, device="cuda").bfloat16()
+            for K in {K for K, _, _ in c.EXPERT_SHAPES}}
+    cases = {"C=8 full": (full, None), "C=8 routed 4 slots": routed(4, 8),
+             "C=8 routed 8 slots": routed(8, 8),
+             "C=40 routed 512 tokens": routed(512, 40)}
+    out, h = [], hashlib.sha256()
+    for tag, (xs, rows) in cases.items():
+        kw = dict(bits=2, group_size=128)
+        if rows is not None and takes_rows:
+            kw["rows"] = rows
+        calls = [(lambda K=K, N=N: quant_matmul_experts(
+            xs[K], *weights[(K, N)], **kw), cnt)
+            for K, N, cnt in c.EXPERT_SHAPES]
+        if rows is not None:
+            for fn, _ in calls:
+                h.update(fn().view(torch.int16).cpu().numpy().tobytes())
+        touched = ("" if rows is None else
+                   f" touched {int((rows > 0).sum())} kept {int(rows.sum())}")
+        for reading, spin in (("spin", SPIN_CYCLES), ("nospin", 0)):
+            t = timer(spin)
+            ms = sum(cnt * t(fn, flush=l2.zero_) for fn, cnt in calls)
+            out.append(f"{tag} {reading} {ms}{touched}")
+    out.append(f"routed_digest {h.hexdigest()[:16]} rows_taken {takes_rows}")
+    return out
 
 
 def sr_leaf(g2, K, N, bits=2, gs=128):
@@ -449,6 +561,11 @@ elif name == "soft_round":
     out.append(soften_split())
 elif name == "decode_step":
     out.append(step_profile())
+elif name == "moe_step":
+    out.append(step_profile("qwen3-moe-30b-a3b", layers=16))
+elif name == "quant_matmul_experts":
+    out += expert_layer()
+    out.append(f"qm_digest {qm_digest()}")
 elif name == "decode_attention":
     lens = [368, 17, 300, 255, 96, 1, 351, 160]
     act = [1, 1, 1, 0, 1, 1, 1, 1]
@@ -490,7 +607,8 @@ def main():
     ap.add_argument("parent", help="checkout of the commit to compare with")
     ap.add_argument("--kernel", choices=("quant_matmul", "quant_gemv",
                                          "decode_attention", "decode_step",
-                                         "int8_matmul", "soft_round"),
+                                         "int8_matmul", "soft_round",
+                                         "quant_matmul_experts", "moe_step"),
                     default="quant_matmul")
     args = ap.parse_args()
     parent = os.path.abspath(args.parent)
@@ -501,7 +619,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
-    digests = set()
+    digests, big, small, gemv, routed = set(), set(), set(), set(), set()
     sr_digests = []
     for tag, where in (("parent", parent), ("change", HERE),
                        ("change", HERE), ("parent", parent)):
@@ -516,8 +634,15 @@ def main():
                   file=sys.stderr)
             return 1
         print(lines[0], flush=True)
-        digests.update(part.split()[1] for part in lines[0].split("; ")
-                       if part.startswith("qm_digest"))
+        for part in lines[0].split("; "):
+            words = part.split()
+            if words[0] == "qm_digest":
+                digests.add(" ".join(words[1:]))
+                big.add(words[1])
+                small.add(words[2])
+                gemv.add(words[3] if len(words) > 3 else None)
+            if words[0] == "routed_digest":
+                routed.add(words[1])
         for part in lines[0].split("; "):
             if part.startswith("digest "):
                 words = part.split()[1:]
@@ -536,6 +661,22 @@ def main():
         print(f"soft_weight with act_scale: fused == unfused in every "
               f"process: {not bad} {bad}", flush=True)
         if bad:
+            return 1
+    if args.kernel == "quant_matmul_experts":
+        # the routed outputs, kernel 1's M >= 128 paths and the GEMV's must
+        # be bit for bit the parent's; the small-M paths may change with the
+        # row tile
+        print(f"routed expert outputs "
+              f"{'bit-identical' if len(routed) == 1 else 'DIFFER'} between "
+              f"the checkouts: {sorted(routed)}", flush=True)
+        print(f"quant_matmul outputs at M >= 128 "
+              f"{'bit-identical' if len(big) == 1 else 'DIFFER'}: "
+              f"{sorted(big)}; at M < 128 (and the experts at C = 40) "
+              f"{'bit-identical' if len(small) == 1 else 'changed'}: "
+              f"{sorted(small)}; quant_gemv "
+              f"{'bit-identical' if len(gemv) == 1 else 'DIFFER'}: "
+              f"{sorted(gemv)}", flush=True)
+        if len(routed) != 1 or len(big) != 1 or len(gemv) != 1:
             return 1
     if args.kernel == "int8_matmul":
         same = len(digests) == 1

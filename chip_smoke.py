@@ -15,7 +15,13 @@ Phases, each printing its own lines:
    dense kernel on the gathered cache, bit for bit, and the expert-batched
    quant-matmul (Qwen3-30B-A3B's 128 experts, both projection shapes, every
    capacity the MoE phases run: 8, 16, 24, 32, 40 and 160) also against
-   one ``quant_matmul`` launch per expert, bit for bit; the int8 kernel
+   one ``quant_matmul`` launch per expert, bit for bit, and on the routed
+   traffic of those paths (``ROUTED_TOKENS``: tokens routed top-8 by a
+   seeded router through the port's dispatch, x zero past each expert's
+   kept rows, its counts passed as ``rows``; timed with and without
+   them beside a bound over the experts that hold a row) and every edge of
+   the counts (``EXPERT_ROWS_PATHS``), every row past a count +0 by bit
+   pattern; the int8 kernel
    bit for bit against its plain version at LLaMA-2-7B's per-channel
    linears (M = 512 and 4), a ``w4a8_matmul`` group slice of a wider x_q
    and a ragged shape, timed beside ``torch._int_mm``; the quant-matmul,
@@ -91,7 +97,9 @@ Phases, each printing its own lines:
    store and again on the dense store: tokens equal across the three,
    exact launch counts, no host sync inside a decode step; a request for
    chunked prefill and prefix sharing runs whole prefill, as the MoE cache
-   spec says;
+   spec says; then where one dense decode step's time goes
+   (``torch.profiler``: device busy, and the expert kernel's device ms and
+   launches per step);
 11. MoE calibrate: Qwen3-30B-A3B at full width, depth 1 block, AWQ +
    TesseraQ (20-rate PAR schedule, T cut to 10) on 8 x 512-token samples,
    ``pack_model`` and perplexity; exact soft_round launches over the
@@ -782,14 +790,77 @@ EXPERT_C = (40, 8)
 # prefills (40..333 tokens: C = 8..32) and the calibrate phase's packed
 # perplexity (4 x 512 tokens: C = 160, two 128-row tiles)
 MORE_EXPERT_C = (16, 24, 32, 160)
+# the routed traffic of those paths: tokens routed top-8 over the 128
+# experts by a seeded uniform router through the port's own dispatch
+# (``moe._dispatch``, capacity from ``moe._capacity``), x zero past each
+# expert's count as the capacity buffer holds it: a decode step at 4 and 8
+# slots (C = 8; ~29 and ~52 experts hold a row), the 4 x 128 prefill (C =
+# 40, pairs dropped past it) and the packed perplexity's 4 x 512 (C = 160,
+# counts on both sides of the 128-row tile's edge)
+ROUTED_TOKENS = (4, 8, 512, 2048)
+ROUTED_TOP_K = 8
+# every edge of the kept-row counts, each held against the plain version
+# (which masks) on random x, bit for bit against the unrolled launches,
+# rows past a count +0 by bit pattern: all counts 0 (the whole output +0),
+# counts = M everywhere, counts ragged inside a tile, counts 128 and 129
+# (and 0, 160, 127, 1) at C = 160, the ragged 13x200x300 case with counts
+# past both ends (clamped), and per-element groups (g = 8).  E, M, K, N,
+# bits, group_size, counts
+EXPERT_ROWS_PATHS = ((EXPERTS, 8, 2048, 768, 2, 128, "zero"),
+                     (EXPERTS, 40, 2048, 768, 2, 128, "full"),
+                     (EXPERTS, 40, 768, 2048, 2, 128, "ragged"),
+                     (EXPERTS, 160, 2048, 768, 2, 128, "edge"),
+                     (8, 13, 200, 300, 3, 200, "ragged"),
+                     (8, 24, 256, 256, 2, 8, "ragged"))
+
+
+def expert_rows(gen, spec, E, M):
+    """int32 (E,) kept-row counts of an ``EXPERT_ROWS_PATHS`` spec."""
+    if spec == "zero":
+        return torch.zeros(E, dtype=torch.int32, device="cuda")
+    if spec == "full":
+        return torch.full((E,), M, dtype=torch.int32, device="cuda")
+    if spec == "edge":
+        return torch.tensor([128, 129, 0, 160, 127, 1] * -(-E // 6),
+                            dtype=torch.int32, device="cuda")[:E]
+    return torch.randint(-2, M + 3, (E,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def routed_operands(gen, tokens, E, Ks, top_k=ROUTED_TOP_K):
+    """Seeded uniform top-k routing of ``tokens`` tokens through the port's
+    dispatch: (C, rows, {K: x (E, C, K) bf16}), x the capacity buffer of
+    random token rows (zero past each count, dropped pairs left out)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import _capacity, _dispatch
+    C = _capacity(tokens, E, top_k,
+                  get_config(MOE_ARCH).moe.capacity_factor)
+    logits = torch.randn((tokens, E), generator=gen, device="cuda")
+    idx = torch.topk(logits, top_k, dim=-1, sorted=True).indices
+    _, slot, rows = _dispatch(idx, E, C)
+    tok = torch.arange(tokens * top_k, device="cuda") // top_k
+    xs = {}
+    for K in Ks:
+        t = torch.randn((tokens, K), generator=gen, device="cuda")
+        buf = torch.zeros((E * C + 1, K), dtype=torch.bfloat16,
+                          device="cuda")
+        buf[slot] = t.to(torch.bfloat16)[tok]
+        xs[K] = buf[:-1].reshape(E, C, K)
+    return C, rows, xs
 
 
 def check_experts(gen, E, M, K, N, bits, group_size, flush, card,
-                  main=False):
+                  main=False, x=None, rows=None, routed=None, timed=True):
     """The expert-batched kernel vs its plain version, and vs one
     ``quant_matmul`` launch per expert (bit for bit), then timed with the
     unrolled launches and a ``torch.bmm`` yardstick on the pre-dequantized
-    bf16 weights (not the same function: no dequantization)."""
+    bf16 weights (not the same function: no dequantization).  ``rows``
+    (int32 (E,) kept-row counts, or None) goes to all three, and every row
+    past a count must be +0 by bit pattern; ``x`` (E, M, K) replaces the
+    random x (a routed capacity buffer: ``routed`` is its token count, and
+    the record is timed with and without ``rows``, the bound counting the
+    bytes of the experts that hold a row).  A main record (random x) is
+    also timed with ``rows`` = M everywhere."""
     from repro_torch.core.qtensor import pack
     from repro_torch.kernels import build
     from repro_torch.kernels.quant_matmul import (
@@ -804,23 +875,35 @@ def check_experts(gen, E, M, K, N, bits, group_size, flush, card,
     scale = torch.rand((E, ng, N), generator=gen, device=dev) * 0.015 + 0.005
     zero = torch.randint(0, 1 << bits, (E, ng, N), generator=gen,
                          device=dev).float()
-    x = torch.randn((E, M, K), generator=gen, device=dev).to(torch.bfloat16)
+    if x is None:
+        x = torch.randn((E, M, K), generator=gen, device=dev).to(
+            torch.bfloat16)
     kw = dict(bits=bits, group_size=group_size)
+    where = (f"E={E} M={M} K={K} N={N} bits={bits} g={group_size}"
+             + ("" if rows is None else " with rows"))
     n0 = build.LAUNCHES["quant_matmul_experts"]
-    got = quant_matmul_experts(x, packed, scale, zero, **kw)
+    got = quant_matmul_experts(x, packed, scale, zero, **kw, rows=rows)
     torch.cuda.synchronize()
-    want = quant_matmul_experts_plain(x, packed, scale, zero, **kw)
+    want = quant_matmul_experts_plain(x, packed, scale, zero, **kw,
+                                      rows=rows)
     w = dequantize_rows(packed, scale, zero, dtype=torch.bfloat16, **kw)
     slack = REORDER * torch.bmm(x.float().abs(), w.float().abs())
     ok, err = within(got, want, slack)
     if not ok:
-        fail(f"quant_matmul_experts disagrees with its plain version at E={E} "
-             f"M={M} K={K} N={N} bits={bits} g={group_size}: max |diff| {err}")
+        fail(f"quant_matmul_experts disagrees with its plain version at "
+             f"{where}: max |diff| {err}")
     unrolled = lambda: quant_matmul_experts_unrolled(x, packed, scale, zero,
-                                                     **kw)
-    if not torch.equal(got, unrolled()):
+                                                     **kw, rows=rows)
+    if not torch.equal(got.view(torch.int16), unrolled().view(torch.int16)):
         fail(f"quant_matmul_experts is not bit-identical to {E} quant_matmul "
-             f"launches at M={M} K={K} N={N} bits={bits}")
+             f"launches at {where}")
+    live = None
+    if rows is not None:
+        live = rows.clamp(0, M)
+        past = torch.arange(M, device=dev)[None, :] >= live[:, None]
+        if bool(got.view(torch.int16)[past].any()):
+            fail(f"quant_matmul_experts wrote a nonzero (or -0) row past a "
+                 f"count at {where}")
     # the choices that set the order of accumulation are those of one
     # single-matrix launch (TMA or plain loads change no arithmetic)
     config = kernel_config(x, packed, scale, zero, **kw)
@@ -832,46 +915,93 @@ def check_experts(gen, E, M, K, N, bits, group_size, flush, card,
              f"quant_matmul launch's {single} at M={M} K={K} N={N}")
     rec = {"E": E, "M": M, "K": K, "N": N, "bits": bits, "g": group_size,
            "max_abs_err": err, "bit_identical_to_unrolled": True,
-           "main": main, "config": config}
+           "main": main, "routed": routed, "config": config}
+    if live is not None:
+        rec["touched_experts"] = int((live > 0).sum())
+        rec["kept_rows"] = int(live.sum())
+        rec["rows_past_count_pos_zero"] = True
+    if not timed:
+        rec["launches"] = build.LAUNCHES["quant_matmul_experts"] - n0
+        show("quant_matmul_experts", rec, card)
+        return rec
     rec["kernel_ms"] = cuda_ms(
-        lambda: quant_matmul_experts(x, packed, scale, zero, **kw),
-        flush=flush)
-    rec["unrolled_ms"] = cuda_ms(unrolled, iters=5, flush=flush)
+        lambda: quant_matmul_experts(x, packed, scale, zero, **kw,
+                                     rows=rows), flush=flush)
+    if routed is not None:
+        rec["full_ms"] = cuda_ms(
+            lambda: quant_matmul_experts(x, packed, scale, zero, **kw),
+            flush=flush)
+    else:
+        rec["unrolled_ms"] = cuda_ms(unrolled, iters=5, flush=flush)
+    if main:
+        full = torch.full((E,), M, dtype=torch.int32, device=dev)
+        rec["kernel_ms_rows_full"] = cuda_ms(
+            lambda: quant_matmul_experts(x, packed, scale, zero, **kw,
+                                         rows=full), flush=flush)
     rec["plain_ms"] = cuda_ms(
-        lambda: quant_matmul_experts_plain(x, packed, scale, zero, **kw),
+        lambda: quant_matmul_experts_plain(x, packed, scale, zero, **kw,
+                                           rows=rows),
         iters=3, flush=flush)
     rec["library_ms"] = cuda_ms(lambda: torch.bmm(x, w), flush=flush)
     ppb = {2: 4, 3: 2, 4: 2, 8: 1}[bits]
-    nbytes = E * (M * K * 2 + K * N // ppb + 2 * ng * N * 4 + M * N * 2)
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * E * M * K * N)
+    weight = K * N // ppb + 2 * ng * N * 4
+    if live is None:
+        nbytes = E * (M * K * 2 + weight + M * N * 2)
+        flops = 2 * E * M * K * N
+    else:
+        nbytes = (rec["touched_experts"] * weight + rec["kept_rows"] * K * 2
+                  + E * M * N * 2 + E * 4)
+        flops = 2 * rec["kept_rows"] * K * N
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
     rec["launches"] = build.LAUNCHES["quant_matmul_experts"] - n0
     show("quant_matmul_experts", rec, card)
     return rec
 
 
+def check_routed(gen, tokens, flush, card, E=EXPERTS):
+    """The routed traffic of ``tokens`` tokens (``routed_operands``) through
+    both expert shapes of a layer (W2 g128)."""
+    C, rows, xs = routed_operands(gen, tokens, E,
+                                  {K for K, _, _ in EXPERT_SHAPES})
+    return [check_experts(gen, E, C, K, N, 2, 128, flush, card, x=xs[K],
+                          rows=rows, routed=tokens)
+            for K, N, _ in EXPERT_SHAPES]
+
+
 def summarize_experts(records):
     """One MoE layer's expert FFN at W2 g128: the 3 launches (2 x gate/up
     shape, 1 x down shape) at the decode capacity (C = 8), with the
-    prefill capacity's (C = 40) times beside."""
+    prefill capacity's (C = 40) times beside, and each routed traffic's
+    (``routed``: by token count, the bound over the experts that hold a
+    row, ``full_ms`` the same launches without ``rows``)."""
     per_layer = {(K, N): c for K, N, c in EXPERT_SHAPES}
 
-    def at(C, key):
-        return sum(per_layer[(r["K"], r["N"])] * r[key] for r in records
-                   if r["main"] and r["M"] == C)
+    def layer(pick, keys):
+        sel = [r for r in records if pick(r)]
+        out = {k: sum(per_layer[(r["K"], r["N"])] * r[key] for r in sel)
+               for k, key in keys}
+        out["bound_by"] = sel[0]["bound_by"]
+        return out
 
-    out = {k: at(EXPERT_C[1], key) for k, key in (
-        ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
-        ("library_ms", "library_ms"), ("bound_ms", "bound_ms"),
-        ("unrolled_ms", "unrolled_ms"))}
-    out["bound_by"] = next(r["bound_by"] for r in records
-                           if r["main"] and r["M"] == EXPERT_C[1])
+    keys = (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+            ("library_ms", "library_ms"), ("bound_ms", "bound_ms"),
+            ("unrolled_ms", "unrolled_ms"),
+            ("ms_rows_full", "kernel_ms_rows_full"))
+    main = lambda C: lambda r: r["main"] and r["M"] == C
+    out = layer(main(EXPERT_C[1]), keys)
     out["max_abs_err"] = max(r["max_abs_err"] for r in records)
-    out["prefill"] = {k: at(EXPERT_C[0], key) for k, key in (
-        ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
-        ("library_ms", "library_ms"), ("bound_ms", "bound_ms"),
-        ("unrolled_ms", "unrolled_ms"))}
-    out["prefill"]["bound_by"] = next(r["bound_by"] for r in records
-                                      if r["main"] and r["M"] == EXPERT_C[0])
+    out["prefill"] = layer(main(EXPERT_C[0]), keys)
+    out["routed"] = {}
+    for T in ROUTED_TOKENS:
+        sel = [r for r in records if r["routed"] == T]
+        out["routed"][f"{T} tokens"] = {
+            **layer(lambda r: r["routed"] == T, (
+                ("ms", "kernel_ms"), ("full_ms", "full_ms"),
+                ("plain_ms", "plain_ms"), ("library_ms", "library_ms"),
+                ("bound_ms", "bound_ms"))),
+            "C": sel[0]["M"], "touched_experts": sel[0]["touched_experts"],
+            "kept_rows": sel[0]["kept_rows"]}
+    out["edges_checked"] = len(EXPERT_ROWS_PATHS)
     return out
 
 
@@ -1228,6 +1358,13 @@ def kernel_phase(card):
         for K, N, _ in EXPERT_SHAPES:
             out["quant_matmul_experts"].append(check_experts(
                 gen, EXPERTS, C, K, N, 2, 128, flush, card))
+    # the routed traffic, then every edge of the counts (EXPERT_ROWS_PATHS)
+    for T in ROUTED_TOKENS:
+        out["quant_matmul_experts"] += check_routed(gen, T, flush, card)
+    for E, M, K, N, bits, g, spec in EXPERT_ROWS_PATHS:
+        out["quant_matmul_experts"].append(check_experts(
+            gen, E, M, K, N, bits, g, flush, card,
+            rows=expert_rows(gen, spec, E, M), timed=False))
     out["soft_round"] = []
     for ng, n, _ in SR_SHAPES:
         for bits in (2, 3, 4):
@@ -2057,12 +2194,20 @@ def schedule_phase(card, packed):
                    "profiles": profiles, "max_seq": max_seq}
 
 
-def decode_profile(steps, packed, store, max_seq, card, n=8):
+def decode_profile(steps, packed, store, max_seq, card, n=8,
+                   tag="schedule-profile", distinct=False):
     """Where one scheduled decode step's time goes at full width: all 8
     slots live from position 200, the step run ``n`` times.  Wall time per
     step (host clock around synchronized runs), and the device's busy time
     per step by kernel from ``torch.profiler`` (CUPTI); the difference is
-    time the card waits for the host."""
+    time the card waits for the host.  For an MoE model also the expert
+    kernel's device time and launches per step: at 8 slots every
+    projection outside the experts takes the GEMV, so each launch of
+    ``quant_matmul_kernel`` in a decode step is an expert-batched one.
+    Every slot starts from token 0 on an empty cache unless ``distinct``,
+    which gives each slot its own token, so an MoE step's slots route to
+    different experts as served requests do (from the same token all 8
+    take the same top-8)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2080,9 +2225,11 @@ def decode_profile(steps, packed, store, max_seq, card, n=8):
         cs = DenseCacheStore(model, slots=SCHED_SLOTS, max_seq=max_seq,
                              device="cuda")
         ptab = None
-    state = {"cache": cs.cache,
-             "tok": torch.zeros((SCHED_SLOTS,), dtype=torch.int32,
-                                device="cuda"),
+    tok = torch.zeros((SCHED_SLOTS,), dtype=torch.int32, device="cuda")
+    if distinct:
+        tok = torch.arange(1, SCHED_SLOTS + 1, dtype=torch.int32,
+                           device="cuda") * 1009 % model.cfg.vocab_size
+    state = {"cache": cs.cache, "tok": tok,
              "pos": torch.full((SCHED_SLOTS,), 200, dtype=torch.int32,
                                device="cuda")}
     active = torch.ones((SCHED_SLOTS,), dtype=torch.bool, device="cuda")
@@ -2111,6 +2258,9 @@ def decode_profile(steps, packed, store, max_seq, card, n=8):
     launches = sum(e.count for e in kern) / n
     attn = sum(e.self_device_time_total for e in kern
                if "decode_attention" in e.key) / 1e3 / n
+    qmm = [e for e in kern if "quant_matmul_kernel" in e.key]
+    experts = sum(e.self_device_time_total for e in qmm) / 1e3 / n
+    expert_launches = sum(e.count for e in qmm) / n
 
     def top(evs, key):
         evs = sorted(evs, key=lambda e: -getattr(e, key))[:6]
@@ -2118,17 +2268,28 @@ def decode_profile(steps, packed, store, max_seq, card, n=8):
                          f"{getattr(e, key) / 1e3 / n:.3f}" for e in evs)
 
     host = [e for e in events if e.device_type == DeviceType.CPU]
-    print(f"[schedule-profile] {store} decode step, 8 live slots at position "
-          f"200+: wall {wall:.3f} ms/step; device busy "
+    cfg = model.cfg
+    moe = cfg.family == "moe"
+    print(f"[{tag}] {store} decode step, 8 live slots at position "
+          f"200+{', distinct tokens' if distinct else ''}: wall "
+          f"{wall:.3f} ms/step; device busy "
           + (f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of wall), "
              f"{launches:.1f} kernel launches/step, decode attention "
-             f"{attn:.3f} ms/step; top kernels (launches/step, ms/step): "
+             f"{attn:.3f} ms/step; "
+             + (f"expert kernel {experts:.3f} ms/step ({expert_launches:.1f} "
+                f"launches/step, {100 * experts / busy:.1f}% of busy); "
+                if moe else "")
+             + f"top kernels (launches/step, ms/step): "
              f"{top(kern, 'self_device_time_total')}" if kern
              else "not measured (the profiler saw no device activity)")
           + f"; top host ops (calls/step, self CPU ms/step): "
           f"{top(host, 'self_cpu_time_total')}; card=[{card}]", flush=True)
+    if moe and kern and expert_launches != 3 * cfg.num_layers:
+        fail(f"{tag}: {expert_launches} quant_matmul_kernel launches a "
+             f"decode step, expected the 3 expert launches a layer")
     return {"wall_ms": wall, "busy_ms": busy if kern else None,
-            "launches": launches if kern else None}
+            "launches": launches if kern else None,
+            "experts_ms": experts if moe and kern else None}
 
 
 def lockstep_expect(cfg, reqs):
@@ -2339,7 +2500,9 @@ def moe_schedule_phase(card, packed, cfg):
     if runs["c"].cache_stats["shared_page_hits"] != 0:
         fail("the MoE store shared prefix pages")
     total = {k: sum(c[k] for c in counts.values()) for k in counts["a"]}
-    return total, runs
+    profile = decode_profile(steps["dense"], packed, "dense", max_seq, card,
+                             tag="moe-schedule-profile", distinct=True)
+    return total, {"runs": runs, "profile": profile}
 
 
 def moe_calibrate_phase(card):
@@ -2807,8 +2970,16 @@ def main():
                                      "the device spin",
            "quant_matmul_experts": "one MoE layer of a decode step: 3 "
                                    "launches (2 x K=2048 N=768, 1 x K=768 "
-                                   "N=2048), E=128, C=8, W2 g128; 'prefill' "
-                                   "the same at C=40",
+                                   "N=2048), E=128, C=8, W2 g128, random "
+                                   "x, every row live ('ms_rows_full' with "
+                                   "rows = C); 'prefill' the same at C=40; "
+                                   "'routed' the same launches on routed "
+                                   "traffic (4 and 8 decode slots at C=8, "
+                                   "512 tokens at C=40, 2048 at C=160; "
+                                   "top-8, x zero past each count) with "
+                                   "the dispatch's counts as rows, 'full_ms' "
+                                   "without them, the bound over the "
+                                   "experts that hold a row",
            "int8_matmul": "one LLaMA-2-7B layer's 7 per-channel linears "
                           "(4 x K=4096 N=4096, 2 x K=4096 N=11008, 1 x "
                           "K=11008 N=4096), M=512, f32 out; 'decode' the "

@@ -92,9 +92,9 @@ def capture_block_inputs(apply: Callable, bp, xs) -> Dict[tuple, LinearStats]:
         rec(w, x)
         return orig_mm(x, w, backend)
 
-    def patched_emm(a, w, backend=None):
+    def patched_emm(a, w, backend=None, rows=None):
         rec(w, a)
-        return orig_emm(a, w, backend)
+        return orig_emm(a, w, backend, rows)
 
     L.matmul, L.expert_matmul = patched_mm, patched_emm
     try:

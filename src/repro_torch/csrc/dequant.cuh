@@ -43,7 +43,7 @@ __device__ __forceinline__ uint32_t dequant_pair(float cf0, float cf1,
 // Scale and zero of a thread's two columns for one group, with what the
 // integral-zero shortcut needs; at 2 bits (PPB == 4) also each column's four
 // weights as bf16 (lut[i][0] = w(0) | w(1) << 16, lut[i][1] = w(2) | w(3)
-// << 16), computed by dequant_pair like every other weight.
+// << 16), with dequant_pair's arithmetic.
 template <int PPB>
 struct GroupConst {
   float2 s, z;
@@ -63,13 +63,17 @@ __device__ __forceinline__ GroupConst<PPB> make_group_const(float2 s,
   g.zp0 = __fadd_rn(z.x, 8388608.0f);
   g.zp1 = __fadd_rn(z.y, 8388608.0f);
   if constexpr (PPB == 4) {
+    // c - z rounded once: what either path of dequant_pair gives (exact
+    // for an integral z), without the integral-zero test
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        g.lut[i][h] = dequant_pair(code_f(2 * h), code_f(2 * h + 1),
-                                   i ? s.y : s.x, i ? z.y : z.x,
-                                   i ? g.zp1 : g.zp0, g.zint);
+      for (int h = 0; h < 2; ++h) {
+        const float sc = i ? s.y : s.x, zc = i ? z.y : z.x;
+        g.lut[i][h] =
+            pack_bf16x2(__fmul_rn(__fsub_rn((float)(2 * h), zc), sc),
+                        __fmul_rn(__fsub_rn((float)(2 * h + 1), zc), sc));
+      }
   }
   return g;
 }

@@ -51,9 +51,10 @@ _SIGNATURES = {
     # x, packed, scale, zero, out, M, N, K, bits, group_size, stream
     "launch_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "launch_quant_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, packed, scale, zero, out, E, M, N, K, bits, group_size, stream
-    "launch_quant_matmul_experts": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _P],
+    # x, packed, scale, zero, rows (or null: M everywhere), out, E, M, N,
+    # K, bits, group_size, stream
+    "launch_quant_matmul_experts": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _P],
     # x, packed, scale, zero, E, M, N, K, bits, group_size, int cfg[9]
     "quant_matmul_config": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, packed, scale, zero, N, K, bits, group_size, int cfg[12]

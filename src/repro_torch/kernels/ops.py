@@ -49,22 +49,25 @@ def _expert_operands(a: torch.Tensor, w: QTensor):
             w.zero.to(torch.float32).contiguous())
 
 
-def qtensor_expert_matmul(a: torch.Tensor, w: QTensor) -> torch.Tensor:
+def qtensor_expert_matmul(a: torch.Tensor, w: QTensor,
+                          rows=None) -> torch.Tensor:
     """(E, C, K) x expert-stacked QTensor -> (E, C, N) in ONE expert-batched
-    kernel launch."""
+    kernel launch; ``rows`` (int32 (E,), or None) are the dispatch's row
+    counts, clamped to C: rows past them come out +0 and an expert with
+    none reads no weight."""
     x, packed, scale, zero = _expert_operands(a, w)
     return quant_matmul_experts(x, packed, scale, zero, bits=w.bits,
-                                group_size=w.group_size)
+                                group_size=w.group_size, rows=rows)
 
 
-def qtensor_expert_matmul_unrolled(a: torch.Tensor,
-                                   w: QTensor) -> torch.Tensor:
-    """One ``quant_matmul`` launch per expert: the bit-parity oracle of
-    :func:`qtensor_expert_matmul` (the reference's ``ops.py``
-    counterpart)."""
+def qtensor_expert_matmul_unrolled(a: torch.Tensor, w: QTensor,
+                                   rows=None) -> torch.Tensor:
+    """One ``quant_matmul`` launch per expert, then rows past ``rows``
+    masked: the bit-parity oracle of :func:`qtensor_expert_matmul` (the
+    reference's ``ops.py`` counterpart)."""
     x, packed, scale, zero = _expert_operands(a, w)
     return quant_matmul_experts_unrolled(x, packed, scale, zero, bits=w.bits,
-                                         group_size=w.group_size)
+                                         group_size=w.group_size, rows=rows)
 
 
 def quantize_per_token(x: torch.Tensor, bits: int = 8):

@@ -8,6 +8,15 @@ and how the design answers that.  :func:`quant_matmul_plain` and
 :func:`quant_matmul_experts_plain` are the same functions in plain
 PyTorch: the wrappers run them for a tensor on the CPU, and
 ``chip_smoke.py`` holds the kernels against them on the card.
+
+The expert functions take ``rows``, each expert's count of kept capacity
+rows (an int32 ``(E,)`` tensor on x's device, as the MoE dispatch makes
+it): ``out[e, m] = x[e, m] @ W[e]`` for ``m < rows[e]`` and +0 past it, so
+the kernel reads no weight of an expert with no row.  The reference's
+``quant_matmul_experts`` has no ``rows``; the two agree wherever x is zero
+past ``rows[e]`` and the dequantized weights are finite, which is what the
+dispatch's zero-filled capacity buffer gives.  ``rows=None`` keeps every
+row.
 """
 from __future__ import annotations
 
@@ -48,8 +57,10 @@ def kernel_config(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                   zero: torch.Tensor, *, bits: int, group_size: int) -> dict:
     """The configuration the CUDA kernel takes for these operands, as its
     own host code chooses it (``quant_matmul_config`` in
-    ``csrc/quant_matmul.cu``; launches nothing): the tile, the ring depth,
-    the group path, the 2-bit table, and which operands come by TMA.  2-D
+    ``csrc/quant_matmul.cu``; launches nothing): the tile (``bm`` rows, a
+    function of the shape: 8, 32, 64 or 128), the ring depth, the
+    group path, the 2-bit table, which operands come by TMA, and the
+    grid.  2-D
     operands name a :func:`quant_matmul` launch, 3-D ones (a leading
     expert dim) a :func:`quant_matmul_experts` launch.  CUDA tensors only."""
     if x.device.type != "cuda":
@@ -63,7 +74,7 @@ def kernel_config(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), zero.data_ptr(),
         E, M, N, K, bits, group_size, cfg))
     bn, bm, bk, stages, staged, rows, lut, x_tma, w_tma = cfg
-    return {"tile": f"{bn}n x {bm}m x {bk}k", "stages": stages,
+    return {"tile": f"{bn}n x {bm}m x {bk}k", "bm": bm, "stages": stages,
             "groups": f"staged, {rows} row(s) a stage" if staged
             else "per-element", "lut": bool(lut), "x_tma": bool(x_tma),
             "w_tma": bool(w_tma), "grid": [-(-N // bn), -(-M // bm), E]}
@@ -139,22 +150,35 @@ def quant_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def mask_rows(out: torch.Tensor, rows) -> torch.Tensor:
+    """``out`` (E, M, N) with rows ``m >= rows[e]`` set to +0 (``rows=None``:
+    unchanged).  Device ops only, so no host sync."""
+    if rows is None:
+        return out
+    keep = torch.arange(out.shape[1], device=out.device) < rows[:, None]
+    return torch.where(keep[..., None], out, out.new_zeros(()))
+
+
 def quant_matmul_experts_plain(x: torch.Tensor, packed: torch.Tensor,
                                scale: torch.Tensor, zero: torch.Tensor, *,
-                               bits: int, group_size: int) -> torch.Tensor:
+                               bits: int, group_size: int,
+                               rows=None) -> torch.Tensor:
     """x (E, M, K) @ dequant(packed (E, K/ppb, N)) -> (E, M, N) in x.dtype:
     :func:`quant_matmul_plain`'s arithmetic, one expert's product at a time
-    (so it equals E separate plain products bit for bit)."""
+    (so it equals E separate plain products bit for bit), then rows past
+    ``rows[e]`` masked to +0."""
     w = dequantize_rows(packed, scale, zero, bits=bits,
                         group_size=group_size, dtype=x.dtype)
-    return torch.stack([(x[e].float() @ w[e].float()).to(x.dtype)
-                        for e in range(x.shape[0])])
+    return mask_rows(torch.stack([(x[e].float() @ w[e].float()).to(x.dtype)
+                                  for e in range(x.shape[0])]), rows)
 
 
 def check_expert_operands(name: str, x, packed, scale, zero, bits: int,
-                          group_size: int):
+                          group_size: int, rows=None):
     """Validates the expert-stacked contract: x (E, M, K), packed
-    (E, K/ppb, N), scale/zero (E, K/g, N).  Returns (E, M, N, K)."""
+    (E, K/ppb, N), scale/zero (E, K/g, N), and ``rows`` (None, or a
+    contiguous int32 (E,) tensor on x's device; its values are not read,
+    which would be a host sync).  Returns (E, M, N, K)."""
     if x.ndim != 3 or packed.ndim != 3:
         raise ValueError(f"{name}: expected expert-stacked (E, M, K) x and "
                          f"(E, K/ppb, N) packed, got {tuple(x.shape)} and "
@@ -168,21 +192,34 @@ def check_expert_operands(name: str, x, packed, scale, zero, bits: int,
                          f"{tuple(zero.shape)}")
     M, N, K = check_operands(name, x[0], packed[0], scale[0], zero[0], bits,
                              group_size)
+    if rows is not None:
+        if rows.dtype != torch.int32:
+            raise TypeError(f"{name}: rows must be int32, got {rows.dtype}")
+        if tuple(rows.shape) != (E,):
+            raise ValueError(f"{name}: rows of shape {tuple(rows.shape)}, "
+                             f"expected ({E},)")
+        if rows.device != x.device:
+            raise ValueError(f"{name}: rows is on {rows.device}, x on "
+                             f"{x.device}")
+        if not rows.is_contiguous():
+            raise ValueError(f"{name}: rows must be contiguous")
     return E, M, N, K
 
 
 def quant_matmul_experts(x: torch.Tensor, packed: torch.Tensor,
                          scale: torch.Tensor, zero: torch.Tensor, *,
-                         bits: int, group_size: int) -> torch.Tensor:
+                         bits: int, group_size: int,
+                         rows=None) -> torch.Tensor:
     """x: (E, M, K); packed: (E, K//ppb, N) uint8; scale/zero: (E, K//g, N)
-    f32.  Returns (E, M, N) in x.dtype, every expert in ONE launch.  A CUDA
-    tensor launches the kernel (bf16 only); a CPU tensor runs
-    :func:`quant_matmul_experts_plain`."""
+    f32; rows: None or int32 (E,) kept-row counts (the kernel clamps each
+    to [0, M]).  Returns (E, M, N) in x.dtype, rows past each count +0,
+    every expert in ONE launch.  A CUDA tensor launches the kernel (bf16
+    only); a CPU tensor runs :func:`quant_matmul_experts_plain`."""
     E, M, N, K = check_expert_operands("quant_matmul_experts", x, packed,
-                                       scale, zero, bits, group_size)
+                                       scale, zero, bits, group_size, rows)
     if x.device.type == "cpu":
         return quant_matmul_experts_plain(x, packed, scale, zero, bits=bits,
-                                          group_size=group_size)
+                                          group_size=group_size, rows=rows)
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul_experts: unsupported device "
                          f"{x.device}")
@@ -193,8 +230,8 @@ def quant_matmul_experts(x: torch.Tensor, packed: torch.Tensor,
     lib = build.load_library()
     err = lib.launch_quant_matmul_experts(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-        out.data_ptr(), E, M, N, K, bits, group_size,
-        build.stream_ptr(x.device))
+        None if rows is None else rows.data_ptr(), out.data_ptr(), E, M, N,
+        K, bits, group_size, build.stream_ptr(x.device))
     build.check("quant_matmul_experts", err)
     build.LAUNCHES["quant_matmul_experts"] += 1
     return out
@@ -202,12 +239,15 @@ def quant_matmul_experts(x: torch.Tensor, packed: torch.Tensor,
 
 def quant_matmul_experts_unrolled(x: torch.Tensor, packed: torch.Tensor,
                                   scale: torch.Tensor, zero: torch.Tensor, *,
-                                  bits: int, group_size: int) -> torch.Tensor:
-    """One :func:`quant_matmul` launch per expert: the bit-parity oracle of
-    :func:`quant_matmul_experts` (the reference's fused-vs-unrolled
-    contract).  Takes the same expert-stacked operands."""
+                                  bits: int, group_size: int,
+                                  rows=None) -> torch.Tensor:
+    """One :func:`quant_matmul` launch per expert, then rows past ``rows``
+    masked to +0: the bit-parity oracle of :func:`quant_matmul_experts`
+    (the reference's fused-vs-unrolled contract).  Takes the same
+    expert-stacked operands."""
     check_expert_operands("quant_matmul_experts_unrolled", x, packed, scale,
-                          zero, bits, group_size)
-    return torch.stack([quant_matmul(x[e], packed[e], scale[e], zero[e],
-                                     bits=bits, group_size=group_size)
-                        for e in range(x.shape[0])])
+                          zero, bits, group_size, rows)
+    return mask_rows(torch.stack([
+        quant_matmul(x[e], packed[e], scale[e], zero[e], bits=bits,
+                     group_size=group_size)
+        for e in range(x.shape[0])]), rows)

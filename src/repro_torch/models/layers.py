@@ -40,15 +40,17 @@ def matmul(x: torch.Tensor, w, backend: Optional[str] = None) -> torch.Tensor:
     return x @ w
 
 
-def expert_matmul(a: torch.Tensor, w, backend: Optional[str] = None
-                  ) -> torch.Tensor:
+def expert_matmul(a: torch.Tensor, w, backend: Optional[str] = None,
+                  rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batched per-expert matmul: (E, C, d) x (E, d, f) -> (E, C, f).
-    ``"pallas"`` runs the expert-batched kernel; ``"xla"`` dequantizes in
-    the activation dtype and runs one batched product."""
+    ``"pallas"`` runs the expert-batched kernel, which takes ``rows`` (each
+    expert's row count, int32 (E,), clamped to C by the kernel): rows past
+    them come out +0, as the dispatch's zero rows give.  ``"xla"`` dequantizes in the
+    activation dtype, runs one batched product and ignores ``rows``."""
     if isinstance(w, QTensor):
         if resolve_backend(backend) == "pallas":
             from repro_torch.kernels.ops import qtensor_expert_matmul
-            return qtensor_expert_matmul(a, w)
+            return qtensor_expert_matmul(a, w, rows)
         if w.act_scale is not None:
             a = a / w.act_scale.to(a.dtype)
         w = w.dequantize(a.dtype)

@@ -9,7 +9,12 @@ experts run as one batched (E, C, d) x (E, d, f) product per projection
 Dispatch and combine are fixed-shape tensor ops on the device (a one-hot
 cumsum, a scatter into ``E*C + 1`` rows whose last row takes the dropped
 pairs, a gather back): no boolean indexing or ``nonzero``, so a decode step
-never waits on the host.  Inactive decode slots route and take capacity
+never waits on the host.  The dispatch also hands each expert's count of
+routed pairs (the cumsum's last row, no extra launch) to the expert
+kernel, which clamps it to the capacity, reads no weight of an expert with
+no row and writes +0 past each count; the capacity buffer is zero there,
+so that is the product the reference computes (for finite weights), and
+the combine never reads those rows.  Inactive decode slots route and take capacity
 like live ones, as in the reference (determinism, not alone-parity).
 
 The reference's expert-parallel paths (``ctx.ep_axis``, ``ctx.ep_inner``)
@@ -58,20 +63,23 @@ def _capacity(tokens: int, num_experts: int, top_k: int, cf: float) -> int:
 
 
 def _dispatch(idx: torch.Tensor, num_experts: int, capacity: int):
-    """(keep (T*k,) bool, slot (T*k,) int64) for the flat token-major list of
-    (token, choice) pairs: a pair takes the next free row of its expert's
-    queue (a cumsum over the one-hot expert column), and ``slot`` is its row
-    in the ``E*C + 1``-row buffer, the last row for a pair past its expert's
-    capacity.  (The reference also drops pairs routed to another shard's
-    experts; with every expert local no pair is.)"""
+    """(keep (T*k,) bool, slot (T*k,) int64, rows (E,) int32) for the flat
+    token-major list of (token, choice) pairs: a pair takes the next free
+    row of its expert's queue (a cumsum over the one-hot expert column),
+    ``slot`` is its row in the ``E*C + 1``-row buffer, the last row for a
+    pair past its expert's capacity, and ``rows`` each expert's routed
+    pairs (the cumsum's last row, a view; the expert kernel clamps it to
+    the capacity, so its kept rows are ``min(rows, capacity)``).  (The
+    reference also drops pairs routed to another shard's experts; with
+    every expert local no pair is.)"""
     flat_e = idx.reshape(-1)
     onehot = (flat_e[:, None] == torch.arange(
-        num_experts, device=idx.device)).to(torch.int64)         # (T*k, E)
-    pos = torch.cumsum(onehot, dim=0) - 1
-    pos = torch.sum(pos * onehot, dim=1)                         # (T*k,)
+        num_experts, device=idx.device)).to(torch.int32)         # (T*k, E)
+    count = torch.cumsum(onehot, dim=0, dtype=torch.int32)
+    pos = torch.gather(count, 1, flat_e[:, None])[:, 0] - 1     # (T*k,)
     keep = pos < capacity
     slot = torch.where(keep, flat_e * capacity + pos, num_experts * capacity)
-    return keep, slot
+    return keep, slot, count[-1]
 
 
 def _expert_compute(x2d, idx, gate, w_gate, w_up, w_down, *,
@@ -86,7 +94,7 @@ def _expert_compute(x2d, idx, gate, w_gate, w_up, w_down, *,
     T, d = x2d.shape
     k = idx.shape[1]
     E = num_experts
-    keep, slot = _dispatch(idx, E, capacity)
+    keep, slot, rows = _dispatch(idx, E, capacity)
     tok_idx = torch.arange(T * k, device=x2d.device) // k
     buf = torch.zeros((E * capacity + 1, d), dtype=x2d.dtype,
                       device=x2d.device)
@@ -96,11 +104,13 @@ def _expert_compute(x2d, idx, gate, w_gate, w_up, w_down, *,
     if act_bits:
         h = L.fake_quant_act(h, act_bits)
 
-    g = (torch.nn.functional.silu(L.expert_matmul(h, w_gate, backend))
-         * L.expert_matmul(h, w_up, backend))
+    # rows past each expert's count are zero in h, and so in g: +0 from
+    # silu(+0) * (+0), and from fake_quant_act and act_scale's division
+    g = (torch.nn.functional.silu(L.expert_matmul(h, w_gate, backend, rows))
+         * L.expert_matmul(h, w_up, backend, rows))
     if act_bits:
         g = L.fake_quant_act(g, act_bits)
-    out = L.expert_matmul(g, w_down, backend)                    # (E, C, d)
+    out = L.expert_matmul(g, w_down, backend, rows)              # (E, C, d)
 
     out_flat = torch.cat([out.reshape(E * capacity, d),
                           out.new_zeros((1, d))], 0)

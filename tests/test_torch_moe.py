@@ -191,6 +191,117 @@ def test_expert_matmul_rejects_non_stacked_weights():
                              group_size=32)
 
 
+_ROWS = {"empty": [0, 0, 0, 0], "ragged": [0, 3, 8, 5],
+         "full": [8, 8, 8, 8]}
+
+
+def _zero_past(x, rows):
+    """x (E, M, K) with rows m >= rows[e] zeroed, as the capacity buffer
+    holds them."""
+    x = x.copy()
+    for e, r in enumerate(rows):
+        x[e, max(r, 0):] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("counts", list(_ROWS))
+def test_expert_matmul_rows_matches_reference(counts, dt):
+    """With ``rows``, the port's expert dispatch (plain version on a CPU
+    tensor) against the reference's fused expert grid in interpret mode on
+    x zeroed past each count (the reference has no ``rows``; the dispatch
+    guarantees those zeros): the tolerances of
+    test_expert_matmul_plain_matches_reference, atol 1e-5 in f32 and 1 bf16
+    ulp in bf16."""
+    rows = _ROWS[counts]
+    E, M, K, N = 4, 8, 128, 48
+    x, packed, scale, zero, act = _expert_operands(7 + len(counts), E, M, K,
+                                                   N, 2, 32)
+    x = _zero_past(x, rows)
+    jdt, tdt = _DTYPES[dt]
+    jw = jqt.QTensor(jnp.asarray(packed), jnp.asarray(scale),
+                     jnp.asarray(zero), 2, 32, (K, N),
+                     act_scale=jnp.asarray(act))
+    want = np.asarray(jops.qtensor_expert_matmul(jnp.asarray(x, jdt),
+                                                 jw)).astype(np.float32)
+    tw = QTensor(torch.from_numpy(packed), torch.from_numpy(scale),
+                 torch.from_numpy(zero), 2, 32, (K, N),
+                 act_scale=torch.from_numpy(act))
+    before = dict(build.LAUNCHES)
+    got = tops.qtensor_expert_matmul(torch.from_numpy(x).to(tdt), tw,
+                                     torch.tensor(rows, dtype=torch.int32))
+    assert build.LAUNCHES == before
+    assert got.dtype == tdt and got.shape == (E, M, N)
+    got = got.float().numpy()
+    if dt == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert_within_bf16_ulps(got, want, n=1)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_expert_matmul_rows_mask_random_x(dt):
+    """On random x (nonzero past the counts) the plain version keeps rows
+    below each count bit for bit and writes +0 (by bit pattern) past it;
+    counts are clamped to [0, M]."""
+    E, M, K, N = 5, 12, 64, 40
+    x, packed, scale, zero, _ = _expert_operands(3, E, M, K, N, 3, 32)
+    tdt = _DTYPES[dt][1]
+    args = [torch.from_numpy(x).to(tdt)] + [torch.from_numpy(t) for t in
+                                            (packed, scale, zero)]
+    rows = [-3, 0, 5, 12, 100]
+    full = quant_matmul_experts_plain(*args, bits=3, group_size=32)
+    got = quant_matmul_experts_plain(
+        *args, bits=3, group_size=32,
+        rows=torch.tensor(rows, dtype=torch.int32))
+    bits_of = (lambda t: t.view(torch.int16)) if dt == "bf16" else \
+        (lambda t: t.view(torch.int32))
+    for e, r in enumerate(rows):
+        r = min(max(r, 0), M)
+        assert torch.equal(bits_of(got[e, :r]), bits_of(full[e, :r]))
+        assert not bits_of(got[e, r:]).any()
+    assert bool(full.abs().sum(-1).gt(0).all())    # every row was nonzero
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("bits", [2, 4])
+def test_expert_matmul_rows_fused_equals_unrolled(bits, dt):
+    """With ``rows``, the expert-batched wrapper equals one quant_matmul
+    per expert masked the same way, bit for bit."""
+    x, packed, scale, zero, act = _expert_operands(5 * bits, 6, 12, 64, 40,
+                                                   bits, 32)
+    tdt = _DTYPES[dt][1]
+    tw = QTensor(torch.from_numpy(packed), torch.from_numpy(scale),
+                 torch.from_numpy(zero), bits, 32, (64, 40),
+                 act_scale=torch.from_numpy(act))
+    a = torch.from_numpy(x).to(tdt)
+    rows = torch.tensor([0, 12, 7, 1, 0, 13], dtype=torch.int32)
+    fused = tops.qtensor_expert_matmul(a, tw, rows)
+    assert torch.equal(fused, tops.qtensor_expert_matmul_unrolled(a, tw,
+                                                                  rows))
+    assert not fused[0].any() and not fused[4].any()
+
+
+def test_expert_matmul_rejects_bad_rows():
+    """``rows`` is an int32 (E,) tensor on x's device, contiguous; the
+    wrappers check that without reading its values."""
+    x, packed, scale, zero, _ = _expert_operands(0, 3, 4, 64, 16, 2, 32)
+    args = [torch.from_numpy(t) for t in (x, packed, scale, zero)]
+    kw = dict(bits=2, group_size=32)
+    for fn in (quant_matmul_experts, tops.quant_matmul_experts_unrolled):
+        with pytest.raises(TypeError, match="int32"):
+            fn(*args, **kw, rows=torch.zeros(3, dtype=torch.int64))
+        with pytest.raises(ValueError, match=r"expected \(3,\)"):
+            fn(*args, **kw, rows=torch.zeros(4, dtype=torch.int32))
+        with pytest.raises(ValueError, match=r"expected \(3,\)"):
+            fn(*args, **kw, rows=torch.zeros((3, 1), dtype=torch.int32))
+        with pytest.raises(ValueError, match="is on meta"):
+            fn(*args, **kw, rows=torch.zeros(3, dtype=torch.int32,
+                                             device="meta"))
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(*args, **kw, rows=torch.zeros(6, dtype=torch.int32)[::2])
+
+
 # --------------------------------------------------------------------------
 # routing, capacity dispatch, the MoE FFN
 # --------------------------------------------------------------------------
@@ -252,11 +363,39 @@ def test_route_capacity_and_dispatch_match_reference(T, E, k):
             assert tmoe._capacity(tokens, 128, 8, cf) == \
                 jmoe._capacity(tokens, 128, 8, cf)
     C = tmoe._capacity(T, E, k, 1.25)
-    keep, slot = tmoe._dispatch(idx, E, C)
+    keep, slot, _ = tmoe._dispatch(idx, E, C)
     want_keep, want_slot = _reference_slots(np.asarray(jidx), E, C)
     assert not want_keep.all()                   # capacity dropped pairs
     np.testing.assert_array_equal(keep.numpy(), want_keep)
     np.testing.assert_array_equal(slot.numpy(), want_slot)
+
+
+@pytest.mark.parametrize("T,E,k,drops", [(48, 4, 2, True),
+                                        (37, 8, 2, True),
+                                        (64, 16, 4, True), (1, 8, 2, False),
+                                        (3, 16, 2, False)])
+def test_dispatch_rows_match_reference_recount(T, E, k, drops):
+    """``_dispatch``'s per-expert counts (int32, what the expert kernel
+    takes) equal a numpy recount of the pairs the reference routed to each
+    expert, and clamped to the capacity (as the kernel clamps them) the
+    pairs its dispatch kept, drops past capacity excluded; experts with no
+    pair count 0."""
+    x, router = _skewed_tokens(T * E + k, T, 16, E)
+    jidx, _ = jmoe._route(jnp.asarray(x), jnp.asarray(router), k)
+    idx, _ = tmoe._route(torch.from_numpy(x), torch.from_numpy(router), k)
+    C = tmoe._capacity(T, E, k, 1.25)
+    _, _, rows = tmoe._dispatch(idx, E, C)
+    want_keep, _ = _reference_slots(np.asarray(jidx), E, C)
+    flat = np.asarray(jidx).reshape(-1)
+    want = np.bincount(flat[want_keep], minlength=E)
+    assert rows.dtype == torch.int32 and tuple(rows.shape) == (E,)
+    routed = np.bincount(flat, minlength=E)
+    np.testing.assert_array_equal(rows.numpy(), routed)
+    np.testing.assert_array_equal(rows.clamp(max=C).numpy(), want)
+    assert (routed > C).any() == drops           # pairs dropped past C
+    assert (want == np.minimum(routed, C)).all()
+    if T * k < E:
+        assert (want == 0).any()                 # some expert empty
 
 
 def _moe_weights(seed, d, f, E):
@@ -276,6 +415,56 @@ def test_moe_ffn_matches_reference_f32():
                         jnp.asarray(x), jcfg, jcommon.DEFAULT_CTX)
     got = tmoe.moe_ffn(params_to_torch(mp), torch.from_numpy(x), cfg,
                        tcommon.DEFAULT_CTX)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+
+
+def _qtensor_experts(seed, E, K, N, bits, group_size):
+    """One expert-stacked projection as numpy (packed, scale, zero)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 1 << bits, (E, K, N)).astype(np.uint8)
+    ng = K // group_size
+    return (np.array(jqt.pack(jnp.asarray(codes), bits)),
+            rng.uniform(0.005, 0.05, (E, ng, N)).astype(np.float32),
+            rng.integers(0, 1 << bits, (E, ng, N)).astype(np.float32))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_moe_ffn_one_token_matches_reference(backend):
+    """One token through the reduced qwen3 MoE FFN (top-2 of 8 experts, so
+    6 experts hold no row and the port's expert kernel skips them) with
+    W2 g32 QTensor experts, in f32 on both backends: the port against the
+    reference at atol 1e-4, as test_moe_ffn_matches_reference_f32."""
+    jcfg = jget_reduced(ARCH).replace(dtype="float32")
+    cfg = get_reduced_config(ARCH).replace(dtype="float32")
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    rng = np.random.default_rng(9)
+    mp = {"router": (rng.standard_normal((d, E)) * d ** -0.5
+                     ).astype(np.float32)}
+    for i, (name, K, N) in enumerate((("w_gate", d, f), ("w_up", d, f),
+                                      ("w_down", f, d))):
+        mp[name] = (*_qtensor_experts(20 + i, E, K, N, 2, 32), (K, N))
+    x = rng.standard_normal((1, 1, d)).astype(np.float32)
+
+    def tree(qt, arr):
+        out = {"router": arr(mp["router"])}
+        for k in ("w_gate", "w_up", "w_down"):
+            p, s, z, shape = mp[k]
+            out[k] = qt(arr(p), arr(s), arr(z), 2, 32, shape)
+        return out
+
+    jmp = tree(jqt.QTensor, jnp.asarray)
+    tmp = tree(QTensor, torch.from_numpy)
+    jctx = dataclasses.replace(jcommon.DEFAULT_CTX, kernel_backend=backend)
+    want = jmoe.moe_ffn(jmp, jnp.asarray(x), jcfg, jctx)
+    idx, _ = tmoe._route(torch.from_numpy(x[0]), tmp["router"],
+                         cfg.moe.top_k)
+    _, _, rows = tmoe._dispatch(
+        idx, E, tmoe._capacity(1, E, cfg.moe.top_k,
+                               cfg.moe.capacity_factor))
+    assert int((rows == 0).sum()) == E - cfg.moe.top_k
+    got = tmoe.moe_ffn(tmp, torch.from_numpy(x), cfg,
+                       tcommon.make_ctx(kernel_backend=backend))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=0)
 
