@@ -1,18 +1,22 @@
 """Eager capture of per-linear input activations inside a block, plus the
 activation-stream utilities the ``quantize_model`` walk uses.
 
-AWQ needs, for every linear W in a block, statistics of that linear's own
-input X (mean |X| per channel and a token subsample for the layer
-objective).  ``capture_block_inputs`` runs the block with
+AWQ and GPTQ need, for every linear W in a block, statistics of that
+linear's own input X (mean |X| per channel, a token subsample for the
+layer objective and, for GPTQ, the Hessian X^T X).
+``capture_block_inputs`` runs the block with
 ``repro_torch.models.layers.matmul`` and ``layers.expert_matmul``
 temporarily wrapped to record them, keyed by the weight tensor's identity,
 which maps back to a param path.  The statistics stay on the activations'
-device.
+device; the Hessian is accumulated there in float32, one X^T X per
+minibatch summed in minibatch order, as the reference sums its numpy
+products.
 
 MoE expert weights see their own capacity-gathered (E, C, d) inputs,
 recorded as (E*C, d) rows with the zero-padded slots included, as the
 reference records them (the padding dilutes ``mean_abs`` by a uniform
-factor that cancels under AWQ's relative scale search).
+factor that cancels under AWQ's relative scale search); every expert's
+rows go into the stack's one Hessian, as in the reference.
 """
 from __future__ import annotations
 
@@ -44,16 +48,18 @@ def split_minibatches(x: torch.Tensor, mb: int = CAPTURE_MINIBATCH) -> list:
 
 
 class LinearStats:
-    """Running mean |x| per input channel and a row subsample (at most
-    ``MAX_ROWS`` rows, ``linspace``-spaced within each update)."""
+    """Running mean |x| per input channel, a row subsample (at most
+    ``MAX_ROWS`` rows, ``linspace``-spaced within each update) and, when
+    asked for, the Hessian X^T X (float32, (in, in))."""
 
     def __init__(self):
         self.abs_sum = None
         self.count = 0
         self.rows = []
         self.row_count = 0
+        self.hessian = None
 
-    def update(self, x: torch.Tensor):
+    def update(self, x: torch.Tensor, want_hessian: bool = False):
         x2d = x.detach().reshape(-1, x.shape[-1]).to(torch.float32)
         a = x2d.abs().sum(0)
         self.abs_sum = a if self.abs_sum is None else self.abs_sum + a
@@ -63,6 +69,9 @@ class LinearStats:
             idx = np.linspace(0, max(x2d.shape[0] - 1, 0), take).astype(int)
             self.rows.append(x2d[torch.as_tensor(idx, device=x2d.device)])
             self.row_count += take
+        if want_hessian:
+            h = x2d.T @ x2d
+            self.hessian = h if self.hessian is None else self.hessian + h
 
     @property
     def mean_abs(self) -> torch.Tensor:
@@ -75,9 +84,12 @@ class LinearStats:
         return torch.cat(self.rows, 0)
 
 
-def capture_block_inputs(apply: Callable, bp, xs) -> Dict[tuple, LinearStats]:
+def capture_block_inputs(apply: Callable, bp, xs, *,
+                         want_hessian: bool = False
+                         ) -> Dict[tuple, LinearStats]:
     """Run ``apply(bp, x)`` over the minibatches ``xs``, recording the input
-    of every quantizable linear of ``bp``."""
+    of every quantizable linear of ``bp`` (with its Hessian when
+    ``want_hessian``)."""
     paths = quant_leaf_paths(bp)
     by_id = {id(get_path(bp, p)): p for p in paths}
     stats = {p: LinearStats() for p in paths}
@@ -86,7 +98,7 @@ def capture_block_inputs(apply: Callable, bp, xs) -> Dict[tuple, LinearStats]:
     def rec(w, x):
         p = by_id.get(id(w))
         if p is not None:
-            stats[p].update(x)
+            stats[p].update(x, want_hessian)
 
     def patched_mm(x, w, backend=None):
         rec(w, x)

@@ -4,10 +4,13 @@
   1. collect the block's input stream X (paper Algorithm 1: from the FP
      model; or, with ``input_source="quant"``, BRECQ-style from the
      progressively-quantized model) and the FP target block(theta_fp, X);
-  2. initialize scale/zero per linear: RTN, or AWQ (activation-aware
-     scaling + clipping search on the captured inputs);
-  3. optimize the rounding with TesseraQ (``method="tesseraq"``, the
-     single-device engine) or keep the initialization (``method="none"``);
+  2. initialize scale/zero per linear: RTN, AWQ (activation-aware
+     scaling + clipping search on the captured inputs) or GPTQ (Hessian-
+     guided column walk with error compensation);
+  3. optimize with TesseraQ (``method="tesseraq"``), OmniQuant's learnable
+     weight clipping (``"omniquant"``) or SignRound (``"signround"``), all
+     on the single-device engine, or keep the initialization
+     (``method="none"``);
   4. write the fake-quantized block back and advance the streams.
 
 The streams stay on the params' device; captures and forwards run over
@@ -25,7 +28,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.core import awq as awq_mod
+from repro_torch.core import gptq as gptq_mod
+from repro_torch.core import omniquant as omni_mod
 from repro_torch.core import rtn as rtn_mod
+from repro_torch.core import signround as sr_mod
 from repro_torch.core import tesseraq as tq_mod
 from repro_torch.core.blocks import build_stages, get_path, set_path
 from repro_torch.core.capture import (capture_block_inputs,
@@ -34,7 +40,8 @@ from repro_torch.core.qtensor import QTensor, pack
 from repro_torch.core.quantizer import resolve_group
 from repro_torch.models.common import Ctx, DEFAULT_CTX
 
-_NOT_PORTED = "ROADMAP queue 5, 'Remaining PTQ methods'"
+METHODS = ("tesseraq", "omniquant", "signround", "none")
+INITS = ("awq", "rtn", "gptq")
 
 
 def _clone_tree(tree):
@@ -53,34 +60,37 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
                    qcfg: QuantConfig, *, method: str = "tesseraq",
                    init: str = "awq",
                    tcfg: Optional[tq_mod.TesseraQConfig] = None,
+                   omni_steps: int = 500,
                    ctx: Ctx = DEFAULT_CTX, input_source: str = "fp"):
     """Returns (params_fq, qmeta, report), as the reference does.
 
     ``batches``: list of batch dicts ({"tokens": (B, S) int tensor on the
     params' device}), the calibration set.
-    method: tesseraq | none (initialization only)
-    init:   awq | rtn
+    method: tesseraq | omniquant | signround | none (initialization only)
+    init:   awq | rtn | gptq (OmniQuant starts from the FP block and
+        discards it, as in the reference)
     input_source: "fp" (paper Algorithm 1: block inputs from the FP model)
         or "quant" (BRECQ/OmniQuant-style compounding: inputs from the
         progressively-quantized stream, targets from the FP block on them)
 
+    ``tcfg`` carries TesseraQ's schedule and every method's engine and
+    batch size; OmniQuant takes ``omni_steps`` steps, SignRound
+    ``max(par_iterations * steps_per_iteration, 50)``, as in the reference.
+
     Every block's report carries ``recon_mse`` (the written-back block
     against the FP targets), ``secs``, ``recon_secs`` (the reconstruction
     alone) and the engine ``log``; with AWQ also each linear's ``awq``
-    choices, and with TesseraQ the ``flips`` of its codes against the
-    initialization's (``tesseraq.flip_stats``).  ``init="gptq"`` and the
-    methods ``omniquant`` / ``signround`` are not ported yet and raise.
-    The caller's params are left as they are: the walk quantizes a private
-    copy of the block stack.
+    choices, and with TesseraQ and SignRound the ``flips`` of the codes
+    against the initialization's (``tesseraq.flip_stats``).  The caller's
+    params are left as they are: the walk quantizes a private copy of the
+    block stack.
     """
-    if method not in ("tesseraq", "none"):
-        raise NotImplementedError(
-            f"quantize_model: method {method!r} is not ported yet "
-            f"({_NOT_PORTED})")
-    if init not in ("awq", "rtn"):
-        raise NotImplementedError(
-            f"quantize_model: init {init!r} is not ported yet "
-            f"({_NOT_PORTED})")
+    if method not in METHODS:
+        raise ValueError(f"quantize_model: unknown method {method!r} "
+                         f"(expected one of {METHODS})")
+    if init not in INITS:
+        raise ValueError(f"quantize_model: unknown init {init!r} "
+                         f"(expected one of {INITS})")
     if input_source not in ("fp", "quant"):
         raise ValueError(f"quantize_model: unknown input_source "
                          f"{input_source!r} (expected 'fp' or 'quant')")
@@ -119,26 +129,45 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
                     entry["awq"] = {".".join(p): {"alpha": m["alpha"],
                                                   "clip": m["clip"]}
                                     for p, m in qmeta.items()}
+                elif init == "gptq":
+                    caps = capture_block_inputs(stage.apply, bp_fp,
+                                                src_parts, want_hessian=True)
+                    bp_init, qmeta = gptq_mod.quantize_block_gptq(bp_fp, caps,
+                                                                  qcfg)
+                    del caps
                 else:
                     bp_init, qmeta = rtn_mod.quantize_block_rtn(bp_fp, qcfg)
 
                 log: list = []
+                init_meta = qmeta
                 tr0 = time.time()
-                if method == "tesseraq":
-                    init_meta = qmeta
-                    Xd, Yd = stage_calibration(src, Y)
-                    bp_q, qmeta = tq_mod.reconstruct_block(
-                        stage.apply, bp_fp, Xd, Yd, None, qmeta, qcfg, tcfg,
-                        log=log, cache=recon_cache)
-                else:
+                if method == "none":
                     bp_q = bp_init
+                else:
+                    Xd, Yd = stage_calibration(src, Y)
+                    if method == "tesseraq":
+                        bp_q, qmeta = tq_mod.reconstruct_block(
+                            stage.apply, bp_fp, Xd, Yd, None, qmeta, qcfg,
+                            tcfg, log=log, cache=recon_cache)
+                    elif method == "omniquant":
+                        bp_q, qmeta = omni_mod.reconstruct_block(
+                            stage.apply, bp_fp, Xd, Yd, None, qcfg,
+                            steps=omni_steps, batch_size=tcfg.batch_size,
+                            log=log, engine=tcfg.engine, cache=recon_cache)
+                    else:
+                        bp_q, qmeta = sr_mod.reconstruct_block(
+                            stage.apply, bp_fp, Xd, Yd, None, qmeta, qcfg,
+                            steps=max(tcfg.par_iterations
+                                      * tcfg.steps_per_iteration, 50),
+                            batch_size=tcfg.batch_size, log=log,
+                            engine=tcfg.engine, cache=recon_cache)
                 recon_s = time.time() - tr0
                 params_q = stage.set_block(params_q, i, bp_q)
                 for p_, m_ in qmeta.items():
                     qmeta_all[stage.pack_target(i) + tuple(p_)] = m_
                 bq = stage.get_block(params_q, i)
                 out_q = [stage.apply(bq, x) for x in src_parts]
-                if method == "tesseraq":
+                if method in ("tesseraq", "signround"):
                     entry["flips"] = {
                         ".".join(p): f for p, f in
                         tq_mod.flip_stats(init_meta, qmeta).items()}

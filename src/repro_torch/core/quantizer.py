@@ -15,6 +15,22 @@ from repro_torch.configs.base import QuantConfig
 from repro_torch.core.qtensor import QTensor, pack
 
 
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """Round in the forward, identity in the backward (the straight-through
+    estimator), with the reference's arithmetic: ``x + (round(x) - x)``."""
+    return x + (torch.round(x) - x).detach()
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``.  Unlike
+    ``torch.clamp``, whose gradient is 1 on the bounds, a value exactly on
+    a bound passes half its gradient, as ``jnp.maximum``/``jnp.minimum``
+    do; quantized codes sit on 0 and qmax exactly, so this matters to every
+    learned clip."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
+
+
 def resolve_group(in_features: int, group_size: Optional[int]) -> int:
     """Per-channel == one group spanning the whole input dim; fall back to it
     when the requested group does not divide (small smoke models)."""

@@ -38,6 +38,10 @@ gradient is linear in the intermediates' cotangent, so this is the
 reference's arithmetic with another association.  The reference's
 ``vmap`` over lanes has no counterpart: the lanes are a Python loop.
 
+The engine serves every reconstruction method of ``core/``: TesseraQ
+(AdamW on ν and the DST variables), OmniQuant's LWC (AdamW on the clipping
+logits) and SignRound (``SignSGD`` on the rounding perturbation).
+
 The reference's ``"reference"``/``"legacy"`` host-loop engines and its
 mesh-sharded engine are not ported yet (ROADMAP queue 1 item 1 and queue 7).
 """
@@ -50,8 +54,33 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.blocks import get_path, set_path
 from repro_torch.core.capture import stage_calibration
-from repro_torch.optim.adam import tree_leaves
+from repro_torch.optim.adam import tree_leaves, tree_map
+
+# The reference's other engines, each with the ROADMAP item that ports it.
+NOT_PORTED_ENGINES = {
+    "reference": "ROADMAP queue 1, 'Calibration: AWQ + TesseraQ' (the "
+                 "host-loop reference engine)",
+    "legacy": "ROADMAP queue 1, 'Calibration: AWQ + TesseraQ' (the "
+              "pre-engine legacy loop)",
+    "sharded": "ROADMAP queue 7, 'Parallelism on torch.distributed'",
+}
+
+
+def check_engine(engine: str, who: str) -> None:
+    """Only ``engine="device"`` runs here: the reference's other engines
+    raise ``NotImplementedError`` naming their ROADMAP item, anything else
+    ``ValueError``."""
+    if engine == "device":
+        return
+    if engine in NOT_PORTED_ENGINES:
+        raise NotImplementedError(
+            f"{who}: engine {engine!r} is not ported yet "
+            f"({NOT_PORTED_ENGINES[engine]})")
+    raise ValueError(f"{who}: unknown engine {engine!r} (expected "
+                     "'device')")
+
 
 # ---------------------------------------------------------------------------
 # host-sync accounting
@@ -130,6 +159,34 @@ def harden_device(states, target_soft_rate: float, use_inf: bool):
 
 
 # ---------------------------------------------------------------------------
+# optimizers beyond AdamW (the same init / update protocol)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SignSGD:
+    """Signed gradient descent with linear lr decay and a clip (SignRound's
+    optimizer).  The state is the step counter, an int32 scalar on the
+    params' device, so an update never reads the host."""
+    lr: float = 5e-3
+    total_steps: int = 200
+    clip: float = 0.5
+
+    def init(self, params) -> torch.Tensor:
+        leaves = tree_leaves(params)
+        dev = leaves[0].device if leaves else "cpu"
+        return torch.zeros((), dtype=torch.int32, device=dev)
+
+    def update(self, grads, state: torch.Tensor, params):
+        """Returns (new params, new state); nothing is updated in place."""
+        frac = state.to(torch.float32) / max(self.total_steps, 1)
+        cur_lr = self.lr * (1.0 - frac)
+        new = tree_map(lambda p, g: torch.clamp(p - cur_lr * torch.sign(g),
+                                                -self.clip, self.clip),
+                       params, grads)
+        return new, state + 1
+
+
+# ---------------------------------------------------------------------------
 # canonical (device-count-invariant) chunked batch gradients
 # ---------------------------------------------------------------------------
 
@@ -157,6 +214,27 @@ class Objective:
     inputs carry a leading batch dim of 1)."""
     prepare: Callable
     lane_loss: Callable
+
+
+def block_mse(apply: Callable, bp, weights, x1, y1) -> torch.Tensor:
+    """One sample's ``mean((block(x) - y)^2)`` in f32 with each linear at
+    ``weights[path]`` (cast to the leaf's dtype): the reconstruction loss
+    every method's ``lane_loss`` takes."""
+    for p, w in weights.items():
+        bp = set_path(bp, p, w.to(get_path(bp, p).dtype))
+    out = apply(bp, x1)
+    return torch.mean(torch.square(out.to(torch.float32) - y1))
+
+
+def block_mse_objective(apply: Callable, prepare: Callable) -> Objective:
+    """The :class:`Objective` whose ``prepare`` gives every linear's
+    weight by path and whose lane loss is :func:`block_mse` of the block
+    ``frozen["bp"]`` (OmniQuant's LWC and SignRound)."""
+
+    def lane_loss(inter, frozen, x1, y1):
+        return block_mse(apply, frozen["bp"], inter, x1, y1)
+
+    return Objective(prepare, lane_loss)
 
 
 def canonical_grad(objective: Objective, tr, frozen, xb, yb, chunks: int):
@@ -300,7 +378,36 @@ class ReconstructionEngine:
         return trainables, opt_state, lv
 
 
-__all__ = ["host_read", "sync_count", "reset_sync_count", "harden_device",
+def cached_engine(cache: Optional[dict], key: str, make: Callable):
+    """The engine under ``key`` in ``cache`` (a dict the caller scopes to
+    one stage), made by ``make()`` and kept there on first use."""
+    eng = cache.get(key) if cache is not None else None
+    if eng is None:
+        eng = make()
+        if cache is not None:
+            cache[key] = eng
+    return eng
+
+
+def run_logged(eng: ReconstructionEngine, tr, opt_state, frozen,
+               plan: BatchPlan, *, steps: int, chunk: int,
+               log: Optional[list]):
+    """``steps`` engine steps from plan row 0.  With ``log``, they run in
+    pieces of ``chunk`` and each piece appends ``{"step", "loss"}`` of its
+    last step (one host read a piece).  Returns (trainables, opt_state)."""
+    chunk = chunk if log is not None else steps
+    for t0 in range(0, steps, chunk):
+        n = min(chunk, steps - t0)
+        tr, opt_state, lv = eng.run(tr, opt_state, frozen, plan, start=t0,
+                                    steps=n)
+        if log is not None:
+            log.append({"step": t0 + n - 1, "loss": float(host_read(lv))})
+    return tr, opt_state
+
+
+__all__ = ["NOT_PORTED_ENGINES", "check_engine", "host_read", "sync_count",
+           "reset_sync_count", "harden_device", "SignSGD",
            "grad_chunk_count", "CANONICAL_LANE_CHUNKS", "Objective",
-           "canonical_grad", "BatchPlan", "draw_index_plan", "stage_plan",
-           "ReconstructionEngine"]
+           "block_mse", "block_mse_objective", "canonical_grad",
+           "BatchPlan", "draw_index_plan", "stage_plan",
+           "ReconstructionEngine", "cached_engine", "run_logged"]

@@ -72,15 +72,6 @@ class TesseraQConfig:
     carry_opt_state: bool = True
 
 
-_NOT_PORTED_ENGINES = {
-    "reference": "ROADMAP queue 1, 'Calibration: AWQ + TesseraQ' (the "
-                 "host-loop reference engine)",
-    "legacy": "ROADMAP queue 1, 'Calibration: AWQ + TesseraQ' (the "
-              "pre-engine legacy loop)",
-    "sharded": "ROADMAP queue 7, 'Parallelism on torch.distributed'",
-}
-
-
 def _leaf_state(w, meta, qcfg: QuantConfig):
     """Per-linear PAR/DST state.  Weights are taken in the transformed domain
     when AWQ's act_scale is present (the rounding of W*act_scale is what is
@@ -188,11 +179,9 @@ def _make_loss_fn(apply: Callable, qcfg: QuantConfig,
         return inter
 
     def lane_loss(inter, frozen, x1, y1):
-        bq = frozen["bp"]
-        for p in frozen["sts"]:
-            bq = set_path(bq, p, inter[("w",) + p].to(get_path(bq, p).dtype))
-        out = apply(bq, x1)
-        loss = torch.mean(torch.square(out.to(torch.float32) - y1))
+        loss = RE.block_mse(apply, frozen["bp"],
+                            {p: inter[("w",) + p] for p in frozen["sts"]},
+                            x1, y1)
         if wd:
             loss = loss + wd * sum(torch.sum(torch.square(inter[("v",) + p]))
                                    for p in frozen["sts"])
@@ -226,12 +215,9 @@ def _run_device(apply, bp, X, Y, qcfg, tcfg: TesseraQConfig, states,
     K = tcfg.par_iterations if tcfg.par else 1
     T = tcfg.steps_per_iteration
     trainable_keys = ("nu", "v") if tcfg.dst else ("nu",)
-    eng = cache.get("device") if cache is not None else None
-    if eng is None:
-        eng = RE.ReconstructionEngine(_make_loss_fn(apply, qcfg, tcfg),
-                                      AdamW(lr=tcfg.lr))
-        if cache is not None:
-            cache["device"] = eng
+    eng = RE.cached_engine(cache, "device", lambda: (
+        RE.ReconstructionEngine(_make_loss_fn(apply, qcfg, tcfg),
+                                AdamW(lr=tcfg.lr))))
     plan = RE.stage_plan(X, Y, batch_size=tcfg.batch_size,
                          total_steps=K * T, seed=tcfg.seed)
 
@@ -281,13 +267,7 @@ def reconstruct_block(apply: Callable, bp, X: torch.Tensor, Y: torch.Tensor,
             "reconstruct_block: per-sample aux streams are not ported yet "
             "(they arrive with the families that use them, ROADMAP queue 1, "
             "'Remaining families')")
-    if tcfg.engine != "device":
-        if tcfg.engine in _NOT_PORTED_ENGINES:
-            raise NotImplementedError(
-                f"reconstruct_block: engine {tcfg.engine!r} is not ported "
-                f"yet ({_NOT_PORTED_ENGINES[tcfg.engine]})")
-        raise ValueError(f"unknown engine {tcfg.engine!r} (expected "
-                         f"'device')")
+    RE.check_engine(tcfg.engine, "reconstruct_block")
     paths = quant_leaf_paths(bp)
     states = {p: _leaf_state(get_path(bp, p), qmeta[p], qcfg) for p in paths}
     states = _run_device(apply, bp, X, Y, qcfg, tcfg, states, log, cache)

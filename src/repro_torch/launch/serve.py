@@ -16,6 +16,9 @@ sharing (``--share-prefix``).  ``--method tesseraq``
 (default, with ``--init awq``) calibrates the random-weight model on
 synthetic calibration segments with ``--par-iters`` PAR iterations of
 ``--par-steps`` steps each, packs it and serves the packed model;
+``--method omniquant`` calibrates with OmniQuant's learnable weight
+clipping instead (500 steps a block, as in the reference's CLI), and
+``--init`` picks AWQ, RTN or GPTQ as the initialization;
 ``--method none`` serves the plain FP params (the fp16 baseline).  An
 ``A<act_bits>`` below 16 in ``--quant`` (``W4A8``, ``W4A4``) serves the
 quantized model with per-token activation fake-quant, as the reference's
@@ -25,8 +28,7 @@ the calibration's soft-rounding through the hand-written kernels.  Runs on
 ``--device cuda`` unless told otherwise; ``--device cpu`` runs the kernels'
 plain versions.
 
-Not ported yet, and raising: ``--method omniquant``, ``--init gptq`` and
-tensor parallelism (``--tp``).
+Not ported yet, and raising: tensor parallelism (``--tp``).
 """
 from __future__ import annotations
 

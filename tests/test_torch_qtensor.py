@@ -100,3 +100,41 @@ def test_qmatmul_xla_path_matches_reference_bf16():
     got = tqt.qmatmul(torch.from_numpy(x).to(torch.bfloat16), tw
                       ).float().numpy()
     assert_within_bf16_ulps(got, want, n=1)
+
+
+def test_xla_dequantize_rounds_like_jitted_reference():
+    """The "xla" path's bf16 dequantization rounds as the reference's
+    jitted (fused) one does, bit for bit: scale and zero to bf16 first,
+    then each op in bf16.  The scales are f32 values that bf16 cannot hold
+    (as TesseraQ's DST-folded scales are) and the zeros are fractional.
+    Both packages' kernels instead round ``(code - zero) * scale`` from f32
+    once, so the harness's "xla" vs "pallas" gate compares two roundings
+    in the reference as in the port."""
+    import jax
+
+    from repro_torch.kernels.quant_matmul import dequantize_rows
+    rng = np.random.default_rng(11)
+    K, N, g, bits = 256, 128, 32, 4
+    codes = rng.integers(0, 1 << bits, (K, N)).astype(np.uint8)
+    scale = (rng.random((K // g, N)) * 0.05 + 1e-3).astype(np.float32)
+    zero = (rng.random((K // g, N)) * 15).astype(np.float32)
+    x = rng.standard_normal((4, K)).astype(np.float32)
+    jw = jqt.QTensor(packed=jqt.pack(jnp.asarray(codes), bits),
+                     scale=jnp.asarray(scale), zero=jnp.asarray(zero),
+                     bits=bits, group_size=g, shape=(K, N))
+    tw = tqt.QTensor(packed=tqt.pack(torch.from_numpy(codes), bits),
+                     scale=torch.from_numpy(scale),
+                     zero=torch.from_numpy(zero), bits=bits, group_size=g,
+                     shape=(K, N))
+    want = np.asarray(jax.jit(lambda q: q.dequantize(jnp.bfloat16))(jw)
+                      ).astype(np.float32)
+    got = tw.dequantize(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    once = dequantize_rows(tw.packed, tw.scale, tw.zero, bits=bits,
+                           group_size=g, dtype=torch.bfloat16).float().numpy()
+    assert (once != want).mean() > 0.1
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want_y = np.asarray(jax.jit(jqt.qmatmul)(xb, jw)).astype(np.float32)
+    got_y = tqt.qmatmul(torch.from_numpy(x).to(torch.bfloat16), tw
+                        ).float().numpy()
+    assert_within_bf16_ulps(got_y, want_y, n=1)

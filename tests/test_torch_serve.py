@@ -174,13 +174,34 @@ def test_cli_schedules_on_cpu(capsys, store):
         assert "pages x 4 tokens" in out and "refused 0" in out
 
 
-@pytest.mark.parametrize("argv", [
-    ["--method", "tesseraq", "--init", "gptq"], ["--method", "omniquant"],
-    ["--method", "none", "--tp", "2"]],
-    ids=["tesseraq", "omniquant", "tp"])
+@pytest.mark.parametrize("argv", [["--method", "none", "--tp", "2"]],
+                         ids=["tp"])
 def test_cli_refuses_paths_not_ported(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserve.main(["--reduced", "--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--method", "tesseraq", "--init", "gptq", "--par-iters", "2",
+     "--par-steps", "3"],
+    ["--method", "omniquant", "--init", "rtn"]],
+    ids=["gptq", "omniquant"])
+def test_cli_runs_gptq_and_omniquant_on_cpu(capsys, argv):
+    """``--init gptq`` and ``--method omniquant`` calibrate, pack and serve
+    (OmniQuant at the CLI's 500 steps a block, as in the reference: ~20 s
+    on one CPU thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert tserve.main(["--arch", "llama2-7b", "--reduced", "--quant",
+                            "W2A16g32", "--device", "cpu", "--requests",
+                            "2", "--prompt-len", "8", "--gen", "3"]
+                           + argv) == 0
+    finally:
+        torch.set_num_threads(n)
+    out = capsys.readouterr().out
+    assert f"with {argv[1]}+{argv[3]}" in out and "calibration done" in out
+    assert "2 requests x 3 tokens" in out
 
 
 def test_cli_calibrates_with_tesseraq_on_cpu(capsys):
@@ -194,23 +215,28 @@ def test_cli_calibrates_with_tesseraq_on_cpu(capsys):
     assert "2 requests x 3 tokens" in out
 
 
-def test_quantize_model_refuses_methods_not_ported():
+def test_quantize_model_refuses_engines_not_ported():
+    """Every reconstruction method runs on the ``"device"`` engine only;
+    the reference's other engines raise naming their ROADMAP item, and an
+    unknown engine, method or init is refused."""
     cfg = get_reduced_config("llama2-7b")
     params = get_model(cfg).init_params(0, "cpu")
     batches = [{"tokens": torch.zeros(1, 4, dtype=torch.long)}]
-    for kw in ({"method": "omniquant", "init": "awq"},
-               {"method": "signround", "init": "rtn"},
-               {"method": "none", "init": "gptq"},
-               {"method": "tesseraq", "init": "gptq"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            quantize_model(cfg, params, batches, QuantConfig(), **kw)
-    for engine in ("reference", "legacy", "sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for method in ("tesseraq", "omniquant", "signround"):
+        for engine in ("reference", "legacy", "sharded"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                quantize_model(cfg, params, batches, QuantConfig(),
+                               method=method, init="rtn",
+                               tcfg=TesseraQConfig(par_iterations=1,
+                                                   steps_per_iteration=1,
+                                                   engine=engine))
+        with pytest.raises(ValueError, match="unknown engine"):
             quantize_model(cfg, params, batches, QuantConfig(),
-                           method="tesseraq", init="rtn",
-                           tcfg=TesseraQConfig(par_iterations=1,
-                                               steps_per_iteration=1,
-                                               engine=engine))
+                           method=method, init="rtn",
+                           tcfg=TesseraQConfig(engine="tpu"))
+    for kw in ({"method": "adaround"}, {"init": "smoothquant"}):
+        with pytest.raises(ValueError, match="unknown"):
+            quantize_model(cfg, params, batches, QuantConfig(), **kw)
 
 
 def test_cuda_entry_points_refuse_without_card():
