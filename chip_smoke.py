@@ -132,8 +132,22 @@ Phases, each printing its own lines:
    both backends and a teacher-forced reading tell bf16 rounding or a
    flipped token from a wrong kernel, and at the CI settings the gate must
    pass with the ``"xla"`` dequantization rounded as the kernels round it;
-15. a JSON line listing the ported kernels with their numbers;
-16. last line: ``{"ok": true, "device": {...}}``.
+15. train: (a) ``python -m repro_torch.launch.train`` at smollm-135m's
+   full width and depth (40 steps, batch 8 x 256, checkpoints every 20):
+   the loss falls by ``TRAIN_MARGIN``, a second run resumes at step 40 for
+   20 more, and a run stopped by SIGTERM after step 10 saves, exits 2 and,
+   resumed, reaches the straight run's step-20 checkpoint within
+   ``RESUME_ATOL``; (b) TinyLlama-1.1B at full width and depth, 3 steps at
+   4 x 2048 tokens with remat on and off (finite losses, ms per step, peak
+   GB), and one layer's recomputing attention backward against autograd
+   through the plain loop at S = 2048 with both peaks; (c)
+   ``examples/quickstart_torch.py`` on the card: fp <= AWQ+TesseraQ < AWQ
+   < RTN perplexity, the packed model through ``quant_matmul`` within
+   ``PPL_REL`` of the fake-quant model, exact soft_round and quant_matmul
+   launches; (d) the reduced qwen3 MoE trained 4 steps on the card and on
+   the CPU from the same params; training itself launches no kernel;
+16. a JSON line listing the ported kernels with their numbers;
+17. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device, or without ``src/repro_torch`` beside this script,
@@ -146,6 +160,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3225,6 +3240,400 @@ def harness_phase(card, argv=HARNESS_ARGS, ci=HARNESS_CI):
     return counts, out
 
 
+# --------------------------------------------------------------------------
+# phase 15: training (the train CLI, TinyLlama-1.1B with remat, the
+# quickstart, the MoE card vs CPU)
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH = "smollm-135m"      # the train CLI's default: 30 L, d 576, tied
+TRAIN_ARGS = ("--batch", "8", "--seq", "256", "--ckpt-every", "20",
+              "--log-every", "1")
+TRAIN_STEPS, TRAIN_MORE = 40, 60
+# the stopped run: SIGTERM after step 10, resumed, and SIGTERM again once
+# its step-20 checkpoint is written, held to the straight run's step 20
+TRAIN_STOP_AT, TRAIN_CMP = 10, 20
+# mean of the last 10 losses below the mean of the first 10 by this much:
+# the CPU rehearsal (the same width, vocab, schedule, batch and data at 2 of
+# the 30 layers) fell by 1.99 nats in 40 steps
+TRAIN_MARGIN = 0.5
+RESUME_ATOL = 1e-6              # SIGTERM + resume vs the straight run
+BIG_ARCH = "tinyllama-1.1b"
+BIG_BATCH, BIG_SEQ, BIG_STEPS = 4, 2048, 3
+ATTN_REL = 1e-4                 # recomputing vs plain-loop dq/dk/dv, f32
+QUICK_SOFT_ROUND = 7 * 5 * 25 * 4   # 7 linears x K=5 x T=25 x 4 blocks
+QUICK_QMM = 7 * 4 * 4               # 7 linears x 4 blocks x 4 eval batches
+MOE_TRAIN_STEPS = 4
+MOE_LOSS_RTOL = 1e-3            # 4 f32 steps, card vs CPU
+
+
+def _train_cli(args, ckpt_dir, stop_at=None):
+    """``python -m repro_torch.launch.train`` in a child process on the
+    card; returns (exit code, {step: (loss, gnorm)}, (ms per step after
+    the first, the first step's seconds), the output).  ``stop_at``: send SIGTERM once step ``stop_at`` is logged.
+    The ms line also splits the time (batch synthesis, saves, the rest)."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, *TRAIN_ARGS, "--ckpt-dir", ckpt_dir, "--device",
+           "cuda", *args]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    lines, losses, ms, first = [], {}, None, None
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            parts = line.split()
+            if parts[:1] == ["step"] and len(parts) >= 6:
+                step = int(parts[1])
+                losses[step] = (float(parts[3]), float(parts[5]))
+                if stop_at is not None and step == stop_at:
+                    proc.send_signal(signal.SIGTERM)
+            if "ms per step" in line:
+                ms = float(line.split(": ")[1].split()[0])
+                first = float(line.split("first step ")[1].split("s;")[0])
+                print(f"[train-cli] {line.strip()}", flush=True)
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, losses, (ms, first), lines
+
+
+def _ckpt_leaves(ckpt_dir, step):
+    path = os.path.join(ckpt_dir, f"step_{step:08d}", "leaves.npz")
+    with np.load(path) as d:
+        return [d[f"leaf_{i}"] for i in range(len(d.files))]
+
+
+def train_cli_phase(card):
+    """(a) The train CLI at full width and depth: 40 steps with checkpoints
+    at 20 and 40, then 20 more resumed from 40; a run stopped by SIGTERM
+    after step 10, which saves and exits 2, resumed (and stopped again once
+    past its step-20 checkpoint), held to the straight run's step 20."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, stopped = (os.path.join(tmp, "straight"),
+                             os.path.join(tmp, "stopped"))
+        t0 = time.perf_counter()
+        rc, losses, (ms, first_s), out = _train_cli(
+            ["--steps", str(TRAIN_STEPS)], straight)
+        secs = time.perf_counter() - t0
+        if rc != 0 or sorted(losses) != list(range(TRAIN_STEPS)):
+            fail(f"train CLI exit {rc}, steps {sorted(losses)}: "
+                 + "\n".join(out[-20:]))
+        ls = [losses[s][0] for s in range(TRAIN_STEPS)]
+        first, last = float(np.mean(ls[:10])), float(np.mean(ls[-10:]))
+        print(f"[train-cli] {TRAIN_ARCH} {' '.join(TRAIN_ARGS)}: "
+              f"{TRAIN_STEPS} steps: the first {first_s:.3f}s, then "
+              f"{ms:.3f} ms per step (split above); the process "
+              f"{secs:.3f}s; loss first 10 "
+              f"{first:.4f} last 10 {last:.4f} (margin {TRAIN_MARGIN}); "
+              f"losses {[round(x, 4) for x in ls]}; card=[{card}]",
+              flush=True)
+        if not (np.isfinite(ls).all() and last < first - TRAIN_MARGIN):
+            fail(f"train CLI loss did not fall: {first} -> {last}")
+        # the resumed run and the stopped runs share the card from here on
+        resumed = {}
+        more_thread = threading.Thread(target=lambda: resumed.update(
+            zip(("rc", "losses", "ms", "out"),
+                _train_cli(["--steps", str(TRAIN_MORE)], straight))))
+        more_thread.start()
+        try:
+            rc, part, _, out = _train_cli(["--steps", str(TRAIN_STEPS)],
+                                          stopped, stop_at=TRAIN_STOP_AT)
+            saved = [n for n in os.listdir(stopped) if n.startswith("step_")]
+            if rc != 2 or len(saved) != 1 or not any(
+                    "preempted" in line for line in out):
+                fail(f"SIGTERM run: exit {rc}, checkpoints {saved}: "
+                     + "\n".join(out[-10:]))
+            at = int(saved[0].split("_")[1])
+            rc, rest, _, out = _train_cli(["--steps", str(TRAIN_STEPS)],
+                                          stopped, stop_at=TRAIN_CMP)
+            if rc != 2 or f"[train] resumed from step {at}" not in out:
+                fail(f"resume after SIGTERM: exit {rc}: "
+                     + "\n".join(out[-10:]))
+        finally:
+            more_thread.join()
+        more = resumed["losses"]
+        if (resumed["rc"] != 0
+                or f"[train] resumed from step {TRAIN_STEPS}"
+                not in resumed["out"]
+                or sorted(more) != list(range(TRAIN_STEPS, TRAIN_MORE))
+                or not all(np.isfinite(v[0]) for v in more.values())):
+            fail(f"train CLI resume: exit {resumed['rc']}, steps "
+                 f"{sorted(more)}: " + "\n".join(resumed["out"][-20:]))
+        print(f"[train-cli] resumed at {TRAIN_STEPS}, "
+              f"{TRAIN_MORE - TRAIN_STEPS} more steps (beside the stopped "
+              f"runs) at {resumed['ms'][0]:.3f} ms per step; last loss "
+              f"{more[TRAIN_MORE - 1][0]:.4f}", flush=True)
+        a = _ckpt_leaves(straight, TRAIN_CMP)
+        b = _ckpt_leaves(stopped, TRAIN_CMP)
+        if len(a) != len(b):
+            fail(f"checkpoint leaves {len(a)} vs {len(b)}")
+        diffs = [float(np.abs(x.astype(np.float64) - y).max())
+                 if x.size else 0.0 for x, y in zip(a, b)]
+        worst = int(np.argmax(diffs))
+        print(f"[train-cli] SIGTERM after step {TRAIN_STOP_AT}: exit 2, "
+              f"checkpoint at step {at}; resumed, checkpoint at {TRAIN_CMP}: "
+              f"max |diff| vs the straight run's {diffs[worst]:.3g} over "
+              f"{len(a)} leaves (params bf16 staged through f32, Adam m/v "
+              f"f32; worst leaf {worst}), "
+              f"{sum(d == 0.0 for d in diffs)} leaves bit-equal; loss at "
+              f"{TRAIN_CMP - 1}: straight {losses[TRAIN_CMP - 1][0]:.4f}, "
+              f"resumed {rest[TRAIN_CMP - 1][0]:.4f}", flush=True)
+        if diffs[worst] > RESUME_ATOL:
+            fail(f"resumed run differs from the straight run by "
+                 f"{diffs[worst]} (leaf {worst})")
+    return {"ms_per_step": ms, "first_step_s": first_s,
+            "loss_first10": first, "loss_last10": last,
+            "resume_max_diff": diffs[worst], "stopped_at": at}
+
+
+def _big_batches(cfg):
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    data = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=BIG_SEQ, global_batch=BIG_BATCH,
+                                      seed=0))
+    return [{"tokens": torch.from_numpy(data.batch(s)["tokens"]).to("cuda")}
+            for s in range(BIG_STEPS)]
+
+
+def big_train_run(cfg, batches):
+    """BIG_STEPS steps of the train harness from seed 0; the last under
+    ``torch.cuda.set_sync_debug_mode("warn")``, whose host syncs are
+    counted by source line; then one forward of the loss with a graph,
+    whose memory kept for the backward is read.  Returns (losses, ms per
+    step of each step, peak bytes, {"file:line": syncs}, activation
+    bytes)."""
+    import collections
+    import warnings
+
+    from repro_torch.launch.steps import make_train_harness
+    from repro_torch.models import get_model
+    from repro_torch.models.common import make_ctx
+    from repro_torch.optim.adam import tree_map
+    h = make_train_harness(cfg, None, lr=3e-4)
+    params = h.init_params(0, "cuda")
+    opt = h.init_opt(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, syncs = [], [], {}
+    for i, b in enumerate(batches):
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        if i < len(batches) - 1:
+            params, opt, m = h.step_fn(params, opt, b)
+        else:
+            with warnings.catch_warnings(record=True) as log:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    params, opt, m = h.step_fn(params, opt, b)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = dict(collections.Counter(
+                f"{os.path.basename(w.filename)}:{w.lineno}" for w in log
+                if "synchroniz" in str(w.message)))
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    loss = get_model(cfg).loss_fn(p, batches[0], make_ctx(cfg))
+    torch.cuda.synchronize()
+    act = torch.cuda.memory_allocated() - base
+    del params, opt, m, p, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, ms, peak, syncs, act
+
+
+def attention_backward_check(cfg, card):
+    """One layer's attention at S = BIG_SEQ: the recomputing backward's dq,
+    dk, dv against autograd through the plain loop (f32), and the peak
+    memory of each."""
+    from repro_torch.models import layers as L
+    B, S, D = BIG_BATCH, BIG_SEQ, cfg.resolved_head_dim
+    Hkv, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    C = min(512, S)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((B, Hkv, G, S, D), generator=gen, device="cuda") * D ** -0.5
+    k = torch.randn((S // C, B, Hkv, C, D), generator=gen, device="cuda")
+    v = torch.randn((S // C, B, Hkv, C, D), generator=gen, device="cuda")
+    dout = torch.randn((B, Hkv, G, S, D), generator=gen, device="cuda")
+    q_pos = torch.arange(S, dtype=torch.float32, device="cuda")[None].expand(
+        B, S)
+    valid = torch.full((B,), float(S), device="cuda")
+    grads, peaks, kept, ms = {}, {}, {}, {}
+    for name, fn in (("recompute", L._flash_core),
+                     ("plain", lambda *a: L._flash_fwd(*a)[0])):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        out = fn(*leaves, q_pos, valid)
+        torch.cuda.synchronize()
+        kept[name] = torch.cuda.memory_allocated() - base
+        out.backward(dout)
+        e.record()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        ms[name] = s.elapsed_time(e)
+        grads[name] = [t.grad for t in leaves]
+        del out, leaves
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(grads["recompute"], grads["plain"])]
+    print(f"[train-attention] {cfg.name} one layer, B={B} S={S} Hkv={Hkv} "
+          f"G={G} D={D}, chunk {C}: dq/dk/dv max |diff| / max |plain| "
+          f"{errs} (limit {ATTN_REL}); kept from the forward for the "
+          f"backward (the output included): recomputing "
+          f"{kept['recompute'] / 1e9:.3f} GB, plain loop "
+          f"{kept['plain'] / 1e9:.3f} GB; forward + backward peak above the "
+          f"inputs: {peaks['recompute'] / 1e9:.3f} GB vs "
+          f"{peaks['plain'] / 1e9:.3f} GB; ms {ms['recompute']:.3f} vs "
+          f"{ms['plain']:.3f}; card=[{card}]", flush=True)
+    if max(errs) > ATTN_REL:
+        fail(f"recomputing attention backward vs the plain loop: {errs}")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rel_err": errs, "peak_bytes": peaks, "kept_bytes": kept,
+            "ms": ms}
+
+
+def big_train_phase(card):
+    """(b) TinyLlama-1.1B at full width and depth, BIG_STEPS steps at
+    BIG_BATCH x BIG_SEQ with remat on (its config's) and off: finite
+    losses, ms per step, peak memory; then the attention check."""
+    from repro_torch.configs import get_config
+    cfg = get_config(BIG_ARCH)
+    t0 = time.perf_counter()
+    batches = _big_batches(cfg)
+    t_data = time.perf_counter() - t0
+    out = {}
+    for remat in (True, False):
+        losses, ms, peak, syncs, act = big_train_run(
+            cfg.replace(remat=remat), batches)
+        out[remat] = (losses, ms, peak, syncs, act)
+        print(f"[train-big] {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+              f"V={cfg.vocab_size} {cfg.dtype}, f32 Adam, {BIG_BATCH} x "
+              f"{BIG_SEQ} tokens, remat {'on' if remat else 'off'}: losses "
+              f"{losses}; ms per step {[round(x, 3) for x in ms]}; peak "
+              f"{peak / 1e9:.3f} GB; the loss's forward keeps "
+              f"{act / 1e9:.3f} GB for the backward; host syncs in the last "
+              f"step {syncs} (batches made in {t_data:.3f}s); "
+              f"card=[{card}]", flush=True)
+        if not np.isfinite(losses).all():
+            fail(f"non-finite TinyLlama loss (remat {remat}): {losses}")
+    on, off = out[True][0], out[False][0]
+    if not np.allclose(on, off, rtol=1e-3, atol=0):
+        fail(f"remat on/off losses differ: {on} vs {off}")
+    attn = attention_backward_check(cfg, card)
+    return {"remat": {str(k): {"losses": v[0], "ms": v[1], "peak_bytes": v[2],
+                               "syncs": v[3], "activation_bytes": v[4]}
+                      for k, v in out.items()}, "attention": attn}
+
+
+def _load_quickstart():
+    import importlib.util
+    path = os.path.join(HERE, "examples", "quickstart_torch.py")
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quickstart_phase(card):
+    """(c) ``examples/quickstart_torch.py`` on the card: the paper's
+    ordering fp <= AWQ+TesseraQ < AWQ < RTN, the packed model's perplexity
+    through ``quant_matmul`` within PPL_REL of the fake-quant model's, and
+    exact launches."""
+    from repro_torch.kernels import build
+    qs = _load_quickstart()
+    build.reset_launch_counts()
+    res = qs.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)
+    ppl = res["ppl"]
+    print(f"[quickstart] train loss {res['train_loss']:.4f}; ppl {ppl}; "
+          f"packed {res['ppl_packed']:.6g}; {res['report']}; secs "
+          f"{res['secs']}; launches {counts}; card=[{card}]", flush=True)
+    expected = {k: 0 for k in build.KERNELS}
+    expected.update(soft_round_fwd=QUICK_SOFT_ROUND,
+                    soft_round_bwd=QUICK_SOFT_ROUND, quant_matmul=QUICK_QMM)
+    if counts != expected:
+        fail(f"quickstart launch counts {counts}, expected {expected}")
+    if not (ppl["fp16"] <= ppl["tesseraq"] + 1e-6
+            and ppl["tesseraq"] < ppl["awq"] < ppl["rtn"]):
+        fail(f"quickstart perplexity ordering {ppl}")
+    if abs(res["ppl_packed"] - ppl["tesseraq"]) > PPL_REL * ppl["tesseraq"]:
+        fail(f"packed perplexity {res['ppl_packed']} vs fake-quant "
+             f"{ppl['tesseraq']}")
+    return counts, res
+
+
+def moe_train_phase(card):
+    """(d) The reduced qwen3 MoE in f32 trained MOE_TRAIN_STEPS steps on the
+    card and on the CPU from the same params: losses within
+    MOE_LOSS_RTOL."""
+    from repro_torch.bridge import params_to
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch.steps import make_train_harness
+    cfg = get_reduced_config(MOE_ARCH).replace(dtype="float32")
+    h = make_train_harness(cfg, None, lr=1e-3)
+    data = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                      global_batch=4))
+    p0 = h.init_params(0, "cpu")
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        p = params_to(p0, dev)
+        o = h.init_opt(p)
+        ls = []
+        for s in range(MOE_TRAIN_STEPS):
+            p, o, m = h.step_fn(p, o, data.batch(s))
+            ls.append(float(m["loss"]))
+        losses[dev] = ls
+    rel = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
+                       / np.abs(losses["cpu"])))
+    print(f"[train-moe] {cfg.name} f32, {MOE_TRAIN_STEPS} steps: card "
+          f"{losses['cuda']} cpu {losses['cpu']}; max rel diff {rel:.3g} "
+          f"(limit {MOE_LOSS_RTOL})", flush=True)
+    if not (np.isfinite(losses["cuda"]).all() and rel <= MOE_LOSS_RTOL):
+        fail(f"MoE training card vs CPU: {losses}")
+    return {"losses": losses, "rel": rel}
+
+
+def train_phase(card):
+    """Phase 15: (a) the train CLI, (b) TinyLlama-1.1B, (c) the quickstart,
+    (d) the MoE card vs CPU.  Only (c) launches kernels: training runs
+    none, which (b) and (d) check."""
+    from repro_torch.kernels import build
+    out = {}
+    t0 = time.perf_counter()
+    out["cli"] = train_cli_phase(card)
+    t1 = time.perf_counter()
+    build.reset_launch_counts()
+    out["big"] = big_train_phase(card)
+    out["moe"] = moe_train_phase(card)
+    if any(build.LAUNCHES.values()):
+        fail(f"training launched kernels: {dict(build.LAUNCHES)}")
+    t2 = time.perf_counter()
+    counts, out["quickstart"] = quickstart_phase(card)
+    t3 = time.perf_counter()
+    print(f"[train] (a) CLI {t1 - t0:.1f}s, (b) + (d) {t2 - t1:.1f}s, (c) "
+          f"quickstart {t3 - t2:.1f}s", flush=True)
+    return counts, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3308,6 +3717,11 @@ def main():
     t0 = time.perf_counter()
     harness_counts, _ = harness_phase(card)
     print(f"[time] harness {time.perf_counter() - t0:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_counts, _ = train_phase(card)
+    print(f"[time] train {time.perf_counter() - t0:.1f}s", flush=True)
 
     sources = {"quant_matmul": "src/repro/kernels/quant_matmul.py:146",
                "quant_gemv": "src/repro/kernels/quant_gemv.py:120",
@@ -3383,7 +3797,8 @@ def main():
                    "w4a8": w4a8_counts[name],
                    "wa_calibrate": wa_cal_counts[name],
                    "methods": methods_counts[name],
-                   "harness": harness_counts[name]}
+                   "harness": harness_counts[name],
+                   "train": train_counts[name]}
         if name.startswith("soft_round"):
             nums = summarize_soft_round(recs["soft_round"], name[-3:])
             nums["moe"] = summarize_soft_round(recs["soft_round"], name[-3:],

@@ -19,6 +19,7 @@ ARCH_IDS = (
     "tinyllama-1.1b",
     "llama2-7b",
     "qwen3-moe-30b-a3b",
+    "smollm-135m",
 )
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

@@ -1,6 +1,10 @@
-"""The prefill/decode steps for single-device serving, the scheduler's
-masked decode step and the paged store's admission step."""
+"""The single-device train step (``make_train_harness``), the prefill/decode
+steps for single-device serving, the scheduler's masked decode step and the
+paged store's admission step."""
 from __future__ import annotations
+
+import dataclasses
+from typing import Any
 
 import torch
 
@@ -8,6 +12,134 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import get_model
 from repro_torch.models.common import (CACHE_SLOT_AXIS, _get_leaf, make_ctx,
                                        page_rows)
+from repro_torch.models.transformer import _DTYPES
+from repro_torch.optim.adam import (AdamW, clip_by_global_norm, tree_leaves,
+                                    tree_map)
+from repro_torch.optim.compression import compress_decompress, init_error
+
+_PARALLEL = "ROADMAP queue 1, 'Parallelism on torch.distributed'"
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainHarness:
+    """``step_fn(params, opt_state, batch) -> (params, opt_state, metrics)``
+    with ``metrics = {"loss", "grad_norm"}`` (f32 device scalars);
+    ``init_params(seed, device)``; ``init_opt(params)``.  The sharding
+    fields are the reference's and stay None on one device."""
+    cfg: ModelConfig
+    step_fn: Any
+    init_params: Any
+    init_opt: Any
+    param_sharding: Any = None
+    opt_sharding: Any = None
+    batch_sharding: Any = None
+
+
+def _value_and_grad(model, ctx, params, batch):
+    """(loss, grads) of ``model.loss_fn``, taken by ``torch.autograd.grad``
+    over fresh leaves that alias ``params`` (``detach`` copies nothing), so
+    the caller's tensors are neither modified nor marked."""
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = model.loss_fn(p, batch, ctx)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(p)))
+    return loss.detach(), tree_map(lambda _: next(grads), p)
+
+
+def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
+                       grad_clip: float = 1.0,
+                       grad_compression: bool = False,
+                       attn_chunk: int = 512,
+                       microbatches: int = 1,
+                       seq_parallel: bool = False,
+                       extra_overrides=None) -> TrainHarness:
+    """The reference's train harness on one device: next-token loss,
+    gradients (averaged over ``microbatches`` slices of the batch, summed in
+    ``cfg.optimizer_dtype``), clipping to ``grad_clip`` by the global norm,
+    optional int8 compression with error feedback, then AdamW (``lr`` a
+    float or a schedule of the step, e.g. ``optim.adam.cosine_schedule``).
+
+    ``step_fn`` is pure: it returns new tensors and never writes its
+    inputs, so one ``params`` may start two runs.  ``remat`` follows
+    ``cfg.remat``.  A mesh, ``seq_parallel`` and ``extra_overrides`` (the
+    reference's mesh-axis remaps) need the port's parallel modes."""
+    if mesh is not None or seq_parallel or extra_overrides:
+        raise NotImplementedError(
+            "make_train_harness: meshes, sequence parallelism and sharding "
+            f"overrides are not ported yet ({_PARALLEL})")
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    model = get_model(cfg)
+    ctx = make_ctx(cfg, attn_chunk=attn_chunk)
+    acc_dt = _DTYPES[cfg.optimizer_dtype]           # Adam m/v and sums
+    opt = AdamW(lr=lr, state_dtype=acc_dt)
+
+    def init_opt(params):
+        state = {"adam": opt.init(params)}
+        if grad_compression:
+            state["ef"] = init_error(params)
+        return state
+
+    def step_fn(params, opt_state, batch):
+        dev = tree_leaves(params)[0].device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if microbatches > 1:
+            n = next(iter(batch.values())).shape[0]
+            if n % microbatches:
+                raise ValueError(f"batch of {n} does not split into "
+                                 f"{microbatches} microbatches")
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            grads = tree_map(lambda t: torch.zeros(t.shape, dtype=acc_dt,
+                                                   device=dev), params)
+            for i in range(microbatches):
+                ub = {k: v.reshape(microbatches, n // microbatches,
+                                   *v.shape[1:])[i] for k, v in batch.items()}
+                l_i, g_i = _value_and_grad(model, ctx, params, ub)
+                loss = loss + l_i
+                grads = tree_map(lambda a, g: a + g.to(acc_dt), grads, g_i)
+            loss = loss / microbatches
+            grads = tree_map(lambda g: g / microbatches, grads)
+        else:
+            loss, grads = _value_and_grad(model, ctx, params, batch)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        new_state = {}
+        if grad_compression:
+            grads, new_state["ef"] = compress_decompress(grads,
+                                                         opt_state["ef"])
+        new_p, new_state["adam"] = opt.update(grads, opt_state["adam"],
+                                              params)
+        return new_p, new_state, {"loss": loss, "grad_norm": gnorm}
+
+    return TrainHarness(cfg, step_fn, model.init_params, init_opt)
+
+
+def jit_train_step(harness: TrainHarness, mesh, params_struct, batch_struct):
+    """The reference's sharded, donated train step over a mesh."""
+    raise NotImplementedError(f"jit_train_step needs a mesh ({_PARALLEL})")
+
+
+def opt_sharding_like(mesh, opt_struct, params_struct, cfg):
+    """The reference's optimizer-state shardings over a mesh."""
+    raise NotImplementedError(f"opt_sharding_like needs a mesh ({_PARALLEL})")
+
+
+def train_donate_argnums(*argnums: int) -> tuple:
+    """The reference's train-step donation policy.  The torch step has no
+    donation: ``step_fn`` returns new tensors and leaves its inputs alone.
+    The train CLI reuses buffers only by rebinding ``params`` and
+    ``opt_state`` to the step's outputs, which drops the last reference to
+    the old ones, so the caching allocator hands their memory to the next
+    step; nothing is updated in place.  Returns ``()``."""
+    return ()
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
 
 
 def make_serve_steps(cfg: ModelConfig, *, act_bits=None,

@@ -16,6 +16,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.qtensor import QTensor
 
@@ -32,14 +33,21 @@ class Ctx:
     as page pools read through a page table (the paged store).
     ``act_bits`` turns on per-token activation fake-quant
     (``layers.fake_quant_act``) at the inputs of the quantized projections
-    (W4A4, W4A8).  ``ep_axis`` / ``ep_inner`` name the reference's
-    expert-parallel mesh axes; expert parallelism is not ported, so
-    ``models.moe.moe_ffn`` raises when either is set (ROADMAP queue 7).
+    (W4A4, W4A8).  ``remat`` recomputes each decoder layer's forward in the
+    backward (``maybe_remat``; ``make_ctx`` defaults it from ``cfg.remat``).
+
+    Fields of the reference's Ctx that are not here yet, and where each is
+    queued: ``shard``/``mesh``/``dp_axes`` and the expert-parallel axes
+    (ROADMAP queue 1, "Parallelism on torch.distributed"; ``ep_axis`` and
+    ``ep_inner`` are kept so that ``models.moe.moe_ffn`` can refuse them),
+    ``kv_bits``/``kv_scale`` (the int8 KV cache, queue 1 item 3) and
+    ``decode`` (read only by the reference's sharding rules, with the mesh).
     """
     kernel_backend: Optional[str] = None
     act_bits: Optional[int] = None
     attn_chunk: int = 512
     page_size: int = 0
+    remat: bool = False
     ep_axis: Optional[str] = None
     ep_inner: Optional[str] = None
 
@@ -49,14 +57,19 @@ DEFAULT_CTX = Ctx()
 _CTX_FIELDS = {f.name for f in dataclasses.fields(Ctx)}
 
 
-def make_ctx(**fields) -> Ctx:
-    """THE :class:`Ctx` constructor for every serving call site: validates
-    the fields and rejects unknown names (the reference's int8 KV cache is
-    not ported yet, so ``kv_bits`` is unknown here)."""
+def make_ctx(cfg=None, **fields) -> Ctx:
+    """THE :class:`Ctx` constructor: validates the fields and rejects
+    unknown names.  ``remat`` (omitted or None) defaults to ``cfg.remat``
+    when a config is given, as the reference's ``make_ctx`` does, else to
+    False (the serve steps).  Fields not ported yet (the class docstring
+    says where each is queued), such as the int8 KV cache's ``kv_bits``,
+    are unknown here."""
     unknown = set(fields) - _CTX_FIELDS
     if unknown:
         raise TypeError(f"make_ctx: unknown Ctx field(s) {sorted(unknown)}; "
                         f"valid fields: {sorted(_CTX_FIELDS)}")
+    if fields.get("remat") is None:
+        fields["remat"] = bool(cfg.remat) if cfg is not None else False
     backend = fields.get("kernel_backend")
     if backend is not None and backend not in ("xla", "pallas"):
         raise ValueError(f"make_ctx: unknown kernel_backend {backend!r} "
@@ -73,6 +86,23 @@ def make_ctx(**fields) -> Ctx:
     return Ctx(**fields)
 
 
+def maybe_remat(fn, ctx: Ctx):
+    """``fn`` recomputed in the backward when ``ctx.remat`` is on (the
+    non-reentrant ``torch.utils.checkpoint``: the forward keeps only
+    ``fn``'s inputs and reruns it when the gradient reaches it).  The
+    model draws no random numbers, so no RNG state is saved for the rerun
+    (saving it reads the CUDA generator's state to the host).  Without a
+    graph being recorded it is ``fn`` itself."""
+    if not (ctx.remat and torch.is_grad_enabled()):
+        return fn
+
+    def run(*args, **kwargs):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False,
+            **kwargs)
+    return run
+
+
 def take_layer(params, i):
     """Slice layer ``i`` out of stacked (L, ...) block params (views)."""
     if isinstance(params, dict):
@@ -80,6 +110,20 @@ def take_layer(params, i):
     if isinstance(params, QTensor):
         return params.layer(i)
     return params[i]
+
+
+def unstack_layers(params, n: int) -> list:
+    """Every layer of stacked (L, ...) block params at once: a list of ``n``
+    per-layer trees of views.  A tensor is taken apart by one ``unbind``,
+    whose backward is one ``stack`` of the layers' gradients, where ``n``
+    calls of ``take_layer`` would each write a zero-filled gradient of the
+    whole stack."""
+    if isinstance(params, dict):
+        per_key = {k: unstack_layers(v, n) for k, v in params.items()}
+        return [{k: per_key[k][i] for k in params} for i in range(n)]
+    if isinstance(params, QTensor):
+        return [params.layer(i) for i in range(n)]
+    return list(params.unbind(0))
 
 
 # --------------------------------------------------------------------------

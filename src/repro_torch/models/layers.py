@@ -1,6 +1,6 @@
 """Shared building blocks: matmul dispatch over plain / quantized (QTensor)
 weights, per-token activation fake-quant, RMSNorm, RoPE and chunked
-(flash-style) attention.
+(flash-style) attention with a recomputing backward.
 
 Functions over tensors and param dicts; weights use ``(in_features,
 out_features)`` (experts: ``(E, in, out)``).  QTensor matmuls dispatch per call on ``backend``:
@@ -106,7 +106,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 # --------------------------------------------------------------------------
-# flash attention: online softmax over KV chunks (forward only here)
+# flash attention: online softmax over KV chunks, with a FlashAttention-2
+# style backward that recomputes each chunk's scores (the reference's
+# ``_flash_core`` custom VJP), so autograd keeps O(Sq x D) per call instead
+# of every chunk's (Sq x C) scores and probabilities
 # --------------------------------------------------------------------------
 
 def _mask_for(idx, csz, q_pos, valid_len):
@@ -117,8 +120,11 @@ def _mask_for(idx, csz, q_pos, valid_len):
                    <= q_pos[:, None, None, :, None])
 
 
-def _flash_core(q, k, v, q_pos, valid_len):
-    """q: (B,Hkv,G,Sq,D) f32 with the scale applied; k,v: (N,B,Hkv,C,D)."""
+def _flash_fwd(q, k, v, q_pos, valid_len):
+    """The online-softmax loop over KV chunks in plain ops.  q: (B,Hkv,G,Sq,D)
+    f32 with the scale applied; k,v: (N,B,Hkv,C,D).  Returns (out f32, lse
+    (B,Hkv,G,Sq)).  Differentiable as it stands (autograd then keeps every
+    chunk's scores): ``_flash_core`` runs it without a graph."""
     B, Hkv, G, Sq, D = q.shape
     csz = k.shape[3]
     m = torch.full((B, Hkv, G, Sq), float("-inf"), device=q.device)
@@ -136,7 +142,46 @@ def _flash_core(q, k, v, q_pos, valid_len):
             "bhgqc,bhcd->bhgqd", p, v[idx].float())
         m = m_new
     l = torch.clamp(l, min=1e-30)
-    return acc / l[..., None]
+    return acc / l[..., None], m + torch.log(l)
+
+
+class _FlashCore(torch.autograd.Function):
+    """``_flash_fwd``'s output with the reference's recomputing backward:
+    it keeps only q, k, v, the positions, ``out`` and ``lse``, and per KV
+    chunk recomputes ``p = where(mask, exp(s - lse), 0)``, then ``ds = p *
+    (dp - delta)`` with ``delta = sum(dout * out)``; dq accumulates over the
+    chunks, dk and dv are per chunk (cast to k's and v's dtype)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, valid_len):
+        out, lse = _flash_fwd(q, k, v, q_pos, valid_len)
+        ctx.save_for_backward(q, k, v, q_pos, valid_len, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, valid_len, out, lse = ctx.saved_tensors
+        csz = k.shape[3]
+        delta = torch.sum(dout * out, dim=-1)                  # (B,Hkv,G,Sq)
+        dq = torch.zeros_like(q)
+        dk, dv = [], []
+        for idx in range(k.shape[0]):
+            kf, vf = k[idx].float(), v[idx].float()
+            s = torch.einsum("bhgqd,bhcd->bhgqc", q, kf)
+            mask = _mask_for(idx, csz, q_pos, valid_len)
+            p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+            dv.append(torch.einsum("bhgqc,bhgqd->bhcd", p, dout).to(v.dtype))
+            dp = torch.einsum("bhgqd,bhcd->bhgqc", dout, vf)
+            ds = p * (dp - delta[..., None])
+            dq = dq + torch.einsum("bhgqc,bhcd->bhgqd", ds, kf)
+            dk.append(torch.einsum("bhgqc,bhgqd->bhcd", ds, q).to(k.dtype))
+        return dq, torch.stack(dk), torch.stack(dv), None, None
+
+
+def _flash_core(q, k, v, q_pos, valid_len):
+    """q: (B,Hkv,G,Sq,D) f32 with the scale applied; k,v: (N,B,Hkv,C,D).
+    Causal (and ``valid_len``) masks only, as ``flash_attention``."""
+    return _FlashCore.apply(q, k, v, q_pos, valid_len)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -155,7 +200,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``backend``: for the Sq == 1 decode step, "pallas" runs the slot-aware
     decode kernel (inactive slots in ``active`` come back zero); "xla" runs
     the dense masked softmax.  Sq > 1 always runs the chunked online softmax
-    in plain torch ops.
+    in plain torch ops, with the recomputing backward (``_flash_core``).
 
     ``pages = (ptab, page_size)`` marks k/v as page POOLS (P, page_size,
     Hkv, D) indexed by the (B, W) page table ``ptab``.  The ``"pallas"``
@@ -216,8 +261,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kc = k.reshape(B, Skp // csz, csz, Hkv, D).permute(1, 0, 3, 2, 4)
     vc = v.reshape(B, Skp // csz, csz, Hkv, D).permute(1, 0, 3, 2, 4)
 
-    q_pos = torch.as_tensor(q_offset, dtype=torch.float32, device=dev)[
-        ..., None] + torch.arange(Sq, dtype=torch.float32, device=dev)
+    if isinstance(q_offset, int):
+        # no host-to-device copy (and so no stream sync) for a Python int
+        q_pos = torch.arange(Sq, dtype=torch.float32, device=dev) + q_offset
+    else:
+        q_pos = torch.as_tensor(q_offset, dtype=torch.float32, device=dev)[
+            ..., None] + torch.arange(Sq, dtype=torch.float32, device=dev)
     if q_pos.ndim == 1:
         q_pos = q_pos[None]
     q_pos = q_pos.expand(B, Sq)

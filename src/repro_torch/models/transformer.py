@@ -4,7 +4,8 @@ and, with a token-choice MoE FFN in place of the dense one, the MoE family
 
 Params are nested dicts of tensors with the block weights stacked along a
 leading layer axis, as in the reference; the layer loop is a Python loop
-over that axis.
+over that axis.  ``loss_fn`` is the training loss (``launch/steps.
+make_train_harness``).
 """
 from __future__ import annotations
 
@@ -12,8 +13,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.common import (Ctx, DEFAULT_CTX, page_update_cache,
-                                       take_layer, update_cache)
+from repro_torch.models.common import (Ctx, DEFAULT_CTX, maybe_remat,
+                                       page_update_cache, take_layer,
+                                       unstack_layers, update_cache)
 from repro_torch.models.moe import init_moe_ffn, moe_ffn
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -180,12 +182,21 @@ def unembed(params, cfg: ModelConfig, x, ctx: Ctx = DEFAULT_CTX) -> torch.Tensor
 
 
 def forward(params, cfg: ModelConfig, tokens, ctx: Ctx = DEFAULT_CTX) -> torch.Tensor:
-    """Prefill-style forward without cache.  Returns logits (B, S, V)."""
+    """Training/prefill forward without cache.  Returns logits (B, S, V).
+
+    The layers are taken apart once (``unstack_layers``: one ``unbind`` per
+    stacked leaf, so the backward stacks the layers' gradients once) and
+    each runs through ``maybe_remat`` (``ctx.remat``)."""
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.num_layers):
-        x, _ = block(take_layer(params["blocks"], i), x, cfg, ctx,
-                     positions=positions)
+
+    def step(h, bp):
+        h, _ = block(bp, h, cfg, ctx, positions=positions)
+        return h
+
+    step = maybe_remat(step, ctx)
+    for bp in unstack_layers(params["blocks"], cfg.num_layers):
+        x = step(x, bp)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return unembed(params, cfg, x, ctx)
 

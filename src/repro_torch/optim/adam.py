@@ -5,12 +5,14 @@ Ported by hand from the reference's ``optim/adam.py`` (not
 square root, weight decay is added to the update (not applied to the
 parameter first), and the bias corrections use ``b ** step`` in float32
 with the step counter kept on the parameters' device, so an update never
-reads the host.  Used for TesseraQ's Soften-phase steps (paper: Adam, lr
-1e-3).
+reads the host.  Used for pretraining (``launch/steps.make_train_harness``,
+with ``clip_by_global_norm`` and ``cosine_schedule``) and for TesseraQ's
+Soften-phase steps (paper: Adam, lr 1e-3).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -62,10 +64,12 @@ class AdamW:
         b1, b2 = self.b1, self.b2
         lr = self._lr(step)
         stepf = step.to(torch.float32)
-        c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                          device=stepf.device), stepf)
-        c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                          device=stepf.device), stepf)
+        # b ** step with both in f32; ``torch.full`` fills on the device
+        # (a ``torch.tensor`` from a Python float would be a host copy)
+        c1 = 1.0 - torch.pow(torch.full((), b1, dtype=torch.float32,
+                                        device=stepf.device), stepf)
+        c2 = 1.0 - torch.pow(torch.full((), b2, dtype=torch.float32,
+                                        device=stepf.device), stepf)
 
         def upd(g, m, v, p):
             gf = g.to(self.state_dtype)
@@ -87,3 +91,44 @@ def _pick(tree, i):
     if isinstance(tree, dict):
         return {k: _pick(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _leaves_sorted(tree) -> list:
+    """Leaves with dict keys in sorted order: the reference's (jax's) leaf
+    order, whatever order the dicts were built in."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_sorted(tree[k])]
+    return [tree]
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale every gradient by ``min(1, max_norm / max(gn, 1e-12))``, where
+    ``gn`` is the f32 global L2 norm over all leaves, summed leaf by leaf in
+    the reference's leaf order (so a tree's key order, e.g. after a
+    checkpoint restore, cannot change it).  Returns (clipped grads, gn);
+    nothing is read to the host."""
+    leaves = _leaves_sorted(grads)
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                        for g in leaves))
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    # the product in f32, rounded once to the leaf's dtype, as the reference
+    # promotes a bf16 leaf times an f32 scale
+    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
+                    grads), gn
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int,
+                    min_frac: float = 0.1):
+    """Linear warmup to ``base_lr`` over ``warmup`` steps, then cosine decay
+    to ``min_frac * base_lr`` at ``total``.  The returned function takes the
+    step as a device tensor (``AdamW._lr`` passes the int32 counter) and
+    returns the lr as an f32 device tensor, so computing it costs no host
+    sync."""
+    def lr(step):
+        s = step.to(torch.float32)
+        warm = base_lr * s / max(warmup, 1)
+        prog = torch.clamp((s - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = base_lr * (min_frac + (1 - min_frac) * 0.5
+                         * (1 + torch.cos(math.pi * prog)))
+        return torch.where(s < warmup, warm, cos)
+    return lr
