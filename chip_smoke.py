@@ -49,7 +49,11 @@ Phases, each printing its own lines:
    fold), each record naming both launches' plan (``soft_round_config``),
    the backward repeated bit for bit, and the act_scale division folded
    into both launches bit for bit against the outside division at every
-   timed shape;
+   timed shape; the plan-edge lists also carry phase 16's widths (kernels
+   1 and 2 at K or N of 14336, 22528, 53248 and 1408; attention at G = 4,
+   8 and 16 and at 16 KV heads, paged too; the expert kernel at
+   Moonlight's 64 experts, its count edges and its routed top-6 traffic;
+   soft_round at Mistral's and Command-R's FFN leaves);
 3. serve: LLaMA-2-7B at full width and depth (random weights from a seed),
    RTN-quantized to W2A16g128 and packed, served by ``serve_requests`` on
    the ``"pallas"`` backend (4 requests x 128 prompt tokens, 16 generated);
@@ -146,8 +150,31 @@ Phases, each printing its own lines:
    ``PPL_REL`` of the fake-quant model, exact soft_round and quant_matmul
    launches; (d) the reduced qwen3 MoE trained 4 steps on the card and on
    the CPU from the same params; training itself launches no kernel;
-16. a JSON line listing the ported kernels with their numbers;
-17. last line: ``{"ok": true, "device": {...}}``.
+16. the rest of the two families, the int8 KV cache and the host-loop
+   engines, at W2A16g128 from seeded weights, each model freed before the
+   next: (a)-(d) Mistral-7B whole, Command-R-35B at 4 of 40 layers,
+   LLaMA-3-405B at 2 of 126 and Moonlight-16B-A3B at 16 of 48, each at
+   its published widths, RTN-packed and served lock-step 4 x (128 + 16)
+   with exact launches and the teacher-forced ``"xla"`` check of phase 3;
+   Mistral and Moonlight also scheduled on the dense and the paged store
+   (phase 7's workload; equal tokens, exact launches); AWQ + TesseraQ on
+   Mistral at depth 2, one block of Command-R and one of Moonlight, packed
+   perplexity within ``PPL_REL`` of fake-quant; (e) phase 3's packed
+   LLaMA-2-7B through ``make_serve_steps(kv_bits=8)`` and an int8 cache:
+   lock-step (half the cache bytes; the reference's own test within
+   ``KV_REL`` at 2 layers and ``KV_REL_DEEP`` at 32, the 16 teacher-forced
+   steps within ``KV_REL_DEEP`` of the bf16 cache's logits, the kernels
+   within ``REL_L2`` of the ``"xla"`` path on the int8 cache) and
+   scheduled on int8 dense and paged stores
+   (equal tokens; the paged run's decode on the dense decode-attention
+   kernel, exact launches); (f) phase 5's block at depth 2, in f32,
+   calibrated on the ``"device"``, ``"reference"`` and ``"legacy"``
+   engines (reference
+   equal to device bit for bit, legacy codes equal and scales within
+   rtol 1e-5; ms per Soften step and host syncs of each), and OmniQuant
+   and SignRound on the ``"legacy"`` host loop against ``"device"``;
+17. a JSON line listing the ported kernels with their numbers;
+18. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device, or without ``src/repro_torch`` beside this script,
@@ -508,12 +535,21 @@ def check_paged_attention(gen, B, W, psz, Hkv, G, D, kv_len, active, flush,
 ATTN_PATHS = ((144, 32, 1, 128), (144, 8, 4, 128), (144, 4, 8, 128),
               (100, 32, 1, 128), (4096, 32, 1, 128), (4096, 4, 8, 128),
               (368, 32, 1, 128), (144, 4, 8, 64), (40, 2, 4, 72),
-              (33, 2, 12, 20), (64, 2, 2, 512), (48, 1, 3, 1024))
+              (33, 2, 12, 20), (64, 2, 2, 512), (48, 1, 3, 1024),
+              # phase 16: Mistral's scheduled lane (G = 4), Command-R (G =
+              # 8), LLaMA-3-405B (G = 16: 8 blocks of 2 rows along G) at the
+              # decode and the scheduled widths, Moonlight (16 KV heads)
+              (368, 8, 4, 128), (144, 8, 8, 128), (144, 8, 16, 128),
+              (368, 8, 16, 128), (368, 16, 1, 128))
 # the paged walk at 8, 16 and 64 positions a page, and 2 (a warp's run spans
 # more than 32 pages: the table read per row), each over a permuted table
 # and bit for bit against the dense kernel: B, W, psz, Hkv, G, D
 PAGED_PATHS = ((8, 46, 8, 32, 1, 128), (8, 23, 16, 4, 8, 128),
-               (8, 6, 64, 8, 4, 128), (4, 2048, 2, 8, 1, 128))
+               (8, 6, 64, 8, 4, 128), (4, 2048, 2, 8, 1, 128),
+               # phase 16's scheduled pools: Mistral (G = 4), Moonlight
+               # (16 KV heads), and G = 16
+               (8, 23, 16, 8, 4, 128), (8, 23, 16, 16, 1, 128),
+               (8, 23, 16, 8, 16, 128))
 
 
 def attention_lengths(S, config):
@@ -800,7 +836,11 @@ def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False,
 # 1 and 2 warps; n = 1, 3, 5, 127, 129, 4098 (n % 4 != 0: the scalar path)
 # and a ragged last tile (300, 132); base off 16-byte alignment; DST off;
 # act_scale on a leaf and on an expert fold of 4
-SR_PATHS = ((1, 4096, 4096, 4, True, 1, 0), (1, 11008, 4096, 4, True, None, 0),
+SR_PATHS = ((32, 128, 14336, 2, True, None, 0),     # Mistral's w_gate
+            (112, 128, 4096, 2, True, None, 0),      # Mistral's w_down
+            (64, 128, 22528, 2, True, None, 0),      # Command-R's w_gate
+            (176, 128, 8192, 2, True, None, 0),      # Command-R's w_down
+            (1, 4096, 4096, 4, True, 1, 0), (1, 11008, 4096, 4, True, None, 0),
             (1, 4096, 11008, 4, False, None, 0),
             (32, 128, 4096, 2, True, None, 0),
             (2, 1000, 300, 3, True, 2, 0), (1, 999, 132, 2, True, None, 0),
@@ -843,7 +883,17 @@ EXPERT_ROWS_PATHS = ((EXPERTS, 8, 2048, 768, 2, 128, "zero"),
                      (EXPERTS, 40, 768, 2048, 2, 128, "ragged"),
                      (EXPERTS, 160, 2048, 768, 2, 128, "edge"),
                      (8, 13, 200, 300, 3, 200, "ragged"),
-                     (8, 24, 256, 256, 2, 8, "ragged"))
+                     (8, 24, 256, 256, 2, 8, "ragged"),
+                     # Moonlight's 64 experts (K/N 2048/1408, 1408 = 11
+                     # groups of 128): decode, prefill and its count edges
+                     (64, 8, 2048, 1408, 2, 128, "ragged"),
+                     (64, 32, 1408, 2048, 2, 128, "full"),
+                     (64, 160, 2048, 1408, 2, 128, "edge"))
+# Moonlight's routed traffic (64 experts, top-6) through the same dispatch:
+# a decode step at 8 slots and the 4 x 128 prefill.  E, top-k, tokens, and
+# the expert products (K, N)
+MOON_ROUTED = ((64, 6, 8), (64, 6, 512))
+MOON_EXPERT_SHAPES = ((2048, 1408), (1408, 2048))
 
 
 def expert_rows(gen, spec, E, M):
@@ -990,14 +1040,16 @@ def check_experts(gen, E, M, K, N, bits, group_size, flush, card,
     return rec
 
 
-def check_routed(gen, tokens, flush, card, E=EXPERTS):
-    """The routed traffic of ``tokens`` tokens (``routed_operands``) through
-    both expert shapes of a layer (W2 g128)."""
-    C, rows, xs = routed_operands(gen, tokens, E,
-                                  {K for K, _, _ in EXPERT_SHAPES})
+def check_routed(gen, tokens, flush, card, E=EXPERTS, top_k=ROUTED_TOP_K,
+                 shapes=tuple((K, N) for K, N, _ in EXPERT_SHAPES)):
+    """The routed traffic of ``tokens`` tokens (``routed_operands``, top
+    ``top_k`` of ``E`` experts) through both expert shapes of a layer
+    (``shapes``, W2 g128)."""
+    C, rows, xs = routed_operands(gen, tokens, E, {K for K, _ in shapes},
+                                  top_k=top_k)
     return [check_experts(gen, E, C, K, N, 2, 128, flush, card, x=xs[K],
                           rows=rows, routed=tokens)
-            for K, N, _ in EXPERT_SHAPES]
+            for K, N in shapes]
 
 
 def summarize_experts(records):
@@ -1007,6 +1059,10 @@ def summarize_experts(records):
     (``routed``: by token count, the bound over the experts that hold a
     row, ``full_ms`` the same launches without ``rows``)."""
     per_layer = {(K, N): c for K, N, c in EXPERT_SHAPES}
+    per_layer.update({(K, N): 2 if K < N else 1
+                      for K, N in MOON_EXPERT_SHAPES})
+    moon = [r for r in records if r["E"] != EXPERTS and r["routed"]]
+    records = [r for r in records if r["E"] == EXPERTS]
 
     def layer(pick, keys):
         sel = [r for r in records if pick(r)]
@@ -1034,6 +1090,19 @@ def summarize_experts(records):
             "C": sel[0]["M"], "touched_experts": sel[0]["touched_experts"],
             "kept_rows": sel[0]["kept_rows"]}
     out["edges_checked"] = len(EXPERT_ROWS_PATHS)
+    # Moonlight's routed traffic: E = 64, top-6, one layer's 3 launches
+    out["moonlight_routed"] = {}
+    for E, k, T in MOON_ROUTED:
+        sel = [r for r in moon if r["routed"] == T and r["E"] == E]
+        out["moonlight_routed"][f"{T} tokens"] = {
+            **{key: sum(per_layer[(r["K"], r["N"])] * r[src] for r in sel)
+               for key, src in (("ms", "kernel_ms"), ("full_ms", "full_ms"),
+                                ("plain_ms", "plain_ms"),
+                                ("library_ms", "library_ms"),
+                                ("bound_ms", "bound_ms"))},
+            "bound_by": sel[0]["bound_by"], "E": E, "top_k": k,
+            "C": sel[0]["M"], "touched_experts": sel[0]["touched_experts"],
+            "kept_rows": sel[0]["kept_rows"]}
     return out
 
 
@@ -1210,7 +1279,13 @@ QM_PATHS = ((33, 4096, 4096, 2, 128, 0), (384, 4096, 4096, 2, 128, 0),
             (100, 200, 300, 3, 200, 0), (512, 4096, 4096, 8, 128, 0),
             (64, 100, 256, 4, 100, 1), (100, 256, 256, 2, 8, 0),
             (100, 256, 256, 2, 32, 0), (64, 192, 300, 3, 48, 0),
-            (40, 48, 256, 4, 16, 0), (512, 4096, 4096, 2, 16, 0))
+            (40, 48, 256, 4, 16, 0), (512, 4096, 4096, 2, 16, 0)) + tuple(
+    # phase 16's FFN widths: Mistral-7B (14336), Command-R-35B (22528),
+    # LLaMA-3-405B (53248 by 16384) and a Moonlight expert (1408: 11 groups
+    # of 128) at the prefill's 512 rows, each as K and as N
+    (512, K, N, 2, 128, 0) for K, N in (
+        (4096, 14336), (14336, 4096), (8192, 22528), (22528, 8192),
+        (16384, 53248), (53248, 16384), (2048, 1408), (1408, 2048)))
 
 
 # quant_gemv on every path of its body: each row template (M = 1..32 run as
@@ -1227,7 +1302,11 @@ GEMV_PATHS = tuple((M, 4096, 11008, 2, 128, 0)
     (4, 4096, 4096, 8, 128, 0), (4, 256, 256, 2, 8, 0),
     (8, 4096, 4096, 2, 16, 0), (4, 192, 300, 3, 48, 0),
     (4, 1000, 512, 4, 200, 0), (32, 2048, 512, 2, 128, 0),
-    (4, 100, 256, 4, 100, 1), (8, 11008, 4096, 3, 11008, 0))
+    (4, 100, 256, 4, 100, 1), (8, 11008, 4096, 3, 11008, 0)) + tuple(
+    # phase 16's FFN widths at a decode step's 4 rows, as K and as N
+    (4, K, N, 2, 128, 0) for K, N in (
+        (4096, 14336), (14336, 4096), (8192, 22528), (22528, 8192),
+        (16384, 53248), (53248, 16384), (2048, 1408), (1408, 2048)))
 # batch invariance and determinism of the GEMV: K, N, bits, group_size
 GEMV_INVARIANCE = ((4096, 11008, 2, 128), (2048, 512, 2, 128),
                    (4096, 4096, 4, 4096))
@@ -1397,6 +1476,9 @@ def kernel_phase(card):
         out["quant_matmul_experts"].append(check_experts(
             gen, E, M, K, N, bits, g, flush, card,
             rows=expert_rows(gen, spec, E, M), timed=False))
+    for E, k, T in MOON_ROUTED:
+        out["quant_matmul_experts"] += check_routed(
+            gen, T, flush, card, E=E, top_k=k, shapes=MOON_EXPERT_SHAPES)
     out["soft_round"] = []
     for ng, n, _ in SR_SHAPES:
         for bits in (2, 3, 4):
@@ -3634,6 +3716,607 @@ def train_phase(card):
     return counts, out
 
 
+# --------------------------------------------------------------------------
+# phase 16: the rest of the dense and MoE configs, the int8 KV cache and the
+# host-loop calibration engines
+# --------------------------------------------------------------------------
+
+# each arch at its published widths and the depth that fits one card in
+# bf16 beside the RTN walk's copy of the block stack (None: full depth):
+# Mistral-7B whole (~14.5 GB); Command-R-35B 4 of 40 layers (8.4 GB of
+# embedding and head, 1.41 GB a layer); LLaMA-3-405B 2 of 126 (8.4 GB +
+# 6.4 GB a layer); Moonlight-16B-A3B 16 of 48 (~19.6 GB; 28.06B params in
+# all, ~56 GB, so not whole beside the walk's copy)
+ARCH_DEPTHS = (("mistral-7b", None), ("command-r-35b", 4),
+               ("llama3-405b", 2), ("moonshot-v1-16b-a3b", 16))
+# which of them also run the scheduler (phase 7's workload on both stores)
+# and one calibration: (depth, K, T, samples); Mistral's two blocks at a
+# shortened schedule, one block of Command-R (soft_round at 8192 x 22528)
+# and of Moonlight (the expert kernel at E = 64, top-6).  LLaMA-3-405B is
+# not calibrated: a block holds ~3.2e9 rounding variables, and ν, its base
+# and the two Adam moments in f32 with the int8 mask (17 bytes a variable)
+# take ~54 GB before θ̂ and the block's own weights (PERF.md §7).
+SCHEDULED_ARCHS = ("mistral-7b", "moonshot-v1-16b-a3b")
+ARCH_CAL = {"mistral-7b": (2, 5, 10, 8), "command-r-35b": (1, 4, 5, 8),
+            "moonshot-v1-16b-a3b": (1, 5, 10, 8)}
+# the int8 KV cache: the reference's bound (tests/test_beyond_paper.py:
+# max |difference| over max |logit| of one decode step after a prefill,
+# against the forward without a cache), held where the reference holds it,
+# on a 2-layer model (here at LLaMA-2-7B's widths).  At full depth the
+# int8 cache's rounding compounds over the 32 layers of the random-weight
+# W2 model: the card read 0.0647 for that step (the bf16 cache 0.0210) and
+# 0.0617 / 0.0633 over the 16 teacher-forced steps against the bf16
+# cache's logits in two calls, the kernels 0.0196 (rel. L2) from the
+# "xla" path on the same int8 cache (PERF.md §6, PR 25).  The full-depth
+# bound is 1.5x those; a wrong scale or cache read moves the logits by
+# O(1) of their largest.
+KV_REL = 5e-2
+KV_REL_DEEP = 1e-1
+# the engines on phase 5's block at depth 2, a short schedule
+ENGINE_K, ENGINE_T = 3, 10
+METHOD_HOST_STEPS = 20
+# the legacy host loop against the device engine on the card, in f32: its
+# one batched backward and the canonical per-sample lanes take different
+# cuBLAS products, so the gradients differ by f32 rounding, and Adam (or
+# SignSGD) turns a rounding-level gradient into a whole step where the
+# gradient is near zero; a code flips where ν (or the perturbation) ends
+# near a rounding edge.  First card reading (PERF.md §6, PR 25): TesseraQ
+# 20 of 404,750,336 codes, folded scales 3.5e-4 apart; OmniQuant 3 of
+# 202,375,168 codes, scales 2.1e-5; SignRound (a sign step on every
+# variable) 835,409 codes.  On the CPU the two are equal (tests).  A wrong
+# gradient or update moves every code and the block's error.
+LEGACY_CODE_SHARE = 1e-6
+SIGNROUND_CODE_SHARE = 2e-2
+LEGACY_SCALE_RTOL = 2e-3
+LEGACY_MSE_RTOL = 1e-3
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def build_packed(arch, layers, tag, quant="W2A16g128"):
+    """``arch`` at its published widths and ``layers`` layers (None: all),
+    random weights from seed 0, RTN to ``quant`` + pack.  Returns (cfg,
+    model, packed, prompts) with 4 x 128 prompt tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import (pack_model, quantize_model,
+                                           quantized_memory_report)
+    from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                           calibration_batches)
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.models import get_model
+
+    full = get_config(arch)
+    cfg = full if layers is None else full.replace(num_layers=layers)
+    model = get_model(cfg)
+    qcfg = parse_quant(quant, kernel_backend="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(0, "cuda")
+    torch.cuda.synchronize()
+    moe = (f" E={cfg.moe.num_experts} top-{cfg.moe.top_k}"
+           if cfg.family == "moe" else "")
+    print(f"[{tag}] init {cfg.name} L={cfg.num_layers} of {full.num_layers} "
+          f"d={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"hd={cfg.resolved_head_dim} ff={cfg.d_ff}{moe} V={cfg.vocab_size} "
+          f"in {time.perf_counter() - t0:.3f}s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB", flush=True)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                          global_batch=4, seed=0)
+    calib = [{"tokens": torch.as_tensor(b["tokens"][:, :-1], device="cuda")}
+             for b in calibration_batches(data_cfg, 2, 1)]
+    t0 = time.perf_counter()
+    pfq, qmeta, report = quantize_model(cfg, params, calib, qcfg,
+                                        method="none", init="rtn")
+    packed = pack_model(cfg, pfq, qmeta, qcfg)
+    torch.cuda.synchronize()
+    mse = [b["recon_mse"] for b in report["blocks"]]
+    if not all(np.isfinite(mse)):
+        fail(f"{tag}: non-finite recon_mse in the RTN walk")
+    mem = quantized_memory_report(packed)
+    print(f"[{tag}] RTN walk + pack {qcfg.tag} in "
+          f"{time.perf_counter() - t0:.3f}s; recon_mse first/last "
+          f"{mse[0]:.4g}/{mse[-1]:.4g}; packed {mem['quantized_bytes']} B "
+          f"(fp16 {mem['fp16_bytes']} B); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    del params, pfq, qmeta
+    _free()
+    prompts = SyntheticCorpus(data_cfg).batch(0)["tokens"][:, :128]
+    return cfg, model, packed, prompts
+
+
+def lockstep_phase(tag, cfg, model, packed, prompts, card, gen=16,
+                   compiled=None):
+    """Warm-up, then ``serve_requests`` 4 x (128 + ``gen``) on ``"pallas"``
+    with exact launch counts and finite logits.  Returns (counts, res)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import serve_requests
+    B, PROMPT = prompts.shape
+    kw = dict(kernel_backend="pallas", device="cuda", compiled=compiled)
+    serve_requests(cfg, model, packed, prompts, gen=2, collect_logits=False,
+                   **kw)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = serve_requests(cfg, model, packed, prompts, gen=gen, **kw)
+    counts = dict(build.LAUNCHES)
+    want = expected_launches(cfg, [(B * PROMPT, PROMPT)], gen - 1,
+                             "decode_attention", "decode_attention")
+    if counts != want:
+        fail(f"{tag} launch counts {counts}, expected {want}")
+    if res.logits.shape != (B, gen, cfg.vocab_size) \
+            or not np.isfinite(res.logits).all():
+        fail(f"{tag}: bad logits, shape {res.logits.shape}")
+    print(f"[{tag}] {B} x ({PROMPT} prompt + {gen} generated) on pallas: "
+          f"prefill {res.prefill_tok_s:.1f} tok/s ({res.prefill_secs * 1e3:.3f}"
+          f" ms), decode {res.decode_secs * 1e3 / (gen - 1):.3f} ms/step, "
+          f"kv cache {res.cache_stats['cache_bytes']} B, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches "
+          f"{counts}; card=[{card}]", flush=True)
+    return counts, res
+
+
+def scheduled_pair(tag, cfg, packed, card, steps=None, attn=None):
+    """Phase 7's workload at ``cfg``'s vocabulary, 8 slots, on the dense
+    and the paged store (``steps``: {store: SchedSteps}, else the
+    scheduler's own; ``attn``: {store: the decode-attention kernel});
+    exact launch counts, dense tokens == paged tokens.  Returns (summed
+    counts, {store: result})."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.scheduler import (Request, compile_sched_steps,
+                                              make_workload, serve_scheduled)
+    reqs = make_workload(cfg.vocab_size, **SCHED_WORKLOAD)
+    width = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    max_seq = width + (-width) % SCHED_PSZ
+    kw = dict(slots=SCHED_SLOTS, max_seq=max_seq, kernel_backend="pallas",
+              page_size=SCHED_PSZ, device="cuda")
+    steps = steps or {store: compile_sched_steps(
+        cfg, max_seq=max_seq, kernel_backend="pallas",
+        page_size=SCHED_PSZ if store == "paged" else 0)
+        for store in ("dense", "paged")}
+    attn = attn or {"dense": "decode_attention",
+                    "paged": "paged_decode_attention"}
+    warm = [Request(0, reqs[0].prompt[:24], 3),
+            Request(1, reqs[1].prompt[:40], 2, arrival=1)]
+    runs, total = {}, {k: 0 for k in build.KERNELS}
+    for store in ("dense", "paged"):
+        serve_scheduled(cfg, packed, warm, store=store, compiled=steps[store],
+                        **kw)
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = serve_scheduled(cfg, packed, reqs, store=store,
+                              compiled=steps[store], **kw)
+        counts = dict(build.LAUNCHES)
+        want = expected_launches(cfg, prefill_calls(res, reqs), res.steps,
+                                 attn[store], "decode_attention")
+        print(f"[{tag}] {store}: {res.steps} decode steps, occupancy "
+              f"{res.occupancy:.4f}, prefill {res.prefill_secs:.3f}s, "
+              f"decode {res.decode_secs:.3f}s "
+              f"({res.decode_secs * 1e3 / max(res.steps, 1):.3f} ms/step, "
+              f"{res.decode_tok_s:.2f} useful tok/s); cache "
+              f"{res.cache_stats['cache_bytes']} B; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
+              f"{counts}; card=[{card}]", flush=True)
+        if counts != want:
+            fail(f"{tag} {store}: launches {counts}, expected {want}")
+        runs[store] = res
+        total = {k: total[k] + counts[k] for k in total}
+    if not same_tokens(runs["dense"], runs["paged"], reqs):
+        fail(f"{tag}: paged tokens differ from dense")
+    return total, runs
+
+
+def short_calibrate_phase(tag, arch, layers, K, T, samples, card):
+    """AWQ + TesseraQ at ``arch``'s widths and ``layers`` layers (K PAR
+    iterations of T steps, ``samples`` x 512 tokens), pack, perplexity of
+    the packed and the fake-quant model: exact launches, finite losses, a
+    final soft rate of 0, packed within ``PPL_REL`` of fake-quant.
+    Returns the counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import pack_model, quantize_model
+    from repro_torch.core.tesseraq import TesseraQConfig
+    from repro_torch.data.pipeline import (DataConfig, calibration_batches,
+                                           eval_batches)
+    from repro_torch.eval.ppl import perplexity
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.models import get_model
+
+    cfg = get_config(arch).replace(num_layers=layers)
+    model = get_model(cfg)
+    qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
+    tcfg = TesseraQConfig(par_iterations=K, steps_per_iteration=T,
+                          batch_size=CAL_BS)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=CAL_SEQ,
+                          global_batch=CAL_BS, seed=0)
+    calib = [{"tokens": torch.as_tensor(b["tokens"][:, :-1], device="cuda")}
+             for b in calibration_batches(data_cfg, samples // CAL_BS,
+                                          CAL_BS)]
+    evalb = eval_batches(data_cfg, EVAL_BATCHES, CAL_BS)
+    params = model.init_params(0, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    pfq, qmeta, report = quantize_model(cfg, params, calib, qcfg,
+                                        method="tesseraq", init="awq",
+                                        tcfg=tcfg)
+    packed = pack_model(cfg, pfq, qmeta, qcfg)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ppl_packed = perplexity(cfg, packed, evalb, backend="pallas")
+    ppl_fq = perplexity(cfg, pfq, evalb, backend="pallas")
+    counts = dict(build.LAUNCHES)
+    moe = cfg.family == "moe"
+    want = {k: 0 for k in build.KERNELS}
+    want.update({"quant_matmul": (4 if moe else 7) * layers * EVAL_BATCHES,
+                 "quant_matmul_experts": (3 * layers * EVAL_BATCHES if moe
+                                          else 0),
+                 "soft_round_fwd": 7 * K * T * layers,
+                 "soft_round_bwd": 7 * K * T * layers})
+    for b in report["blocks"]:
+        losses = [e["loss"] for e in b["log"]]
+        print(f"[{tag}] block {b['block']}: recon_mse {b['recon_mse']:.6g}; "
+              f"PAR loss first {losses[0]:.6g} last {losses[-1]:.6g}; "
+              f"{b['secs']:.3f}s (reconstruction {b['recon_secs']:.3f}s, "
+              f"{b['recon_secs'] * 1e3 / (K * T):.3f} ms per Soften step "
+              f"incl. hardens)", flush=True)
+        if not all(np.isfinite(losses)) or not np.isfinite(b["recon_mse"]):
+            fail(f"{tag}: non-finite loss in block {b['block']}")
+        if len(losses) != K or b["log"][-1]["soft_rate"] != 0.0:
+            fail(f"{tag} block {b['block']}: {len(losses)} PAR iterations, "
+                 f"final soft rate {b['log'][-1]['soft_rate']}")
+    print(f"[{tag}] {cfg.name} L={layers}, K={K} T={T}, {samples} x "
+          f"{CAL_SEQ} tokens: walk + pack {t_cal:.3f}s, peak "
+          f"{peak / 1e9:.3f} GB; perplexity packed {ppl_packed:.6g} "
+          f"fake-quant {ppl_fq:.6g}; launches {counts}; card=[{card}]",
+          flush=True)
+    if counts != want:
+        fail(f"{tag} launch counts {counts}, expected {want}")
+    if not (np.isfinite(ppl_packed) and np.isfinite(ppl_fq)
+            and abs(ppl_packed - ppl_fq) <= PPL_REL * ppl_fq):
+        fail(f"{tag}: packed perplexity {ppl_packed} vs fake-quant {ppl_fq}")
+    del params, pfq, qmeta, packed
+    _free()
+    return counts
+
+
+def configs_phase(card):
+    """Phase 16 (a)-(d): each of ``ARCH_DEPTHS`` RTN-packed and served
+    lock-step with the teacher-forced ``"xla"`` check; the scheduled pair
+    for ``SCHEDULED_ARCHS``; the calibrations of ``ARCH_CAL``.  Returns
+    the summed launch counts."""
+    from repro_torch.kernels import build
+    total = {k: 0 for k in build.KERNELS}
+
+    def add(c):
+        for k in total:
+            total[k] += c[k]
+
+    for arch, layers in ARCH_DEPTHS:
+        t0 = time.perf_counter()
+        tag = f"configs {arch}"
+        cfg, model, packed, prompts = build_packed(arch, layers, tag)
+        counts, res = lockstep_phase(tag, cfg, model, packed, prompts, card)
+        add(counts)
+        teacher_forced_check(tag, cfg, model, packed, prompts, res)
+        if arch in SCHEDULED_ARCHS:
+            add(scheduled_pair(tag, cfg, packed, card)[0])
+        del packed, res
+        _free()
+        if arch in ARCH_CAL:
+            add(short_calibrate_phase(f"{tag} calibrate", arch,
+                                      *ARCH_CAL[arch], card))
+        print(f"[time] configs {arch} {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    return total
+
+
+def _cache_dtype(model, dtype):
+    """``model`` with its caches allocated in ``dtype`` whatever the caller
+    asks for (the serve loops and stores allocate the default bf16)."""
+    import dataclasses
+    init = model.init_cache
+    return dataclasses.replace(
+        model, init_cache=lambda b, s, _=None, *a, **kw: init(b, s, dtype,
+                                                             *a, **kw))
+
+
+def int8_sched_steps(cfg, max_seq):
+    """{store: SchedSteps} of the int8 KV cache: ``make_sched_steps(kv_bits
+    =8)`` over int8 stores (``compile_sched_steps`` builds no int8 steps, as
+    the reference's does not)."""
+    from repro_torch.launch.scheduler import SchedSteps
+    from repro_torch.launch.steps import (make_paged_install_step,
+                                          make_sched_steps)
+    out = {}
+    for store, psz in (("dense", 0), ("paged", SCHED_PSZ)):
+        model, pstep, dstep = make_sched_steps(
+            cfg, max_seq=max_seq, kv_bits=8, kernel_backend="pallas",
+            page_size=psz)
+        out[store] = SchedSteps(
+            model=_cache_dtype(model, torch.int8), prefill=pstep,
+            decode=dstep, page_size=psz,
+            install=(make_paged_install_step(model, page_size=psz)
+                     if psz else None))
+    return out
+
+
+def _forced(steps, model, packed, prompts, toks):
+    """Logits (B, 1 + len, V) of ``steps`` = (prefill, decode) over
+    ``prompts`` and then the tokens ``toks`` (B, len) fed step by step,
+    the cache from ``model.init_cache``."""
+    pstep, dstep = steps
+    B, PROMPT = prompts.shape
+    toks = torch.as_tensor(toks, dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        cache = model.init_cache(B, PROMPT + toks.shape[1], device="cuda")
+        lg, cache = pstep(packed, {"tokens": torch.as_tensor(
+            prompts, dtype=torch.long, device="cuda")}, cache)
+        out = [lg]
+        pos = torch.full((B,), PROMPT, dtype=torch.int32, device="cuda")
+        for j in range(toks.shape[1]):
+            lg, cache = dstep(packed, cache, toks[:, j], pos)
+            pos = pos + 1
+            out.append(lg)
+    return torch.stack(out, 1).float().cpu().numpy()
+
+
+def reference_kv_test(cfg, model, packed, prompts):
+    """The reference's int8 KV test (tests/test_beyond_paper.py) on
+    ``packed``: a prefill of all but the last prompt token and one decode
+    step, against the forward without a cache, as max |diff| / max
+    |logit|, with an int8 cache and (for scale) a bf16 one."""
+    from repro_torch.launch.steps import make_serve_steps
+    from repro_torch.models import transformer
+    from repro_torch.models.common import make_ctx
+    with torch.no_grad():
+        full = transformer.forward(packed, cfg, torch.as_tensor(
+            prompts, dtype=torch.long, device="cuda"),
+            make_ctx(kernel_backend="pallas"))[:, -1].float().cpu().numpy()
+    out = {}
+    for name, kv_bits, dt in (("int8", 8, torch.int8),
+                              ("bf16", None, torch.bfloat16)):
+        m, pstep, dstep = make_serve_steps(cfg, kv_bits=kv_bits,
+                                           kernel_backend="pallas")
+        lg = _forced((pstep, dstep), _cache_dtype(m, dt), packed,
+                     prompts[:, :-1], prompts[:, -1:])
+        out[name] = float(np.abs(lg[:, 1] - full).max() / np.abs(full).max())
+    return out
+
+
+def kv_int8_phase(card):
+    """Phase 16 (e): phase 3's packed LLaMA-2-7B through
+    ``make_serve_steps(kv_bits=8)`` and an int8 cache.  Lock-step: exact
+    launches, half the bf16 run's cache bytes.  The reference's own test
+    (``reference_kv_test``) within ``KV_REL`` at 2 layers of LLaMA-2-7B's
+    widths, within ``KV_REL_DEEP`` at full depth; teacher-forced over the
+    bf16 run's 16 steps, the int8 cache's logits within ``KV_REL_DEEP`` of
+    the bf16 cache's, and the kernels' within ``REL_L2`` of the ``"xla"``
+    path's on the same int8 cache.  Then scheduled on int8 dense and paged
+    stores: exact launches (the paged run's decode on the dense kernel),
+    equal tokens.  Returns the summed counts."""
+    from repro_torch.launch.scheduler import make_workload
+    from repro_torch.launch.steps import make_serve_steps
+
+    tag = "kv-int8"
+    cfg2, model2, packed2, prompts2 = build_packed("llama2-7b", 2, tag)
+    shallow = reference_kv_test(cfg2, model2, packed2, prompts2)
+    del packed2
+    _free()
+    cfg, model, packed, prompts = build_packed("llama2-7b", None, tag)
+    GEN = 16
+    _, ref = lockstep_phase(f"{tag} bf16", cfg, model, packed, prompts, card,
+                            gen=GEN)
+    m8, pstep, dstep = make_serve_steps(cfg, kv_bits=8,
+                                        kernel_backend="pallas")
+    m8 = _cache_dtype(m8, torch.int8)
+    counts, res = lockstep_phase(f"{tag} int8", cfg, m8, packed, prompts,
+                                 card, gen=GEN, compiled=(pstep, dstep))
+    b8, b16 = res.cache_stats["cache_bytes"], ref.cache_stats["cache_bytes"]
+    if 2 * b8 != b16:
+        fail(f"{tag}: int8 cache {b8} B, bf16 cache {b16} B")
+    deep = reference_kv_test(cfg, model, packed, prompts)
+    # teacher-forced on the bf16 run's tokens: every step sees one prefix
+    tf8 = _forced((pstep, dstep), m8, packed, prompts, ref.tokens[:, :-1])
+    xla8 = _forced(make_serve_steps(cfg, kv_bits=8, kernel_backend="xla")[1:],
+                   m8, packed, prompts, ref.tokens[:, :-1])
+    run = float(np.abs(tf8 - ref.logits).max() / np.abs(ref.logits).max())
+    run_dec = float(np.abs(tf8[:, 1:] - ref.logits[:, 1:]).max()
+                    / np.abs(ref.logits[:, 1:]).max())
+    kern = float(np.linalg.norm(tf8 - xla8) / np.linalg.norm(xla8))
+    agree = float((tf8.argmax(-1) == ref.tokens).mean())
+    print(f"[{tag}] the reference's test (prefill of 127 tokens + one "
+          f"decode step vs the forward without a cache; max |diff| / max "
+          f"|logit|): 2 layers int8 {shallow['int8']:.6g} (bound {KV_REL}), "
+          f"bf16 {shallow['bf16']:.6g}; 32 layers int8 {deep['int8']:.6g} "
+          f"(bound {KV_REL_DEEP}), bf16 {deep['bf16']:.6g}.  Over the 16 "
+          f"steps, teacher-forced on the bf16 run's tokens, int8 vs bf16 "
+          f"cache {run:.6g} ({run_dec:.6g} over the decode steps; bound "
+          f"{KV_REL_DEEP}), argmax agreement {agree:.4f}, free-running "
+          f"tokens equal {float((res.tokens == ref.tokens).mean()):.4f}; "
+          f"kernels vs xla on the int8 cache: relative L2 {kern:.6g} (gate "
+          f"{REL_L2}); cache {b8} B vs {b16} B", flush=True)
+    if not (shallow["int8"] < KV_REL and deep["int8"] < KV_REL_DEEP
+            and run < KV_REL_DEEP and kern < REL_L2):
+        fail(f"{tag}: int8 cache at 2 layers {shallow}, at 32 {deep}, over "
+             f"the run {run}, kernels vs xla {kern}")
+    width = max(len(r.prompt) + r.max_new_tokens
+                for r in make_workload(cfg.vocab_size, **SCHED_WORKLOAD))
+    max_seq = width + (-width) % SCHED_PSZ
+    sched, runs = scheduled_pair(
+        f"{tag} scheduled", cfg, packed, card,
+        steps=int8_sched_steps(cfg, max_seq),
+        attn={"dense": "decode_attention", "paged": "decode_attention"})
+    del packed, ref, res
+    _free()
+    return {k: counts[k] + sched[k] for k in counts}
+
+
+def _differ(a, b, keys):
+    """{key: elements that differ} over two {path: qmeta} and the largest
+    relative difference of their folded scales."""
+    diff = {k: sum(int((a[p][k] != b[p][k]).sum()) for p in b) for k in keys}
+    rel = max(float(((a[p]["scale"] - b[p]["scale"]).abs()
+                     / b[p]["scale"].abs().clamp(min=1e-30)).max())
+              for p in b)
+    return diff, rel
+
+
+def engines_phase(card):
+    """Phase 16 (f): AWQ + TesseraQ on phase 5's LLaMA-2-7B at depth 2 in
+    f32 (K=3, T=10) on the ``"device"``, ``"reference"`` and ``"legacy"``
+    engines, with ms per Soften step (hardens and host transfers included)
+    and host syncs per PAR iteration of each: the reference engine's codes,
+    masks and folded scales equal to the device engine's; the legacy
+    engine's within ``LEGACY_*``.  Then OmniQuant and SignRound,
+    ``METHOD_HOST_STEPS`` steps on block 0, on the ``"legacy"`` host loop
+    against ``"device"``.  Returns the summed launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import omniquant, recon_engine as RE, signround
+    from repro_torch.core.blocks import build_stages
+    from repro_torch.core.capture import split_minibatches
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.rtn import quantize_block_rtn
+    from repro_torch.core.tesseraq import TesseraQConfig
+    from repro_torch.data.pipeline import DataConfig, calibration_batches
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.models import get_model
+
+    tag = "engines"
+    # in f32, where the engines' results are comparable (in bf16 a batch of
+    # 4 and 4 single samples round the block's products apart)
+    cfg = get_config("llama2-7b").replace(num_layers=CAL_LAYERS,
+                                          dtype="float32")
+    params = get_model(cfg).init_params(0, "cuda")
+    qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=CAL_SEQ,
+                          global_batch=CAL_BS, seed=0)
+    calib = [{"tokens": torch.as_tensor(b["tokens"][:, :-1], device="cuda")}
+             for b in calibration_batches(data_cfg, CAL_SAMPLES // CAL_BS,
+                                          CAL_BS)]
+    total = {k: 0 for k in build.KERNELS}
+    steps = ENGINE_K * ENGINE_T
+    metas, mses = {}, {}
+    for engine in ("device", "reference", "legacy"):
+        tcfg = TesseraQConfig(par_iterations=ENGINE_K,
+                              steps_per_iteration=ENGINE_T,
+                              batch_size=CAL_BS, engine=engine)
+        build.reset_launch_counts()
+        RE.reset_sync_count()
+        _, qmeta, report = quantize_model(cfg, params, calib, qcfg,
+                                          method="tesseraq", init="awq",
+                                          tcfg=tcfg)
+        torch.cuda.synchronize()
+        syncs = RE.sync_count()
+        counts = dict(build.LAUNCHES)
+        want = {k: 0 for k in build.KERNELS}
+        want.update({"soft_round_fwd": 7 * steps * CAL_LAYERS,
+                     "soft_round_bwd": 7 * steps * CAL_LAYERS})
+        if counts != want:
+            fail(f"{tag} {engine}: launches {counts}, expected {want}")
+        total = {k: total[k] + counts[k] for k in total}
+        metas[engine] = qmeta
+        mses[engine] = [b["recon_mse"] for b in report["blocks"]]
+        ms = [b["recon_secs"] * 1e3 / steps for b in report["blocks"]]
+        print(f"[{tag}] {engine}: ms per Soften step (hardens and host "
+              f"transfers included) " + "/".join(f"{m:.3f}" for m in ms)
+              + f"; host syncs {syncs} "
+              f"({syncs / (ENGINE_K * CAL_LAYERS):.1f} per PAR iteration); "
+              f"recon_mse " + "/".join(f"{m:.6g}" for m in mses[engine])
+              + f"; launches {counts}; card=[{card}]", flush=True)
+    n = sum(m.numel() for m in (v["codes"] for v in metas["device"].values()))
+    for engine in ("reference", "legacy"):
+        diff, rel = _differ(metas[engine], metas["device"],
+                            ("codes", "hard"))
+        mse_rel = max(abs(a - b) / b for a, b in zip(mses[engine],
+                                                     mses["device"]))
+        print(f"[{tag}] {engine} vs device: codes differ {diff['codes']}/"
+              f"{n}, hard masks differ {diff['hard']}/{n}, folded scales "
+              f"max relative difference {rel:.3g}, recon_mse relative "
+              f"difference {mse_rel:.3g}", flush=True)
+        exact = engine == "reference"
+        if (max(diff.values()) > (0 if exact else LEGACY_CODE_SHARE * n)
+                or rel > (0 if exact else LEGACY_SCALE_RTOL)
+                or mse_rel > (0 if exact else LEGACY_MSE_RTOL)):
+            fail(f"{tag}: {engine} engine against device: {diff} of {n}, "
+                 f"scales {rel}, recon_mse {mse_rel}")
+    del metas
+    _free()
+
+    # OmniQuant and SignRound on block 0's streams, host loop vs device
+    stage = build_stages(cfg)[0]
+    with torch.no_grad():
+        X = torch.cat([stage.init_x(params, b) for b in calib], 0)
+        bp = stage.get_block(params, 0)
+        parts = split_minibatches(X)
+        Y = torch.cat([stage.apply(bp, x) for x in parts], 0).float()
+        _, rtn_meta = quantize_block_rtn(bp, qcfg)
+    for name, limit in (("omniquant", LEGACY_CODE_SHARE),
+                        ("signround", SIGNROUND_CODE_SHARE)):
+        out, mse = {}, {}
+        for engine in ("device", "legacy"):
+            build.reset_launch_counts()
+            RE.reset_sync_count()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "omniquant":
+                bq, m = omniquant.reconstruct_block(
+                    stage.apply, bp, X, Y, None, qcfg,
+                    steps=METHOD_HOST_STEPS, batch_size=CAL_BS,
+                    engine=engine)
+            else:
+                bq, m = signround.reconstruct_block(
+                    stage.apply, bp, X, Y, None, rtn_meta, qcfg,
+                    steps=METHOD_HOST_STEPS, batch_size=CAL_BS,
+                    engine=engine)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if any(build.LAUNCHES.values()):
+                fail(f"{tag} {name}: launched {dict(build.LAUNCHES)}")
+            with torch.no_grad():
+                mse[engine] = float(sum(
+                    torch.sum(torch.square(stage.apply(bq, x).float() - y))
+                    for x, y in zip(parts, split_minibatches(Y)))
+                    / Y.numel())
+            out[engine] = m
+            print(f"[{tag}] {name} {engine}: {METHOD_HOST_STEPS} steps in "
+                  f"{secs:.3f}s ({secs * 1e3 / METHOD_HOST_STEPS:.3f} ms a "
+                  f"step), host syncs {RE.sync_count()}, recon_mse "
+                  f"{mse[engine]:.6g}", flush=True)
+        diff, rel = _differ(out["legacy"], out["device"], ("codes",))
+        n = sum(m["codes"].numel() for m in out["device"].values())
+        mse_rel = abs(mse["legacy"] - mse["device"]) / mse["device"]
+        print(f"[{tag}] {name} legacy vs device: codes differ "
+              f"{diff['codes']}/{n}, scales max relative difference "
+              f"{rel:.3g}, recon_mse relative difference {mse_rel:.3g}",
+              flush=True)
+        if (diff["codes"] > limit * n or rel > LEGACY_SCALE_RTOL
+                or mse_rel > LEGACY_MSE_RTOL):
+            fail(f"{tag}: {name} legacy against device: {diff['codes']} of "
+                 f"{n} codes, scales {rel}, recon_mse {mse_rel}")
+    del params, X, Y, bp
+    _free()
+    return total
+
+
+def new_configs_phase(card):
+    """Phase 16: (a)-(d) ``configs_phase``, (e) ``kv_int8_phase``, (f)
+    ``engines_phase``, each path's launches counted from 0."""
+    t0 = time.perf_counter()
+    out = {"configs": configs_phase(card)}
+    t1 = time.perf_counter()
+    out["kv_int8"] = kv_int8_phase(card)
+    t2 = time.perf_counter()
+    out["engines"] = engines_phase(card)
+    t3 = time.perf_counter()
+    print(f"[time] phase 16: (a)-(d) configs {t1 - t0:.1f}s, (e) int8 KV "
+          f"cache {t2 - t1:.1f}s, (f) engines {t3 - t2:.1f}s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3722,6 +4405,12 @@ def main():
     t0 = time.perf_counter()
     train_counts, _ = train_phase(card)
     print(f"[time] train {time.perf_counter() - t0:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    new_counts = new_configs_phase(card)
+    print(f"[time] configs, int8 KV cache, engines "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     sources = {"quant_matmul": "src/repro/kernels/quant_matmul.py:146",
                "quant_gemv": "src/repro/kernels/quant_gemv.py:120",
@@ -3798,7 +4487,10 @@ def main():
                    "wa_calibrate": wa_cal_counts[name],
                    "methods": methods_counts[name],
                    "harness": harness_counts[name],
-                   "train": train_counts[name]}
+                   "train": train_counts[name],
+                   "configs": new_counts["configs"][name],
+                   "kv_int8": new_counts["kv_int8"][name],
+                   "engines": new_counts["engines"][name]}
         if name.startswith("soft_round"):
             nums = summarize_soft_round(recs["soft_round"], name[-3:])
             nums["moe"] = summarize_soft_round(recs["soft_round"], name[-3:],

@@ -1,11 +1,13 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_reduced_config(arch_id)``.
 
-The port's own copy of the reference registry, holding the architectures
-the port serves: the dense llama family and the qwen3 MoE.  Every
-architecture lives in its own module exposing ``CONFIG`` (the exact
-published shape) and ``reduced()`` (a tiny same-family config for CPU
-tests).  The other families arrive with their model code (ROADMAP
-queue 1, "Remaining families").
+The port's own copy of the reference registry, holding every architecture
+of the two families the port runs: the dense llama family (TinyLlama-1.1B,
+LLaMA-2-7B, Mistral-7B, Command-R-35B, LLaMA-3-405B, SmolLM-135M) and the
+MoE family (Qwen3-30B-A3B, Moonlight-16B-A3B).  Every architecture lives in
+its own module exposing ``CONFIG`` (the exact published shape) and
+``reduced()`` (a tiny same-family config for CPU tests), each a copy of the
+reference's.  The encoder-decoder, SSM, RWKV, hybrid and VLM architectures
+arrive with their model code (ROADMAP queue 1, "Remaining families").
 """
 from __future__ import annotations
 
@@ -20,6 +22,10 @@ ARCH_IDS = (
     "llama2-7b",
     "qwen3-moe-30b-a3b",
     "smollm-135m",
+    "mistral-7b",
+    "command-r-35b",
+    "llama3-405b",
+    "moonshot-v1-16b-a3b",
 )
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

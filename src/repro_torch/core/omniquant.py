@@ -7,10 +7,13 @@ biased-gradient approach TesseraQ's PAR deliberately avoids — kept here
 faithfully as the baseline).
 
 The steps run on the single-device engine of ``core/recon_engine.py`` with
-AdamW: ``prepare`` gives every linear's LWC fake-quant weight,
-``lane_loss`` applies the block to it.  The reference's ``"reference"``,
-``"legacy"`` and ``"sharded"`` engines raise here, naming their ROADMAP
-items (``recon_engine.NOT_PORTED_ENGINES``).
+AdamW (``engine="device"``): ``prepare`` gives every linear's LWC
+fake-quant weight, ``lane_loss`` applies the block to it.  With
+``engine="reference"`` or ``"legacy"`` they run on the reference's host
+loop instead: every step's minibatch gathered on the host and pushed, one
+batch-mean gradient (``recon_engine.batch_mean_grad``) and the AdamW
+update.  The reference's ``"sharded"`` engine raises here, naming its
+ROADMAP item (``recon_engine.NOT_PORTED_ENGINES``).
 """
 from __future__ import annotations
 
@@ -67,10 +70,13 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qcfg: QuantConfig, *,
                       engine: str = "device", cache: Optional[dict] = None):
     """LWC block reconstruction from the FP block.  X/Y: the block's
     calibration streams on its device; ``aux`` must be None (dense and MoE
-    families).  ``cache`` (scoped by the caller to one stage) reuses the
-    engine across the stage's blocks.  Log entries carry the loss of the
-    last step of every 100.  Returns (bp_fq, qmeta) with ``zero`` rounded
-    and the codes as uint8, as the reference returns them."""
+    families).  ``engine`` is "device", "reference" or "legacy" (the two
+    host-loop engines run the same loop here, as in the reference).
+    ``cache`` (scoped by the caller to one stage) reuses the engine across
+    the stage's blocks.  Log entries carry the loss of the last step of
+    every 100 on the device engine, of steps 0, 100, ... on the host loop
+    (the reference's two logs).  Returns (bp_fq, qmeta) with ``zero``
+    rounded and the codes as uint8, as the reference returns them."""
     RE.check_engine(engine, "omniquant.reconstruct_block")
     if aux is not None:
         raise NotImplementedError(
@@ -86,12 +92,34 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qcfg: QuantConfig, *,
                  for k in ("g", "b")}
     ws = {p: get_path(bp, p).to(torch.float32) for p in paths}
 
-    eng = RE.cached_engine(cache, "omniquant", lambda: (
-        RE.ReconstructionEngine(_make_objective(apply, qcfg), AdamW(lr=lr))))
-    plan = RE.stage_plan(X, Y, batch_size=batch_size, total_steps=steps,
-                         seed=seed)
-    tr, _ = RE.run_logged(eng, tr, eng.init(tr), {"bp": bp, "ws": ws}, plan,
-                          steps=steps, chunk=100, log=log)
+    frozen = {"bp": bp, "ws": ws}
+    if engine == "device":
+        eng = RE.cached_engine(cache, "omniquant", lambda: (
+            RE.ReconstructionEngine(_make_objective(apply, qcfg),
+                                    AdamW(lr=lr))))
+        plan = RE.stage_plan(X, Y, batch_size=batch_size, total_steps=steps,
+                             seed=seed)
+        tr, _ = RE.run_logged(eng, tr, eng.init(tr), frozen, plan,
+                              steps=steps, chunk=100, log=log)
+    else:
+        # the host loop: one objective a stage, as the reference keeps one
+        # traced gradient a stage
+        obj = RE.cached_engine(cache, "legacy-grad",
+                               lambda: _make_objective(apply, qcfg))
+        opt = AdamW(lr=lr)
+        st = opt.init(tr)
+        Xh, Yh = RE.host_stage(X, Y)
+        N = Xh.shape[0]
+        plan = RE.draw_index_plan(N, min(batch_size, N), steps, seed)
+        for t in range(steps):
+            # reprolint: ok[host-sync] — the per-step host gather is the host loop's design (counted)
+            xb, yb = RE.host_batch(Xh, Yh, plan[t], X.device)
+            lv, grads = RE.batch_mean_grad(obj, tr, frozen, xb, yb)
+            with torch.no_grad():
+                tr, st = opt.update(grads, st, tr)
+            if log is not None and t % 100 == 0:
+                # reprolint: ok[host-sync] — the reference's host-loop log reads the loss (counted)
+                log.append({"step": t, "loss": float(RE.host_read(lv))})
 
     qmeta = {}
     with torch.no_grad():

@@ -8,9 +8,10 @@
      scaling + clipping search on the captured inputs) or GPTQ (Hessian-
      guided column walk with error compensation);
   3. optimize with TesseraQ (``method="tesseraq"``), OmniQuant's learnable
-     weight clipping (``"omniquant"``) or SignRound (``"signround"``), all
-     on the single-device engine, or keep the initialization
-     (``method="none"``);
+     weight clipping (``"omniquant"``) or SignRound (``"signround"``), on
+     the engine ``tcfg.engine`` names (``"device"``, or the reference's
+     host-loop ``"reference"`` and ``"legacy"``), or keep the
+     initialization (``method="none"``);
   4. write the fake-quantized block back and advance the streams.
 
 The streams stay on the params' device; captures and forwards run over

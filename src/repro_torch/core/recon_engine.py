@@ -42,8 +42,15 @@ The engine serves every reconstruction method of ``core/``: TesseraQ
 (AdamW on ν and the DST variables), OmniQuant's LWC (AdamW on the clipping
 logits) and SignRound (``SignSGD`` on the rounding perturbation).
 
-The reference's ``"reference"``/``"legacy"`` host-loop engines and its
-mesh-sharded engine are not ported yet (ROADMAP queue 1 item 1 and queue 7).
+The reference's two host-loop engines run on the same pieces, on purpose
+off the device-resident path: ``"reference"`` (the oracle: NumPy
+hardening, a host gather of every step's minibatch, and the device
+engine's own step, ``ReconstructionEngine.step``) and ``"legacy"`` (the
+speed baseline: the same host loop with one batch-mean gradient,
+``batch_mean_grad``, and the eager per-leaf optimizer update).  Their
+blocking transfers go through ``host_read``, ``host_stage`` and
+``host_push``, which count them.  The mesh-sharded engine is not ported yet
+(``NOT_PORTED_ENGINES``).
 """
 from __future__ import annotations
 
@@ -58,28 +65,25 @@ from repro_torch.core.blocks import get_path, set_path
 from repro_torch.core.capture import stage_calibration
 from repro_torch.optim.adam import tree_leaves, tree_map
 
-# The reference's other engines, each with the ROADMAP item that ports it.
+# The engines a reconstruction method takes (``engine=``), as the
+# reference names them, and the one not ported yet with its ROADMAP item.
+ENGINES = ("device", "legacy", "reference", "sharded")
 NOT_PORTED_ENGINES = {
-    "reference": "ROADMAP queue 1, 'Calibration: AWQ + TesseraQ' (the "
-                 "host-loop reference engine)",
-    "legacy": "ROADMAP queue 1, 'Calibration: AWQ + TesseraQ' (the "
-              "pre-engine legacy loop)",
-    "sharded": "ROADMAP queue 7, 'Parallelism on torch.distributed'",
+    "sharded": "ROADMAP queue 1, 'Parallelism on torch.distributed'",
 }
 
 
 def check_engine(engine: str, who: str) -> None:
-    """Only ``engine="device"`` runs here: the reference's other engines
-    raise ``NotImplementedError`` naming their ROADMAP item, anything else
-    ``ValueError``."""
-    if engine == "device":
-        return
+    """``"device"``, ``"reference"`` and ``"legacy"`` run here; the
+    mesh-sharded engine raises ``NotImplementedError`` naming its ROADMAP
+    item, anything else ``ValueError``."""
     if engine in NOT_PORTED_ENGINES:
         raise NotImplementedError(
             f"{who}: engine {engine!r} is not ported yet "
             f"({NOT_PORTED_ENGINES[engine]})")
-    raise ValueError(f"{who}: unknown engine {engine!r} (expected "
-                     "'device')")
+    if engine not in ENGINES:
+        raise ValueError(f"{who}: unknown engine {engine!r} (expected one "
+                         f"of {list(ENGINES)})")
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +100,33 @@ def host_read(x: torch.Tensor) -> np.ndarray:
     global _SYNC_COUNT
     _SYNC_COUNT += 1
     return x.detach().cpu().numpy()
+
+
+def host_stage(X: torch.Tensor, Y: torch.Tensor):
+    """A block's calibration streams copied to the host once, for the
+    host-loop engines: (X, Y as float32), CPU tensors (numpy has no
+    bfloat16).  One counted read each."""
+    global _SYNC_COUNT
+    _SYNC_COUNT += 2
+    return X.detach().cpu(), Y.detach().to(torch.float32).cpu()
+
+
+def host_push(a, device) -> torch.Tensor:
+    """Host array or CPU tensor -> ``device``, counted: a copy from
+    pageable memory waits for the stream, so it is a host sync too (on the
+    CPU nothing moves, and the count is the same)."""
+    global _SYNC_COUNT
+    _SYNC_COUNT += 1
+    t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+    return t.to(device)
+
+
+def host_batch(Xh: torch.Tensor, Yh: torch.Tensor, idx: np.ndarray, device):
+    """One step's minibatch of the host-loop engines: gathered on the host
+    by the plan row ``idx`` and pushed to ``device`` (two counted
+    pushes)."""
+    i = torch.from_numpy(np.asarray(idx, np.int64))
+    return host_push(Xh[i], device), host_push(Yh[i], device)
 
 
 def sync_count() -> int:
@@ -280,6 +311,26 @@ def canonical_grad(objective: Objective, tr, frozen, xb, yb, chunks: int):
     return loss_tot / bs, _unflatten(tr, iter(g_tr))
 
 
+def batch_mean_grad(objective: Objective, tr, frozen, xb, yb):
+    """(loss, grads) of the whole minibatch's loss in one backward: the
+    objective's ``lane_loss`` over all of ``xb`` at once (``block_mse``
+    means over every sample, so this is the batch mean), differentiated
+    through ``prepare`` by ``torch.autograd.grad``.  The host-loop
+    ``"legacy"`` engine's gradient (and OmniQuant's and SignRound's): the
+    reference's plain ``value_and_grad``, with one association of the batch
+    sum and not ``canonical_grad``'s, so it tracks the canonical gradient
+    only up to f32 rounding."""
+    flat_tr = [t.detach().requires_grad_() for t in tree_leaves(tr)]
+    tr_req = _unflatten(tr, iter(flat_tr))
+    with torch.enable_grad():
+        inter = objective.prepare(tr_req, frozen)
+        loss = objective.lane_loss(inter, frozen, xb, yb)
+        g_tr = torch.autograd.grad(loss, flat_tr, allow_unused=True)
+    g_tr = [torch.zeros_like(t) if g is None else g
+            for g, t in zip(g_tr, flat_tr, strict=True)]
+    return loss.detach(), _unflatten(tr, iter(g_tr))
+
+
 def _unflatten(like, it):
     if isinstance(like, dict):
         return {k: _unflatten(v, it) for k, v in like.items()}
@@ -370,11 +421,20 @@ class ReconstructionEngine:
             idx = plan.index_plan[t]
             xb = plan.X.index_select(0, idx)
             yb = plan.Y.index_select(0, idx)
-            lv, grads = canonical_grad(self.objective, trainables, frozen,
-                                       xb, yb, chunks)
-            with torch.no_grad():
-                trainables, opt_state = self.opt.update(grads, opt_state,
-                                                        trainables)
+            trainables, opt_state, lv = self.step(trainables, opt_state,
+                                                  frozen, xb, yb, chunks)
+        return trainables, opt_state, lv
+
+    def step(self, trainables, opt_state, frozen, xb, yb, chunks: int):
+        """One step on the minibatch (xb, yb): the canonical chunked
+        gradient, then the optimizer.  ``run`` takes it on device-gathered
+        minibatches, the host-loop ``"reference"`` engine on host-gathered
+        ones.  Returns (trainables, opt_state, loss)."""
+        lv, grads = canonical_grad(self.objective, trainables, frozen,
+                                   xb, yb, chunks)
+        with torch.no_grad():
+            trainables, opt_state = self.opt.update(grads, opt_state,
+                                                    trainables)
         return trainables, opt_state, lv
 
 
@@ -405,9 +465,12 @@ def run_logged(eng: ReconstructionEngine, tr, opt_state, frozen,
     return tr, opt_state
 
 
-__all__ = ["NOT_PORTED_ENGINES", "check_engine", "host_read", "sync_count",
-           "reset_sync_count", "harden_device", "SignSGD",
+__all__ = ["ENGINES", "NOT_PORTED_ENGINES",
+           "check_engine", "host_read", "host_stage", "host_push",
+           "host_batch",
+           "sync_count", "reset_sync_count", "harden_device", "SignSGD",
            "grad_chunk_count", "CANONICAL_LANE_CHUNKS", "Objective",
            "block_mse", "block_mse_objective", "canonical_grad",
+           "batch_mean_grad",
            "BatchPlan", "draw_index_plan", "stage_plan",
            "ReconstructionEngine", "cached_engine", "run_logged"]

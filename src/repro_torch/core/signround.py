@@ -10,10 +10,14 @@ progressive hardening and no dequant-scale tuning; unlike AdaRound there is
 no rectified-sigmoid regularizer.
 
 The steps run on the single-device engine of ``core/recon_engine.py`` with
-``SignSGD``: ``prepare`` gives every linear's perturbed fake-quant weight,
-``lane_loss`` applies the block to it.  The reference's ``"reference"``,
-``"legacy"`` and ``"sharded"`` engines raise here, naming their ROADMAP
-items (``recon_engine.NOT_PORTED_ENGINES``).
+``SignSGD`` (``engine="device"``): ``prepare`` gives every linear's
+perturbed fake-quant weight, ``lane_loss`` applies the block to it.  With
+``engine="reference"`` or ``"legacy"`` they run on the reference's host
+loop instead: every step's minibatch gathered on the host and pushed, one
+batch-mean gradient (``recon_engine.batch_mean_grad``) and the sign step
+with the linear decay computed on the host and the clip to +-0.5.  The
+reference's ``"sharded"`` engine raises here, naming its ROADMAP item
+(``recon_engine.NOT_PORTED_ENGINES``).
 """
 from __future__ import annotations
 
@@ -66,10 +70,13 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qmeta: Dict,
     """Sign-SGD rounding optimization on one block.  ``qmeta`` supplies the
     (AWQ/RTN/GPTQ) scale/zero/act_scale initialization, exactly as for
     TesseraQ.  X/Y: the block's calibration streams on its device; ``aux``
-    must be None (dense and MoE families).  ``cache`` (scoped by the
-    caller to one stage) reuses the engine across the stage's blocks.  Log
-    entries carry the loss of the last step of every 50.  Returns (bp_fq,
-    qmeta')."""
+    must be None (dense and MoE families).  ``engine`` is "device",
+    "reference" or "legacy" (the two host-loop engines run the same loop
+    here, as in the reference).  ``cache`` (scoped by the caller to one
+    stage) reuses the engine across the stage's blocks.  Log entries carry
+    the loss of the last step of every 50 on the device engine, of steps
+    0, 50, ... on the host loop (the reference's two logs).  Returns
+    (bp_fq, qmeta')."""
     RE.check_engine(engine, "signround.reconstruct_block")
     if aux is not None:
         raise NotImplementedError(
@@ -86,14 +93,35 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qmeta: Dict,
                                                    w.shape[-1]),
                             dtype=torch.float32, device=w.device)
 
-    eng = RE.cached_engine(cache, "signround", lambda: (
-        RE.ReconstructionEngine(
-            _make_objective(apply, qcfg),
-            RE.SignSGD(lr=lr, total_steps=steps, clip=0.5))))
-    plan = RE.stage_plan(X, Y, batch_size=batch_size, total_steps=steps,
-                         seed=seed)
-    vs, _ = RE.run_logged(eng, vs, eng.init(vs), {"bp": bp, "fixed": fixed},
-                          plan, steps=steps, chunk=50, log=log)
+    frozen = {"bp": bp, "fixed": fixed}
+    if engine == "device":
+        eng = RE.cached_engine(cache, "signround", lambda: (
+            RE.ReconstructionEngine(
+                _make_objective(apply, qcfg),
+                RE.SignSGD(lr=lr, total_steps=steps, clip=0.5))))
+        plan = RE.stage_plan(X, Y, batch_size=batch_size, total_steps=steps,
+                             seed=seed)
+        vs, _ = RE.run_logged(eng, vs, eng.init(vs), frozen, plan,
+                              steps=steps, chunk=50, log=log)
+    else:
+        # the host loop: one objective a stage, as the reference keeps one
+        # traced gradient a stage
+        obj = RE.cached_engine(cache, "legacy-grad",
+                               lambda: _make_objective(apply, qcfg))
+        Xh, Yh = RE.host_stage(X, Y)
+        N = Xh.shape[0]
+        plan = RE.draw_index_plan(N, min(batch_size, N), steps, seed)
+        for t in range(steps):
+            # reprolint: ok[host-sync] — the per-step host gather is the host loop's design (counted)
+            xb, yb = RE.host_batch(Xh, Yh, plan[t], X.device)
+            lv, grads = RE.batch_mean_grad(obj, vs, frozen, xb, yb)
+            cur_lr = lr * (1.0 - t / steps)               # linear decay
+            with torch.no_grad():
+                vs = {p: torch.clamp(vs[p] - cur_lr * torch.sign(grads[p]),
+                                     -0.5, 0.5) for p in paths}
+            if log is not None and t % 50 == 0:
+                # reprolint: ok[host-sync] — the reference's host-loop log reads the loss (counted)
+                log.append({"step": t, "loss": float(RE.host_read(lv))})
 
     new_meta = {}
     with torch.no_grad():

@@ -16,13 +16,32 @@ Hardening is tracked with an explicit int8 sign tensor (exactly-zero
 gradients for frozen variables); the paper's memory-light alternative (set
 nu to +-inf) is ``use_inf_freeze``.
 
-The inner loop runs on the single-device engine of ``core/recon_engine.py``
-(``engine="device"``).  θ̂ is materialized once per step per linear: under
+Three interchangeable inner-loop engines (``TesseraQConfig.engine``), as
+in the reference:
+
+  * ``"device"`` (default): the single-device engine of
+    ``core/recon_engine.py``: hardening by one device sort, the minibatches
+    gathered on the device from a pre-staged index plan, at most one host
+    read per PAR iteration (the optional log line).
+  * ``"reference"``: the host-loop oracle: NumPy hardening (``harden``),
+    every step's minibatch gathered on the host by ``draw_index_plan`` and
+    pushed, and the device engine's own step (``canonical_grad`` + AdamW),
+    so it gives the device engine's codes, hard masks and folded scales bit
+    for bit.
+  * ``"legacy"``: the speed baseline: the same host loop with one
+    batch-mean gradient (``recon_engine.batch_mean_grad``, not the
+    canonical per-sample reduction) and the eager per-leaf AdamW update; it
+    tracks the other engines up to f32 rounding (on the CPU codes equal,
+    folded scales in the last bits; on a GPU, where the batched and the
+    per-sample products round apart, a rare code whose ν ends near 0
+    flips).
+
+θ̂ is materialized once per step per linear on every engine: under
 ``QuantConfig.kernel_backend == "pallas"`` through the soft_round kernels
 (forward and backward; their plain versions on a CPU tensor), under
 ``"xla"`` as plain torch differentiated by autograd, as the reference does
-in jnp.  The reference's ``"reference"``, ``"legacy"`` and ``"sharded"``
-engines raise here (ROADMAP queue 1 item 1, queue 7).
+in jnp.  The reference's ``"sharded"`` engine raises here (ROADMAP queue 1,
+"Parallelism on torch.distributed").
 """
 from __future__ import annotations
 
@@ -66,7 +85,7 @@ class TesseraQConfig:
     par: bool = True                      # progressive adaptive rounding
     use_inf_freeze: bool = False          # paper's memory-light hardening
     seed: int = 0
-    engine: str = "device"     # only "device" is ported
+    engine: str = "device"     # "device" | "reference" | "legacy"
     # keep Adam moments across PAR iterations (the surviving soft variables
     # continue from warm state instead of cold restarts after every harden)
     carry_opt_state: bool = True
@@ -134,6 +153,50 @@ def soft_weight(st, qcfg: QuantConfig, dst: bool) -> torch.Tensor:
 
 def hardness_score(nu: torch.Tensor) -> torch.Tensor:
     return torch.abs(torch.sigmoid(nu) - 0.5)          # HS (Eq. 6)
+
+
+def harden(states: Dict, target_soft_rate: float, use_inf: bool) -> Dict:
+    """NumPy hardening (the host-loop engines'): freeze the HIGHEST-HS soft
+    variables (those already nearly binary, so rounding them perturbs the
+    block least) so that only ``target_soft_rate`` of ALL rounding
+    variables of the block stay soft.  The threshold is global across the
+    block's leaves (Algorithm 1's joint sort): the k-th largest soft score,
+    taken by ``np.partition`` over every leaf's soft scores.  The scores
+    are computed where ν lives and read back (counted), so the threshold is
+    the one ``recon_engine.harden_device`` takes from its device sort."""
+    reads = {}
+    for p, st in states.items():
+        # reprolint: ok[host-sync] — NumPy hardening reads the scores and masks by design (counted)
+        reads[p] = (RE.host_read(hardness_score(st["nu"])),
+                    RE.host_read(st["hard"]))
+    all_scores = np.concatenate([hs.ravel()[hard.ravel() == 0]
+                                 for hs, hard in reads.values()])
+    total = sum(hard.size for _, hard in reads.values())
+    want_soft = int(total * target_soft_rate)
+    n_soft_now = all_scores.size
+    n_to_freeze = max(0, n_soft_now - want_soft)
+    if n_to_freeze == 0:
+        return states
+    # k-th largest soft score == ascending-partition index want_soft
+    thresh = (np.partition(all_scores, want_soft)[want_soft]
+              if n_to_freeze < n_soft_now else -np.inf)
+
+    new = {}
+    for p, st in states.items():
+        hs, hard = reads[p]
+        freeze = (hard == 0) & (hs >= thresh)
+        # the sign of ν, read as int8 (a quarter of ν's bytes)
+        sign = RE.host_read((st["nu"] > 0).to(torch.int8) * 2 - 1)
+        hard = np.where(freeze, sign, hard)
+        dev = st["hard"].device
+        st = dict(st)
+        st["hard"] = RE.host_push(hard, dev)
+        if use_inf:
+            nu = RE.host_read(st["nu"])
+            st["nu"] = RE.host_push(
+                np.where(hard != 0, hard * 40.0, nu).astype(np.float32), dev)
+        new[p] = st
+    return new
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +309,93 @@ def _run_device(apply, bp, X, Y, qcfg, tcfg: TesseraQConfig, states,
     return states
 
 
+def _soft_rate_of(states) -> float:
+    """Global fraction of rounding variables still soft (the quantity the
+    PAR schedule targets), from one counted read of each mask."""
+    hard = [RE.host_read(st["hard"]) for st in states.values()]
+    soft = sum(int((h == 0).sum()) for h in hard)
+    return soft / max(sum(h.size for h in hard), 1)
+
+
+def _run_host_loop(bp, X, Y, tcfg: TesseraQConfig, states,
+                   log: Optional[list], step: Callable):
+    """The host loop both host-loop engines share: NumPy hardening, the
+    plan drawn on the host, every step's minibatch gathered on the host and
+    pushed, ``step(tr, opt_state, frozen, xb, yb) -> (tr, opt_state,
+    loss)``, one log line per PAR iteration."""
+    K = tcfg.par_iterations if tcfg.par else 1
+    T = tcfg.steps_per_iteration
+    trainable_keys = ("nu", "v") if tcfg.dst else ("nu",)
+    opt = AdamW(lr=tcfg.lr)
+    Xh, Yh = RE.host_stage(X, Y)
+    N = Xh.shape[0]
+    plan = RE.draw_index_plan(N, min(tcfg.batch_size, N), K * T, tcfg.seed)
+    sr = list(tcfg.soft_rate)
+    opt_state = None
+    for k in range(K):
+        if tcfg.par:
+            states = harden(states, sr[_schedule_index(k, K, len(sr))],
+                            tcfg.use_inf_freeze)
+        tr = _trainables(states, tcfg.dst)
+        frozen = {p: {kk: vv for kk, vv in st.items()
+                      if kk not in trainable_keys}
+                  for p, st in states.items()}
+        if opt_state is None or not tcfg.carry_opt_state:
+            opt_state = opt.init(tr)
+        lv = None
+        for t in range(T):
+            # reprolint: ok[host-sync] — the per-step host gather is the host-loop engines' design (counted)
+            xb, yb = RE.host_batch(Xh, Yh, plan[k * T + t], X.device)
+            tr, opt_state, lv = step(tr, opt_state,
+                                     {"bp": bp, "sts": frozen}, xb, yb)
+        states = _merge(states, tr, tcfg.dst)
+        if log is not None and lv is not None:
+            # reprolint: ok[host-sync] — the log line's reads, as the reference's host loop makes them (counted)
+            log.append({"iter": k, "loss": float(RE.host_read(lv)),
+                        "soft_rate": _soft_rate_of(states)})
+    return states
+
+
+def _run_reference(apply, bp, X, Y, qcfg, tcfg: TesseraQConfig, states,
+                   log: Optional[list], cache: Optional[dict] = None):
+    """Host-loop oracle: the device engine's step (``canonical_grad`` with
+    the same chunk count, then AdamW) on host-gathered minibatches, after
+    NumPy hardening.  The minibatches, the threshold and the step's
+    arithmetic are the device engine's, so are its results."""
+    eng = RE.cached_engine(cache, "reference", lambda: (
+        RE.ReconstructionEngine(_make_loss_fn(apply, qcfg, tcfg),
+                                AdamW(lr=tcfg.lr))))
+    N = X.shape[0]
+    chunks = RE.grad_chunk_count(min(tcfg.batch_size, N), N)
+
+    def step(tr, opt_state, frozen, xb, yb):
+        return eng.step(tr, opt_state, frozen, xb, yb, chunks)
+
+    return _run_host_loop(bp, X, Y, tcfg, states, log, step)
+
+
+def _run_legacy(apply, bp, X, Y, qcfg, tcfg: TesseraQConfig, states,
+                log: Optional[list], cache: Optional[dict] = None):
+    """The pre-engine loop, kept as the speed baseline: one batch-mean
+    gradient a step (``recon_engine.batch_mean_grad``), the eager per-leaf
+    AdamW update, host-gathered minibatches, NumPy hardening."""
+    obj = RE.cached_engine(cache, "legacy",
+                           lambda: _make_loss_fn(apply, qcfg, tcfg))
+    opt = AdamW(lr=tcfg.lr)
+
+    def step(tr, opt_state, frozen, xb, yb):
+        lv, grads = RE.batch_mean_grad(obj, tr, frozen, xb, yb)
+        with torch.no_grad():
+            tr, opt_state = opt.update(grads, opt_state, tr)
+        return tr, opt_state, lv
+
+    return _run_host_loop(bp, X, Y, tcfg, states, log, step)
+
+
+_RUNNERS = {"device": _run_device, "reference": _run_reference,
+            "legacy": _run_legacy}
+
+
 # ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
@@ -260,8 +410,9 @@ def reconstruct_block(apply: Callable, bp, X: torch.Tensor, Y: torch.Tensor,
     device; ``aux`` (the reference's per-sample extra stream) must be None
     for the dense and MoE families.  Returns (bp_fq, qmeta') with
     DST folded into each linear's ``scale`` and the final hardened mask
-    under ``hard``.  ``cache`` (a dict the caller scopes to one stage)
-    reuses the engine across the stage's blocks."""
+    under ``hard``.  The inner loop runs on the engine ``tcfg.engine``
+    names.  ``cache`` (a dict the caller scopes to one stage) reuses the
+    engine across the stage's blocks."""
     if aux is not None:
         raise NotImplementedError(
             "reconstruct_block: per-sample aux streams are not ported yet "
@@ -270,7 +421,8 @@ def reconstruct_block(apply: Callable, bp, X: torch.Tensor, Y: torch.Tensor,
     RE.check_engine(tcfg.engine, "reconstruct_block")
     paths = quant_leaf_paths(bp)
     states = {p: _leaf_state(get_path(bp, p), qmeta[p], qcfg) for p in paths}
-    states = _run_device(apply, bp, X, Y, qcfg, tcfg, states, log, cache)
+    states = _RUNNERS[tcfg.engine](apply, bp, X, Y, qcfg, tcfg, states, log,
+                                   cache)
 
     # ---- finalization: hard-round everything, fold DST into the scale ----
     new_meta = {}

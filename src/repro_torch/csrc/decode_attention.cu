@@ -21,9 +21,9 @@
 //
 // What bounds it on an H100: memory at long lanes, latency at short ones.
 // Each live position costs 4*D bytes of K and V per KV head against 4*G*D
-// operations, at most 8 operations a byte for G <= 8, far under the ~295 at
-// which the card stops being bound by its memory: the products stay on the
-// CUDA cores in f32.  At decode sizes (a few MB) the launch, two dependent
+// operations, at most 16 operations a byte for G <= 16 (LLaMA-3-405B's 128
+// query heads over 8 KV heads), far under the ~295 at which the card stops
+// being bound by its memory: the products stay on the CUDA cores in f32.  At decode sizes (a few MB) the launch, two dependent
 // DRAM round trips (the slot's length, then its K/V) and each warp's chain
 // of dependent instructions take most of the time, so the design keeps
 // bytes in flight and cuts instructions and barriers per byte:

@@ -4,7 +4,9 @@
         --reduced --method none --requests 8 --prompt-len 32 --gen 16
 
 ``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS``: the dense
-llama configs and the MoE ``qwen3-moe-30b-a3b``.
+llama configs (TinyLlama, LLaMA-2-7B, Mistral-7B, Command-R-35B,
+LLaMA-3-405B, SmolLM-135M) and the MoE ``qwen3-moe-30b-a3b`` and
+``moonshot-v1-16b-a3b``.
 
 ``serve_requests`` is the uniform lock-step loop: one batch, one shared
 prompt length, a fixed ``gen`` for every row.  ``--slots N`` serves a

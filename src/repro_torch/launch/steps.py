@@ -143,20 +143,22 @@ def train_donate_argnums(*argnums: int) -> tuple:
 
 
 def make_serve_steps(cfg: ModelConfig, *, act_bits=None,
-                     attn_chunk: int = 512, kernel_backend=None,
-                     page_size: int = 0):
+                     attn_chunk: int = 512, kv_bits=None,
+                     kernel_backend=None, page_size: int = 0):
     """Returns (model, prefill_step, decode_step).
 
     ``kernel_backend`` ("xla" | "pallas" | None = env/default) selects the
     QTensor matmul and decode-attention path for both steps; ``act_bits``
     fake-quantizes activations per token in both (W4A8 / W4A4);
-    ``attn_chunk`` is the prefill attention's KV chunk.  ``page_size > 0``
+    ``attn_chunk`` is the prefill attention's KV chunk; ``kv_bits=8``
+    writes and reads the cache as the int8 KV cache (``Ctx.kv_bits``; the
+    caller allocates the cache, int8 for an int8 store).  ``page_size > 0``
     builds paged-cache steps: prefill accepts ``start_pos``/``ptab``
     (chunked prefill over a page table) and decode accepts ``ptab``.
     Meshes and tensor parallelism are not ported yet (ROADMAP queue 1)."""
     model = get_model(cfg)
     ctx = make_ctx(attn_chunk=attn_chunk, kernel_backend=kernel_backend,
-                   act_bits=act_bits, page_size=page_size)
+                   act_bits=act_bits, kv_bits=kv_bits, page_size=page_size)
 
     def prefill_step(params, batch, cache, start_pos=0, ptab=None):
         return model.prefill(params, batch, cache, ctx, start_pos=start_pos,
@@ -198,8 +200,8 @@ def make_paged_install_step(model, *, page_size: int):
 
 
 def make_sched_steps(cfg: ModelConfig, *, max_seq: int, act_bits=None,
-                     attn_chunk: int = 512, kernel_backend=None,
-                     page_size: int = 0):
+                     attn_chunk: int = 512, kv_bits=None,
+                     kernel_backend=None, page_size: int = 0):
     """Step pair for the slot scheduler (``repro_torch.launch.scheduler``).
 
     Returns ``(model, prefill_step, sched_decode_step)``.  The decode step
@@ -218,7 +220,7 @@ def make_sched_steps(cfg: ModelConfig, *, max_seq: int, act_bits=None,
     pos, same kv_len), which is what makes scheduled decode bit-compatible
     with serving a request alone."""
     model, prefill_step, decode_step = make_serve_steps(
-        cfg, act_bits=act_bits, attn_chunk=attn_chunk,
+        cfg, act_bits=act_bits, attn_chunk=attn_chunk, kv_bits=kv_bits,
         kernel_backend=kernel_backend, page_size=page_size)
 
     def sched_decode_step(params, cache, tok, pos, active, ptab=None):

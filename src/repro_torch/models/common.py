@@ -33,18 +33,28 @@ class Ctx:
     as page pools read through a page table (the paged store).
     ``act_bits`` turns on per-token activation fake-quant
     (``layers.fake_quant_act``) at the inputs of the quantized projections
-    (W4A4, W4A8).  ``remat`` recomputes each decoder layer's forward in the
-    backward (``maybe_remat``; ``make_ctx`` defaults it from ``cfg.remat``).
+    (W4A4, W4A8).  ``kv_bits = 8`` is the int8 KV cache, the reference's
+    beyond-paper option: k and v are written as
+    ``clip(round(a / kv_scale), -128, 127)`` in the cache's dtype (int8 for
+    an int8 store) and read back as ``cache * kv_scale`` in the
+    activations' dtype; ``kv_scale`` is static (the reference's default is
+    a bound for post-RoPE keys and values at unit-variance init).  A paged
+    int8 pool is gathered into the dense lane before that, so its decode
+    runs the dense decode-attention kernel.  ``remat`` recomputes each
+    decoder layer's forward in the backward (``maybe_remat``; ``make_ctx``
+    defaults it from ``cfg.remat``).
 
     Fields of the reference's Ctx that are not here yet, and where each is
     queued: ``shard``/``mesh``/``dp_axes`` and the expert-parallel axes
     (ROADMAP queue 1, "Parallelism on torch.distributed"; ``ep_axis`` and
-    ``ep_inner`` are kept so that ``models.moe.moe_ffn`` can refuse them),
-    ``kv_bits``/``kv_scale`` (the int8 KV cache, queue 1 item 3) and
-    ``decode`` (read only by the reference's sharding rules, with the mesh).
+    ``ep_inner`` are kept so that ``models.moe.moe_ffn`` can refuse them)
+    and ``decode`` (read only by the reference's sharding rules, with the
+    mesh).
     """
     kernel_backend: Optional[str] = None
     act_bits: Optional[int] = None
+    kv_bits: Optional[int] = None
+    kv_scale: float = 0.05
     attn_chunk: int = 512
     page_size: int = 0
     remat: bool = False
@@ -61,9 +71,9 @@ def make_ctx(cfg=None, **fields) -> Ctx:
     """THE :class:`Ctx` constructor: validates the fields and rejects
     unknown names.  ``remat`` (omitted or None) defaults to ``cfg.remat``
     when a config is given, as the reference's ``make_ctx`` does, else to
-    False (the serve steps).  Fields not ported yet (the class docstring
-    says where each is queued), such as the int8 KV cache's ``kv_bits``,
-    are unknown here."""
+    False (the serve steps).  ``kv_bits`` must be None or 8, as in the
+    reference.  Fields not ported yet (the class docstring says where each
+    is queued) are unknown here."""
     unknown = set(fields) - _CTX_FIELDS
     if unknown:
         raise TypeError(f"make_ctx: unknown Ctx field(s) {sorted(unknown)}; "
@@ -74,6 +84,10 @@ def make_ctx(cfg=None, **fields) -> Ctx:
     if backend is not None and backend not in ("xla", "pallas"):
         raise ValueError(f"make_ctx: unknown kernel_backend {backend!r} "
                          f"(expected 'xla', 'pallas' or None)")
+    kv_bits = fields.get("kv_bits")
+    if kv_bits not in (None, 8):
+        raise ValueError(f"make_ctx: unsupported kv_bits {kv_bits!r} "
+                         f"(the int8 KV cache supports None or 8)")
     chunk = fields.get("attn_chunk", 512)
     if chunk < 1:
         raise ValueError(f"make_ctx: attn_chunk must be >= 1, got {chunk}")

@@ -13,8 +13,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.common import (Ctx, DEFAULT_CTX, maybe_remat,
-                                       page_update_cache, take_layer,
+from repro_torch.models.common import (Ctx, DEFAULT_CTX, gather_pages,
+                                       maybe_remat, page_update_cache,
+                                       take_layer,
                                        unstack_layers, update_cache)
 from repro_torch.models.moe import init_moe_ffn, moe_ffn
 
@@ -99,7 +100,8 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     paged mode: the k/v leaves are page POOLS shared across slots, writes
     scatter through the page table, and reads either walk the table in the
     paged decode kernel or gather a virtual slot-major cache shaped like
-    the dense lane."""
+    the dense lane.  With ``ctx.kv_bits`` the cache holds k and v quantized
+    (``Ctx``), and a paged pool is always gathered."""
     Bb, S, d = x.shape
     hd = cfg.resolved_head_dim
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
@@ -116,15 +118,34 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     new_kv = None
     pages = None
     if kv_cache is not None:
-        if ctx.page_size > 0 and ptab is not None:
-            ck, cv = page_update_cache(kv_cache["k"], kv_cache["v"], k, v,
+        ks, vs = k, v
+        if ctx.kv_bits:
+            qmax = (1 << (ctx.kv_bits - 1)) - 1
+            cdt = kv_cache["k"].dtype
+            ks, vs = (torch.clamp(torch.round(a.to(torch.float32)
+                                              / ctx.kv_scale),
+                                  -qmax - 1, qmax).to(cdt) for a in (k, v))
+        paged = ctx.page_size > 0 and ptab is not None
+        if paged:
+            ck, cv = page_update_cache(kv_cache["k"], kv_cache["v"], ks, vs,
                                        cache_pos, ptab, ctx.page_size)
-            pages = (ptab, ctx.page_size)
         else:
-            ck, cv = update_cache(kv_cache["k"], kv_cache["v"], k, v,
+            ck, cv = update_cache(kv_cache["k"], kv_cache["v"], ks, vs,
                                   cache_pos)
         new_kv = {"k": ck, "v": cv}
-        attn_k, attn_v = ck, cv
+        if ctx.kv_bits:
+            # an int8 pool is dequantized after the gather: the paged
+            # decode kernel reads bf16 pages only, so paged int8 decode
+            # runs the dense kernel over the gathered lane
+            if paged:
+                ck, cv = gather_pages(ck, ptab), gather_pages(cv, ptab)
+            scale = torch.full((), ctx.kv_scale, dtype=x.dtype,
+                               device=x.device)
+            attn_k, attn_v = ck.to(x.dtype) * scale, cv.to(x.dtype) * scale
+        else:
+            attn_k, attn_v = ck, cv
+            if paged:
+                pages = (ptab, ctx.page_size)
         q_offset = cache_pos
         valid = kv_len if kv_len is not None else cache_pos + S
     else:
