@@ -77,7 +77,8 @@ Phases, each printing its own lines:
 6. calibration parity: the reduced llama2 config in f32 calibrated
    (AWQ + TesseraQ, K=3, T=15) on the card and, from the same params, on
    the CPU (plain versions): codes and hardened masks must agree;
-7. schedule: the serve phase's packed LLaMA-2-7B served by the
+7. schedule: LLaMA-2-7B at its widths and ``SCHED_LAYERS`` (8) of 32
+   layers, RTN W2A16g128 + pack, served by the
    continuous-batching scheduler (``serve_scheduled``, 8 slots, 16 seeded
    requests with prompts of 16..384 tokens and budgets of 4..48) on the
    dense store and on the paged store (16-token pages), on a tight pool,
@@ -87,7 +88,7 @@ Phases, each printing its own lines:
    one decode step's time goes on each store (``torch.profiler``); then
    the reduced llama2 config scheduled on the paged store on the card and
    on the CPU;
-8. MoE serve: Qwen3-30B-A3B at full width, depth cut to 16 of 48 layers
+8. MoE serve: Qwen3-30B-A3B at full width, depth cut to 8 of 48 layers
    (random weights from a seed), RTN-quantized to W2A16g128 and packed,
    served by ``serve_requests`` on ``"pallas"`` (4 requests x 128 prompt
    tokens, 16 generated); exact launch counts (3 expert-batched launches
@@ -152,8 +153,8 @@ Phases, each printing its own lines:
    the CPU from the same params; training itself launches no kernel;
 16. the rest of the two families, the int8 KV cache and the host-loop
    engines, at W2A16g128 from seeded weights, each model freed before the
-   next: (a)-(d) Mistral-7B whole, Command-R-35B at 4 of 40 layers,
-   LLaMA-3-405B at 2 of 126 and Moonlight-16B-A3B at 16 of 48, each at
+   next: (a)-(d) Mistral-7B at 16 of 32 layers, Command-R-35B at 4 of 40,
+   LLaMA-3-405B at 2 of 126 and Moonlight-16B-A3B at 8 of 48, each at
    its published widths, RTN-packed and served lock-step 4 x (128 + 16)
    with exact launches and the teacher-forced ``"xla"`` check of phase 3;
    Mistral and Moonlight also scheduled on the dense and the paged store
@@ -167,14 +168,28 @@ Phases, each printing its own lines:
    within ``REL_L2`` of the ``"xla"`` path on the int8 cache) and
    scheduled on int8 dense and paged stores
    (equal tokens; the paged run's decode on the dense decode-attention
-   kernel, exact launches); (f) phase 5's block at depth 2, in f32,
+   kernel, exact launches); (f) phase 5's block at depth 1, in f32,
    calibrated on the ``"device"``, ``"reference"`` and ``"legacy"``
    engines (reference
    equal to device bit for bit, legacy codes equal and scales within
    rtol 1e-5; ms per Soften step and host syncs of each), and OmniQuant
    and SignRound on the ``"legacy"`` host loop against ``"device"``;
-17. a JSON line listing the ported kernels with their numbers;
-18. last line: ``{"ok": true, "device": {...}}``.
+17. the VLM, RWKV and hybrid families at W2A16g128 RTN + pack, published
+   widths and full depth: (a) RWKV6-3B and (b) Zamba2-1.2B served
+   lock-step 4 x (128 + 16) with exact launches (RWKV: 8 projections a
+   layer, no attention; Zamba2: 2 a mamba layer and the shared block's 7
+   and one decode attention at each of its 6 sites) and the teacher-forced
+   ``"xla"`` check, then phase 7's workload on both stores (equal tokens)
+   and a profiled scheduled decode step; (c) PaliGemma-3B scheduled only (8
+   slots, 16 requests of 256 seeded patches + 16..128 tokens, 4..32
+   generated) on both stores, equal tokens, exact launches, 4 requests
+   teacher-forced against ``"xla"``; (d) AWQ + TesseraQ (K=3, T=10), 8 x
+   512 positions, on 2 blocks of RWKV6-3B and of PaliGemma-3B and on
+   Zamba2-1.2B cut to depth 6 (six mamba stages, then the shared block):
+   every block below AWQ's recon_mse, packed perplexity within ``PPL_REL``
+   of fake-quant; (e) ``examples/quantize_every_family_torch.py``;
+18. a JSON line listing the ported kernels with their numbers;
+19. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device, or without ``src/repro_torch`` beside this script,
@@ -191,7 +206,15 @@ import threading
 import time
 
 import numpy as np
-import torch
+
+# The caching allocator grows its segments in place instead of carving new
+# ones: over the run's dozens of models the fixed-size segments fragmented
+# until a 7.9 GB allocation of Command-R's calibration (phase 16) failed
+# with 27 GB reserved and free (PERF.md §6, PR 26).  Read at the first CUDA
+# allocation, so it is set before anything touches the card.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -540,7 +563,13 @@ ATTN_PATHS = ((144, 32, 1, 128), (144, 8, 4, 128), (144, 4, 8, 128),
               # 8), LLaMA-3-405B (G = 16: 8 blocks of 2 rows along G) at the
               # decode and the scheduled widths, Moonlight (16 KV heads)
               (368, 8, 4, 128), (144, 8, 8, 128), (144, 8, 16, 128),
-              (368, 8, 16, 128), (368, 16, 1, 128))
+              (368, 8, 16, 128), (368, 16, 1, 128),
+              # phase 17: PaliGemma's MQA (one KV head, G = 8, D = 256: G·D
+              # = 2048, past the G·D <= 256 register plan) at its scheduled
+              # width (256 patches + 128 + 32 tokens), Zamba2's shared
+              # block (32 heads of 64) at the lock-step and scheduled widths
+              (416, 1, 8, 256), (144, 1, 8, 256), (144, 32, 1, 64),
+              (368, 32, 1, 64))
 # the paged walk at 8, 16 and 64 positions a page, and 2 (a warp's run spans
 # more than 32 pages: the table read per row), each over a permuted table
 # and bit for bit against the dense kernel: B, W, psz, Hkv, G, D
@@ -549,7 +578,9 @@ PAGED_PATHS = ((8, 46, 8, 32, 1, 128), (8, 23, 16, 4, 8, 128),
                # phase 16's scheduled pools: Mistral (G = 4), Moonlight
                # (16 KV heads), and G = 16
                (8, 23, 16, 8, 4, 128), (8, 23, 16, 16, 1, 128),
-               (8, 23, 16, 8, 16, 128))
+               (8, 23, 16, 8, 16, 128),
+               # phase 17's scheduled pools: PaliGemma, Zamba2
+               (8, 26, 16, 1, 8, 256), (8, 23, 16, 32, 1, 64))
 
 
 def attention_lengths(S, config):
@@ -849,7 +880,12 @@ SR_PATHS = ((32, 128, 14336, 2, True, None, 0),     # Mistral's w_gate
             (4, 128, 3, 2, True, None, 0), (4, 128, 5, 3, False, None, 0),
             (4, 128, 127, 2, True, 1, 0), (4, 128, 129, 4, True, None, 0),
             (32, 128, 4096, 2, True, None, 1), (8, 128, 256, 2, True, 4, 0),
-            (8, 128, 256, 2, False, 4, 0))
+            (8, 128, 256, 2, False, 4, 0),
+            # phase 17: Zamba2's in_proj (N = 2·4096 + 2·64 + 64 = 8384) and
+            # out_proj, RWKV6's square leaves and cv (70 groups), ck
+            (16, 128, 8384, 2, True, None, 0), (32, 128, 2048, 2, True, None, 0),
+            (20, 128, 2560, 2, True, None, 0), (70, 128, 2560, 2, True, None, 0),
+            (20, 128, 8960, 2, True, None, 0))
 
 
 # Qwen3-30B-A3B's expert products (E = 128): (K, N, launches per layer),
@@ -1285,7 +1321,11 @@ QM_PATHS = ((33, 4096, 4096, 2, 128, 0), (384, 4096, 4096, 2, 128, 0),
     # of 128) at the prefill's 512 rows, each as K and as N
     (512, K, N, 2, 128, 0) for K, N in (
         (4096, 14336), (14336, 4096), (8192, 22528), (22528, 8192),
-        (16384, 53248), (53248, 16384), (2048, 1408), (1408, 2048)))
+        (16384, 53248), (53248, 16384), (2048, 1408), (1408, 2048),
+        # phase 17: Zamba2's in_proj (8384 = 65.5 tiles of 128) and
+        # out_proj, RWKV6's square leaves, ck and cv, PaliGemma's FFN
+        (2048, 8384), (4096, 2048), (2560, 2560), (2560, 8960),
+        (8960, 2560), (2048, 16384), (16384, 2048)))
 
 
 # quant_gemv on every path of its body: each row template (M = 1..32 run as
@@ -1306,7 +1346,10 @@ GEMV_PATHS = tuple((M, 4096, 11008, 2, 128, 0)
     # phase 16's FFN widths at a decode step's 4 rows, as K and as N
     (4, K, N, 2, 128, 0) for K, N in (
         (4096, 14336), (14336, 4096), (8192, 22528), (22528, 8192),
-        (16384, 53248), (53248, 16384), (2048, 1408), (1408, 2048)))
+        (16384, 53248), (53248, 16384), (2048, 1408), (1408, 2048),
+        # phase 17's widths, as in QM_PATHS
+        (2048, 8384), (4096, 2048), (2560, 2560), (2560, 8960),
+        (8960, 2560), (2048, 16384), (16384, 2048)))
 # batch invariance and determinism of the GEMV: K, N, bits, group_size
 GEMV_INVARIANCE = ((4096, 11008, 2, 128), (2048, 512, 2, 128),
                    (4096, 4096, 4, 4096))
@@ -2044,50 +2087,71 @@ def calibration_parity_phase():
 # --------------------------------------------------------------------------
 
 SCHED_SLOTS, SCHED_PSZ, SCHED_CHUNK, SCHED_TIGHT = 8, 16, 128, 96
+# phase 7 serves LLaMA-2-7B at its widths and 8 of 32 layers (its own RTN
+# build, since PR 26; phase 3's full-depth model before): a decode step is
+# host-bound, about linear in the depth, and the phase's dozen runs of the
+# workload took ~110 s of the run at full depth
+SCHED_LAYERS = 8
 SCHED_WORKLOAD = dict(n_requests=16, seed=0, prompt_lens=(16, 384),
                       budgets=(4, 48), mean_gap=2.0)
 ALONE_RIDS = (0, 5, 10, 15)
 
 
-def prefill_calls(res, reqs, chunk=0):
+def prefill_calls(res, reqs, chunk=0, extra=0):
     """(rows, tokens) of every prefill call a scheduled run made (batch 1):
-    the whole prompt, or its chunks from the first position not served by
-    shared pages."""
+    the whole prompt (after ``extra`` prefix positions: a VLM's patches),
+    or its chunks from the first position not served by shared pages."""
     calls = []
     for r in reqs:
-        plen = len(r.prompt)
+        plen = len(r.prompt) + extra
         start = res.requests[r.rid]["shared_tokens"]
         calls += ([min(chunk, plen - c) for c in range(start, plen, chunk)]
                   if chunk else [plen])
     return [(n, n) for n in calls]
 
 
+def family_launches(cfg):
+    """(quantized projections, expert-batched launches, attention sites) of
+    one forward call of ``cfg``'s model: dense and VLM 7 projections a
+    layer; MoE the 4 attention projections and 3 expert launches a layer;
+    RWKV6 8 a layer (wr, wk, wv, wg, wo, ck, cv, cr) and no attention;
+    the hybrid 2 a mamba layer (in_proj, out_proj) and the shared block's
+    7 at each of its sites, one attention a site."""
+    L = cfg.num_layers
+    if cfg.family == "moe":
+        return 4 * L, 3 * L, L
+    if cfg.family == "rwkv":
+        return 8 * L, 0, 0
+    if cfg.family == "hybrid":
+        sites = L // cfg.attn_every
+        return 2 * L + 7 * sites, 0, sites
+    return 7 * L, 0, L
+
+
 def expected_launches(cfg, calls, steps, attn, prefill_attn):
-    """Launch counts from the dispatch rules: 7 quantized projections per
-    layer (MoE: the 4 attention projections, and 3 expert-batched launches
-    for the FFN whatever the rows) for every prefill call and every decode
-    step, to the GEMV at most ``DECODE_GEMV_MAX_ROWS`` rows
-    (``kernels/ops.py``; decode steps have at most 8 slots) and to the
-    tiled matmul above; one attention launch per layer and decode step
-    (``attn``), and per layer of a prefill call of a single token, which
-    takes the decode kernel too (``prefill_attn``: dense on a batch-1 lane,
-    paged on the pool).  ``calls`` holds each prefill call's (rows,
-    tokens).  The unpacked head is a library matmul."""
+    """Launch counts from the dispatch rules: the quantized projections of
+    ``family_launches`` for every prefill call and every decode step, to
+    the GEMV at most ``DECODE_GEMV_MAX_ROWS`` rows (``kernels/ops.py``;
+    decode steps have at most 8 slots) and to the tiled matmul above (MoE:
+    the expert-batched launches whatever the rows); one attention launch
+    per site and decode step (``attn``), and per site of a prefill call of
+    a single token, which takes the decode kernel too (``prefill_attn``:
+    dense on a batch-1 lane, paged on the pool).  ``calls`` holds each
+    prefill call's (rows, tokens); a VLM's prefill (patches + prompt)
+    never has one token.  The unpacked head is a library matmul."""
     from repro_torch.kernels import build
     from repro_torch.kernels.ops import DECODE_GEMV_MAX_ROWS
-    moe = cfg.family == "moe"
-    per = (4 if moe else 7) * cfg.num_layers
-    experts = 3 * cfg.num_layers if moe else 0
+    per, experts, sites = family_launches(cfg)
     e = {k: 0 for k in build.KERNELS}
     for rows, tokens in calls:
         e["quant_gemv" if rows <= DECODE_GEMV_MAX_ROWS
           else "quant_matmul"] += per
         e["quant_matmul_experts"] += experts
         if tokens == 1:
-            e[prefill_attn] += cfg.num_layers
+            e[prefill_attn] += sites
     e["quant_gemv"] += per * steps
     e["quant_matmul_experts"] += experts * steps
-    e[attn] += cfg.num_layers * steps
+    e[attn] += sites * steps
     return e
 
 
@@ -2127,8 +2191,7 @@ def sync_counted(steps, run):
         return res, syncs(log), inside[0], dict(where)
 
 
-def schedule_phase(card, packed):
-    from repro_torch.configs import get_config
+def schedule_phase(card, packed, cfg):
     from repro_torch.kernels import build
     from repro_torch.launch.scheduler import (Request, compile_sched_steps,
                                               make_workload, serve_lockstep,
@@ -2136,7 +2199,6 @@ def schedule_phase(card, packed):
     from repro_torch.launch.serve import compile_serve_steps, serve_requests
     from repro_torch.models import get_model
 
-    cfg = get_config("llama2-7b")
     model = get_model(cfg)
     V = cfg.vocab_size
     reqs = make_workload(V, **SCHED_WORKLOAD)
@@ -2466,12 +2528,13 @@ def schedule_parity_phase():
 # --------------------------------------------------------------------------
 
 MOE_ARCH = "qwen3-moe-30b-a3b"
-MOE_LAYERS = 16         # depth cut from 48 (one card); widths are published
+MOE_LAYERS = 8          # depth cut from 48 (one card, and the run's time
+#                         limit since PR 26: 16 before); widths are published
 MOE_CAL_SAMPLES = 8
 
 
 def moe_serve_phase(card):
-    """Phase 8: RTN W2A16g128 + pack at full width, depth 16, then
+    """Phase 8: RTN W2A16g128 + pack at full width, depth MOE_LAYERS, then
     ``serve_requests`` on ``"pallas"`` with exact launch counts and the
     teacher-forced ``"xla"`` check."""
     from repro_torch.configs import get_config
@@ -3624,10 +3687,11 @@ def big_train_phase(card):
                       for k, v in out.items()}, "attention": attn}
 
 
-def _load_quickstart():
+def _load_example(name):
+    """``examples/<name>.py`` as a module."""
     import importlib.util
-    path = os.path.join(HERE, "examples", "quickstart_torch.py")
-    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    path = os.path.join(HERE, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3639,7 +3703,7 @@ def quickstart_phase(card):
     through ``quant_matmul`` within PPL_REL of the fake-quant model's, and
     exact launches."""
     from repro_torch.kernels import build
-    qs = _load_quickstart()
+    qs = _load_example("quickstart_torch")
     build.reset_launch_counts()
     res = qs.main(["--device", "cuda"])
     torch.cuda.synchronize()
@@ -3721,14 +3785,15 @@ def train_phase(card):
 # host-loop calibration engines
 # --------------------------------------------------------------------------
 
-# each arch at its published widths and the depth that fits one card in
-# bf16 beside the RTN walk's copy of the block stack (None: full depth):
-# Mistral-7B whole (~14.5 GB); Command-R-35B 4 of 40 layers (8.4 GB of
-# embedding and head, 1.41 GB a layer); LLaMA-3-405B 2 of 126 (8.4 GB +
-# 6.4 GB a layer); Moonlight-16B-A3B 16 of 48 (~19.6 GB; 28.06B params in
-# all, ~56 GB, so not whole beside the walk's copy)
-ARCH_DEPTHS = (("mistral-7b", None), ("command-r-35b", 4),
-               ("llama3-405b", 2), ("moonshot-v1-16b-a3b", 16))
+# each arch at its published widths and a depth that fits one card in bf16
+# beside the RTN walk's copy of the block stack, and since PR 26 the run's
+# time limit (None: full depth): Mistral-7B 16 of 32 layers (whole, ~14.5
+# GB, before); Command-R-35B 4 of 40 layers (8.4 GB of embedding and head,
+# 1.41 GB a layer); LLaMA-3-405B 2 of 126 (8.4 GB + 6.4 GB a layer);
+# Moonlight-16B-A3B 8 of 48 (16 before; 28.06B params in all, ~56 GB, so
+# not whole beside the walk's copy)
+ARCH_DEPTHS = (("mistral-7b", 16), ("command-r-35b", 4),
+               ("llama3-405b", 2), ("moonshot-v1-16b-a3b", 8))
 # which of them also run the scheduler (phase 7's workload on both stores)
 # and one calibration: (depth, K, T, samples); Mistral's two blocks at a
 # shortened schedule, one block of Command-R (soft_round at 8192 x 22528)
@@ -3752,8 +3817,9 @@ ARCH_CAL = {"mistral-7b": (2, 5, 10, 8), "command-r-35b": (1, 4, 5, 8),
 # O(1) of their largest.
 KV_REL = 5e-2
 KV_REL_DEEP = 1e-1
-# the engines on phase 5's block at depth 2, a short schedule
-ENGINE_K, ENGINE_T = 3, 10
+# the engines on phase 5's block, at depth 1 since PR 26 (the run's time
+# limit: the host-loop engines took ~70 s at depth 2), a short schedule
+ENGINE_K, ENGINE_T, ENGINE_LAYERS = 3, 10, 1
 METHOD_HOST_STEPS = 20
 # the legacy host loop against the device engine on the card, in f32: its
 # one batched backward and the canonical per-sample lanes take different
@@ -3807,6 +3873,9 @@ def build_packed(arch, layers, tag, quant="W2A16g128"):
                           global_batch=4, seed=0)
     calib = [{"tokens": torch.as_tensor(b["tokens"][:, :-1], device="cuda")}
              for b in calibration_batches(data_cfg, 2, 1)]
+    if cfg.family == "vlm":
+        calib = [dict(b, patches=seeded_patches(cfg, len(b["tokens"]), i))
+                 for i, b in enumerate(calib)]
     t0 = time.perf_counter()
     pfq, qmeta, report = quantize_model(cfg, params, calib, qcfg,
                                         method="none", init="rtn")
@@ -4165,7 +4234,7 @@ def _differ(a, b, keys):
 
 
 def engines_phase(card):
-    """Phase 16 (f): AWQ + TesseraQ on phase 5's LLaMA-2-7B at depth 2 in
+    """Phase 16 (f): AWQ + TesseraQ on phase 5's LLaMA-2-7B at depth 1 in
     f32 (K=3, T=10) on the ``"device"``, ``"reference"`` and ``"legacy"``
     engines, with ms per Soften step (hardens and host transfers included)
     and host syncs per PAR iteration of each: the reference engine's codes,
@@ -4188,7 +4257,7 @@ def engines_phase(card):
     tag = "engines"
     # in f32, where the engines' results are comparable (in bf16 a batch of
     # 4 and 4 single samples round the block's products apart)
-    cfg = get_config("llama2-7b").replace(num_layers=CAL_LAYERS,
+    cfg = get_config("llama2-7b").replace(num_layers=ENGINE_LAYERS,
                                           dtype="float32")
     params = get_model(cfg).init_params(0, "cuda")
     qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
@@ -4213,8 +4282,8 @@ def engines_phase(card):
         syncs = RE.sync_count()
         counts = dict(build.LAUNCHES)
         want = {k: 0 for k in build.KERNELS}
-        want.update({"soft_round_fwd": 7 * steps * CAL_LAYERS,
-                     "soft_round_bwd": 7 * steps * CAL_LAYERS})
+        want.update({"soft_round_fwd": 7 * steps * ENGINE_LAYERS,
+                     "soft_round_bwd": 7 * steps * ENGINE_LAYERS})
         if counts != want:
             fail(f"{tag} {engine}: launches {counts}, expected {want}")
         total = {k: total[k] + counts[k] for k in total}
@@ -4224,7 +4293,7 @@ def engines_phase(card):
         print(f"[{tag}] {engine}: ms per Soften step (hardens and host "
               f"transfers included) " + "/".join(f"{m:.3f}" for m in ms)
               + f"; host syncs {syncs} "
-              f"({syncs / (ENGINE_K * CAL_LAYERS):.1f} per PAR iteration); "
+              f"({syncs / (ENGINE_K * ENGINE_LAYERS):.1f} per PAR iteration); "
               f"recon_mse " + "/".join(f"{m:.6g}" for m in mses[engine])
               + f"; launches {counts}; card=[{card}]", flush=True)
     n = sum(m.numel() for m in (v["codes"] for v in metas["device"].values()))
@@ -4317,6 +4386,371 @@ def new_configs_phase(card):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 17: the VLM, RWKV and hybrid families (PaliGemma-3B, RWKV6-3B,
+# Zamba2-1.2B) at published widths and full depth
+# --------------------------------------------------------------------------
+
+# RWKV6-3B and Zamba2-1.2B: lock-step 4 x (128 + 16), phase 7's workload on
+# both stores and a profiled decode step; PaliGemma-3B scheduled only (the
+# serve loop feeds tokens alone, as the reference's): 8 slots, 16 seeded
+# requests of 256 patches + 16..128 prompt tokens, 4..32 generated
+FAMILY_SERVED = ("rwkv6-3b", "zamba2-1.2b")
+VLM_ARCH = "paligemma-3b"
+VLM_WORKLOAD = dict(n_requests=16, seed=0, prompt_lens=(16, 128),
+                    budgets=(4, 32), mean_gap=2.0)
+VLM_FORCED = 4          # requests teacher-forced against "xla"
+PATCH_STD = 0.1
+# AWQ + TesseraQ (K=3, T=10), 8 samples of 512 positions (PaliGemma: 256
+# patches + 256 tokens) at these depths: two RWKV6 and two PaliGemma
+# blocks, Zamba2 cut to its first segment (six mamba stages, then the
+# shared block's first site)
+FAMILY_CAL = (("rwkv6-3b", 2), ("paligemma-3b", 2), ("zamba2-1.2b", 6))
+FAMILY_K, FAMILY_T = 3, 10
+CAL_SAMPLES_F = 8
+# The teacher-forced "xla" check's limit per family.  At W2 on these
+# random-weight groups the zero point is 1 or 2, so |code - zero| <= 2 and
+# the "xla" path's bf16 dequantization is exact, equal to the kernels'
+# rounded-once one; what is left is the f32 summation order of the kernels
+# against cuBLAS, amplified by the model.  The card read (PERF.md §6, PR 26)
+# PaliGemma-3B 0.0170, held to phase 3's REL_L2; RWKV6-3B 0.0514 and
+# Zamba2-1.2B 0.0710 at full depth (32 and 38 recurrent layers), held to
+# 0.1, while the same two at FAMILY_CONTROL_LAYERS layers are held to
+# REL_L2.  A wrong kernel moves the logits by O(1) of their norm, and phase
+# 2 holds each kernel to its plain version at these widths.
+FAMILY_REL_L2 = {"rwkv6-3b": 0.1, "zamba2-1.2b": 0.1, VLM_ARCH: REL_L2}
+FAMILY_CONTROL_LAYERS = 6
+
+
+def seeded_patches(cfg, n, seed):
+    """(n, num_patches, d_model) stub SigLIP embeddings, N(0, PATCH_STD)
+    from ``seed``, in the model's dtype on the card."""
+    from repro_torch.models.transformer import model_dtype
+    rng = np.random.default_rng(1000 + seed)
+    p = rng.normal(size=(n, cfg.num_patches, cfg.d_model)) * PATCH_STD
+    return torch.as_tensor(p, dtype=torch.float32,
+                           device="cuda").to(model_dtype(cfg))
+
+
+def family_serve_phase(arch, card):
+    """(a) / (b): ``arch`` whole, RTN W2A16g128 + pack; lock-step with exact
+    launches and the teacher-forced ``"xla"`` check; phase 7's workload on
+    both stores (exact launches, equal tokens); a profiled scheduled decode
+    step.  Returns (summed counts, {"lockstep_ms", "profile"})."""
+    from repro_torch.launch.scheduler import compile_sched_steps, \
+        make_workload
+    tag = f"families {arch}"
+    cfg, model, packed, prompts = build_packed(arch, None, tag)
+    counts, res = lockstep_phase(tag, cfg, model, packed, prompts, card)
+    rel = teacher_forced_check(tag, cfg, model, packed, prompts, res,
+                               limit=FAMILY_REL_L2[arch])
+    reqs = make_workload(cfg.vocab_size, **SCHED_WORKLOAD)
+    width = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    max_seq = width + (-width) % SCHED_PSZ
+    steps = {store: compile_sched_steps(
+        cfg, max_seq=max_seq, kernel_backend="pallas",
+        page_size=SCHED_PSZ if store == "paged" else 0)
+        for store in ("dense", "paged")}
+    sched, runs = scheduled_pair(tag, cfg, packed, card, steps=steps)
+    prof = decode_profile(steps["dense"], packed, "dense", max_seq, card,
+                          tag=f"{tag} profile")
+    total = {k: counts[k] + sched[k] for k in counts}
+    out = {"lockstep_ms": res.decode_secs * 1e3 / (res.tokens.shape[1] - 1),
+           "rel_l2": rel, "profile": prof,
+           "sched_ms": {s: r.decode_secs * 1e3 / max(r.steps, 1)
+                        for s, r in runs.items()}}
+    del packed, res, runs, steps
+    _free()
+    # the control: the same widths at FAMILY_CONTROL_LAYERS layers, held to
+    # phase 3's limit
+    ctag = f"{tag} L={FAMILY_CONTROL_LAYERS}"
+    cfg, model, packed, prompts = build_packed(arch, FAMILY_CONTROL_LAYERS,
+                                               ctag)
+    c, res = lockstep_phase(ctag, cfg, model, packed, prompts, card)
+    out["rel_l2_control"] = teacher_forced_check(ctag, cfg, model, packed,
+                                                 prompts, res)
+    total = {k: total[k] + c[k] for k in total}
+    del packed, res
+    _free()
+    return total, out
+
+
+def vlm_requests(cfg):
+    """``VLM_WORKLOAD`` with each request's patches in ``extras``."""
+    import dataclasses
+    from repro_torch.launch.scheduler import make_workload
+    rng = np.random.default_rng(VLM_WORKLOAD["seed"] + 1)
+    return [dataclasses.replace(r, extras={"patches": (rng.normal(
+        size=(cfg.num_patches, cfg.d_model)) * PATCH_STD).astype(np.float32)})
+        for r in make_workload(cfg.vocab_size, **VLM_WORKLOAD)]
+
+
+def vlm_forced_check(tag, cfg, model, packed, res, reqs, max_seq, limit):
+    """The first ``VLM_FORCED`` requests' logits of a scheduled "pallas" run
+    against the "xla" steps fed the same patches, prompt and tokens, each
+    request alone: relative L2 over all their logits below ``limit``."""
+    from repro_torch.launch.steps import make_serve_steps
+    _, xpre, xdec = make_serve_steps(cfg, kernel_backend="xla")
+    got, ref = [], []
+    with torch.no_grad():
+        for r in reqs[:VLM_FORCED]:
+            rr = res.requests[r.rid]
+            toks = torch.as_tensor(rr["tokens"], dtype=torch.long,
+                                   device="cuda")
+            cache = model.init_cache(1, max_seq, device="cuda")
+            lg, cache = xpre(packed, {
+                "tokens": torch.as_tensor(r.prompt[None], dtype=torch.long,
+                                          device="cuda"),
+                "patches": torch.as_tensor(r.extras["patches"][None],
+                                           device="cuda")}, cache)
+            out = [lg]
+            pos = torch.tensor([cfg.num_patches + len(r.prompt)],
+                               dtype=torch.int32, device="cuda")
+            for j in range(r.max_new_tokens - 1):
+                lg, cache = xdec(packed, cache, toks[j:j + 1], pos)
+                pos = pos + 1
+                out.append(lg)
+            ref.append(torch.cat(out, 0).float().cpu().numpy())
+            got.append(rr["logits"])
+    got, ref = np.concatenate(got), np.concatenate(ref)
+    rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    agree = float((got.argmax(-1) == ref.argmax(-1)).mean())
+    print(f"[{tag}] teacher-forced xla reference over {len(got)} positions "
+          f"of {VLM_FORCED} requests: relative L2 {rel:.6g} (gate "
+          f"{limit}); argmax agreement {agree:.4f}", flush=True)
+    if not rel < limit:
+        fail(f"{tag}: logits differ from the xla backend by relative L2 "
+             f"{rel}")
+    return rel
+
+
+def vlm_schedule_phase(card):
+    """(c) PaliGemma-3B whole, RTN W2A16g128 + pack, through
+    ``serve_scheduled`` on both stores (8 slots, ``vlm_requests``): exact
+    launches, dense tokens == paged tokens; then the first ``VLM_FORCED``
+    requests with their logits, teacher-forced against "xla".  Returns the
+    summed counts."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.scheduler import (Request, compile_sched_steps,
+                                              serve_scheduled)
+    tag = f"families {VLM_ARCH}"
+    cfg, model, packed, _ = build_packed(VLM_ARCH, None, tag)
+    reqs = vlm_requests(cfg)
+    P = cfg.num_patches
+    width = P + max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    max_seq = width + (-width) % SCHED_PSZ
+    kw = dict(slots=SCHED_SLOTS, max_seq=max_seq, kernel_backend="pallas",
+              page_size=SCHED_PSZ, device="cuda")
+    attn = {"dense": "decode_attention", "paged": "paged_decode_attention"}
+    warm = [Request(0, reqs[0].prompt[:24], 3, extras=reqs[0].extras),
+            Request(1, reqs[1].prompt[:40], 2, arrival=1,
+                    extras=reqs[1].extras)]
+    runs, total = {}, {k: 0 for k in build.KERNELS}
+    for store in ("dense", "paged"):
+        steps = compile_sched_steps(cfg, max_seq=max_seq,
+                                    kernel_backend="pallas",
+                                    page_size=SCHED_PSZ if store == "paged"
+                                    else 0)
+        serve_scheduled(cfg, packed, warm, store=store, compiled=steps, **kw)
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = serve_scheduled(cfg, packed, reqs, store=store, compiled=steps,
+                              **kw)
+        counts = dict(build.LAUNCHES)
+        want = expected_launches(cfg, prefill_calls(res, reqs, extra=P),
+                                 res.steps, attn[store], "decode_attention")
+        print(f"[{tag}] {store}: {len(reqs)} requests of {P} patches + "
+              f"{VLM_WORKLOAD['prompt_lens']} tokens, {res.steps} decode "
+              f"steps, occupancy {res.occupancy:.4f}, prefill "
+              f"{res.prefill_secs:.3f}s, decode {res.decode_secs:.3f}s "
+              f"({res.decode_secs * 1e3 / max(res.steps, 1):.3f} ms/step, "
+              f"{res.decode_tok_s:.2f} useful tok/s); cache "
+              f"{res.cache_stats['cache_bytes']} B; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
+              f"{counts}; card=[{card}]", flush=True)
+        if counts != want:
+            fail(f"{tag} {store}: launches {counts}, expected {want}")
+        runs[store] = res
+        total = {k: total[k] + counts[k] for k in total}
+    if not same_tokens(runs["dense"], runs["paged"], reqs):
+        fail(f"{tag}: paged tokens differ from dense")
+    forced = serve_scheduled(cfg, packed, reqs[:VLM_FORCED], store="dense",
+                             collect_logits=True, **kw)
+    if not same_tokens(forced, runs["dense"], reqs[:VLM_FORCED]):
+        print(f"[{tag}] note: the logit-collecting run's tokens differ from "
+              f"the full workload's (other slots live)", flush=True)
+    rel = vlm_forced_check(tag, cfg, model, packed, forced, reqs, max_seq,
+                           FAMILY_REL_L2[VLM_ARCH])
+    out = {"sched_ms": {s: r.decode_secs * 1e3 / max(r.steps, 1)
+                        for s, r in runs.items()}, "rel_l2": rel}
+    del packed, runs, forced
+    _free()
+    return total, out
+
+
+def family_calibrate_phase(arch, layers, card):
+    """(d) AWQ + TesseraQ (FAMILY_K, FAMILY_T) on ``arch`` at its widths and
+    ``layers`` layers, ``CAL_SAMPLES_F`` x 512 positions; the AWQ-only walk
+    beside it: every calibrated block's recon_mse below AWQ's; pack;
+    packed perplexity within ``PPL_REL`` of fake-quant; exact launches
+    (``soft_round`` once a leaf and Soften step, ``quant_matmul`` in the
+    packed perplexity).  Returns the counts and the per-block numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.blocks import build_stages, quant_leaf_paths
+    from repro_torch.core.pipeline import pack_model, quantize_model
+    from repro_torch.core.tesseraq import TesseraQConfig
+    from repro_torch.data.pipeline import (DataConfig, calibration_batches,
+                                           eval_batches)
+    from repro_torch.eval.ppl import perplexity
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.models import get_model
+
+    tag = f"families {arch} calibrate"
+    cfg = get_config(arch).replace(num_layers=layers)
+    model = get_model(cfg)
+    P = cfg.num_patches if cfg.family == "vlm" else 0
+    qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
+    tcfg = TesseraQConfig(par_iterations=FAMILY_K,
+                          steps_per_iteration=FAMILY_T, batch_size=CAL_BS)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=CAL_SEQ - P,
+                          global_batch=CAL_BS, seed=0)
+
+    def with_patches(bs, seed0):
+        out = []
+        for i, b in enumerate(bs):
+            b = {"tokens": torch.as_tensor(b["tokens"], device="cuda")}
+            if P:
+                b["patches"] = seeded_patches(cfg, len(b["tokens"]),
+                                              seed0 + i)
+            out.append(b)
+        return out
+
+    calib = with_patches([{"tokens": b["tokens"][:, :-1]} for b in
+                          calibration_batches(data_cfg,
+                                              CAL_SAMPLES_F // CAL_BS,
+                                              CAL_BS)], 0)
+    evalb = with_patches(eval_batches(data_cfg, EVAL_BATCHES, CAL_BS), 100)
+    params = model.init_params(0, "cuda")
+    stages = build_stages(cfg)
+    leaves = sum(len(quant_leaf_paths(st.get_block(params, i)))
+                 for st in stages if st.calibrate for i in range(st.n_blocks))
+    _, _, rep_awq = quantize_model(cfg, params, calib, qcfg, method="none",
+                                   init="awq", tcfg=tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    pfq, qmeta, report = quantize_model(cfg, params, calib, qcfg,
+                                        method="tesseraq", init="awq",
+                                        tcfg=tcfg)
+    packed = pack_model(cfg, pfq, qmeta, qcfg)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ppl_packed = perplexity(cfg, packed, evalb, backend="pallas")
+    ppl_fq = perplexity(cfg, pfq, evalb, backend="pallas")
+    counts = dict(build.LAUNCHES)
+    per, _, _ = family_launches(cfg)
+    want = {k: 0 for k in build.KERNELS}
+    want.update({"quant_matmul": per * EVAL_BATCHES,
+                 "soft_round_fwd": leaves * FAMILY_K * FAMILY_T,
+                 "soft_round_bwd": leaves * FAMILY_K * FAMILY_T})
+    blocks = []
+    for b, a in zip(report["blocks"], rep_awq["blocks"], strict=True):
+        losses = [e["loss"] for e in b["log"]]
+        step_ms = b["recon_secs"] * 1e3 / (FAMILY_K * FAMILY_T)
+        print(f"[{tag}] {b['stage']} {b['block']}: recon_mse "
+              f"{b['recon_mse']:.6g} (AWQ {a['recon_mse']:.6g}); PAR loss "
+              f"first {losses[0]:.6g} last {losses[-1]:.6g}; {b['secs']:.3f}s "
+              f"(reconstruction {b['recon_secs']:.3f}s, {step_ms:.3f} ms per "
+              f"Soften step incl. hardens)", flush=True)
+        if (b["stage"], b["block"]) != (a["stage"], a["block"]):
+            fail(f"{tag}: walks differ in their blocks")
+        if not all(np.isfinite(losses)) or not np.isfinite(b["recon_mse"]):
+            fail(f"{tag}: non-finite loss in {b['stage']} {b['block']}")
+        if not b["recon_mse"] < a["recon_mse"]:
+            fail(f"{tag}: {b['stage']} recon_mse {b['recon_mse']} not below "
+                 f"AWQ's {a['recon_mse']}")
+        blocks.append({"stage": b["stage"], "secs": b["secs"],
+                       "step_ms": step_ms, "recon_mse": b["recon_mse"],
+                       "awq_mse": a["recon_mse"]})
+    print(f"[{tag}] {cfg.name} L={layers}, K={FAMILY_K} T={FAMILY_T}, "
+          f"{CAL_SAMPLES_F} x {CAL_SEQ} positions ({P} patches): walk + pack "
+          f"{t_cal:.3f}s, peak {peak / 1e9:.3f} GB; perplexity packed "
+          f"{ppl_packed:.6g} fake-quant {ppl_fq:.6g}; launches {counts}; "
+          f"card=[{card}]", flush=True)
+    if counts != want:
+        fail(f"{tag} launch counts {counts}, expected {want}")
+    if not (np.isfinite(ppl_packed) and np.isfinite(ppl_fq)
+            and abs(ppl_packed - ppl_fq) <= PPL_REL * ppl_fq):
+        fail(f"{tag}: packed perplexity {ppl_packed} vs fake-quant {ppl_fq}")
+    del params, pfq, qmeta, packed
+    _free()
+    return counts, {"blocks": blocks, "secs": t_cal, "peak_gb": peak / 1e9}
+
+
+def every_family_phase(card):
+    """(e) ``examples/quantize_every_family_torch.py`` on the card: TesseraQ
+    within 2% of AWQ's mean recon_mse or below on every family (the
+    example's own mark), ``soft_round`` once a leaf and Soften step."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.blocks import build_stages, quant_leaf_paths
+    from repro_torch.kernels import build
+    from repro_torch.models import get_model
+    ex = _load_example("quantize_every_family_torch")
+    leaves = 0
+    for arch in ex.ARCHS:
+        cfg = get_reduced_config(arch)
+        params = get_model(cfg).init_params(0, "cuda")
+        leaves += sum(len(quant_leaf_paths(st.get_block(params, i)))
+                      for st in build_stages(cfg) if st.calibrate
+                      for i in range(st.n_blocks))
+    build.reset_launch_counts()
+    res = ex.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)
+    n = leaves * 3 * 12             # the example's K = 3, T = 12
+    want = {k: 0 for k in build.KERNELS}
+    want.update(soft_round_fwd=n, soft_round_bwd=n)
+    print(f"[every-family] {res}; launches {counts}; card=[{card}]",
+          flush=True)
+    if counts != want:
+        fail(f"every-family launch counts {counts}, expected {want}")
+    for arch, r in res.items():
+        if not r["tesseraq"] <= r["awq"] * 1.02:
+            fail(f"every-family {arch}: TesseraQ {r['tesseraq']} vs AWQ "
+                 f"{r['awq']}")
+    return counts, res
+
+
+def families_phase(card):
+    """Phase 17: (a) RWKV6-3B and (b) Zamba2-1.2B served, (c) PaliGemma-3B
+    scheduled, (d) the three calibrated, (e) the every-family example,
+    each path's launches counted from 0.  Returns {part: counts} and the
+    numbers."""
+    from repro_torch.kernels import build
+    out, nums, t = {}, {}, [time.perf_counter()]
+    for arch in FAMILY_SERVED:
+        out[arch], nums[arch] = family_serve_phase(arch, card)
+        t.append(time.perf_counter())
+    out[VLM_ARCH], nums[VLM_ARCH] = vlm_schedule_phase(card)
+    t.append(time.perf_counter())
+    cal = {k: 0 for k in build.KERNELS}
+    for arch, layers in FAMILY_CAL:
+        c, nums[f"{arch} calibrate"] = family_calibrate_phase(arch, layers,
+                                                              card)
+        cal = {k: cal[k] + c[k] for k in cal}
+    out["calibrate"] = cal
+    t.append(time.perf_counter())
+    out["example"], nums["example"] = every_family_phase(card)
+    t.append(time.perf_counter())
+    print(f"[time] phase 17: (a) rwkv6 {t[1] - t[0]:.1f}s, (b) zamba2 "
+          f"{t[2] - t[1]:.1f}s, (c) paligemma {t[3] - t[2]:.1f}s, (d) "
+          f"calibrate {t[4] - t[3]:.1f}s, (e) example {t[5] - t[4]:.1f}s",
+          flush=True)
+    return out, nums
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4350,8 +4784,13 @@ def main():
     parity_phase()
     print(f"[time] serve + parity {time.perf_counter() - t0:.1f}s",
           flush=True)
+    del packed
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    sched_counts, _ = schedule_phase(card, packed)
+    sched_cfg, _, packed, _ = build_packed("llama2-7b", SCHED_LAYERS,
+                                           "schedule")
+    sched_counts, _ = schedule_phase(card, packed, sched_cfg)
     del packed
     gc.collect()
     torch.cuda.empty_cache()
@@ -4411,6 +4850,11 @@ def main():
     new_counts = new_configs_phase(card)
     print(f"[time] configs, int8 KV cache, engines "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fam_counts, _ = families_phase(card)
+    print(f"[time] families {time.perf_counter() - t0:.1f}s", flush=True)
 
     sources = {"quant_matmul": "src/repro/kernels/quant_matmul.py:146",
                "quant_gemv": "src/repro/kernels/quant_gemv.py:120",
@@ -4490,7 +4934,9 @@ def main():
                    "train": train_counts[name],
                    "configs": new_counts["configs"][name],
                    "kv_int8": new_counts["kv_int8"][name],
-                   "engines": new_counts["engines"][name]}
+                   "engines": new_counts["engines"][name],
+                   **{f"families {part}": c[name]
+                      for part, c in fam_counts.items()}}
         if name.startswith("soft_round"):
             nums = summarize_soft_round(recs["soft_round"], name[-3:])
             nums["moe"] = summarize_soft_round(recs["soft_round"], name[-3:],

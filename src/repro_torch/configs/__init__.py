@@ -1,13 +1,16 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_reduced_config(arch_id)``.
 
 The port's own copy of the reference registry, holding every architecture
-of the two families the port runs: the dense llama family (TinyLlama-1.1B,
-LLaMA-2-7B, Mistral-7B, Command-R-35B, LLaMA-3-405B, SmolLM-135M) and the
-MoE family (Qwen3-30B-A3B, Moonlight-16B-A3B).  Every architecture lives in
-its own module exposing ``CONFIG`` (the exact published shape) and
-``reduced()`` (a tiny same-family config for CPU tests), each a copy of the
-reference's.  The encoder-decoder, SSM, RWKV, hybrid and VLM architectures
-arrive with their model code (ROADMAP queue 1, "Remaining families").
+of the families the port runs: the dense llama family (TinyLlama-1.1B,
+LLaMA-2-7B, Mistral-7B, Command-R-35B, LLaMA-3-405B, SmolLM-135M), the MoE
+family (Qwen3-30B-A3B, Moonlight-16B-A3B), the VLM (PaliGemma-3B: a gemma
+decoder over a patch-embedding prefix), RWKV6-3B (linear attention with
+data-dependent decay) and the hybrid Zamba2-1.2B (a Mamba2 backbone with
+one shared attention block).  Every architecture lives in its own module
+exposing ``CONFIG`` (the exact published shape) and ``reduced()`` (a tiny
+same-family config for CPU tests), each a copy of the reference's.  The
+encoder-decoder (whisper-small) arrives with its model code (ROADMAP queue
+1, "Remaining families").
 """
 from __future__ import annotations
 
@@ -26,6 +29,9 @@ ARCH_IDS = (
     "command-r-35b",
     "llama3-405b",
     "moonshot-v1-16b-a3b",
+    "paligemma-3b",
+    "rwkv6-3b",
+    "zamba2-1.2b",
 )
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

@@ -4,8 +4,12 @@ An architecture is an ordered list of *stages*; each stage is a run of
 structurally identical blocks.  The calibration walk
 (``core/pipeline.quantize_model``) goes block by block: it collects the
 block's inputs X and FP outputs block(theta, X), quantizes the block, and
-writes it back.  The families ``dense`` and ``moe`` are one stage of
-decoder blocks each; the other families arrive with their model code
+writes it back.  The families ``dense``, ``moe`` and ``vlm`` are one stage
+of decoder blocks (the VLM's stream starts from the patches and the
+gemma-scaled tokens, under the prefix-LM mask), ``rwkv`` one stage of RWKV
+blocks, and ``hybrid`` one stage a block in forward order: the mamba
+layers with the shared attention block at each of its sites, calibrated at
+its first site only.  The encoder-decoder arrives with its model code
 (ROADMAP queue 1, "Remaining families").
 """
 from __future__ import annotations
@@ -16,16 +20,17 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, rwkv, ssm, transformer, vlm
 from repro_torch.models.common import Ctx, DEFAULT_CTX, take_layer
 
-# Leaf names that are quantizable linear weights of the dense and MoE
-# families (the reference adds the rwkv and mamba names with those
-# families); MoE expert weights reuse the dense names under "moe", with a
-# leading expert dim.  Everything else (norms, the f32 router, embeddings,
-# the head) stays as it is.
+# Leaf names that are quantizable linear weights; MoE expert weights reuse
+# the dense names under "moe", with a leading expert dim.  Everything else
+# (norms, the f32 router, conv kernels, the decay LoRA, token-shift mixers,
+# embeddings, the head) stays as it is.
 QUANT_LEAF_NAMES = frozenset({
     "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+    "wr", "wg", "ck", "cv", "cr",                 # rwkv time/channel mix
+    "in_proj", "out_proj",                        # mamba2
 })
 
 
@@ -66,8 +71,12 @@ class Stage:
     n_blocks: int
     get_block: Callable            # (params, i) -> block params
     set_block: Callable            # (params, i, bp) -> params
-    init_x: Callable               # (params, batch) -> (B, S, d) stream
+    init_x: Callable               # (params, batch) -> (B, S, d) stream,
+    #                                or None: continue the running stream
     apply: Callable                # (bp, x) -> x
+    # False: the walk only advances the streams through the block (the
+    # hybrid's shared block after its first site)
+    calibrate: bool = True
     # (param_key, layer_idx) a block maps to in the stacked param storage —
     # used by pack_model to assemble stacked QTensors
     pack_target: Callable = lambda i: ("blocks", i)
@@ -94,18 +103,79 @@ def _stacked_getset(key):
 
 
 def build_stages(cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX) -> list:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"build_stages: family {cfg.family!r} is not ported yet "
-            "(ROADMAP queue 1, 'Remaining families')")
+    fam = cfg.family
+
+    if fam in ("dense", "moe", "vlm"):
+        prefix = cfg.num_patches if fam == "vlm" else None
+
+        def init_x(params, batch):
+            if fam == "vlm":
+                return vlm.assemble_inputs(params, cfg,
+                                           vlm.patches_of(batch),
+                                           batch["tokens"])
+            return transformer.embed_tokens(params, cfg, batch["tokens"])
+
+        def apply(bp, x):
+            pos = torch.arange(x.shape[1], device=x.device)
+            out, _ = transformer.block(bp, x, cfg, ctx, positions=pos,
+                                       prefix_len=prefix)
+            return out
+
+        get, set_ = _stacked_getset("blocks")
+        return [Stage("decoder", cfg.num_layers, get, set_, init_x, apply)]
+
+    if fam == "rwkv":
+        def init_x(params, batch):
+            return params["embed"][batch["tokens"]]
+
+        def apply(bp, x):
+            return rwkv.block(bp, x, cfg, ctx)[0]
+
+        get, set_ = _stacked_getset("blocks")
+        return [Stage("rwkv", cfg.num_layers, get, set_, init_x, apply)]
+
+    if fam == "hybrid":
+        return _hybrid_stages(cfg, ctx)
+
+    raise NotImplementedError(
+        f"build_stages: family {fam!r} is not ported yet "
+        "(ROADMAP queue 1, 'Remaining families')")
+
+
+def _hybrid_stages(cfg: ModelConfig, ctx: Ctx) -> list:
+    """One stage a block, in forward order: the mamba layers, and after
+    each full segment the shared block.  The shared weights are calibrated
+    at their first site; later sites only advance the streams through the
+    (by then quantized) block.  Only the first stage starts a stream."""
+    get_mamba, set_mamba = _stacked_getset("blocks")
+    get_attn, set_attn = _stacked_getset("shared_attn")
+    shared = hybrid.shared_cfg(cfg)
 
     def init_x(params, batch):
-        return transformer.embed_tokens(params, cfg, batch["tokens"])
+        return params["embed"][batch["tokens"]]
 
-    def apply(bp, x):
+    def mamba_apply(bp, x):
+        return ssm.mamba_block(bp, x, cfg, ctx)[0]
+
+    def attn_apply(bp, x):
         pos = torch.arange(x.shape[1], device=x.device)
-        out, _ = transformer.block(bp, x, cfg, ctx, positions=pos)
-        return out
+        return transformer.block(bp, x, shared, ctx, positions=pos)[0]
 
-    get, set_ = _stacked_getset("blocks")
-    return [Stage("decoder", cfg.num_layers, get, set_, init_x, apply)]
+    stages = []
+    seen_attn = False
+    for (s, e, attn_after) in hybrid._segments(cfg):
+        for j in range(s, e):
+            stages.append(Stage(
+                f"mamba{j}", 1, (lambda j: lambda p, _: get_mamba(p, j))(j),
+                (lambda j: lambda p, _, bp: set_mamba(p, j, bp))(j),
+                init_x if not stages else (lambda p, b: None), mamba_apply,
+                pack_target=(lambda j: lambda _: ("blocks", j))(j)))
+        if attn_after:
+            site = sum(st.name.startswith("attn") for st in stages)
+            stages.append(Stage(
+                f"attn{site}", 1, lambda p, _: get_attn(p, 0),
+                lambda p, _, bp: set_attn(p, 0, bp), lambda p, b: None,
+                attn_apply, calibrate=not seen_attn,
+                pack_target=lambda _: ("shared_attn", 0)))
+            seen_attn = True
+    return stages

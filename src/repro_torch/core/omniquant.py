@@ -69,8 +69,8 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qcfg: QuantConfig, *,
                       seed: int = 0, log: Optional[list] = None,
                       engine: str = "device", cache: Optional[dict] = None):
     """LWC block reconstruction from the FP block.  X/Y: the block's
-    calibration streams on its device; ``aux`` must be None (dense and MoE
-    families).  ``engine`` is "device", "reference" or "legacy" (the two
+    calibration streams on its device; ``aux`` must be None (no ported
+    family has one: it is the encoder-decoder's).  ``engine`` is "device", "reference" or "legacy" (the two
     host-loop engines run the same loop here, as in the reference).
     ``cache`` (scoped by the caller to one stage) reuses the engine across
     the stage's blocks.  Log entries carry the loss of the last step of

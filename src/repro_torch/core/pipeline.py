@@ -13,6 +13,11 @@
      host-loop ``"reference"`` and ``"legacy"``), or keep the
      initialization (``method="none"``);
   4. write the fake-quantized block back and advance the streams.
+A stage whose ``init_x`` returns None continues the running streams (the
+hybrid's one-block stages), and a stage with ``calibrate=False`` only
+advances both streams through its block (the hybrid's shared block after
+its first site: through the block as already written back, as in the
+reference).
 
 The streams stay on the params' device; captures and forwards run over
 minibatches of ``capture.CAPTURE_MINIBATCH`` samples, as the reference's
@@ -84,7 +89,7 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
     choices, and with TesseraQ and SignRound the ``flips`` of the codes
     against the initialization's (``tesseraq.flip_stats``).  The caller's
     params are left as they are: the walk quantizes a private copy of the
-    block stack.
+    block stacks (``blocks``, and the hybrid's ``shared_attn``).
     """
     if method not in METHODS:
         raise ValueError(f"quantize_model: unknown method {method!r} "
@@ -98,14 +103,23 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
     tcfg = tcfg or tq_mod.TesseraQConfig()
     stages = build_stages(cfg, ctx)
     params_q = dict(params)
-    params_q["blocks"] = _clone_tree(params["blocks"])
+    for key in ("blocks", "shared_attn"):
+        if key in params:
+            params_q[key] = _clone_tree(params[key])
     qmeta_all: Dict = {}
     report = {"blocks": [], "method": method, "init": init, "qcfg": qcfg.tag}
 
+    def run(bp, stream):
+        return torch.cat([stage.apply(bp, x)
+                          for x in split_minibatches(stream)], 0)
+
+    X = X_fp = None
     with torch.no_grad():
         for stage in stages:
-            X = torch.cat([stage.init_x(params_q, b) for b in batches], 0)
-            X_fp = X
+            parts = [stage.init_x(params_q, b) for b in batches]
+            if parts[0] is not None:     # else: continue the running stream
+                X = torch.cat(parts, 0)
+                X_fp = X
             # the reconstruction engine is reused for every block of a stage
             recon_cache: Dict = {}
             for i in range(stage.n_blocks):
@@ -114,6 +128,12 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
                 # views into the walk's block stack: read them before
                 # set_block overwrites block i below
                 bp_fp = stage.get_block(params_q, i)
+                if not stage.calibrate:
+                    # advance both streams through the block as it stands
+                    X = run(bp_fp, X)
+                    X_fp = (X if input_source != "fp" or same_stream
+                            else run(bp_fp, X_fp))
+                    continue
                 src = X_fp if input_source == "fp" else X
                 src_parts = split_minibatches(src)
                 # FP targets block(theta_fp, src); in fp mode they are the
@@ -181,8 +201,7 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
                 if input_source == "quant" or same_stream:
                     X = torch.cat(out_q, 0)
                 else:
-                    X = torch.cat([stage.apply(bq, x)
-                                   for x in split_minibatches(X)], 0)
+                    X = run(bq, X)
                 X_fp = Y if input_source == "fp" else X
     return params_q, qmeta_all, report
 

@@ -70,7 +70,7 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qmeta: Dict,
     """Sign-SGD rounding optimization on one block.  ``qmeta`` supplies the
     (AWQ/RTN/GPTQ) scale/zero/act_scale initialization, exactly as for
     TesseraQ.  X/Y: the block's calibration streams on its device; ``aux``
-    must be None (dense and MoE families).  ``engine`` is "device",
+    must be None (no ported family has one: it is the encoder-decoder's).  ``engine`` is "device",
     "reference" or "legacy" (the two host-loop engines run the same loop
     here, as in the reference).  ``cache`` (scoped by the caller to one
     stage) reuses the engine across the stage's blocks.  Log entries carry

@@ -408,7 +408,7 @@ def reconstruct_block(apply: Callable, bp, X: torch.Tensor, Y: torch.Tensor,
 
     X: (N, S, d) inputs; Y: (N, S, d) FP outputs, both on the block's
     device; ``aux`` (the reference's per-sample extra stream) must be None
-    for the dense and MoE families.  Returns (bp_fq, qmeta') with
+    (no ported family has one: it is the encoder-decoder's).  Returns (bp_fq, qmeta') with
     DST folded into each linear's ``scale`` and the final hardened mask
     under ``hard``.  The inner loop runs on the engine ``tcfg.engine``
     names.  ``cache`` (a dict the caller scopes to one stage) reuses the

@@ -70,12 +70,13 @@ class Request:
 
     ``arrival`` is in scheduler-clock units (decode steps): the request is
     admissible once the scheduler has dispatched that many decode steps.
-    (The reference's ``extras``, the per-request inputs of its multimodal
-    families, arrives with those families.)"""
+    ``extras`` carries further per-request prefill inputs, unbatched:
+    ``patches`` (num_patches, d_model) for the VLM."""
     rid: int
     prompt: np.ndarray                  # (plen,) int32
     max_new_tokens: int
     arrival: int = 0
+    extras: Optional[Dict[str, np.ndarray]] = None
 
 
 def _push(host_arr: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -214,10 +215,10 @@ def make_workload(vocab_size: int, *, n_requests: int, seed: int,
 
 
 def _prefill_len(cfg: ModelConfig, req: Request) -> int:
-    """Cache positions a request's prefill consumes: its prompt (the
-    reference's VLMs add their image-patch prefix here; that family is not
-    ported)."""
-    return len(req.prompt)
+    """Cache positions a request's prefill consumes: its prompt, plus the
+    image-patch prefix for the VLM (the patches share the decoder cache)."""
+    extra = cfg.num_patches if cfg.family == "vlm" else 0
+    return len(req.prompt) + extra
 
 
 # per-configuration step sets: every run over the same (cfg, width, backend,
@@ -322,7 +323,7 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
         cstore = DenseCacheStore(model, slots=slots, max_seq=max_seq,
                                  device=dev)
     cache = cstore.cache
-    cdtype = next(iter(cache.values())).dtype
+    cdtype = cstore.dtype
     ptab_d = _push(cstore.ptab_h, dev) if paged else None
     # chunked prefill applies to chunkable families only; prefix sharing
     # additionally needs the paged store (pages are the sharing unit)
@@ -412,6 +413,8 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
                 # ---- whole prefill at full cache width --------------------
                 tp0 = time.perf_counter()
                 batch = {"tokens": prompt_tensor(req)}
+                for k, v in (req.extras or {}).items():
+                    batch[k] = _push(v[None], dev)
                 c1 = model.init_cache(1, max_seq, cdtype, dev)
                 lg1, c1 = steps_.prefill(params, batch, c1)
                 if paged:
@@ -430,7 +433,7 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
                 tp0 = time.perf_counter()
                 req, s = inflight["req"], inflight["slot"]
                 cur = inflight["cursor"]
-                plen = len(req.prompt)
+                plen = len(req.prompt)   # chunkable families: text only
                 end = min(cur + prefill_chunk, plen)
                 chunk = {"tokens": prompt_tensor(req, cur, end)}
                 if paged:

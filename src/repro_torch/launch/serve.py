@@ -5,8 +5,13 @@
 
 ``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS``: the dense
 llama configs (TinyLlama, LLaMA-2-7B, Mistral-7B, Command-R-35B,
-LLaMA-3-405B, SmolLM-135M) and the MoE ``qwen3-moe-30b-a3b`` and
-``moonshot-v1-16b-a3b``.
+LLaMA-3-405B, SmolLM-135M), the MoE ``qwen3-moe-30b-a3b`` and
+``moonshot-v1-16b-a3b``, ``rwkv6-3b``, ``zamba2-1.2b`` and
+``paligemma-3b``.  The CLI's batches carry tokens only, as the
+reference's do, so the VLM stops with a clear error where the reference's
+fails: at the calibration's first batch, or at the prefill with ``--method
+none`` (``serve_scheduled`` takes its patches per request in
+``Request.extras``).
 
 ``serve_requests`` is the uniform lock-step loop: one batch, one shared
 prompt length, a fixed ``gen`` for every row.  ``--slots N`` serves a
@@ -53,6 +58,7 @@ from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
                                        calibration_batches)
 from repro_torch.launch.steps import make_serve_steps
 from repro_torch.models import get_model
+from repro_torch.models.common import _nbytes
 
 _QUANT_RE = re.compile(r"W(\d+)A(\d+)(?:g(\d+))?$")
 
@@ -186,7 +192,7 @@ def serve_requests(cfg, model, params, prompts, *, gen: int,
                "arrival": 0, "admit_step": 0, "finish_step": gen - 1,
                "latency_steps": gen - 1}
            for b in range(B)}
-    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    cache_bytes = _nbytes(cache)
     return ServeResult(
         mode="uniform", store="dense", requests=res,
         slots=B, max_seq=max_seq, steps=gen - 1,

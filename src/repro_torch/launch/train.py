@@ -20,7 +20,9 @@ memory.  The last line before ``[train] done`` gives the first step's
 seconds (the process's one-time costs land there) and the wall-clock ms
 per later step, split into the host's batch synthesis, checkpoint saves and
 the rest (the steps and the log reads).  Runs on ``--device cuda``
-unless told otherwise.
+unless told otherwise.  ``--arch paligemma-3b`` stops at the first step
+with a clear error: the synthetic batches carry no patches, as the
+reference's do not.
 """
 from __future__ import annotations
 

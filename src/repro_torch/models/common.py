@@ -367,7 +367,7 @@ class DenseCacheStore:
     def __init__(self, model, *, slots: int, max_seq: int,
                  dtype=torch.bfloat16, device="cpu"):
         self.spec = model.cache_spec
-        self.slots, self.max_seq = slots, max_seq
+        self.slots, self.max_seq, self.dtype = slots, max_seq, dtype
         self.cache = model.init_cache(slots, max_seq, dtype, device)
         self.spec.validate(self.cache)
         self.ptab_h = None                  # no page table: dense lanes
@@ -419,7 +419,7 @@ class PagedCacheStore:
         if num_pages < 1:
             raise ValueError(f"need at least one page, got {num_pages}")
         self.spec = model.cache_spec
-        self.slots, self.max_seq = slots, max_seq
+        self.slots, self.max_seq, self.dtype = slots, max_seq, dtype
         self.page_size, self.num_pages = page_size, num_pages
         self.W = max_seq // page_size
         struct = model.init_cache(slots, max_seq, dtype, "meta")  # shapes only

@@ -112,15 +112,21 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # of every chunk's (Sq x C) scores and probabilities
 # --------------------------------------------------------------------------
 
-def _mask_for(idx, csz, q_pos, valid_len):
+def _mask_for(idx, csz, q_pos, valid_len, prefix_len=None):
+    """Causal mask of KV chunk ``idx``; with ``prefix_len`` the prefix-LM
+    mask (the VLM's image prefix attends bidirectionally): causal OR
+    ``k_pos < prefix_len``."""
     k_pos = idx * csz + torch.arange(csz, dtype=torch.float32,
                                      device=q_pos.device)
-    mask = k_pos[None, None, None, None, :] < valid_len[:, None, None, None, None]
-    return mask & (k_pos[None, None, None, None, :]
-                   <= q_pos[:, None, None, :, None])
+    k5 = k_pos[None, None, None, None, :]
+    mask = k5 < valid_len[:, None, None, None, None]
+    cm = k5 <= q_pos[:, None, None, :, None]
+    if prefix_len is not None:
+        cm = cm | (k5 < prefix_len)
+    return mask & cm
 
 
-def _flash_fwd(q, k, v, q_pos, valid_len):
+def _flash_fwd(q, k, v, q_pos, valid_len, prefix_len=None):
     """The online-softmax loop over KV chunks in plain ops.  q: (B,Hkv,G,Sq,D)
     f32 with the scale applied; k,v: (N,B,Hkv,C,D).  Returns (out f32, lse
     (B,Hkv,G,Sq)).  Differentiable as it stands (autograd then keeps every
@@ -132,7 +138,7 @@ def _flash_fwd(q, k, v, q_pos, valid_len):
     acc = torch.zeros((B, Hkv, G, Sq, D), device=q.device)
     for idx in range(k.shape[0]):
         s = torch.einsum("bhgqd,bhcd->bhgqc", q, k[idx].float())
-        mask = _mask_for(idx, csz, q_pos, valid_len)
+        mask = _mask_for(idx, csz, q_pos, valid_len, prefix_len)
         s = torch.where(mask, s, -1e30)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -153,9 +159,10 @@ class _FlashCore(torch.autograd.Function):
     chunks, dk and dv are per chunk (cast to k's and v's dtype)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, valid_len):
-        out, lse = _flash_fwd(q, k, v, q_pos, valid_len)
+    def forward(ctx, q, k, v, q_pos, valid_len, prefix_len):
+        out, lse = _flash_fwd(q, k, v, q_pos, valid_len, prefix_len)
         ctx.save_for_backward(q, k, v, q_pos, valid_len, out, lse)
+        ctx.prefix_len = prefix_len
         return out
 
     @staticmethod
@@ -168,20 +175,21 @@ class _FlashCore(torch.autograd.Function):
         for idx in range(k.shape[0]):
             kf, vf = k[idx].float(), v[idx].float()
             s = torch.einsum("bhgqd,bhcd->bhgqc", q, kf)
-            mask = _mask_for(idx, csz, q_pos, valid_len)
+            mask = _mask_for(idx, csz, q_pos, valid_len, ctx.prefix_len)
             p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
             dv.append(torch.einsum("bhgqc,bhgqd->bhcd", p, dout).to(v.dtype))
             dp = torch.einsum("bhgqd,bhcd->bhgqc", dout, vf)
             ds = p * (dp - delta[..., None])
             dq = dq + torch.einsum("bhgqc,bhcd->bhgqd", ds, kf)
             dk.append(torch.einsum("bhgqc,bhgqd->bhcd", ds, q).to(k.dtype))
-        return dq, torch.stack(dk), torch.stack(dv), None, None
+        return dq, torch.stack(dk), torch.stack(dv), None, None, None
 
 
-def _flash_core(q, k, v, q_pos, valid_len):
+def _flash_core(q, k, v, q_pos, valid_len, prefix_len=None):
     """q: (B,Hkv,G,Sq,D) f32 with the scale applied; k,v: (N,B,Hkv,C,D).
-    Causal (and ``valid_len``) masks only, as ``flash_attention``."""
-    return _FlashCore.apply(q, k, v, q_pos, valid_len)
+    The causal (or prefix-LM) and ``valid_len`` masks, as
+    ``flash_attention``."""
+    return _FlashCore.apply(q, k, v, q_pos, valid_len, prefix_len)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -189,17 +197,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     chunk: int = 512, scale: Optional[float] = None,
                     backend: Optional[str] = None,
                     active: Optional[torch.Tensor] = None,
-                    pages: Optional[tuple] = None) -> torch.Tensor:
-    """Chunked causal attention with GQA support (the dense and MoE families'
-    attention; the reference's non-causal and prefix-LM masks arrive with
-    the families that use them).
+                    pages: Optional[tuple] = None,
+                    prefix_len: Optional[int] = None) -> torch.Tensor:
+    """Chunked causal attention with GQA support (the reference's
+    non-causal mask arrives with the encoder-decoder).  ``prefix_len`` (a
+    Python int) makes it the prefix-LM mask of the VLM: positions below it
+    attend bidirectionally, causal OR ``k_pos < prefix_len``.
 
     q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) with Hq % Hkv == 0.
     ``q_offset``: absolute position of q[0] (int or (B,)) for causal masks
     during decode.  ``kv_len``: (B,) valid KV length (cache masking).
     ``backend``: for the Sq == 1 decode step, "pallas" runs the slot-aware
-    decode kernel (inactive slots in ``active`` come back zero); "xla" runs
-    the dense masked softmax.  Sq > 1 always runs the chunked online softmax
+    decode kernel (inactive slots in ``active`` come back zero) unless
+    ``prefix_len`` is set, as in the reference (decode never sets it);
+    "xla" runs the dense masked softmax.  Sq > 1 always runs the chunked online softmax
     in plain torch ops, with the recomputing backward (``_flash_core``).
 
     ``pages = (ptab, page_size)`` marks k/v as page POOLS (P, page_size,
@@ -215,7 +226,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else D ** -0.5
     dev = q.device
 
-    if (Sq == 1 and kv_len is not None
+    if (Sq == 1 and kv_len is not None and prefix_len is None
             and resolve_backend(backend) == "pallas"):
         from repro_torch.kernels import decode_attention as kernels
         q4 = q.reshape(B, Hkv, G, D).contiguous()
@@ -242,10 +253,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   else torch.full((B,), float(Sk), device=dev))
         s = torch.einsum("bhgqd,bshd->bhgqs", qf, k.float())
         k_pos = torch.arange(Sk, dtype=torch.float32, device=dev)
-        mask = ((k_pos[None, None, None, None, :]
-                 < valid1[:, None, None, None, None])
-                & (k_pos[None, None, None, None, :]
-                   <= q_pos1[:, None, None, :, None]))
+        k5 = k_pos[None, None, None, None, :]
+        cm = k5 <= q_pos1[:, None, None, :, None]
+        if prefix_len is not None:
+            cm = cm | (k5 < prefix_len)
+        mask = (k5 < valid1[:, None, None, None, None]) & cm
         s = torch.where(mask, s, -1e30)
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bhgqs,bshd->bhgqd", p, v.float())
@@ -273,6 +285,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     valid_len = (kv_len.float() if kv_len is not None
                  else torch.full((B,), float(Sk), device=dev))
 
-    out = _flash_core(qf, kc, vc, q_pos, valid_len)
+    out = _flash_core(qf, kc, vc, q_pos, valid_len, prefix_len)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
     return out.to(q.dtype)

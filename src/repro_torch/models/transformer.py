@@ -1,6 +1,8 @@
-"""Decoder-only transformer: the dense llama family (tinyllama, llama2-7b)
-and, with a token-choice MoE FFN in place of the dense one, the MoE family
-(qwen3-moe-30b-a3b).
+"""Decoder-only transformer: the dense llama family (tinyllama, llama2-7b,
+...), with a token-choice MoE FFN in place of the dense one the MoE family
+(qwen3-moe-30b-a3b, moonshot-v1-16b-a3b), and the gemma backbone of the
+VLM (paligemma-3b: embeddings scaled by sqrt(d_model), and the prefix-LM
+mask over ``inputs_embeds`` from ``models/vlm.py``).
 
 Params are nested dicts of tensors with the block weights stacked along a
 leading layer axis, as in the reference; the layer loop is a Python loop
@@ -38,8 +40,9 @@ def _normal(gen, shape, scale, dtype, device):
 def init_block_params(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
                       device) -> dict:
     """Stacked (L, ...) decoder-block params; family ``moe`` holds its FFN
-    under ``"moe"`` (router + expert-stacked weights)."""
-    if cfg.family not in ("dense", "moe"):
+    under ``"moe"`` (router + expert-stacked weights); ``vlm`` is the dense
+    block."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
             "'Remaining families')")
@@ -92,7 +95,7 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
 
 def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
               positions, kv_cache=None, cache_pos=None, kv_len=None,
-              active=None, ptab=None):
+              prefix_len=None, active=None, ptab=None):
     """Self-attention with optional KV cache.  Returns (out, new_kv or None);
     the cache is written in place (see ``update_cache``).
 
@@ -155,7 +158,7 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
 
     o = L.flash_attention(q, attn_k, attn_v, q_offset=q_offset, kv_len=valid,
                           chunk=ctx.attn_chunk, backend=kb, active=active,
-                          pages=pages)
+                          pages=pages, prefix_len=prefix_len)
     o = o.reshape(Bb, S, cfg.num_heads * hd)
     if ctx.act_bits:
         o = L.fake_quant_act(o, ctx.act_bits)
@@ -179,10 +182,11 @@ def ffn(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
 
 def block(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX,
           *, positions, kv_cache=None, cache_pos=None, kv_len=None,
-          active=None, ptab=None):
+          prefix_len=None, active=None, ptab=None):
     a, new_kv = attention(bp, x, cfg, ctx, positions=positions,
                           kv_cache=kv_cache, cache_pos=cache_pos,
-                          kv_len=kv_len, active=active, ptab=ptab)
+                          kv_len=kv_len, prefix_len=prefix_len,
+                          active=active, ptab=ptab)
     x = x + a
     x = x + ffn(bp, x, cfg, ctx)
     return x, new_kv
@@ -193,7 +197,12 @@ def block(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX,
 # --------------------------------------------------------------------------
 
 def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
-    return params["embed"][tokens]
+    e = params["embed"][tokens]
+    if cfg.family == "vlm":
+        # gemma input scaling by sqrt(d_model) rounded to the embedding's
+        # dtype, as the reference's; a host scalar, so nothing syncs
+        e = e * torch.tensor(cfg.d_model ** 0.5, dtype=e.dtype).item()
+    return e
 
 
 def unembed(params, cfg: ModelConfig, x, ctx: Ctx = DEFAULT_CTX) -> torch.Tensor:
@@ -202,17 +211,22 @@ def unembed(params, cfg: ModelConfig, x, ctx: Ctx = DEFAULT_CTX) -> torch.Tensor
     return L.matmul(x, params["head"], ctx.kernel_backend)
 
 
-def forward(params, cfg: ModelConfig, tokens, ctx: Ctx = DEFAULT_CTX) -> torch.Tensor:
+def forward(params, cfg: ModelConfig, tokens, ctx: Ctx = DEFAULT_CTX, *,
+            inputs_embeds=None, prefix_len=None) -> torch.Tensor:
     """Training/prefill forward without cache.  Returns logits (B, S, V).
+    ``inputs_embeds`` (B, S, d) replaces the token embedding (the VLM's
+    patches + text); ``prefix_len`` turns on the prefix-LM mask.
 
     The layers are taken apart once (``unstack_layers``: one ``unbind`` per
     stacked leaf, so the backward stacks the layers' gradients once) and
     each runs through ``maybe_remat`` (``ctx.remat``)."""
-    x = embed_tokens(params, cfg, tokens)
+    x = (inputs_embeds if inputs_embeds is not None
+         else embed_tokens(params, cfg, tokens))
     positions = torch.arange(x.shape[1], device=x.device)
 
     def step(h, bp):
-        h, _ = block(bp, h, cfg, ctx, positions=positions)
+        h, _ = block(bp, h, cfg, ctx, positions=positions,
+                     prefix_len=prefix_len)
         return h
 
     step = maybe_remat(step, ctx)
@@ -224,9 +238,11 @@ def forward(params, cfg: ModelConfig, tokens, ctx: Ctx = DEFAULT_CTX) -> torch.T
 
 def loss_fn(params, cfg: ModelConfig, batch, ctx: Ctx = DEFAULT_CTX):
     """Next-token cross entropy in float32.  batch = {tokens, (optional)
-    loss_mask}; the forward runs on ``tokens[:, :-1]``."""
+    loss_mask, (optional) inputs_embeds}; the forward runs on
+    ``tokens[:, :-1]``."""
     tokens = batch["tokens"]
-    logits = forward(params, cfg, tokens[:, :-1], ctx)
+    logits = forward(params, cfg, tokens[:, :-1], ctx,
+                     inputs_embeds=batch.get("inputs_embeds"))
     targets = tokens[:, 1:].long()
     lw = batch.get("loss_mask")
     lw = (lw[:, 1:].to(torch.float32) if lw is not None
@@ -254,15 +270,18 @@ def _layer_cache(cache, i):
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, ctx: Ctx = DEFAULT_CTX, *,
-            start_pos: int = 0, ptab=None):
+            inputs_embeds=None, prefix_len=None, start_pos: int = 0,
+            ptab=None):
     """Fill the cache from position ``start_pos``; returns (last_logits,
     cache).  The cache is updated in place and returned.
 
     ``start_pos > 0`` resumes a chunked prefill: this call's tokens are
     positions [start_pos, start_pos + S) and attend causally over what
     earlier chunks wrote (plus themselves).  ``ptab`` (B, W) names the
-    pages of a paged cache."""
-    x = embed_tokens(params, cfg, tokens)
+    pages of a paged cache.  ``inputs_embeds`` and ``prefix_len`` as in
+    ``forward``."""
+    x = (inputs_embeds if inputs_embeds is not None
+         else embed_tokens(params, cfg, tokens))
     B, S = x.shape[:2]
     dev = x.device
     positions = start_pos + torch.arange(S, device=dev)
@@ -270,7 +289,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache, ctx: Ctx = DEFAULT_CTX, *,
     for i in range(cfg.num_layers):
         x, _ = block(take_layer(params["blocks"], i), x, cfg, ctx,
                      positions=positions, kv_cache=_layer_cache(cache, i),
-                     cache_pos=pos0, ptab=ptab)
+                     cache_pos=pos0, prefix_len=prefix_len, ptab=ptab)
     x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
     return unembed(params, cfg, x, ctx)[:, 0], cache
 

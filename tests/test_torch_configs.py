@@ -135,8 +135,12 @@ def test_config_equals_reference(arch):
 
 
 def test_arch_ids_are_the_references_dense_and_moe_archs():
+    """The port's ARCH_IDS are exactly the reference's archs of the ported
+    families: dense and MoE, and since the decoder-only slice also the
+    VLM, RWKV and hybrid families (only the encoder-decoder is left)."""
     want = {a for a in JARCH_IDS
-            if jget_config(a).family in ("dense", "moe")}
+            if jget_config(a).family in ("dense", "moe", "vlm", "rwkv",
+                                         "hybrid")}
     assert set(ARCH_IDS) == want and len(ARCH_IDS) == len(want)
 
 

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` nor
-``chip_smoke.py``/``chip_ab.py``/``examples/quickstart_torch.py`` imports
+``chip_smoke.py``/``chip_ab.py``/``examples/quickstart_torch.py``/
+``examples/quantize_every_family_torch.py`` imports
 jax or anything of the JAX package ``repro``."""
 import ast
 import os
@@ -15,7 +16,8 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "chip_ab.py"),
-           os.path.join(ROOT, "examples", "quickstart_torch.py")]
+           os.path.join(ROOT, "examples", "quickstart_torch.py"),
+           os.path.join(ROOT, "examples", "quantize_every_family_torch.py")]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -44,7 +46,9 @@ def _imports(path):
 def test_port_files_exist():
     files = _port_files()
     for script in ("chip_smoke.py", "chip_ab.py",
-                   os.path.join("examples", "quickstart_torch.py")):
+                   os.path.join("examples", "quickstart_torch.py"),
+                   os.path.join("examples",
+                                "quantize_every_family_torch.py")):
         assert os.path.exists(os.path.join(ROOT, script)), \
             f"{script} is missing"
     assert len(files) > 20
