@@ -77,7 +77,7 @@ Phases, each printing its own lines:
 6. calibration parity: the reduced llama2 config in f32 calibrated
    (AWQ + TesseraQ, K=3, T=15) on the card and, from the same params, on
    the CPU (plain versions): codes and hardened masks must agree;
-7. schedule: LLaMA-2-7B at its widths and ``SCHED_LAYERS`` (8) of 32
+7. schedule: LLaMA-2-7B at its widths and ``SCHED_LAYERS`` (4) of 32
    layers, RTN W2A16g128 + pack, served by the
    continuous-batching scheduler (``serve_scheduled``, 8 slots, 16 seeded
    requests with prompts of 16..384 tokens and budgets of 4..48) on the
@@ -88,7 +88,7 @@ Phases, each printing its own lines:
    one decode step's time goes on each store (``torch.profiler``); then
    the reduced llama2 config scheduled on the paged store on the card and
    on the CPU;
-8. MoE serve: Qwen3-30B-A3B at full width, depth cut to 8 of 48 layers
+8. MoE serve: Qwen3-30B-A3B at full width, depth cut to 4 of 48 layers
    (random weights from a seed), RTN-quantized to W2A16g128 and packed,
    served by ``serve_requests`` on ``"pallas"`` (4 requests x 128 prompt
    tokens, 16 generated); exact launch counts (3 expert-batched launches
@@ -153,8 +153,8 @@ Phases, each printing its own lines:
    the CPU from the same params; training itself launches no kernel;
 16. the rest of the two families, the int8 KV cache and the host-loop
    engines, at W2A16g128 from seeded weights, each model freed before the
-   next: (a)-(d) Mistral-7B at 16 of 32 layers, Command-R-35B at 4 of 40,
-   LLaMA-3-405B at 2 of 126 and Moonlight-16B-A3B at 8 of 48, each at
+   next: (a)-(d) Mistral-7B at 8 of 32 layers, Command-R-35B at 4 of 40,
+   LLaMA-3-405B at 2 of 126 and Moonlight-16B-A3B at 4 of 48, each at
    its published widths, RTN-packed and served lock-step 4 x (128 + 16)
    with exact launches and the teacher-forced ``"xla"`` check of phase 3;
    Mistral and Moonlight also scheduled on the dense and the paged store
@@ -188,8 +188,21 @@ Phases, each printing its own lines:
    Zamba2-1.2B cut to depth 6 (six mamba stages, then the shared block):
    every block below AWQ's recon_mse, packed perplexity within ``PPL_REL``
    of fake-quant; (e) ``examples/quantize_every_family_torch.py``;
-18. a JSON line listing the ported kernels with their numbers;
-19. last line: ``{"ok": true, "device": {...}}``.
+18. the encoder-decoder, whisper-small at W2A16g128 RTN + pack, published
+   widths: (a) whole (12 + 12 layers), scheduled on both stores (8 slots,
+   16 requests of 1500 seeded frames + 4..32 tokens, 8..48 generated):
+   exact launches (an admission's encoder and cross K/V at M = 1500, a
+   decode step's 8 GEMVs and one decode attention a decoder layer), no
+   host sync inside a decode step, equal tokens, requests alone equal to
+   scheduled, 4 requests teacher-forced against ``"xla"``, a profiled
+   decode step and admission prefill; (b) AWQ + TesseraQ (K=3, T=10) over
+   4 encoder and 4 decoder blocks, 8 x (1500 frames + 128 tokens), the
+   encoder's stream handed to the decoder stage: every block below AWQ's
+   recon_mse, packed perplexity within ``PPL_REL`` of fake-quant, exact
+   launches; (c) the reduced config card vs CPU: served logits
+   (teacher-forced) and calibration codes and masks;
+19. a JSON line listing the ported kernels with their numbers;
+20. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device, or without ``src/repro_torch`` beside this script,
@@ -237,6 +250,13 @@ REORDER = 2.0 ** -16
 SPIN_CYCLES = 300_000
 
 MAIN_SHAPES = ((4096, 4096, 4), (4096, 11008, 2), (11008, 4096, 1))  # K, N, per layer
+# whisper-small's projections (phase 18): (K, N, per encoder layer of an
+# admission at M = 1500) and (K, N, per decoder layer of a decode step at
+# M = 8: self q, k, v, o and cross q, o, then the MLP); its soft_round
+# leaves at g128 (ng, n, per encoder layer)
+ENCDEC_ENC_SHAPES = ((768, 768, 4), (768, 3072, 1), (3072, 768, 1))
+ENCDEC_DEC_SHAPES = ((768, 768, 6), (768, 3072, 1), (3072, 768, 1))
+ENCDEC_SR_SHAPES = ((6, 768, 4), (6, 3072, 1), (24, 768, 1))
 # Qwen3-30B-A3B's attention projections (q, k and v, o): K, N, per layer
 MOE_ATTN_SHAPES = ((2048, 4096, 1), (2048, 512, 2), (4096, 2048, 1))
 
@@ -328,15 +348,17 @@ def show(name, rec, card):
 
 
 def check_quant(name, fn, plain, gen, M, K, N, bits, group_size, flush, card,
-                main=False, moe=False, wa=False, sched=False, x_offset=0):
+                main=False, moe=False, wa=False, sched=False, x_offset=0,
+                encdec=False):
     """Kernel vs plain version at one shape, then both timed with the
-    library matmul on the pre-dequantized weight; ``main``, ``moe``, ``wa``
-    and ``sched`` mark the shapes the LLaMA (W2 g128, M=4), the MoE, the
-    weight-activation (W4 per-channel) and the scheduled decode (W2 g128,
-    M=8) paths run (summed in the kernels line).  ``x_offset`` > 0 takes x
-    as rows ``x_offset:`` of a wider buffer (a base the kernel cannot load
-    by TMA or 16-byte copies when 2 * K * x_offset is not a multiple of
-    16).  Each record names the configuration the kernel's host code chose
+    library matmul on the pre-dequantized weight; ``main``, ``moe``, ``wa``,
+    ``sched`` and ``encdec`` mark the shapes the LLaMA (W2 g128, M=4), the
+    MoE, the weight-activation (W4 per-channel), the scheduled decode (W2
+    g128, M=8) and whisper-small's (an admission's encoder at M=1500, a
+    decode step at M=8) paths run (summed in the kernels line).
+    ``x_offset`` > 0 takes x as rows ``x_offset:`` of a wider buffer (a
+    base the kernel cannot load by TMA or 16-byte copies when 2 * K *
+    x_offset is not a multiple of 16).  Each record names the configuration the kernel's host code chose
     (``kernel_config`` / ``gemv_config``)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.quant_gemv import gemv_config
@@ -358,7 +380,7 @@ def check_quant(name, fn, plain, gen, M, K, N, bits, group_size, flush, card,
              f"bits={bits} g={group_size}: max |diff| {err}")
     rec = {"M": M, "K": K, "N": N, "bits": bits, "g": group_size,
            "max_abs_err": err, "main": main, "moe": moe, "wa": wa,
-           "sched": sched}
+           "sched": sched, "encdec": encdec}
     config = kernel_config if name == "quant_matmul" else gemv_config
     rec["config"] = config(x, packed, scale, zero, **kw)
     rec["kernel_ms"] = cuda_ms(lambda: fn(x, packed, scale, zero, **kw),
@@ -389,13 +411,15 @@ def attention_operands(gen, B, S, Hkv, G, D, kv_len, q_pos, active):
 
 
 def check_attention(gen, B, S, Hkv, G, D, kv_len, q_pos, active, flush, card,
-                    main=False, moe=False, long=False, timed=True):
+                    main=False, moe=False, long=False, timed=True,
+                    encdec=False):
     """Kernel vs plain version at one shape (inactive slots exact zeros),
     then, if ``timed``, both timed with SDPA over the live positions where
-    one call computes the same function.  ``main``, ``moe`` and ``long``
-    mark the LLaMA decode shape, the Qwen3 shape and the long lane (summed
-    in the kernels line).  Each record names the plan the kernel's host
-    code chose (``attention_config``)."""
+    one call computes the same function.  ``main``, ``moe``, ``long`` and
+    ``encdec`` mark the LLaMA decode shape, the Qwen3 shape, the long lane
+    and whisper-small's scheduled decode (summed in the kernels line).
+    Each record names the plan the kernel's host code chose
+    (``attention_config``)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import (attention_config,
                                                       decode_attention,
@@ -418,7 +442,7 @@ def check_attention(gen, B, S, Hkv, G, D, kv_len, q_pos, active, flush, card,
     rec = {"B": B, "S": S, "Hkv": Hkv, "G": G, "D": D,
            "kv_len": list(kv_len), "q_pos": list(q_pos),
            "active": list(active), "max_abs_err": err, "main": main,
-           "moe": moe, "long": long,
+           "moe": moe, "long": long, "encdec": encdec,
            "config": attention_config(q, k, v)}
     if timed:
         time_attention(rec, q, k, v, kw, flush)
@@ -461,7 +485,7 @@ def time_attention(rec, q, k, v, kw, flush):
 
 
 def check_paged_attention(gen, B, W, psz, Hkv, G, D, kv_len, active, flush,
-                          card, main=False, timed=True):
+                          card, main=False, timed=True, encdec=False):
     """Paged kernel vs its plain version, and vs the dense kernel on the
     gathered cache (bit for bit, on the same plan), over a permuted page
     table; then, if ``timed``, the times."""
@@ -505,7 +529,7 @@ def check_paged_attention(gen, B, W, psz, Hkv, G, D, kv_len, active, flush,
     rec = {"B": B, "W": W, "psz": psz, "Hkv": Hkv, "G": G, "D": D,
            "kv_len": list(kv_len), "active": list(active),
            "max_abs_err": err, "bit_identical_to_dense": True, "main": main,
-           "config": config}
+           "encdec": encdec, "config": config}
     if timed:
         rec["kernel_ms"] = cuda_ms(
             lambda: paged_decode_attention(q, kp, vp, ptab, **kw),
@@ -569,7 +593,10 @@ ATTN_PATHS = ((144, 32, 1, 128), (144, 8, 4, 128), (144, 4, 8, 128),
               # width (256 patches + 128 + 32 tokens), Zamba2's shared
               # block (32 heads of 64) at the lock-step and scheduled widths
               (416, 1, 8, 256), (144, 1, 8, 256), (144, 32, 1, 64),
-              (368, 32, 1, 64))
+              (368, 32, 1, 64),
+              # phase 18: whisper-small's decoder self-attention (12 heads
+              # of 64, no GQA) at its scheduled width (32 + 48 tokens)
+              (80, 12, 1, 64))
 # the paged walk at 8, 16 and 64 positions a page, and 2 (a warp's run spans
 # more than 32 pages: the table read per row), each over a permuted table
 # and bit for bit against the dense kernel: B, W, psz, Hkv, G, D
@@ -580,7 +607,9 @@ PAGED_PATHS = ((8, 46, 8, 32, 1, 128), (8, 23, 16, 4, 8, 128),
                (8, 23, 16, 8, 4, 128), (8, 23, 16, 16, 1, 128),
                (8, 23, 16, 8, 16, 128),
                # phase 17's scheduled pools: PaliGemma, Zamba2
-               (8, 26, 16, 1, 8, 256), (8, 23, 16, 32, 1, 64))
+               (8, 26, 16, 1, 8, 256), (8, 23, 16, 32, 1, 64),
+               # phase 18's: whisper-small
+               (8, 5, 16, 12, 1, 64))
 
 
 def attention_lengths(S, config):
@@ -743,7 +772,7 @@ def sr_fused_check(ops, dout, act, fold, kw, timed):
 
 def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False,
                      moe=False, wa=False, g=None, fold=None, offset=0,
-                     experts=1):
+                     experts=1, encdec=False):
     """soft_round forward and backward kernels vs their plain versions at
     one leaf shape (``g`` rows per group, ``SR_G`` if None; ``wa`` marks
     the per-channel leaves of the W4A4 calibration, ng = 1 and g = K).
@@ -756,7 +785,8 @@ def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False,
     carries σ's absolute rounding; d the cotangent after act_scale's
     division); dv the same allowance summed over the group plus 2^-16 times
     the sum of |terms| (reduction order).  Then the backward again, bit for
-    bit; with act_scale, or at a timed shape (``main``/``moe``/``wa``: one
+    bit; with act_scale, or at a timed shape (``main``/``moe``/``wa``/
+    ``encdec``, whisper-small's leaves: one
     vector shared by ``experts``), the fused launches bit for bit against
     the outside division (:func:`sr_fused_check`).  Each record names the plan of both
     launches (``soft_round_config``)."""
@@ -769,7 +799,7 @@ def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False,
     g = g or SR_G
     qmax = (1 << bits) - 1
     ops, dout = sr_operands(gen, ng, g, n, bits, offset)
-    timed = main or moe or wa
+    timed = main or moe or wa or encdec
     act = sr_act(gen, ng, g, fold) if fold else None
     kw = dict(qmax=qmax, dst=dst)
     n0 = (build.LAUNCHES["soft_round_fwd"], build.LAUNCHES["soft_round_bwd"])
@@ -824,7 +854,7 @@ def check_soft_round(gen, ng, n, bits, dst, flush, card, main=False,
            "fold": fold, "offset": offset,
            "max_abs_err": float(err.max()), "max_abs_err_dnu":
            float(err_nu.max()), "max_abs_err_dv": err_v, "main": main,
-           "moe": moe, "wa": wa,
+           "moe": moe, "wa": wa, "encdec": encdec,
            "config": {"fwd": soft_round_config(base, nu, hard, got),
                       "bwd": soft_round_config(base, nu, hard, gnu,
                                                dout=dout)}}
@@ -1325,7 +1355,12 @@ QM_PATHS = ((33, 4096, 4096, 2, 128, 0), (384, 4096, 4096, 2, 128, 0),
         # phase 17: Zamba2's in_proj (8384 = 65.5 tiles of 128) and
         # out_proj, RWKV6's square leaves, ck and cv, PaliGemma's FFN
         (2048, 8384), (4096, 2048), (2560, 2560), (2560, 8960),
-        (8960, 2560), (2048, 16384), (16384, 2048)))
+        (8960, 2560), (2048, 16384), (16384, 2048))) + tuple(
+    # phase 18: whisper-small's projections at the packed perplexity's 4 x
+    # 128 decoder rows (its admission's 1500 frames and its decode step
+    # are timed under ENCDEC_SHAPES)
+    (512, K, N, 2, 128, 0) for K, N in ((768, 768), (768, 3072),
+                                        (3072, 768)))
 
 
 # quant_gemv on every path of its body: each row template (M = 1..32 run as
@@ -1433,6 +1468,13 @@ def kernel_phase(card):
         for K, N, _ in MOE_ATTN_SHAPES:
             out[name].append(check_quant(name, fn, plain, gen, M, K, N, 2,
                                          128, flush, card, moe=True))
+        # whisper-small: an admission's encoder (M = 1500), a decode step
+        # (8 slots)
+        for K, N, _ in (ENCDEC_ENC_SHAPES if name == "quant_matmul"
+                        else ENCDEC_DEC_SHAPES):
+            out[name].append(check_quant(
+                name, fn, plain, gen, 1500 if name == "quant_matmul" else 8,
+                K, N, 2, 128, flush, card, encdec=True))
     # every path of the quant-matmul kernel (QM_PATHS)
     for M, K, N, bits, g, off in QM_PATHS:
         out["quant_matmul"].append(check_quant(
@@ -1471,6 +1513,11 @@ def kernel_phase(card):
     out["decode_attention"].append(check_attention(
         gen, 4, 4096, 32, 1, 128, [4096] * 4, [4095] * 4, [1] * 4, flush,
         card, long=True))
+    # timed at whisper-small's scheduled decode (phase 18): 8 slots of 12
+    # heads of 64 over its 80-position lane, mid-sequence
+    out["decode_attention"].append(check_attention(
+        gen, 8, 80, 12, 1, 64, [40] * 8, [39] * 8, [1] * 8, flush, card,
+        encdec=True))
     # every path of the attention body (ATTN_PATHS), then its batch
     # invariance
     for shape in ATTN_PATHS:
@@ -1490,7 +1537,11 @@ def kernel_phase(card):
         check_paged_attention(gen, 8, 23, 16, 4, 8, 128, lens, act, flush,
                               card),
         check_paged_attention(gen, 4, 7, 64, 8, 4, 128, [448, 65, 64, 3],
-                              [1, 1, 0, 1], flush, card)]
+                              [1, 1, 0, 1], flush, card),
+        # whisper-small's pool (phase 18), timed: 5 pages of 16 a slot
+        check_paged_attention(gen, 8, 5, 16, 12, 1, 64,
+                              [80, 17, 60, 41, 33, 8, 72, 50],
+                              [1] * 8, flush, card, encdec=True)]
     for B, W, psz, Hkv, G, D in PAGED_PATHS:
         S = W * psz
         lens = [S, 1, psz - 1, psz, psz + 1, S // 2 + 3, S - 1, 40][:B]
@@ -1533,6 +1584,9 @@ def kernel_phase(card):
         out["soft_round"].append(check_soft_round(
             gen, ng, n, 2, True, flush, card, moe=True,
             experts=MOE_SR_EXPERTS.get((ng, n), 1)))
+    for ng, n, _ in ENCDEC_SR_SHAPES:
+        out["soft_round"].append(check_soft_round(
+            gen, ng, n, 2, True, flush, card, encdec=True))
     # the W4A4 calibration's per-channel leaves: dv sums all K rows
     for K, N, _ in MAIN_SHAPES:
         out["soft_round"].append(check_soft_round(
@@ -2087,11 +2141,11 @@ def calibration_parity_phase():
 # --------------------------------------------------------------------------
 
 SCHED_SLOTS, SCHED_PSZ, SCHED_CHUNK, SCHED_TIGHT = 8, 16, 128, 96
-# phase 7 serves LLaMA-2-7B at its widths and 8 of 32 layers (its own RTN
-# build, since PR 26; phase 3's full-depth model before): a decode step is
-# host-bound, about linear in the depth, and the phase's dozen runs of the
-# workload took ~110 s of the run at full depth
-SCHED_LAYERS = 8
+# phase 7 serves LLaMA-2-7B at its widths and 4 of 32 layers (its own RTN
+# build; phase 3's full-depth model before PR 26, 8 layers before PR 27): a
+# decode step is host-bound, about linear in the depth, and the phase's
+# dozen runs of the workload took ~110 s of the run at full depth
+SCHED_LAYERS = 4
 SCHED_WORKLOAD = dict(n_requests=16, seed=0, prompt_lens=(16, 384),
                       budgets=(4, 48), mean_gap=2.0)
 ALONE_RIDS = (0, 5, 10, 15)
@@ -2371,9 +2425,9 @@ def schedule_phase(card, packed, cfg):
 
 
 def decode_profile(steps, packed, store, max_seq, card, n=8,
-                   tag="schedule-profile", distinct=False):
+                   tag="schedule-profile", distinct=False, pos0=200):
     """Where one scheduled decode step's time goes at full width: all 8
-    slots live from position 200, the step run ``n`` times.  Wall time per
+    slots live from position ``pos0``, the step run ``n`` times.  Wall time per
     step (host clock around synchronized runs), and the device's busy time
     per step by kernel from ``torch.profiler`` (CUPTI); the difference is
     time the card waits for the host.  For an MoE model also the expert
@@ -2406,7 +2460,7 @@ def decode_profile(steps, packed, store, max_seq, card, n=8,
         tok = torch.arange(1, SCHED_SLOTS + 1, dtype=torch.int32,
                            device="cuda") * 1009 % model.cfg.vocab_size
     state = {"cache": cs.cache, "tok": tok,
-             "pos": torch.full((SCHED_SLOTS,), 200, dtype=torch.int32,
+             "pos": torch.full((SCHED_SLOTS,), pos0, dtype=torch.int32,
                                device="cuda")}
     active = torch.ones((SCHED_SLOTS,), dtype=torch.bool, device="cuda")
 
@@ -2447,7 +2501,7 @@ def decode_profile(steps, packed, store, max_seq, card, n=8,
     cfg = model.cfg
     moe = cfg.family == "moe"
     print(f"[{tag}] {store} decode step, 8 live slots at position "
-          f"200+{', distinct tokens' if distinct else ''}: wall "
+          f"{pos0}+{', distinct tokens' if distinct else ''}: wall "
           f"{wall:.3f} ms/step; device busy "
           + (f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of wall), "
              f"{launches:.1f} kernel launches/step, decode attention "
@@ -2528,8 +2582,9 @@ def schedule_parity_phase():
 # --------------------------------------------------------------------------
 
 MOE_ARCH = "qwen3-moe-30b-a3b"
-MOE_LAYERS = 8          # depth cut from 48 (one card, and the run's time
-#                         limit since PR 26: 16 before); widths are published
+MOE_LAYERS = 4          # depth cut from 48 (one card, and the run's time
+#                         limit: 16 before PR 26, 8 before PR 27); widths
+#                         are published
 MOE_CAL_SAMPLES = 8
 
 
@@ -3787,13 +3842,13 @@ def train_phase(card):
 
 # each arch at its published widths and a depth that fits one card in bf16
 # beside the RTN walk's copy of the block stack, and since PR 26 the run's
-# time limit (None: full depth): Mistral-7B 16 of 32 layers (whole, ~14.5
-# GB, before); Command-R-35B 4 of 40 layers (8.4 GB of embedding and head,
-# 1.41 GB a layer); LLaMA-3-405B 2 of 126 (8.4 GB + 6.4 GB a layer);
-# Moonlight-16B-A3B 8 of 48 (16 before; 28.06B params in all, ~56 GB, so
-# not whole beside the walk's copy)
-ARCH_DEPTHS = (("mistral-7b", 16), ("command-r-35b", 4),
-               ("llama3-405b", 2), ("moonshot-v1-16b-a3b", 8))
+# time limit (None: full depth): Mistral-7B 8 of 32 layers (whole, ~14.5
+# GB, before PR 26; 16 before PR 27); Command-R-35B 4 of 40 layers (8.4 GB
+# of embedding and head, 1.41 GB a layer); LLaMA-3-405B 2 of 126 (8.4 GB +
+# 6.4 GB a layer); Moonlight-16B-A3B 4 of 48 (16 before PR 26, 8 before PR
+# 27; 28.06B params in all, ~56 GB, so not whole beside the walk's copy)
+ARCH_DEPTHS = (("mistral-7b", 8), ("command-r-35b", 4),
+               ("llama3-405b", 2), ("moonshot-v1-16b-a3b", 4))
 # which of them also run the scheduler (phase 7's workload on both stores)
 # and one calibration: (depth, K, T, samples); Mistral's two blocks at a
 # shortened schedule, one block of Command-R (soft_round at 8192 x 22528)
@@ -3843,9 +3898,10 @@ def _free():
 
 
 def build_packed(arch, layers, tag, quant="W2A16g128"):
-    """``arch`` at its published widths and ``layers`` layers (None: all),
-    random weights from seed 0, RTN to ``quant`` + pack.  Returns (cfg,
-    model, packed, prompts) with 4 x 128 prompt tokens."""
+    """``arch`` at its published widths and ``layers`` layers (None: all;
+    an encoder-decoder's encoder cut alike), random weights from seed 0,
+    RTN to ``quant`` + pack.  Returns (cfg, model, packed, prompts) with 4
+    x 128 prompt tokens."""
     from repro_torch.configs import get_config
     from repro_torch.core.pipeline import (pack_model, quantize_model,
                                            quantized_memory_report)
@@ -3856,6 +3912,8 @@ def build_packed(arch, layers, tag, quant="W2A16g128"):
 
     full = get_config(arch)
     cfg = full if layers is None else full.replace(num_layers=layers)
+    if layers is not None and cfg.family == "encdec":
+        cfg = cfg.replace(encoder_layers=layers)
     model = get_model(cfg)
     qcfg = parse_quant(quant, kernel_backend="pallas")
     torch.cuda.reset_peak_memory_stats()
@@ -3875,6 +3933,9 @@ def build_packed(arch, layers, tag, quant="W2A16g128"):
              for b in calibration_batches(data_cfg, 2, 1)]
     if cfg.family == "vlm":
         calib = [dict(b, patches=seeded_patches(cfg, len(b["tokens"]), i))
+                 for i, b in enumerate(calib)]
+    if cfg.family == "encdec":
+        calib = [dict(b, frames=seeded_frames(cfg, len(b["tokens"]), i))
                  for i, b in enumerate(calib)]
     t0 = time.perf_counter()
     pfq, qmeta, report = quantize_model(cfg, params, calib, qcfg,
@@ -4485,27 +4546,31 @@ def vlm_requests(cfg):
         for r in make_workload(cfg.vocab_size, **VLM_WORKLOAD)]
 
 
-def vlm_forced_check(tag, cfg, model, packed, res, reqs, max_seq, limit):
-    """The first ``VLM_FORCED`` requests' logits of a scheduled "pallas" run
-    against the "xla" steps fed the same patches, prompt and tokens, each
-    request alone: relative L2 over all their logits below ``limit``."""
+def extras_forced_check(tag, cfg, model, packed, res, reqs, max_seq, limit,
+                     n=VLM_FORCED):
+    """The first ``n`` requests' logits of a scheduled "pallas" run against
+    the "xla" steps fed the same extras (a VLM's patches, an
+    encoder-decoder's frames), prompt and tokens, each request alone:
+    relative L2 over all their logits below ``limit``."""
     from repro_torch.launch.steps import make_serve_steps
     _, xpre, xdec = make_serve_steps(cfg, kernel_backend="xla")
+    P = cfg.num_patches if cfg.family == "vlm" else 0
     got, ref = [], []
     with torch.no_grad():
-        for r in reqs[:VLM_FORCED]:
+        for r in reqs[:n]:
             rr = res.requests[r.rid]
             toks = torch.as_tensor(rr["tokens"], dtype=torch.long,
                                    device="cuda")
             cache = model.init_cache(1, max_seq, device="cuda")
-            lg, cache = xpre(packed, {
-                "tokens": torch.as_tensor(r.prompt[None], dtype=torch.long,
-                                          device="cuda"),
-                "patches": torch.as_tensor(r.extras["patches"][None],
-                                           device="cuda")}, cache)
+            batch = {k: torch.as_tensor(v[None], device="cuda")
+                     for k, v in r.extras.items()}
+            batch["tokens"] = torch.as_tensor(r.prompt[None],
+                                              dtype=torch.long,
+                                              device="cuda")
+            lg, cache = xpre(packed, batch, cache)
             out = [lg]
-            pos = torch.tensor([cfg.num_patches + len(r.prompt)],
-                               dtype=torch.int32, device="cuda")
+            pos = torch.tensor([P + len(r.prompt)], dtype=torch.int32,
+                               device="cuda")
             for j in range(r.max_new_tokens - 1):
                 lg, cache = xdec(packed, cache, toks[j:j + 1], pos)
                 pos = pos + 1
@@ -4516,7 +4581,7 @@ def vlm_forced_check(tag, cfg, model, packed, res, reqs, max_seq, limit):
     rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
     agree = float((got.argmax(-1) == ref.argmax(-1)).mean())
     print(f"[{tag}] teacher-forced xla reference over {len(got)} positions "
-          f"of {VLM_FORCED} requests: relative L2 {rel:.6g} (gate "
+          f"of {n} requests: relative L2 {rel:.6g} (gate "
           f"{limit}); argmax agreement {agree:.4f}", flush=True)
     if not rel < limit:
         fail(f"{tag}: logits differ from the xla backend by relative L2 "
@@ -4579,7 +4644,7 @@ def vlm_schedule_phase(card):
     if not same_tokens(forced, runs["dense"], reqs[:VLM_FORCED]):
         print(f"[{tag}] note: the logit-collecting run's tokens differ from "
               f"the full workload's (other slots live)", flush=True)
-    rel = vlm_forced_check(tag, cfg, model, packed, forced, reqs, max_seq,
+    rel = extras_forced_check(tag, cfg, model, packed, forced, reqs, max_seq,
                            FAMILY_REL_L2[VLM_ARCH])
     out = {"sched_ms": {s: r.decode_secs * 1e3 / max(r.steps, 1)
                         for s, r in runs.items()}, "rel_l2": rel}
@@ -4751,6 +4816,496 @@ def families_phase(card):
     return out, nums
 
 
+# --------------------------------------------------------------------------
+# phase 18: the encoder-decoder (whisper-small)
+# --------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-small"
+FRAME_STD = 0.1
+# 16 requests of 1500 seeded frames each, prompts of 4..32 tokens (every
+# decoder projection of an admission takes the GEMV: <= 32 rows), 8..48
+# generated, on 8 slots
+ENCDEC_WORKLOAD = dict(n_requests=16, seed=0, prompt_lens=(4, 32),
+                       budgets=(8, 48), mean_gap=2.0)
+ENCDEC_FORCED = 4       # requests teacher-forced against "xla"
+ENCDEC_ALONE = (0, 5, 10, 15)
+# the teacher-forced check's control depth (encoder and decoder layers),
+# read only when the full depth is over REL_L2
+ENCDEC_CONTROL_LAYERS = 4
+# AWQ + TesseraQ (K=3, T=10) at whisper-small's widths over 4 encoder and 4
+# decoder blocks (depth cut from 12 + 12: the whole depth took 46.1 s of
+# walk + pack and ~70 s with its AWQ-only walk and perplexities, PERF.md §6,
+# PR 27), 8 samples of 1500 frames + 128 tokens
+ENCDEC_CAL = (4, 4)
+ENCDEC_K, ENCDEC_T = 3, 10
+ENCDEC_CAL_SAMPLES, ENCDEC_CAL_TOKENS = 8, 128
+
+
+def seeded_frames(cfg, n, seed):
+    """(n, frontend_len, d_model) stub frame embeddings, N(0, FRAME_STD)
+    from ``seed``, in the model's dtype on the card."""
+    from repro_torch.models.transformer import model_dtype
+    rng = np.random.default_rng(2000 + seed)
+    f = rng.normal(size=(n, cfg.frontend_len, cfg.d_model)) * FRAME_STD
+    return torch.as_tensor(f, dtype=torch.float32,
+                           device="cuda").to(model_dtype(cfg))
+
+
+def encdec_requests(cfg):
+    """``ENCDEC_WORKLOAD`` with each request's frames in ``extras``."""
+    import dataclasses
+    from repro_torch.launch.scheduler import make_workload
+    rng = np.random.default_rng(ENCDEC_WORKLOAD["seed"] + 2)
+    return [dataclasses.replace(r, extras={"frames": (rng.normal(
+        size=(cfg.frontend_len, cfg.d_model)) * FRAME_STD).astype(
+            np.float32)}) for r in make_workload(cfg.vocab_size,
+                                                 **ENCDEC_WORKLOAD)]
+
+
+def encdec_launches(cfg, reqs, steps, attn):
+    """Launch counts from the dispatch rules (``kernels/ops.py``): an
+    admission's encoder (6 projections a layer) and every decoder layer's
+    cross K/V (2) at M = frontend_len take the tiled matmul; the decoder's
+    other 8 projections a layer at the prompt's rows take the GEMV at most
+    ``DECODE_GEMV_MAX_ROWS`` rows; prefill attention is plain (not causal
+    over the frames, no ``kv_len`` in the self-attention).  A decode step:
+    8 GEMVs and one self-attention launch a decoder layer (cross-attention
+    is the plain Sq == 1 softmax)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ops import DECODE_GEMV_MAX_ROWS
+    Le, Ld = cfg.encoder_layers, cfg.num_layers
+    e = {k: 0 for k in build.KERNELS}
+
+    def mm(rows):
+        return ("quant_gemv" if rows <= DECODE_GEMV_MAX_ROWS
+                else "quant_matmul")
+
+    for r in reqs:
+        e[mm(cfg.frontend_len)] += 6 * Le + 2 * Ld
+        e[mm(len(r.prompt))] += 8 * Ld
+    e["quant_gemv"] += 8 * Ld * steps
+    e[attn] += Ld * steps
+    return e
+
+
+def admission_profile(tag, steps, packed, req, max_seq, card, n=5):
+    """One admission's prefill (the encoder over 1500 frames, the cross K/V
+    of every decoder layer, the prompt) at batch 1 and the full cache
+    width: wall ms over ``n`` synchronized runs, then one run under
+    ``torch.profiler`` for the device's busy ms and launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model = steps.model
+    batch = {"tokens": torch.as_tensor(req.prompt[None], dtype=torch.long,
+                                       device="cuda"),
+             "frames": torch.as_tensor(req.extras["frames"][None],
+                                       device="cuda")}
+    with torch.no_grad():
+        cache = model.init_cache(1, max_seq, device="cuda")
+        steps.prefill(packed, batch, cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            steps.prefill(packed, batch, cache)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            steps.prefill(packed, batch, cache)
+            torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"[{tag}] admission prefill ({model.cfg.frontend_len} frames + "
+          f"{len(req.prompt)} tokens, batch 1, width {max_seq}): wall "
+          f"{wall:.3f} ms; device "
+          + (f"busy {busy:.3f} ms ({100 * busy / wall:.1f}% of wall), "
+             f"{sum(e.count for e in kern)} launches; top kernels: "
+             + "; ".join(f"{e.key[:40]} x{e.count} "
+                         f"{e.self_device_time_total / 1e3:.3f}"
+                         for e in top) if kern
+             else "busy not measured (the profiler saw no device activity)")
+          + f"; card=[{card}]", flush=True)
+    return {"wall_ms": wall, "busy_ms": busy if kern else None}
+
+
+def encdec_serve_phase(card):
+    """(a) whisper-small whole (12 + 12 layers), RTN W2A16g128 + pack,
+    through ``serve_scheduled`` on both stores with ``encdec_requests``:
+    exact launches, no host sync inside a decode step, dense tokens ==
+    paged tokens, requests alone == scheduled, the first
+    ``ENCDEC_FORCED`` requests teacher-forced against "xla" (REL_L2; when
+    it fails, the same check at ``ENCDEC_CONTROL_LAYERS`` layers and the
+    two paths' W2 weights are read before the phase fails), one profiled
+    decode step and one admission prefill.  Returns (counts, numbers)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.scheduler import (Request, compile_sched_steps,
+                                              serve_scheduled)
+    tag = f"encdec {ENCDEC_ARCH}"
+    cfg, model, packed, _ = build_packed(ENCDEC_ARCH, None, tag)
+    reqs = encdec_requests(cfg)
+    width = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    max_seq = width + (-width) % SCHED_PSZ
+    kw = dict(slots=SCHED_SLOTS, max_seq=max_seq, kernel_backend="pallas",
+              page_size=SCHED_PSZ, device="cuda")
+    attn = {"dense": "decode_attention", "paged": "paged_decode_attention"}
+    steps = {store: compile_sched_steps(
+        cfg, max_seq=max_seq, kernel_backend="pallas",
+        page_size=SCHED_PSZ if store == "paged" else 0)
+        for store in ("dense", "paged")}
+    warm = [Request(0, reqs[0].prompt[:8], 3, extras=reqs[0].extras),
+            Request(1, reqs[1].prompt[:12], 2, arrival=1,
+                    extras=reqs[1].extras)]
+    runs, total, syncs = {}, {k: 0 for k in build.KERNELS}, {}
+    for store in ("dense", "paged"):
+        serve_scheduled(cfg, packed, warm, store=store,
+                        compiled=steps[store], **kw)
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res, n, inside, where = sync_counted(
+            steps[store], lambda st, store=store: serve_scheduled(
+                cfg, packed, reqs, store=store, compiled=st, **kw))
+        counts = dict(build.LAUNCHES)
+        want = encdec_launches(cfg, reqs, res.steps, attn[store])
+        print(f"[{tag}] {store}: {len(reqs)} requests of "
+              f"{cfg.frontend_len} frames + {ENCDEC_WORKLOAD['prompt_lens']} "
+              f"tokens, {res.steps} decode steps, occupancy "
+              f"{res.occupancy:.4f}, prefill {res.prefill_secs:.3f}s, decode "
+              f"{res.decode_secs:.3f}s "
+              f"({res.decode_secs * 1e3 / max(res.steps, 1):.3f} ms/step, "
+              f"{res.decode_tok_s:.2f} useful tok/s); cache "
+              f"{res.cache_stats['cache_bytes']} B; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; host syncs "
+              f"{n} ({inside} inside decode steps; by line {where}); "
+              f"launches {counts}; card=[{card}]", flush=True)
+        if counts != want:
+            fail(f"{tag} {store}: launches {counts}, expected {want}")
+        if inside != 0 or n > 3 * len(reqs) + 4:
+            fail(f"{tag} {store}: {n} host syncs ({inside} in decode steps)")
+        runs[store], syncs[store] = res, n
+        total = {k: total[k] + counts[k] for k in total}
+    if not same_tokens(runs["dense"], runs["paged"], reqs):
+        fail(f"{tag}: paged tokens differ from dense")
+    for rid in ENCDEC_ALONE:
+        r = reqs[rid]
+        one = serve_scheduled(cfg, packed, [r], store="dense",
+                              compiled=steps["dense"], **kw)
+        same = np.array_equal(one.requests[rid]["tokens"],
+                              runs["dense"].requests[rid]["tokens"])
+        print(f"[{tag}] request {rid} (prompt {len(r.prompt)}, budget "
+              f"{r.max_new_tokens}) alone at {SCHED_SLOTS} slots equals its "
+              f"scheduled tokens: {same}", flush=True)
+        if not same:
+            fail(f"{tag}: request {rid} alone differs from scheduled")
+    forced = serve_scheduled(cfg, packed, reqs[:ENCDEC_FORCED],
+                             store="dense", collect_logits=True,
+                             compiled=steps["dense"], **kw)
+    try:
+        rel = extras_forced_check(tag, cfg, model, packed, forced, reqs,
+                               max_seq, REL_L2, n=ENCDEC_FORCED)
+    except RuntimeError:
+        encdec_forced_control(card)
+        raise
+    prof = decode_profile(steps["dense"], packed, "dense", max_seq, card,
+                          tag=f"{tag} profile", pos0=max_seq // 2)
+    adm = admission_profile(tag, steps["dense"], packed,
+                            reqs[int(np.argmax([len(r.prompt)
+                                                for r in reqs]))],
+                            max_seq, card)
+    out = {"sched_ms": {s: r.decode_secs * 1e3 / max(r.steps, 1)
+                        for s, r in runs.items()},
+           "rel_l2": rel, "profile": prof, "admission": adm, "syncs": syncs}
+    del packed, runs, forced, steps
+    _free()
+    return total, out
+
+
+def encdec_forced_control(card):
+    """The diagnosis of a failed teacher-forced check: the same check at
+    ``ENCDEC_CONTROL_LAYERS`` encoder and decoder layers, and whether the
+    "xla" path's bf16 dequantization of the packed W2 weights equals the
+    kernels' f32-then-rounded one (then only the summation order
+    differs)."""
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.launch.scheduler import serve_scheduled
+    tag = f"encdec {ENCDEC_ARCH} control"
+    cfg, model, packed, _ = build_packed(ENCDEC_ARCH, ENCDEC_CONTROL_LAYERS,
+                                         tag)
+    reqs = encdec_requests(cfg)
+    width = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    max_seq = width + (-width) % SCHED_PSZ
+    forced = serve_scheduled(cfg, packed, reqs[:ENCDEC_FORCED],
+                             slots=SCHED_SLOTS, max_seq=max_seq,
+                             kernel_backend="pallas", device="cuda",
+                             collect_logits=True)
+    rel = extras_forced_check(tag, cfg, model, packed, forced, reqs, max_seq,
+                           float("inf"), n=ENCDEC_FORCED)
+    worst = 0.0
+    for stack in ("encoder", "decoder"):
+        for leaf in (packed[stack]["attn"]["wq"], packed[stack]["w_up"]):
+            if not isinstance(leaf, QTensor):
+                fail(f"{tag}: {stack} is not packed")
+            a = leaf.dequantize(torch.bfloat16).float()
+            b = leaf.dequantize(torch.float32).to(torch.bfloat16).float()
+            worst = max(worst, float((a - b).abs().max()))
+    print(f"[{tag}] {ENCDEC_CONTROL_LAYERS} + {ENCDEC_CONTROL_LAYERS} "
+          f"layers: relative L2 {rel:.6g}; bf16 vs f32-rounded W2 "
+          f"dequantization max |diff| {worst:.3g}; card=[{card}]",
+          flush=True)
+    del packed
+    _free()
+
+
+def encdec_calibrate_phase(card):
+    """(b) AWQ + TesseraQ (ENCDEC_K, ENCDEC_T) over ``ENCDEC_CAL`` encoder
+    and decoder blocks at whisper-small's widths, ``ENCDEC_CAL_SAMPLES``
+    samples of 1500 frames + ``ENCDEC_CAL_TOKENS`` tokens: both stages and
+    the hand-off of the encoder's stream; the AWQ-only walk beside it
+    (every block below its recon_mse); pack; packed perplexity on frames
+    batches within ``PPL_REL`` of fake-quant; exact launches (``soft_round``
+    once a leaf and Soften step, ``quant_matmul`` in the packed
+    perplexity).  Returns the counts and the per-block numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.blocks import build_stages, quant_leaf_paths
+    from repro_torch.core.pipeline import pack_model, quantize_model
+    from repro_torch.core.tesseraq import TesseraQConfig
+    from repro_torch.data.pipeline import (DataConfig, calibration_batches,
+                                           eval_batches)
+    from repro_torch.eval.ppl import perplexity
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.models import get_model
+
+    tag = f"encdec {ENCDEC_ARCH} calibrate"
+    Le, Ld = ENCDEC_CAL
+    cfg = get_config(ENCDEC_ARCH).replace(encoder_layers=Le, num_layers=Ld)
+    model = get_model(cfg)
+    qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
+    tcfg = TesseraQConfig(par_iterations=ENCDEC_K,
+                          steps_per_iteration=ENCDEC_T, batch_size=CAL_BS)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=ENCDEC_CAL_TOKENS,
+                    global_batch=CAL_BS, seed=0)
+
+    def with_frames(bs, seed0, cut):
+        return [{"tokens": torch.as_tensor(
+            b["tokens"][:, :-1] if cut else b["tokens"], device="cuda"),
+            "frames": seeded_frames(cfg, len(b["tokens"]), seed0 + i)}
+            for i, b in enumerate(bs)]
+
+    calib = with_frames(calibration_batches(
+        dc, ENCDEC_CAL_SAMPLES // CAL_BS, CAL_BS), 0, True)
+    evalb = with_frames(eval_batches(dc, EVAL_BATCHES, CAL_BS), 100, False)
+    params = model.init_params(0, "cuda")
+    stages = build_stages(cfg)
+    leaves = sum(len(quant_leaf_paths(st.get_block(params, i)))
+                 for st in stages for i in range(st.n_blocks))
+    t_awq = time.perf_counter()
+    _, _, rep_awq = quantize_model(cfg, params, calib, qcfg, method="none",
+                                   init="awq", tcfg=tcfg)
+    t_awq = time.perf_counter() - t_awq
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    pfq, qmeta, report = quantize_model(cfg, params, calib, qcfg,
+                                        method="tesseraq", init="awq",
+                                        tcfg=tcfg)
+    packed = pack_model(cfg, pfq, qmeta, qcfg)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ppl_packed = perplexity(cfg, packed, evalb, backend="pallas")
+    ppl_fq = perplexity(cfg, pfq, evalb, backend="pallas")
+    counts = dict(build.LAUNCHES)
+    want = {k: 0 for k in build.KERNELS}
+    want.update({"quant_matmul": (6 * Le + 10 * Ld) * EVAL_BATCHES,
+                 "soft_round_fwd": leaves * ENCDEC_K * ENCDEC_T,
+                 "soft_round_bwd": leaves * ENCDEC_K * ENCDEC_T})
+    blocks = []
+    for b, a in zip(report["blocks"], rep_awq["blocks"], strict=True):
+        losses = [e["loss"] for e in b["log"]]
+        step_ms = b["recon_secs"] * 1e3 / (ENCDEC_K * ENCDEC_T)
+        print(f"[{tag}] {b['stage']} {b['block']}: recon_mse "
+              f"{b['recon_mse']:.6g} (AWQ {a['recon_mse']:.6g}); PAR loss "
+              f"first {losses[0]:.6g} last {losses[-1]:.6g}; {b['secs']:.3f}s "
+              f"(reconstruction {b['recon_secs']:.3f}s, {step_ms:.3f} ms per "
+              f"Soften step incl. hardens)", flush=True)
+        if (b["stage"], b["block"]) != (a["stage"], a["block"]):
+            fail(f"{tag}: walks differ in their blocks")
+        if not all(np.isfinite(losses)) or not np.isfinite(b["recon_mse"]):
+            fail(f"{tag}: non-finite loss in {b['stage']} {b['block']}")
+        if not b["recon_mse"] < a["recon_mse"]:
+            fail(f"{tag}: {b['stage']} {b['block']} recon_mse "
+                 f"{b['recon_mse']} not below AWQ's {a['recon_mse']}")
+        blocks.append({"stage": b["stage"], "secs": b["secs"],
+                       "step_ms": step_ms, "recon_mse": b["recon_mse"],
+                       "awq_mse": a["recon_mse"]})
+    if [b["stage"] for b in blocks] != ["encoder"] * Le + ["decoder"] * Ld:
+        fail(f"{tag}: the walk's stages {[b['stage'] for b in blocks]}")
+    print(f"[{tag}] {cfg.name} {Le} + {Ld} blocks, K={ENCDEC_K} "
+          f"T={ENCDEC_T}, {ENCDEC_CAL_SAMPLES} x ({cfg.frontend_len} frames "
+          f"+ {ENCDEC_CAL_TOKENS} tokens): walk + pack {t_cal:.3f}s (the "
+          f"AWQ-only walk {t_awq:.3f}s), peak "
+          f"{peak / 1e9:.3f} GB; perplexity packed {ppl_packed:.6g} "
+          f"fake-quant {ppl_fq:.6g}; launches {counts}; card=[{card}]",
+          flush=True)
+    if counts != want:
+        fail(f"{tag} launch counts {counts}, expected {want}")
+    if not (np.isfinite(ppl_packed) and np.isfinite(ppl_fq)
+            and abs(ppl_packed - ppl_fq) <= PPL_REL * ppl_fq):
+        fail(f"{tag}: packed perplexity {ppl_packed} vs fake-quant {ppl_fq}")
+    del params, pfq, qmeta, packed
+    _free()
+    return counts, {"blocks": blocks, "secs": t_cal, "peak_gb": peak / 1e9}
+
+
+def encdec_parity_phase():
+    """(c) The reduced whisper config from the same params on the card and
+    on the CPU, each request's prefill (frames + prompt) and decode steps
+    teacher-forced on the tokens of the CPU's scheduled run (so a near-tie
+    of the random model's argmax cannot move the runs apart):
+
+      * f32, RTN-packed, on the ``"xla"`` steps (the model code: non-causal
+        and cross-attention, LayerNorm, the fixed cache leaves): logits
+        within ``parity_gate``;
+      * bf16, RTN-packed, on the ``"pallas"`` steps (the kernels take bf16
+        activations; the CPU runs their plain versions): relative L2 below
+        ``REL_L2``, phase 3's rounding-level bound, with the gate read;
+      * f32 AWQ + TesseraQ: codes and hardened masks equal.
+
+    Returns the card's launch counts."""
+    from repro_torch.bridge import params_to
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.pipeline import pack_model, quantize_model
+    from repro_torch.core.tesseraq import TesseraQConfig
+    from repro_torch.eval.harness import parity_gate
+    from repro_torch.kernels import build
+    from repro_torch.launch.scheduler import Request, serve_scheduled
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.launch.steps import make_serve_steps
+
+    tag = "encdec-parity"
+    cfg16 = get_reduced_config(ENCDEC_ARCH)
+    cfg = cfg16.replace(dtype="float32")
+    qcfg = parse_quant("W2A16g32", kernel_backend="pallas")
+    steps = {"f32": make_serve_steps(cfg, kernel_backend="xla"),
+             "bf16": make_serve_steps(cfg16, kernel_backend="pallas")}
+    params = {k: st[0].init_params(0, "cpu") for k, st in steps.items()}
+    rng = np.random.default_rng(7)
+
+    def frames(n):
+        return (rng.normal(size=(n, cfg.frontend_len, cfg.d_model))
+                * FRAME_STD).astype(np.float32)
+
+    calib = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 16)),
+              "frames": frames(4)} for _ in range(2)]
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, (int(rng.integers(4, 12)),)).astype(np.int32),
+        max_new_tokens=6, arrival=i, extras={"frames": frames(1)[0]})
+        for i in range(4)]
+    tcfg = TesseraQConfig(par_iterations=3, steps_per_iteration=15)
+    max_seq = 24
+
+    def forced(kind, packed, dev, toks):
+        """Every request's logits, prefill then decode fed ``toks``."""
+        model, pre, dec = steps[kind]
+        cdt = torch.float32 if kind == "f32" else torch.bfloat16
+        out = []
+        with torch.no_grad():
+            for r in reqs:
+                cache = model.init_cache(1, max_seq, cdt, dev)
+                lg, cache = pre(packed, {
+                    "tokens": torch.as_tensor(r.prompt[None],
+                                              dtype=torch.long, device=dev),
+                    "frames": torch.as_tensor(r.extras["frames"][None],
+                                              device=dev)}, cache)
+                rows = [lg]
+                pos = torch.tensor([len(r.prompt)], dtype=torch.int32,
+                                   device=dev)
+                for t in toks[r.rid][:-1]:
+                    lg, cache = dec(packed, cache, torch.tensor(
+                        [int(t)], dtype=torch.long, device=dev), pos)
+                    pos = pos + 1
+                    rows.append(lg)
+                out.append(torch.cat(rows).float().cpu().numpy())
+        return np.concatenate(out)[None]
+
+    out, toks = {}, {}
+    for dev in ("cpu", "cuda"):
+        build.reset_launch_counts()
+        batches = [{"tokens": torch.as_tensor(b["tokens"], device=dev),
+                    "frames": torch.as_tensor(b["frames"], device=dev)}
+                   for b in calib]
+        logits = {}
+        for kind, c in (("f32", cfg), ("bf16", cfg16)):
+            p = params[kind] if dev == "cpu" else params_to(params[kind],
+                                                            dev)
+            pfq, qmeta, _ = quantize_model(c, p, batches, qcfg,
+                                           method="none", init="rtn")
+            packed = pack_model(c, pfq, qmeta, qcfg)
+            if kind not in toks:
+                res = serve_scheduled(
+                    c, packed, reqs, slots=2, max_seq=max_seq,
+                    kernel_backend="xla" if kind == "f32" else "pallas",
+                    device=dev)
+                toks[kind] = {r.rid: res.requests[r.rid]["tokens"]
+                              for r in reqs}
+            logits[kind] = forced(kind, packed, dev, toks[kind])
+        p = params["f32"] if dev == "cpu" else params_to(params["f32"], dev)
+        _, tq_meta, _ = quantize_model(cfg, p, batches, qcfg,
+                                       method="tesseraq", init="awq",
+                                       tcfg=tcfg)
+        out[dev] = (logits, tq_meta, dict(build.LAUNCHES))
+    (lc, qc, _), (lg, qg, counts) = out["cpu"], out["cuda"]
+    gate = {k: parity_gate(lg[k], lc[k], atol=5e-2, rtol=2e-2) for k in lc}
+    rel = {k: float(np.linalg.norm(lg[k] - lc[k]) / np.linalg.norm(lc[k]))
+           for k in lc}
+    agree = {k: float((lg[k].argmax(-1) == lc[k].argmax(-1)).mean())
+             for k in lc}
+    differ = {"codes": [0, 0], "hard": [0, 0]}
+    for key in qc:
+        for f in differ:
+            a, b = qc[key][f], qg[key][f].cpu()
+            differ[f][0] += int((a != b).sum())
+            differ[f][1] += a.numel()
+    print(f"[{tag}] {cfg.name}, teacher-forced card vs CPU: f32 on xla "
+          f"{gate['f32']}, relative L2 {rel['f32']:.3g}, argmax agreement "
+          f"{agree['f32']:.4f}; bf16 on pallas relative L2 {rel['bf16']:.3g} "
+          f"(bound {REL_L2}), {gate['bf16']}, argmax agreement "
+          f"{agree['bf16']:.4f}; f32 TesseraQ (K=3, T=15) codes differ "
+          f"{differ['codes'][0]}/{differ['codes'][1]}, hardened masks "
+          f"{differ['hard'][0]}/{differ['hard'][1]}; card launches {counts}",
+          flush=True)
+    if not gate["f32"]["ok"] or not rel["bf16"] < REL_L2:
+        fail(f"{tag}: served card and CPU disagree")
+    if differ["codes"][0] or differ["hard"][0]:
+        fail(f"{tag}: calibration codes or masks differ card vs CPU")
+    # at the reduced widths every projection has at most 32 rows (32
+    # frames): the GEMV, not the tiled matmul, which (a) and (b) hold
+    for k in ("quant_gemv", "decode_attention", "soft_round_fwd",
+              "soft_round_bwd"):
+        if counts[k] == 0:
+            fail(f"{tag}: the card's run launched no {k}")
+    return counts
+
+
+def encdec_phase(card):
+    """Phase 18: (a) whisper-small served, (b) calibrated, (c) card vs CPU
+    at the reduced config, each path's launches counted from 0.  Returns
+    {part: counts} and the numbers."""
+    out, nums, t = {}, {}, [time.perf_counter()]
+    out["serve"], nums["serve"] = encdec_serve_phase(card)
+    t.append(time.perf_counter())
+    out["calibrate"], nums["calibrate"] = encdec_calibrate_phase(card)
+    t.append(time.perf_counter())
+    out["parity"] = encdec_parity_phase()
+    t.append(time.perf_counter())
+    print(f"[time] phase 18: (a) serve {t[1] - t[0]:.1f}s, (b) calibrate "
+          f"{t[2] - t[1]:.1f}s, (c) card vs CPU {t[3] - t[2]:.1f}s",
+          flush=True)
+    return out, nums
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4855,6 +5410,12 @@ def main():
     t0 = time.perf_counter()
     fam_counts, _ = families_phase(card)
     print(f"[time] families {time.perf_counter() - t0:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    encdec_counts, _ = encdec_phase(card)
+    print(f"[time] encoder-decoder {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     sources = {"quant_matmul": "src/repro/kernels/quant_matmul.py:146",
                "quant_gemv": "src/repro/kernels/quant_gemv.py:120",
@@ -4868,12 +5429,18 @@ def main():
     per = {"quant_matmul": "one layer of the prefill: 7 launches, M=512, W2 "
                            "g128; 'moe' one Qwen3 layer's 4 attention "
                            "projections; 'wa' the 7 at W4 per-channel; "
-                           "'*_nospin' timed without the device spin",
+                           "'encdec' one whisper-small encoder layer of an "
+                           "admission: 6 launches at M=1500 (4 x 768 x "
+                           "768, 768 x 3072, 3072 x 768); '*_nospin' timed "
+                           "without the device spin",
            "quant_gemv": "one layer of a decode step: 7 launches, M=4, W2 "
                          "g128; 'sched' the same at M=8 (the scheduled "
                          "decode's 8 slots); 'moe' one Qwen3 layer's 4 "
                          "attention projections; 'wa' the 7 at W4 "
-                         "per-channel; '*_nospin' the same launches timed "
+                         "per-channel; 'encdec' one whisper-small decoder "
+                         "layer of a decode step: 8 launches at M=8 (6 x "
+                         "768 x 768, 768 x 3072, 3072 x 768); '*_nospin' "
+                         "the same launches timed "
                          "by events alone, without the device spin",
            "decode_attention": "one layer of a decode step: 1 launch, B=4 "
                                "Hkv=32 G=1 D=128 S=144 kv_len=136; 'moe' "
@@ -4881,6 +5448,8 @@ def main():
                                "kv_len=136; 'long' the long lane: B=4 "
                                "Hkv=32 G=1 D=128 S=kv_len=4096 (SDPA over "
                                "the live positions in all three); "
+                               "'encdec' whisper-small's: B=8 Hkv=12 G=1 "
+                               "D=64 S=80 kv_len=40; "
                                "'*_nospin' timed without the device spin",
            "soft_round_fwd": "one layer of a Soften step: 7 launches (4 x "
                              "ng=32 out=4096, 2 x ng=32 out=11008, 1 x ng=86 "
@@ -4888,7 +5457,9 @@ def main():
                              "layer's 7 (2 x ng=2048 out=768, 1 x ng=768 "
                              "out=2048, ng=16 out=4096, 2 x ng=16 out=512, "
                              "ng=32 out=2048); 'wa' the LLaMA layer's 7 at "
-                             "W4 per-channel (ng=1, g=K)",
+                             "W4 per-channel (ng=1, g=K); 'encdec' one "
+                             "whisper-small encoder layer's 6 (4 x ng=6 "
+                             "out=768, ng=6 out=3072, ng=24 out=768)",
            "soft_round_bwd": "one layer of a Soften step: 7 launches, the "
                              "shapes of soft_round_fwd; 'ms_nospin' timed "
                              "without the device spin; 'act_ms' with AWQ's "
@@ -4900,7 +5471,9 @@ def main():
                                      "pages of 16, kv_len up to 368, one "
                                      "slot inactive (SDPA with a length "
                                      "mask on the gathered cache: a "
-                                     "yardstick); '*_nospin' timed without "
+                                     "yardstick); 'encdec' whisper-small's: "
+                                     "B=8 Hkv=12 G=1 D=64, 5 pages of 16; "
+                                     "'*_nospin' timed without "
                                      "the device spin",
            "quant_matmul_experts": "one MoE layer of a decode step: 3 "
                                    "launches (2 x K=2048 N=768, 1 x K=768 "
@@ -4936,7 +5509,9 @@ def main():
                    "kv_int8": new_counts["kv_int8"][name],
                    "engines": new_counts["engines"][name],
                    **{f"families {part}": c[name]
-                      for part, c in fam_counts.items()}}
+                      for part, c in fam_counts.items()},
+                   **{f"encdec {part}": c[name]
+                      for part, c in encdec_counts.items()}}
         if name.startswith("soft_round"):
             nums = summarize_soft_round(recs["soft_round"], name[-3:])
             nums["moe"] = summarize_soft_round(recs["soft_round"], name[-3:],
@@ -4944,12 +5519,15 @@ def main():
             nums["wa"] = summarize_soft_round(
                 recs["soft_round"], name[-3:], "wa",
                 {(1, K, N): c for K, N, c in MAIN_SHAPES})
+            nums["encdec"] = summarize_soft_round(
+                recs["soft_round"], name[-3:], "encdec",
+                sr_layer(ENCDEC_SR_SHAPES))
             nums["library_note"] = ("no single PyTorch call computes θ̂ or "
                                     "its gradient")
             nums["plans"] = {
                 f"{r['ng']}x{r['g']}x{r['n']}": r["config"][name[-3:]]
                 for r in recs["soft_round"] if r["main"] or r["moe"]
-                or r["wa"]}
+                or r["wa"] or r["encdec"]}
             nums["edges_checked"] = len(SR_PATHS)
         elif name == "int8_matmul":
             nums = summarize_int8(recs[name])
@@ -4971,6 +5549,12 @@ def main():
                 nums["moe"] = summarize(recs[name], name, "moe",
                                         MOE_ATTN_SHAPES)
                 nums["wa"] = summarize(recs[name], name, "wa")
+                nums["encdec"] = summarize(
+                    recs[name], name, "encdec",
+                    ENCDEC_ENC_SHAPES if name == "quant_matmul"
+                    else ENCDEC_DEC_SHAPES)
+            if name.endswith("decode_attention"):
+                nums["encdec"] = summarize(recs[name], name, "encdec")
             if name == "quant_gemv":
                 nums["sched"] = summarize(recs[name], name, "sched")
                 nums["invariance"] = recs["gemv_invariance"]

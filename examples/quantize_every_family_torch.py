@@ -1,9 +1,8 @@
 """TesseraQ across architecture families on the PyTorch port: quantize one
-reduced model of every family the port runs (dense, MoE, RWKV, hybrid,
-VLM) and report the block-reconstruction error against the AWQ
-initialization — ``examples/quantize_every_family.py``'s run (the method
-is architecture-agnostic) on ``src/repro_torch``.  The encoder-decoder
-(whisper-small) is not ported yet, so it is not in the list.
+reduced model of every family (dense, MoE, RWKV, hybrid, the
+encoder-decoder, VLM) and report the block-reconstruction error against the
+AWQ initialization — ``examples/quantize_every_family.py``'s run (the
+method is architecture-agnostic) on ``src/repro_torch``.
 
     PYTHONPATH=src python examples/quantize_every_family_torch.py [--device cpu]
 
@@ -25,7 +24,7 @@ from repro_torch.models import get_model
 from repro_torch.models.transformer import model_dtype
 
 ARCHS = ["tinyllama-1.1b", "qwen3-moe-30b-a3b", "rwkv6-3b", "zamba2-1.2b",
-         "paligemma-3b"]
+         "whisper-small", "paligemma-3b"]
 
 
 def make_batches(cfg, rng, dev, n=1, bs=4, seq=24):
@@ -33,6 +32,10 @@ def make_batches(cfg, rng, dev, n=1, bs=4, seq=24):
     for _ in range(n):
         b = {"tokens": torch.as_tensor(
             rng.integers(0, cfg.vocab_size, (bs, seq)), device=dev)}
+        if cfg.family == "encdec":
+            b["frames"] = torch.as_tensor(
+                rng.normal(size=(bs, cfg.frontend_len, cfg.d_model)) * .1,
+                dtype=torch.float32, device=dev).to(model_dtype(cfg))
         if cfg.family == "vlm":
             b["patches"] = torch.as_tensor(
                 rng.normal(size=(bs, cfg.num_patches, cfg.d_model)) * .1,

@@ -5,12 +5,13 @@ of the families the port runs: the dense llama family (TinyLlama-1.1B,
 LLaMA-2-7B, Mistral-7B, Command-R-35B, LLaMA-3-405B, SmolLM-135M), the MoE
 family (Qwen3-30B-A3B, Moonlight-16B-A3B), the VLM (PaliGemma-3B: a gemma
 decoder over a patch-embedding prefix), RWKV6-3B (linear attention with
-data-dependent decay) and the hybrid Zamba2-1.2B (a Mamba2 backbone with
-one shared attention block).  Every architecture lives in its own module
-exposing ``CONFIG`` (the exact published shape) and ``reduced()`` (a tiny
-same-family config for CPU tests), each a copy of the reference's.  The
-encoder-decoder (whisper-small) arrives with its model code (ROADMAP queue
-1, "Remaining families").
+data-dependent decay), the hybrid Zamba2-1.2B (a Mamba2 backbone with
+one shared attention block) and the encoder-decoder whisper-small (a
+transformer encoder over stub frame embeddings, and a decoder with
+cross-attention to it): every architecture of the reference.  Every
+architecture lives in its own module exposing ``CONFIG`` (the exact
+published shape) and ``reduced()`` (a tiny same-family config for CPU
+tests), each a copy of the reference's.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ ARCH_IDS = (
     "command-r-35b",
     "llama3-405b",
     "moonshot-v1-16b-a3b",
+    "whisper-small",
     "paligemma-3b",
     "rwkv6-3b",
     "zamba2-1.2b",

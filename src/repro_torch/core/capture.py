@@ -32,13 +32,16 @@ MAX_ROWS = 1024          # token subsample kept per linear for objectives
 CAPTURE_MINIBATCH = 4    # the reference's single-device capture minibatch
 
 
-def stage_calibration(X, Y) -> Tuple:
-    """A block's calibration streams, staged once on X's device.
+def stage_calibration(X, Y, aux=None) -> Tuple:
+    """A block's calibration streams (X, Y as float32, aux or None), staged
+    once on X's device.
 
     The reconstruction loop gathers its minibatches out of these tensors on
     the device; Y is promoted to float32, the dtype of the reconstruction
-    loss."""
-    return X, Y.to(device=X.device, dtype=torch.float32)
+    loss; ``aux`` (a per-sample extra stream, indexed as X) keeps its
+    dtype."""
+    return (X, Y.to(device=X.device, dtype=torch.float32),
+            aux.to(X.device) if aux is not None else None)
 
 
 def split_minibatches(x: torch.Tensor, mb: int = CAPTURE_MINIBATCH) -> list:
@@ -84,12 +87,14 @@ class LinearStats:
         return torch.cat(self.rows, 0)
 
 
-def capture_block_inputs(apply: Callable, bp, xs, *,
+def capture_block_inputs(apply: Callable, bp, xs, auxs=None, *,
                          want_hessian: bool = False
                          ) -> Dict[tuple, LinearStats]:
-    """Run ``apply(bp, x)`` over the minibatches ``xs``, recording the input
-    of every quantizable linear of ``bp`` (with its Hessian when
-    ``want_hessian``)."""
+    """Run ``apply(bp, x, aux)`` over the minibatches ``xs`` and the
+    matching minibatches of ``auxs`` (None: no aux), recording the input of
+    every quantizable linear of ``bp`` (with its Hessian when
+    ``want_hessian``): a cross-attention's keys and values record the aux
+    stream they read."""
     paths = quant_leaf_paths(bp)
     by_id = {id(get_path(bp, p)): p for p in paths}
     stats = {p: LinearStats() for p in paths}
@@ -111,8 +116,8 @@ def capture_block_inputs(apply: Callable, bp, xs, *,
     L.matmul, L.expert_matmul = patched_mm, patched_emm
     try:
         with torch.no_grad():
-            for x in xs:
-                apply(bp, x)
+            for i, x in enumerate(xs):
+                apply(bp, x, auxs[i] if auxs is not None else None)
     finally:
         L.matmul, L.expert_matmul = orig_mm, orig_emm
     return stats

@@ -69,8 +69,9 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qcfg: QuantConfig, *,
                       seed: int = 0, log: Optional[list] = None,
                       engine: str = "device", cache: Optional[dict] = None):
     """LWC block reconstruction from the FP block.  X/Y: the block's
-    calibration streams on its device; ``aux`` must be None (no ported
-    family has one: it is the encoder-decoder's).  ``engine`` is "device", "reference" or "legacy" (the two
+    calibration streams on its device; ``aux`` the per-sample extra
+    stream beside x (the encoder-decoder's encoder states) or None.
+    ``engine`` is "device", "reference" or "legacy" (the two
     host-loop engines run the same loop here, as in the reference).
     ``cache`` (scoped by the caller to one stage) reuses the engine across
     the stage's blocks.  Log entries carry the loss of the last step of
@@ -78,10 +79,6 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qcfg: QuantConfig, *,
     (the reference's two logs).  Returns (bp_fq, qmeta) with ``zero``
     rounded and the codes as uint8, as the reference returns them."""
     RE.check_engine(engine, "omniquant.reconstruct_block")
-    if aux is not None:
-        raise NotImplementedError(
-            "omniquant.reconstruct_block: per-sample aux streams are not "
-            "ported yet (ROADMAP queue 1, 'Remaining families')")
     paths = quant_leaf_paths(bp)
     # sigmoid^-1(~1.0-): gamma and beta start near 1 (4.0 -> 0.982)
     tr = {}
@@ -97,8 +94,8 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qcfg: QuantConfig, *,
         eng = RE.cached_engine(cache, "omniquant", lambda: (
             RE.ReconstructionEngine(_make_objective(apply, qcfg),
                                     AdamW(lr=lr))))
-        plan = RE.stage_plan(X, Y, batch_size=batch_size, total_steps=steps,
-                             seed=seed)
+        plan = RE.stage_plan(X, Y, aux, batch_size=batch_size,
+                             total_steps=steps, seed=seed)
         tr, _ = RE.run_logged(eng, tr, eng.init(tr), frozen, plan,
                               steps=steps, chunk=100, log=log)
     else:
@@ -108,13 +105,13 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qcfg: QuantConfig, *,
                                lambda: _make_objective(apply, qcfg))
         opt = AdamW(lr=lr)
         st = opt.init(tr)
-        Xh, Yh = RE.host_stage(X, Y)
+        Xh, Yh, auxh = RE.host_stage(X, Y, aux)
         N = Xh.shape[0]
         plan = RE.draw_index_plan(N, min(batch_size, N), steps, seed)
         for t in range(steps):
             # reprolint: ok[host-sync] — the per-step host gather is the host loop's design (counted)
-            xb, yb = RE.host_batch(Xh, Yh, plan[t], X.device)
-            lv, grads = RE.batch_mean_grad(obj, tr, frozen, xb, yb)
+            xb, yb, ab = RE.host_batch(Xh, Yh, plan[t], X.device, auxh)
+            lv, grads = RE.batch_mean_grad(obj, tr, frozen, xb, yb, ab)
             with torch.no_grad():
                 tr, st = opt.update(grads, st, tr)
             if log is not None and t % 100 == 0:

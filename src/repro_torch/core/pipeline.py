@@ -17,7 +17,11 @@ A stage whose ``init_x`` returns None continues the running streams (the
 hybrid's one-block stages), and a stage with ``calibrate=False`` only
 advances both streams through its block (the hybrid's shared block after
 its first site: through the block as already written back, as in the
-reference).
+reference).  A stage's ``make_aux`` gives a per-sample ``aux`` stream that
+goes beside x into every forward of its blocks, their captures and their
+reconstruction (the encoder-decoder's decoder: ``ln_enc`` of the encoder
+stage's final quantized stream, which that stage keeps under its
+``save_as`` name).
 
 The streams stay on the params' device; captures and forwards run over
 minibatches of ``capture.CAPTURE_MINIBATCH`` samples, as the reference's
@@ -89,7 +93,8 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
     choices, and with TesseraQ and SignRound the ``flips`` of the codes
     against the initialization's (``tesseraq.flip_stats``).  The caller's
     params are left as they are: the walk quantizes a private copy of the
-    block stacks (``blocks``, and the hybrid's ``shared_attn``).
+    block stacks (``blocks``, the hybrid's ``shared_attn``, the
+    encoder-decoder's ``encoder`` and ``decoder``).
     """
     if method not in METHODS:
         raise ValueError(f"quantize_model: unknown method {method!r} "
@@ -103,23 +108,29 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
     tcfg = tcfg or tq_mod.TesseraQConfig()
     stages = build_stages(cfg, ctx)
     params_q = dict(params)
-    for key in ("blocks", "shared_attn"):
+    for key in ("blocks", "shared_attn", "encoder", "decoder"):
         if key in params:
             params_q[key] = _clone_tree(params[key])
+    saved: Dict[str, torch.Tensor] = {}
     qmeta_all: Dict = {}
     report = {"blocks": [], "method": method, "init": init, "qcfg": qcfg.tag}
 
     def run(bp, stream):
-        return torch.cat([stage.apply(bp, x)
-                          for x in split_minibatches(stream)], 0)
+        return torch.cat([stage.apply(bp, x, a) for x, a in
+                          zip(split_minibatches(stream), aux_parts,
+                              strict=True)], 0)
 
     X = X_fp = None
     with torch.no_grad():
         for stage in stages:
-            parts = [stage.init_x(params_q, b) for b in batches]
+            parts = [stage.init_x(params_q, b, saved) for b in batches]
             if parts[0] is not None:     # else: continue the running stream
                 X = torch.cat(parts, 0)
                 X_fp = X
+            # the stage's aux stream, once, split as the streams are split
+            aux = stage.make_aux(params_q, batches, saved)
+            aux_parts = (split_minibatches(aux) if aux is not None
+                         else [None] * len(split_minibatches(X)))
             # the reconstruction engine is reused for every block of a stage
             recon_cache: Dict = {}
             for i in range(stage.n_blocks):
@@ -138,13 +149,14 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
                 src_parts = split_minibatches(src)
                 # FP targets block(theta_fp, src); in fp mode they are the
                 # next block's FP inputs too
-                fp_out = [stage.apply(bp_fp, x) for x in src_parts]
+                fp_out = [stage.apply(bp_fp, x, a)
+                          for x, a in zip(src_parts, aux_parts, strict=True)]
                 Y = torch.cat(fp_out, 0)
 
                 entry = {"stage": stage.name, "block": i}
                 if init == "awq":
                     caps = capture_block_inputs(stage.apply, bp_fp,
-                                                src_parts)
+                                                src_parts, aux_parts)
                     bp_init, qmeta = awq_mod.quantize_block_awq(bp_fp, caps,
                                                                 qcfg)
                     entry["awq"] = {".".join(p): {"alpha": m["alpha"],
@@ -152,7 +164,8 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
                                     for p, m in qmeta.items()}
                 elif init == "gptq":
                     caps = capture_block_inputs(stage.apply, bp_fp,
-                                                src_parts, want_hessian=True)
+                                                src_parts, aux_parts,
+                                                want_hessian=True)
                     bp_init, qmeta = gptq_mod.quantize_block_gptq(bp_fp, caps,
                                                                   qcfg)
                     del caps
@@ -165,19 +178,19 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
                 if method == "none":
                     bp_q = bp_init
                 else:
-                    Xd, Yd = stage_calibration(src, Y)
+                    Xd, Yd, auxd = stage_calibration(src, Y, aux)
                     if method == "tesseraq":
                         bp_q, qmeta = tq_mod.reconstruct_block(
-                            stage.apply, bp_fp, Xd, Yd, None, qmeta, qcfg,
+                            stage.apply, bp_fp, Xd, Yd, auxd, qmeta, qcfg,
                             tcfg, log=log, cache=recon_cache)
                     elif method == "omniquant":
                         bp_q, qmeta = omni_mod.reconstruct_block(
-                            stage.apply, bp_fp, Xd, Yd, None, qcfg,
+                            stage.apply, bp_fp, Xd, Yd, auxd, qcfg,
                             steps=omni_steps, batch_size=tcfg.batch_size,
                             log=log, engine=tcfg.engine, cache=recon_cache)
                     else:
                         bp_q, qmeta = sr_mod.reconstruct_block(
-                            stage.apply, bp_fp, Xd, Yd, None, qmeta, qcfg,
+                            stage.apply, bp_fp, Xd, Yd, auxd, qmeta, qcfg,
                             steps=max(tcfg.par_iterations
                                       * tcfg.steps_per_iteration, 50),
                             batch_size=tcfg.batch_size, log=log,
@@ -187,7 +200,8 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
                 for p_, m_ in qmeta.items():
                     qmeta_all[stage.pack_target(i) + tuple(p_)] = m_
                 bq = stage.get_block(params_q, i)
-                out_q = [stage.apply(bq, x) for x in src_parts]
+                out_q = [stage.apply(bq, x, a)
+                         for x, a in zip(src_parts, aux_parts, strict=True)]
                 if method in ("tesseraq", "signround"):
                     entry["flips"] = {
                         ".".join(p): f for p, f in
@@ -203,6 +217,9 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
                 else:
                     X = run(bq, X)
                 X_fp = Y if input_source == "fp" else X
+            if stage.save_as:
+                # the quantized stream, as the reference saves it
+                saved[stage.save_as] = X
     return params_q, qmeta_all, report
 
 

@@ -4,8 +4,10 @@ The per-block inner loop is the cost center of reconstruction-style PTQ
 (paper Sec. 3.2/3.3, Algorithm 1): hundreds of gradient steps per block.
 This module keeps the loop on the device and off the host:
 
-  * **Batch pre-staging**: the calibration streams X / Y are staged on the
-    device once per block (``capture.stage_calibration``) and the whole
+  * **Batch pre-staging**: the calibration streams X / Y (and a per-sample
+    ``aux`` stream, the encoder-decoder's encoder states, gathered by the
+    same rows) are staged on the device once per block
+    (``capture.stage_calibration``) and the whole
     minibatch index plan for all K*T steps is drawn up front by
     ``draw_index_plan``, the reference's canonical draw (bit-identical
     numpy draws).  Inside the loop a minibatch is an ``index_select`` on the
@@ -102,13 +104,14 @@ def host_read(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
-def host_stage(X: torch.Tensor, Y: torch.Tensor):
+def host_stage(X: torch.Tensor, Y: torch.Tensor, aux=None):
     """A block's calibration streams copied to the host once, for the
-    host-loop engines: (X, Y as float32), CPU tensors (numpy has no
-    bfloat16).  One counted read each."""
+    host-loop engines: (X, Y as float32, aux or None), CPU tensors (numpy
+    has no bfloat16).  One counted read each."""
     global _SYNC_COUNT
-    _SYNC_COUNT += 2
-    return X.detach().cpu(), Y.detach().to(torch.float32).cpu()
+    _SYNC_COUNT += 2 + (aux is not None)
+    return (X.detach().cpu(), Y.detach().to(torch.float32).cpu(),
+            aux.detach().cpu() if aux is not None else None)
 
 
 def host_push(a, device) -> torch.Tensor:
@@ -121,12 +124,14 @@ def host_push(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def host_batch(Xh: torch.Tensor, Yh: torch.Tensor, idx: np.ndarray, device):
-    """One step's minibatch of the host-loop engines: gathered on the host
-    by the plan row ``idx`` and pushed to ``device`` (two counted
-    pushes)."""
+def host_batch(Xh: torch.Tensor, Yh: torch.Tensor, idx: np.ndarray, device,
+               auxh=None):
+    """One step's minibatch (xb, yb, aux rows or None) of the host-loop
+    engines: gathered on the host by the plan row ``idx`` and pushed to
+    ``device`` (a counted push each)."""
     i = torch.from_numpy(np.asarray(idx, np.int64))
-    return host_push(Xh[i], device), host_push(Yh[i], device)
+    return (host_push(Xh[i], device), host_push(Yh[i], device),
+            host_push(auxh[i], device) if auxh is not None else None)
 
 
 def sync_count() -> int:
@@ -241,19 +246,20 @@ class Objective:
 
     ``prepare(tr, frozen) -> {key: tensor}``: the differentiable
     intermediates, computed from the trainables once per step.
-    ``lane_loss(inter, frozen, x1, y1) -> scalar``: one sample's loss (the
-    inputs carry a leading batch dim of 1)."""
+    ``lane_loss(inter, frozen, x1, y1, a1) -> scalar``: one sample's loss
+    (the inputs carry a leading batch dim of 1; ``a1`` is the sample's aux
+    row, or None)."""
     prepare: Callable
     lane_loss: Callable
 
 
-def block_mse(apply: Callable, bp, weights, x1, y1) -> torch.Tensor:
-    """One sample's ``mean((block(x) - y)^2)`` in f32 with each linear at
-    ``weights[path]`` (cast to the leaf's dtype): the reconstruction loss
-    every method's ``lane_loss`` takes."""
+def block_mse(apply: Callable, bp, weights, x1, y1, a1=None) -> torch.Tensor:
+    """One sample's ``mean((block(x, aux) - y)^2)`` in f32 with each linear
+    at ``weights[path]`` (cast to the leaf's dtype): the reconstruction
+    loss every method's ``lane_loss`` takes."""
     for p, w in weights.items():
         bp = set_path(bp, p, w.to(get_path(bp, p).dtype))
-    out = apply(bp, x1)
+    out = apply(bp, x1, a1)
     return torch.mean(torch.square(out.to(torch.float32) - y1))
 
 
@@ -262,16 +268,18 @@ def block_mse_objective(apply: Callable, prepare: Callable) -> Objective:
     weight by path and whose lane loss is :func:`block_mse` of the block
     ``frozen["bp"]`` (OmniQuant's LWC and SignRound)."""
 
-    def lane_loss(inter, frozen, x1, y1):
-        return block_mse(apply, frozen["bp"], inter, x1, y1)
+    def lane_loss(inter, frozen, x1, y1, a1):
+        return block_mse(apply, frozen["bp"], inter, x1, y1, a1)
 
     return Objective(prepare, lane_loss)
 
 
-def canonical_grad(objective: Objective, tr, frozen, xb, yb, chunks: int):
+def canonical_grad(objective: Objective, tr, frozen, xb, yb, chunks: int,
+                   ab=None):
     """(loss, grads) of the minibatch mean loss with the canonical chunked
     per-sample reduction; ``grads`` mirrors ``tr`` (zeros where a trainable
-    does not reach the loss)."""
+    does not reach the loss).  ``ab``: the minibatch's aux rows, or
+    None."""
     bs = xb.shape[0]
     width = bs // chunks
     flat_tr = [t.detach().requires_grad_() for t in tree_leaves(tr)]
@@ -286,7 +294,8 @@ def canonical_grad(objective: Objective, tr, frozen, xb, yb, chunks: int):
             part = loss_part = None
             for lane in range(j * width, (j + 1) * width):
                 sl = slice(lane, lane + 1)
-                lv = objective.lane_loss(leaves, frozen, xb[sl], yb[sl])
+                lv = objective.lane_loss(leaves, frozen, xb[sl], yb[sl],
+                                         ab[sl] if ab is not None else None)
                 gs = torch.autograd.grad(lv, inputs, allow_unused=True)
                 gs = [torch.zeros_like(x) if g is None else g
                       for g, x in zip(gs, inputs, strict=True)]
@@ -311,7 +320,7 @@ def canonical_grad(objective: Objective, tr, frozen, xb, yb, chunks: int):
     return loss_tot / bs, _unflatten(tr, iter(g_tr))
 
 
-def batch_mean_grad(objective: Objective, tr, frozen, xb, yb):
+def batch_mean_grad(objective: Objective, tr, frozen, xb, yb, ab=None):
     """(loss, grads) of the whole minibatch's loss in one backward: the
     objective's ``lane_loss`` over all of ``xb`` at once (``block_mse``
     means over every sample, so this is the batch mean), differentiated
@@ -324,7 +333,7 @@ def batch_mean_grad(objective: Objective, tr, frozen, xb, yb):
     tr_req = _unflatten(tr, iter(flat_tr))
     with torch.enable_grad():
         inter = objective.prepare(tr_req, frozen)
-        loss = objective.lane_loss(inter, frozen, xb, yb)
+        loss = objective.lane_loss(inter, frozen, xb, yb, ab)
         g_tr = torch.autograd.grad(loss, flat_tr, allow_unused=True)
     g_tr = [torch.zeros_like(t) if g is None else g
             for g, t in zip(g_tr, flat_tr, strict=True)]
@@ -343,13 +352,15 @@ def _unflatten(like, it):
 
 @dataclasses.dataclass
 class BatchPlan:
-    """Per-block staged calibration data + the full minibatch index plan
-    (drawn once by ``draw_index_plan``, staged on the streams' device)."""
+    """Per-block staged calibration data (X, Y and the per-sample ``aux``
+    stream or None) + the full minibatch index plan (drawn once by
+    ``draw_index_plan``, staged on the streams' device)."""
     X: Any
     Y: Any
     index_plan: Any        # (total_steps, bs) int64, on the device
     total_steps: int
     chunks: int = 1
+    aux: Any = None
 
 
 def draw_index_plan(N: int, batch_size: int, total_steps: int,
@@ -372,16 +383,16 @@ def draw_index_plan(N: int, batch_size: int, total_steps: int,
     return plan.astype(np.int32)
 
 
-def stage_plan(X, Y, *, batch_size: int, total_steps: int,
+def stage_plan(X, Y, aux=None, *, batch_size: int, total_steps: int,
                seed: int = 0) -> BatchPlan:
-    Xd, Yd = stage_calibration(X, Y)
+    Xd, Yd, auxd = stage_calibration(X, Y, aux)
     N = Xd.shape[0]
     bs = min(batch_size, N)
     plan = draw_index_plan(N, bs, total_steps, seed)
     return BatchPlan(Xd, Yd,
                      torch.as_tensor(plan, dtype=torch.long,
                                      device=Xd.device),
-                     total_steps, grad_chunk_count(bs, N))
+                     total_steps, grad_chunk_count(bs, N), auxd)
 
 
 class ReconstructionEngine:
@@ -421,17 +432,21 @@ class ReconstructionEngine:
             idx = plan.index_plan[t]
             xb = plan.X.index_select(0, idx)
             yb = plan.Y.index_select(0, idx)
+            ab = (plan.aux.index_select(0, idx) if plan.aux is not None
+                  else None)
             trainables, opt_state, lv = self.step(trainables, opt_state,
-                                                  frozen, xb, yb, chunks)
+                                                  frozen, xb, yb, chunks, ab)
         return trainables, opt_state, lv
 
-    def step(self, trainables, opt_state, frozen, xb, yb, chunks: int):
-        """One step on the minibatch (xb, yb): the canonical chunked
-        gradient, then the optimizer.  ``run`` takes it on device-gathered
-        minibatches, the host-loop ``"reference"`` engine on host-gathered
-        ones.  Returns (trainables, opt_state, loss)."""
+    def step(self, trainables, opt_state, frozen, xb, yb, chunks: int,
+             ab=None):
+        """One step on the minibatch (xb, yb, aux rows ``ab`` or None): the
+        canonical chunked gradient, then the optimizer.  ``run`` takes it
+        on device-gathered minibatches, the host-loop ``"reference"``
+        engine on host-gathered ones.  Returns (trainables, opt_state,
+        loss)."""
         lv, grads = canonical_grad(self.objective, trainables, frozen,
-                                   xb, yb, chunks)
+                                   xb, yb, chunks, ab)
         with torch.no_grad():
             trainables, opt_state = self.opt.update(grads, opt_state,
                                                     trainables)

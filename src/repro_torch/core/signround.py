@@ -70,7 +70,8 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qmeta: Dict,
     """Sign-SGD rounding optimization on one block.  ``qmeta`` supplies the
     (AWQ/RTN/GPTQ) scale/zero/act_scale initialization, exactly as for
     TesseraQ.  X/Y: the block's calibration streams on its device; ``aux``
-    must be None (no ported family has one: it is the encoder-decoder's).  ``engine`` is "device",
+    the per-sample extra stream beside x (the encoder-decoder's encoder
+    states) or None.  ``engine`` is "device",
     "reference" or "legacy" (the two host-loop engines run the same loop
     here, as in the reference).  ``cache`` (scoped by the caller to one
     stage) reuses the engine across the stage's blocks.  Log entries carry
@@ -78,10 +79,6 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qmeta: Dict,
     0, 50, ... on the host loop (the reference's two logs).  Returns
     (bp_fq, qmeta')."""
     RE.check_engine(engine, "signround.reconstruct_block")
-    if aux is not None:
-        raise NotImplementedError(
-            "signround.reconstruct_block: per-sample aux streams are not "
-            "ported yet (ROADMAP queue 1, 'Remaining families')")
     paths = quant_leaf_paths(bp)
     fixed = {p: {"scale": qmeta[p]["scale"], "zero": qmeta[p]["zero"],
                  "act_scale": qmeta[p].get("act_scale")} for p in paths}
@@ -99,8 +96,8 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qmeta: Dict,
             RE.ReconstructionEngine(
                 _make_objective(apply, qcfg),
                 RE.SignSGD(lr=lr, total_steps=steps, clip=0.5))))
-        plan = RE.stage_plan(X, Y, batch_size=batch_size, total_steps=steps,
-                             seed=seed)
+        plan = RE.stage_plan(X, Y, aux, batch_size=batch_size,
+                             total_steps=steps, seed=seed)
         vs, _ = RE.run_logged(eng, vs, eng.init(vs), frozen, plan,
                               steps=steps, chunk=50, log=log)
     else:
@@ -108,13 +105,13 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qmeta: Dict,
         # traced gradient a stage
         obj = RE.cached_engine(cache, "legacy-grad",
                                lambda: _make_objective(apply, qcfg))
-        Xh, Yh = RE.host_stage(X, Y)
+        Xh, Yh, auxh = RE.host_stage(X, Y, aux)
         N = Xh.shape[0]
         plan = RE.draw_index_plan(N, min(batch_size, N), steps, seed)
         for t in range(steps):
             # reprolint: ok[host-sync] — the per-step host gather is the host loop's design (counted)
-            xb, yb = RE.host_batch(Xh, Yh, plan[t], X.device)
-            lv, grads = RE.batch_mean_grad(obj, vs, frozen, xb, yb)
+            xb, yb, ab = RE.host_batch(Xh, Yh, plan[t], X.device, auxh)
+            lv, grads = RE.batch_mean_grad(obj, vs, frozen, xb, yb, ab)
             cur_lr = lr * (1.0 - t / steps)               # linear decay
             with torch.no_grad():
                 vs = {p: torch.clamp(vs[p] - cur_lr * torch.sign(grads[p]),

@@ -241,10 +241,10 @@ def _make_loss_fn(apply: Callable, qcfg: QuantConfig,
                 inter[("v",) + p] = tr[p]["v"]
         return inter
 
-    def lane_loss(inter, frozen, x1, y1):
+    def lane_loss(inter, frozen, x1, y1, a1):
         loss = RE.block_mse(apply, frozen["bp"],
                             {p: inter[("w",) + p] for p in frozen["sts"]},
-                            x1, y1)
+                            x1, y1, a1)
         if wd:
             loss = loss + wd * sum(torch.sum(torch.square(inter[("v",) + p]))
                                    for p in frozen["sts"])
@@ -269,7 +269,7 @@ def _log_stats(lv, hard):
     return torch.stack([lv.to(torch.float32), soft / max(total, 1)])
 
 
-def _run_device(apply, bp, X, Y, qcfg, tcfg: TesseraQConfig, states,
+def _run_device(apply, bp, X, Y, aux, qcfg, tcfg: TesseraQConfig, states,
                 log: Optional[list], cache: Optional[dict] = None):
     """Device engine: hardening on the device, T steps per PAR iteration
     with no host read, pre-staged batches.  The only blocking host read per
@@ -281,7 +281,7 @@ def _run_device(apply, bp, X, Y, qcfg, tcfg: TesseraQConfig, states,
     eng = RE.cached_engine(cache, "device", lambda: (
         RE.ReconstructionEngine(_make_loss_fn(apply, qcfg, tcfg),
                                 AdamW(lr=tcfg.lr))))
-    plan = RE.stage_plan(X, Y, batch_size=tcfg.batch_size,
+    plan = RE.stage_plan(X, Y, aux, batch_size=tcfg.batch_size,
                          total_steps=K * T, seed=tcfg.seed)
 
     sr = list(tcfg.soft_rate)
@@ -317,17 +317,17 @@ def _soft_rate_of(states) -> float:
     return soft / max(sum(h.size for h in hard), 1)
 
 
-def _run_host_loop(bp, X, Y, tcfg: TesseraQConfig, states,
+def _run_host_loop(bp, X, Y, aux, tcfg: TesseraQConfig, states,
                    log: Optional[list], step: Callable):
     """The host loop both host-loop engines share: NumPy hardening, the
     plan drawn on the host, every step's minibatch gathered on the host and
-    pushed, ``step(tr, opt_state, frozen, xb, yb) -> (tr, opt_state,
+    pushed, ``step(tr, opt_state, frozen, xb, yb, ab) -> (tr, opt_state,
     loss)``, one log line per PAR iteration."""
     K = tcfg.par_iterations if tcfg.par else 1
     T = tcfg.steps_per_iteration
     trainable_keys = ("nu", "v") if tcfg.dst else ("nu",)
     opt = AdamW(lr=tcfg.lr)
-    Xh, Yh = RE.host_stage(X, Y)
+    Xh, Yh, auxh = RE.host_stage(X, Y, aux)
     N = Xh.shape[0]
     plan = RE.draw_index_plan(N, min(tcfg.batch_size, N), K * T, tcfg.seed)
     sr = list(tcfg.soft_rate)
@@ -345,9 +345,10 @@ def _run_host_loop(bp, X, Y, tcfg: TesseraQConfig, states,
         lv = None
         for t in range(T):
             # reprolint: ok[host-sync] — the per-step host gather is the host-loop engines' design (counted)
-            xb, yb = RE.host_batch(Xh, Yh, plan[k * T + t], X.device)
+            xb, yb, ab = RE.host_batch(Xh, Yh, plan[k * T + t], X.device,
+                                       auxh)
             tr, opt_state, lv = step(tr, opt_state,
-                                     {"bp": bp, "sts": frozen}, xb, yb)
+                                     {"bp": bp, "sts": frozen}, xb, yb, ab)
         states = _merge(states, tr, tcfg.dst)
         if log is not None and lv is not None:
             # reprolint: ok[host-sync] — the log line's reads, as the reference's host loop makes them (counted)
@@ -356,7 +357,7 @@ def _run_host_loop(bp, X, Y, tcfg: TesseraQConfig, states,
     return states
 
 
-def _run_reference(apply, bp, X, Y, qcfg, tcfg: TesseraQConfig, states,
+def _run_reference(apply, bp, X, Y, aux, qcfg, tcfg: TesseraQConfig, states,
                    log: Optional[list], cache: Optional[dict] = None):
     """Host-loop oracle: the device engine's step (``canonical_grad`` with
     the same chunk count, then AdamW) on host-gathered minibatches, after
@@ -368,13 +369,13 @@ def _run_reference(apply, bp, X, Y, qcfg, tcfg: TesseraQConfig, states,
     N = X.shape[0]
     chunks = RE.grad_chunk_count(min(tcfg.batch_size, N), N)
 
-    def step(tr, opt_state, frozen, xb, yb):
-        return eng.step(tr, opt_state, frozen, xb, yb, chunks)
+    def step(tr, opt_state, frozen, xb, yb, ab):
+        return eng.step(tr, opt_state, frozen, xb, yb, chunks, ab)
 
-    return _run_host_loop(bp, X, Y, tcfg, states, log, step)
+    return _run_host_loop(bp, X, Y, aux, tcfg, states, log, step)
 
 
-def _run_legacy(apply, bp, X, Y, qcfg, tcfg: TesseraQConfig, states,
+def _run_legacy(apply, bp, X, Y, aux, qcfg, tcfg: TesseraQConfig, states,
                 log: Optional[list], cache: Optional[dict] = None):
     """The pre-engine loop, kept as the speed baseline: one batch-mean
     gradient a step (``recon_engine.batch_mean_grad``), the eager per-leaf
@@ -383,13 +384,13 @@ def _run_legacy(apply, bp, X, Y, qcfg, tcfg: TesseraQConfig, states,
                            lambda: _make_loss_fn(apply, qcfg, tcfg))
     opt = AdamW(lr=tcfg.lr)
 
-    def step(tr, opt_state, frozen, xb, yb):
-        lv, grads = RE.batch_mean_grad(obj, tr, frozen, xb, yb)
+    def step(tr, opt_state, frozen, xb, yb, ab):
+        lv, grads = RE.batch_mean_grad(obj, tr, frozen, xb, yb, ab)
         with torch.no_grad():
             tr, opt_state = opt.update(grads, opt_state, tr)
         return tr, opt_state, lv
 
-    return _run_host_loop(bp, X, Y, tcfg, states, log, step)
+    return _run_host_loop(bp, X, Y, aux, tcfg, states, log, step)
 
 
 _RUNNERS = {"device": _run_device, "reference": _run_reference,
@@ -407,22 +408,17 @@ def reconstruct_block(apply: Callable, bp, X: torch.Tensor, Y: torch.Tensor,
     """Run TesseraQ on one block.
 
     X: (N, S, d) inputs; Y: (N, S, d) FP outputs, both on the block's
-    device; ``aux`` (the reference's per-sample extra stream) must be None
-    (no ported family has one: it is the encoder-decoder's).  Returns (bp_fq, qmeta') with
-    DST folded into each linear's ``scale`` and the final hardened mask
-    under ``hard``.  The inner loop runs on the engine ``tcfg.engine``
-    names.  ``cache`` (a dict the caller scopes to one stage) reuses the
-    engine across the stage's blocks."""
-    if aux is not None:
-        raise NotImplementedError(
-            "reconstruct_block: per-sample aux streams are not ported yet "
-            "(they arrive with the families that use them, ROADMAP queue 1, "
-            "'Remaining families')")
+    device; ``aux``: a per-sample extra stream (N, ...) passed beside x to
+    ``apply`` (the encoder-decoder's encoder states), or None.  Returns
+    (bp_fq, qmeta') with DST folded into each linear's ``scale`` and the
+    final hardened mask under ``hard``.  The inner loop runs on the engine
+    ``tcfg.engine`` names.  ``cache`` (a dict the caller scopes to one
+    stage) reuses the engine across the stage's blocks."""
     RE.check_engine(tcfg.engine, "reconstruct_block")
     paths = quant_leaf_paths(bp)
     states = {p: _leaf_state(get_path(bp, p), qmeta[p], qcfg) for p in paths}
-    states = _RUNNERS[tcfg.engine](apply, bp, X, Y, qcfg, tcfg, states, log,
-                                   cache)
+    states = _RUNNERS[tcfg.engine](apply, bp, X, Y, aux, qcfg, tcfg, states,
+                                   log, cache)
 
     # ---- finalization: hard-round everything, fold DST into the scale ----
     new_meta = {}

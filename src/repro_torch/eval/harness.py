@@ -20,6 +20,9 @@ calibration runs with ``kernel_backend="pallas"``, so the TesseraQ row's
 θ̂ and its gradient go through the soft_round kernels on the card (the
 reference's ``"xla"`` θ̂ is the same function); the gate's ``"pallas"``
 run goes through the quant-matmul, GEMV and decode-attention kernels.
+Its batches carry tokens only, as the reference's do, so ``--arch
+paligemma-3b`` and ``--arch whisper-small`` stop with a clear error naming
+``patches`` or ``frames``.
 """
 from __future__ import annotations
 

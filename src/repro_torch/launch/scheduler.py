@@ -71,7 +71,8 @@ class Request:
     ``arrival`` is in scheduler-clock units (decode steps): the request is
     admissible once the scheduler has dispatched that many decode steps.
     ``extras`` carries further per-request prefill inputs, unbatched:
-    ``patches`` (num_patches, d_model) for the VLM."""
+    ``patches`` (num_patches, d_model) for the VLM, ``frames``
+    (frontend_len, d_model) for the encoder-decoder."""
     rid: int
     prompt: np.ndarray                  # (plen,) int32
     max_new_tokens: int
@@ -216,7 +217,9 @@ def make_workload(vocab_size: int, *, n_requests: int, seed: int,
 
 def _prefill_len(cfg: ModelConfig, req: Request) -> int:
     """Cache positions a request's prefill consumes: its prompt, plus the
-    image-patch prefix for the VLM (the patches share the decoder cache)."""
+    image-patch prefix for the VLM (the patches share the decoder cache).
+    An encoder-decoder's frames fill the fixed cross-attention leaves, not
+    the decoder's token cache."""
     extra = cfg.num_patches if cfg.family == "vlm" else 0
     return len(req.prompt) + extra
 

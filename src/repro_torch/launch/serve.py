@@ -6,12 +6,13 @@
 ``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS``: the dense
 llama configs (TinyLlama, LLaMA-2-7B, Mistral-7B, Command-R-35B,
 LLaMA-3-405B, SmolLM-135M), the MoE ``qwen3-moe-30b-a3b`` and
-``moonshot-v1-16b-a3b``, ``rwkv6-3b``, ``zamba2-1.2b`` and
-``paligemma-3b``.  The CLI's batches carry tokens only, as the
-reference's do, so the VLM stops with a clear error where the reference's
-fails: at the calibration's first batch, or at the prefill with ``--method
-none`` (``serve_scheduled`` takes its patches per request in
-``Request.extras``).
+``moonshot-v1-16b-a3b``, ``rwkv6-3b``, ``zamba2-1.2b``,
+``paligemma-3b`` and ``whisper-small``.  The CLI's batches carry tokens
+only, as the reference's do, so the VLM and the encoder-decoder stop with
+a clear error (naming ``patches`` or ``frames``) where the reference's
+fail: at the calibration's first batch, or at the prefill with
+``--method none`` (``serve_scheduled`` takes their patches or frames per
+request in ``Request.extras``).
 
 ``serve_requests`` is the uniform lock-step loop: one batch, one shared
 prompt length, a fixed ``gen`` for every row.  ``--slots N`` serves a

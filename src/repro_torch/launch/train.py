@@ -20,9 +20,10 @@ memory.  The last line before ``[train] done`` gives the first step's
 seconds (the process's one-time costs land there) and the wall-clock ms
 per later step, split into the host's batch synthesis, checkpoint saves and
 the rest (the steps and the log reads).  Runs on ``--device cuda``
-unless told otherwise.  ``--arch paligemma-3b`` stops at the first step
-with a clear error: the synthetic batches carry no patches, as the
-reference's do not.
+unless told otherwise.  ``--arch paligemma-3b`` and ``--arch
+whisper-small`` stop at the first step with a clear error: the synthetic
+batches carry no patches or frames, as the reference's do not
+(``make_train_harness`` trains either on batches that carry them).
 """
 from __future__ import annotations
 

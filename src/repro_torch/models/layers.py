@@ -1,6 +1,7 @@
 """Shared building blocks: matmul dispatch over plain / quantized (QTensor)
-weights, per-token activation fake-quant, RMSNorm, RoPE and chunked
-(flash-style) attention with a recomputing backward.
+weights, per-token activation fake-quant, RMSNorm, LayerNorm, RoPE,
+sinusoidal positions and chunked (flash-style) attention, causal or not,
+with a recomputing backward.
 
 Functions over tensors and param dicts; weights use ``(in_features,
 out_features)`` (experts: ``(E, in, out)``).  QTensor matmuls dispatch per call on ``backend``:
@@ -9,6 +10,7 @@ runs the hand-written kernels (their plain versions on a CPU tensor).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -90,6 +92,17 @@ def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * g
 
 
+def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim in f32 (the population variance, as
+    ``jnp.var``), cast to x's dtype before the affine ``* g + b``, as the
+    reference."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * g + b
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding. x: (B, S, H, D), positions: (B, S) or (S,)."""
     d = x.shape[-1]
@@ -105,6 +118,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def sinusoidal_pos(seq: int, d: int, dtype=torch.bfloat16,
+                   device=None) -> torch.Tensor:
+    """(seq, d) sinusoidal positions, ``[sin | cos]`` concatenated (not
+    interleaved), computed in f32 and cast to ``dtype``, as the
+    reference's."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(0, d, 2, dtype=torch.float32,
+                                     device=device) / d)
+    ang = pos * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # --------------------------------------------------------------------------
 # flash attention: online softmax over KV chunks, with a FlashAttention-2
 # style backward that recomputes each chunk's scores (the reference's
@@ -112,21 +138,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # of every chunk's (Sq x C) scores and probabilities
 # --------------------------------------------------------------------------
 
-def _mask_for(idx, csz, q_pos, valid_len, prefix_len=None):
-    """Causal mask of KV chunk ``idx``; with ``prefix_len`` the prefix-LM
-    mask (the VLM's image prefix attends bidirectionally): causal OR
-    ``k_pos < prefix_len``."""
+def _mask_for(idx, csz, q_pos, valid_len, causal=True, prefix_len=None):
+    """The ``valid_len`` mask of KV chunk ``idx``, and with ``causal`` the
+    causal mask; with ``prefix_len`` the prefix-LM mask (the VLM's image
+    prefix attends bidirectionally): causal OR ``k_pos < prefix_len``."""
     k_pos = idx * csz + torch.arange(csz, dtype=torch.float32,
                                      device=q_pos.device)
     k5 = k_pos[None, None, None, None, :]
     mask = k5 < valid_len[:, None, None, None, None]
+    if not causal:
+        return mask
     cm = k5 <= q_pos[:, None, None, :, None]
     if prefix_len is not None:
         cm = cm | (k5 < prefix_len)
     return mask & cm
 
 
-def _flash_fwd(q, k, v, q_pos, valid_len, prefix_len=None):
+def _flash_fwd(q, k, v, q_pos, valid_len, causal=True, prefix_len=None):
     """The online-softmax loop over KV chunks in plain ops.  q: (B,Hkv,G,Sq,D)
     f32 with the scale applied; k,v: (N,B,Hkv,C,D).  Returns (out f32, lse
     (B,Hkv,G,Sq)).  Differentiable as it stands (autograd then keeps every
@@ -138,7 +166,7 @@ def _flash_fwd(q, k, v, q_pos, valid_len, prefix_len=None):
     acc = torch.zeros((B, Hkv, G, Sq, D), device=q.device)
     for idx in range(k.shape[0]):
         s = torch.einsum("bhgqd,bhcd->bhgqc", q, k[idx].float())
-        mask = _mask_for(idx, csz, q_pos, valid_len, prefix_len)
+        mask = _mask_for(idx, csz, q_pos, valid_len, causal, prefix_len)
         s = torch.where(mask, s, -1e30)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -159,10 +187,10 @@ class _FlashCore(torch.autograd.Function):
     chunks, dk and dv are per chunk (cast to k's and v's dtype)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, valid_len, prefix_len):
-        out, lse = _flash_fwd(q, k, v, q_pos, valid_len, prefix_len)
+    def forward(ctx, q, k, v, q_pos, valid_len, causal, prefix_len):
+        out, lse = _flash_fwd(q, k, v, q_pos, valid_len, causal, prefix_len)
         ctx.save_for_backward(q, k, v, q_pos, valid_len, out, lse)
-        ctx.prefix_len = prefix_len
+        ctx.causal, ctx.prefix_len = causal, prefix_len
         return out
 
     @staticmethod
@@ -175,41 +203,46 @@ class _FlashCore(torch.autograd.Function):
         for idx in range(k.shape[0]):
             kf, vf = k[idx].float(), v[idx].float()
             s = torch.einsum("bhgqd,bhcd->bhgqc", q, kf)
-            mask = _mask_for(idx, csz, q_pos, valid_len, ctx.prefix_len)
+            mask = _mask_for(idx, csz, q_pos, valid_len, ctx.causal,
+                             ctx.prefix_len)
             p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
             dv.append(torch.einsum("bhgqc,bhgqd->bhcd", p, dout).to(v.dtype))
             dp = torch.einsum("bhgqd,bhcd->bhgqc", dout, vf)
             ds = p * (dp - delta[..., None])
             dq = dq + torch.einsum("bhgqc,bhcd->bhgqd", ds, kf)
             dk.append(torch.einsum("bhgqc,bhgqd->bhcd", ds, q).to(k.dtype))
-        return dq, torch.stack(dk), torch.stack(dv), None, None, None
+        return (dq, torch.stack(dk), torch.stack(dv), None, None, None,
+                None)
 
 
-def _flash_core(q, k, v, q_pos, valid_len, prefix_len=None):
+def _flash_core(q, k, v, q_pos, valid_len, causal=True, prefix_len=None):
     """q: (B,Hkv,G,Sq,D) f32 with the scale applied; k,v: (N,B,Hkv,C,D).
-    The causal (or prefix-LM) and ``valid_len`` masks, as
-    ``flash_attention``."""
-    return _FlashCore.apply(q, k, v, q_pos, valid_len, prefix_len)
+    The ``valid_len`` mask and, with ``causal``, the causal (or prefix-LM)
+    mask, as ``flash_attention``."""
+    return _FlashCore.apply(q, k, v, q_pos, valid_len, causal, prefix_len)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
                     q_offset=0, kv_len: Optional[torch.Tensor] = None,
                     chunk: int = 512, scale: Optional[float] = None,
                     backend: Optional[str] = None,
                     active: Optional[torch.Tensor] = None,
                     pages: Optional[tuple] = None,
                     prefix_len: Optional[int] = None) -> torch.Tensor:
-    """Chunked causal attention with GQA support (the reference's
-    non-causal mask arrives with the encoder-decoder).  ``prefix_len`` (a
-    Python int) makes it the prefix-LM mask of the VLM: positions below it
-    attend bidirectionally, causal OR ``k_pos < prefix_len``.
+    """Chunked attention with GQA support: causal, or with ``causal=False``
+    every valid key (the encoder-decoder's encoder and cross-attention).
+    ``prefix_len`` (a Python int) makes the causal mask the prefix-LM mask
+    of the VLM: positions below it attend bidirectionally, causal OR
+    ``k_pos < prefix_len``.
 
     q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) with Hq % Hkv == 0.
     ``q_offset``: absolute position of q[0] (int or (B,)) for causal masks
     during decode.  ``kv_len``: (B,) valid KV length (cache masking).
-    ``backend``: for the Sq == 1 decode step, "pallas" runs the slot-aware
-    decode kernel (inactive slots in ``active`` come back zero) unless
-    ``prefix_len`` is set, as in the reference (decode never sets it);
+    ``backend``: for the causal Sq == 1 decode step with ``kv_len``,
+    "pallas" runs the slot-aware decode kernel (inactive slots in
+    ``active`` come back zero) unless ``prefix_len`` is set, as in the
+    reference (decode never sets it; cross-attention is not causal);
     "xla" runs the dense masked softmax.  Sq > 1 always runs the chunked online softmax
     in plain torch ops, with the recomputing backward (``_flash_core``).
 
@@ -226,7 +259,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else D ** -0.5
     dev = q.device
 
-    if (Sq == 1 and kv_len is not None and prefix_len is None
+    if (Sq == 1 and causal and kv_len is not None and prefix_len is None
             and resolve_backend(backend) == "pallas"):
         from repro_torch.kernels import decode_attention as kernels
         q4 = q.reshape(B, Hkv, G, D).contiguous()
@@ -246,18 +279,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qf = qf.permute(0, 2, 3, 1, 4)                             # (B,Hkv,G,Sq,D)
 
     if Sq == 1:
-        q_pos1 = torch.as_tensor(q_offset, dtype=torch.float32,
-                                 device=dev).reshape(-1)[:, None]
-        q_pos1 = q_pos1.expand(B, 1)
         valid1 = (kv_len.float() if kv_len is not None
                   else torch.full((B,), float(Sk), device=dev))
         s = torch.einsum("bhgqd,bshd->bhgqs", qf, k.float())
         k_pos = torch.arange(Sk, dtype=torch.float32, device=dev)
         k5 = k_pos[None, None, None, None, :]
-        cm = k5 <= q_pos1[:, None, None, :, None]
-        if prefix_len is not None:
-            cm = cm | (k5 < prefix_len)
-        mask = (k5 < valid1[:, None, None, None, None]) & cm
+        mask = k5 < valid1[:, None, None, None, None]
+        if causal:
+            # (a non-causal step, the decoder's cross-attention, makes no
+            # tensor of q_offset: a Python int would be copied to the card,
+            # a host sync in every decode step)
+            q_pos1 = torch.as_tensor(q_offset, dtype=torch.float32,
+                                     device=dev).reshape(-1)[:, None]
+            q_pos1 = q_pos1.expand(B, 1)
+            cm = k5 <= q_pos1[:, None, None, :, None]
+            if prefix_len is not None:
+                cm = cm | (k5 < prefix_len)
+            mask = mask & cm
         s = torch.where(mask, s, -1e30)
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bhgqs,bshd->bhgqd", p, v.float())
@@ -285,6 +323,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     valid_len = (kv_len.float() if kv_len is not None
                  else torch.full((B,), float(Sk), device=dev))
 
-    out = _flash_core(qf, kc, vc, q_pos, valid_len, prefix_len)
+    out = _flash_core(qf, kc, vc, q_pos, valid_len, causal, prefix_len)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
     return out.to(q.dtype)

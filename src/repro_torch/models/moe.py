@@ -18,7 +18,8 @@ the combine never reads those rows.  Inactive decode slots route and take capaci
 like live ones, as in the reference (determinism, not alone-parity).
 
 The reference's expert-parallel paths (``ctx.ep_axis``, ``ctx.ep_inner``)
-are not ported and raise (ROADMAP queue 7).
+are not ported and raise (ROADMAP queue 1, "Parallelism on
+torch.distributed").
 """
 from __future__ import annotations
 
@@ -125,7 +126,7 @@ def moe_ffn(mp: dict, x: torch.Tensor, cfg: ModelConfig,
     if ctx.ep_axis is not None or ctx.ep_inner is not None:
         raise NotImplementedError(
             "moe_ffn: expert parallelism (ctx.ep_axis / ctx.ep_inner) is not "
-            "ported yet (ROADMAP queue 7, 'Parallelism on "
+            "ported yet (ROADMAP queue 1, 'Parallelism on "
             "torch.distributed')")
     B, S, d = x.shape
     e, k = cfg.moe.num_experts, cfg.moe.top_k

@@ -5,12 +5,12 @@
     init_cache(batch, max_seq, dtype, device) -> cache
     loss_fn(params, batch, ctx) -> scalar next-token cross entropy
     cache_spec: CacheSpec                          (declared cache layout)
-for the families ``dense``, ``moe``, ``vlm``, ``rwkv`` and ``hybrid``.
-Batches are dicts: {"tokens", optional "loss_mask"}, plus "patches" (B, P,
-d) for the VLM.  ``ptab`` is the per-slot page table a paged
-``CacheStore`` threads through prefill and decode; dense runs pass None and
-families without token leaves ignore it.  The encoder-decoder is not
-ported yet (ROADMAP queue 1, "Remaining families").
+for every family of the reference: ``dense``, ``moe``, ``vlm``, ``rwkv``,
+``hybrid`` and ``encdec``.  Batches are dicts: {"tokens", optional
+"loss_mask"}, plus "patches" (B, P, d) for the VLM and "frames" (B,
+frontend_len, d) for the encoder-decoder.  ``ptab`` is the per-slot page
+table a paged ``CacheStore`` threads through prefill and decode; dense runs
+pass None and families without token leaves ignore it.
 """
 from __future__ import annotations
 
@@ -20,12 +20,13 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, rwkv, transformer, vlm
-from repro_torch.models.common import (CacheSpec, DEFAULT_CTX, LEAF_STATE,
-                                       LEAF_TOKEN, LeafSpec)
+from repro_torch.models import encdec, hybrid, rwkv, transformer, vlm
+from repro_torch.models.common import (CacheSpec, DEFAULT_CTX, LEAF_FIXED,
+                                       LEAF_STATE, LEAF_TOKEN, LeafSpec)
 
 _TOKEN = LeafSpec(LEAF_TOKEN, token_axis=2)
 _STATE = LeafSpec(LEAF_STATE)
+_FIXED = LeafSpec(LEAF_FIXED)
 
 # Family cache contracts.  dense: every per-position op is row-independent,
 # so prefill can stop and resume at any boundary, and full prompt-prefix
@@ -34,10 +35,11 @@ _STATE = LeafSpec(LEAF_STATE)
 # per-expert capacity within one prefill call), so splitting prefill
 # changes outputs -> neither.  rwkv / hybrid: the recurrent state (wkv,
 # mamba conv + ssm) summarizes the whole past and prefill cannot restart
-# mid-sequence -> neither.  vlm: the image-patch prefix (prefix-LM mask)
-# complicates chunk boundaries, and patch embeddings are not captured by
-# prompt-token identity -> neither.  The encoder-decoder's entry arrives
-# with its model code.
+# mid-sequence -> neither.  encdec: decoder positions are resumable in
+# principle, but prefill also builds the cross-attention cache from the
+# encoder pass -> kept whole-prefill, never shared.  vlm: the image-patch
+# prefix (prefix-LM mask) complicates chunk boundaries, and patch
+# embeddings are not captured by prompt-token identity -> neither.
 CACHE_SPECS = {
     "dense": CacheSpec("dense", (("k", _TOKEN), ("v", _TOKEN)),
                        chunkable=True, shareable=True),
@@ -47,6 +49,8 @@ CACHE_SPECS = {
     "hybrid": CacheSpec("hybrid", (("attn_k", _TOKEN), ("attn_v", _TOKEN),
                                    ("mamba/conv", _STATE),
                                    ("mamba/ssm", _STATE))),
+    "encdec": CacheSpec("encdec", (("self_k", _TOKEN), ("self_v", _TOKEN),
+                                   ("cross_k", _FIXED), ("cross_v", _FIXED))),
     "vlm": CacheSpec("vlm", (("k", _TOKEN), ("v", _TOKEN))),
 }
 
@@ -65,9 +69,7 @@ class Model:
 def get_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
     if fam not in CACHE_SPECS:
-        raise NotImplementedError(
-            f"family {fam!r} is not ported yet (ROADMAP queue 1, "
-            "'Remaining families')")
+        raise ValueError(f"unknown family {fam!r}")
     spec = CACHE_SPECS[fam]
     if fam in ("dense", "moe"):
         return Model(
@@ -118,6 +120,24 @@ def get_model(cfg: ModelConfig) -> Model:
                                              device),
             loss_fn=lambda p, b, ctx=DEFAULT_CTX:
                 hybrid.loss_fn(p, cfg, b, ctx),
+            cache_spec=spec,
+        )
+    if fam == "encdec":
+        return Model(
+            cfg,
+            init_params=lambda seed, device="cuda":
+                encdec.init_params(cfg, seed, device),
+            prefill=lambda p, b, c, ctx=DEFAULT_CTX, start_pos=0, ptab=None:
+                encdec.prefill(p, cfg, encdec.frames_of(b), b["tokens"], c,
+                               ctx, ptab=ptab),
+            decode_step=lambda p, c, t, pos, ctx=DEFAULT_CTX, active=None,
+            ptab=None: encdec.decode_step(p, cfg, c, t, pos, ctx,
+                                          active=active, ptab=ptab),
+            init_cache=lambda batch, max_seq, dtype=torch.bfloat16,
+            device="cuda": encdec.init_cache(cfg, batch, max_seq, dtype,
+                                             device),
+            loss_fn=lambda p, b, ctx=DEFAULT_CTX:
+                encdec.loss_fn(p, cfg, b, ctx),
             cache_spec=spec,
         )
     return Model(                                            # vlm

@@ -41,11 +41,12 @@ def init_block_params(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
                       device) -> dict:
     """Stacked (L, ...) decoder-block params; family ``moe`` holds its FFN
     under ``"moe"`` (router + expert-stacked weights); ``vlm`` is the dense
-    block."""
+    block.  The other families build their own blocks (``rwkv``, ``ssm``,
+    ``hybrid``, ``encdec``)."""
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            "'Remaining families')")
+        raise ValueError(
+            f"init_block_params builds dense, moe and vlm blocks, not "
+            f"family {cfg.family!r}'s (its model module does)")
     d, f = cfg.d_model, cfg.d_ff
     hd = cfg.resolved_head_dim
     dt = model_dtype(cfg)

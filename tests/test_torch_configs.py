@@ -15,8 +15,7 @@ For each of the four archs:
   within rtol 1e-6, and an equal ``quantized_memory_report``;
 * the serve CLI runs the reduced arch on the CPU and exits 0.
 
-And the port's ``ARCH_IDS`` are exactly the reference's dense and MoE
-archs.
+And the port's ``ARCH_IDS`` are exactly the reference's.
 """
 import dataclasses
 
@@ -135,13 +134,16 @@ def test_config_equals_reference(arch):
 
 
 def test_arch_ids_are_the_references_dense_and_moe_archs():
-    """The port's ARCH_IDS are exactly the reference's archs of the ported
-    families: dense and MoE, and since the decoder-only slice also the
-    VLM, RWKV and hybrid families (only the encoder-decoder is left)."""
-    want = {a for a in JARCH_IDS
-            if jget_config(a).family in ("dense", "moe", "vlm", "rwkv",
-                                         "hybrid")}
-    assert set(ARCH_IDS) == want and len(ARCH_IDS) == len(want)
+    """The port's ARCH_IDS are exactly the reference's whole ARCH_IDS:
+    dense and MoE, the VLM, RWKV and hybrid families and, since the
+    encoder-decoder slice, whisper-small; each config equal to the
+    reference's."""
+    assert set(ARCH_IDS) == set(JARCH_IDS) and len(ARCH_IDS) == len(JARCH_IDS)
+    for arch in ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jget_config(arch))
+        assert dataclasses.asdict(get_reduced_config(arch)) == \
+            dataclasses.asdict(jget_reduced(arch))
 
 
 @pytest.mark.parametrize("backend", ["xla", "pallas"])

@@ -200,7 +200,7 @@ def _two_linear_apply_jax(bp, x, aux=None):
     return jax.nn.silu(x @ bp["w_up"]) @ bp["w_down"]
 
 
-def _two_linear_apply(bp, x):
+def _two_linear_apply(bp, x, aux=None):
     return torch.nn.functional.silu(x @ bp["w_up"]) @ bp["w_down"]
 
 

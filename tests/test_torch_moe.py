@@ -475,7 +475,8 @@ def test_moe_refuses_expert_parallelism():
                                       cfg.moe.num_experts))
     x = torch.zeros(1, 2, cfg.d_model)
     for kw in ({"ep_axis": "model"}, {"ep_inner": "model"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 7"):
+        with pytest.raises(NotImplementedError,
+                           match="Parallelism on torch.distributed"):
             tmoe.moe_ffn(mp, x, cfg, tcommon.make_ctx(**kw))
 
 

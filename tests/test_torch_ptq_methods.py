@@ -496,7 +496,7 @@ def test_omniquant_lwc_improves_block():
     X = rng.normal(size=(8, 6, d)).astype(np.float32)
     X[:, :, :2] *= 10
 
-    def apply(b, x):
+    def apply(b, x, aux=None):
         return x @ b["wq"]
 
     Y = np.einsum("nsd,df->nsf", X, bp["wq"].numpy())
