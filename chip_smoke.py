@@ -201,8 +201,30 @@ Phases, each printing its own lines:
    recon_mse, packed perplexity within ``PPL_REL`` of fake-quant, exact
    launches; (c) the reduced config card vs CPU: served logits
    (teacher-forced) and calibration codes and masks;
-19. a JSON line listing the ported kernels with their numbers;
-20. last line: ``{"ok": true, "device": {...}}``.
+19. serve-time tensor parallelism (``launch.sharding.ServeSpec`` on
+   ``torch.distributed``, ranks spawned by ``launch.mesh.run_ranks``):
+   no-mesh controls of LLaMA-2-7B at full width and depth and Qwen3-30B-A3B
+   at ``MOE_LAYERS`` of 48 (RTN W2A16g128, 4 x (128 + 8) on "pallas"),
+   their packed trees handed to the ranks in a temporary file; (a) one
+   NCCL rank: tokens and logits bit-identical to the control, its
+   launches, no sync inside a decode step; (b) two gloo ranks sharing
+   the card at LLaMA-2-7B's full width and depth (attention and FFN split:
+   16 of 32 heads, 43 of 86 groups of ``w_down``): each rank's launches
+   the control's, both ranks' bytes identical, teacher-forced within
+   ``REL_L2`` of the control's logits, per-rank packed bytes, the device
+   bytes a rank holds (its own tree after placement, its peak below the
+   control's), the syncs gloo makes a decode step counted; scheduled on
+   the dense and the paged store (``TP_WORKLOAD``): equal tokens, exact
+   launches; (c) Qwen3's 128 experts split 64 a rank in the same ranks,
+   and layer 0's expert-split FFN within ``MOE_LAYER_REL`` of the
+   control's on the same input; (d) ``python -m repro_torch.launch.serve
+   --reduced --method none --dtype float32`` with and without ``--tp 2
+   --dist-backend gloo``, subprocesses beside (a): the same tokens; phase
+   2 holds every kernel at a rank's shard widths
+   (``TP_SHAPES``, ``TP_MOE_ATTN_SHAPES`` in ``QM_PATHS``/``GEMV_PATHS``,
+   16 and 2 KV heads, 64 experts);
+20. a JSON line listing the ported kernels with their numbers;
+21. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device, or without ``src/repro_torch`` beside this script,
@@ -259,6 +281,15 @@ ENCDEC_DEC_SHAPES = ((768, 768, 6), (768, 3072, 1), (3072, 768, 1))
 ENCDEC_SR_SHAPES = ((6, 768, 4), (6, 3072, 1), (24, 768, 1))
 # Qwen3-30B-A3B's attention projections (q, k and v, o): K, N, per layer
 MOE_ATTN_SHAPES = ((2048, 4096, 1), (2048, 512, 2), (4096, 2048, 1))
+# LLaMA-2-7B W2 g128 at tp = 2 (phase 19): each rank's local K, N, per
+# layer: wq/wk/wv out-split to 2048 columns, wo in-split to K = 2048 (16
+# groups), w_gate/w_up to 5504 columns, w_down to K = 5504 (43 groups, a
+# prime count for the GEMV's split of K; 1376 packed rows)
+TP_SHAPES = ((4096, 2048, 3), (2048, 4096, 1), (4096, 5504, 2),
+             (5504, 4096, 1))
+# Qwen3-30B-A3B's attention at tp = 2 (16 of 32 heads, 2 of 4 KV heads):
+# wq and wo at 2048 x 2048, wk and wv at 2048 x 256
+TP_MOE_ATTN_SHAPES = ((2048, 2048, 2), (2048, 256, 2))
 
 
 def fail(msg):
@@ -349,13 +380,14 @@ def show(name, rec, card):
 
 def check_quant(name, fn, plain, gen, M, K, N, bits, group_size, flush, card,
                 main=False, moe=False, wa=False, sched=False, x_offset=0,
-                encdec=False):
+                encdec=False, tp=False):
     """Kernel vs plain version at one shape, then both timed with the
     library matmul on the pre-dequantized weight; ``main``, ``moe``, ``wa``,
     ``sched`` and ``encdec`` mark the shapes the LLaMA (W2 g128, M=4), the
     MoE, the weight-activation (W4 per-channel), the scheduled decode (W2
-    g128, M=8) and whisper-small's (an admission's encoder at M=1500, a
-    decode step at M=8) paths run (summed in the kernels line).
+    g128, M=8), whisper-small's (an admission's encoder at M=1500, a
+    decode step at M=8) and the tp = 2 LLaMA's (``tp``: phase 19's local
+    shards, ``TP_SHAPES``) paths run (summed in the kernels line).
     ``x_offset`` > 0 takes x as rows ``x_offset:`` of a wider buffer (a
     base the kernel cannot load by TMA or 16-byte copies when 2 * K *
     x_offset is not a multiple of 16).  Each record names the configuration the kernel's host code chose
@@ -380,7 +412,7 @@ def check_quant(name, fn, plain, gen, M, K, N, bits, group_size, flush, card,
              f"bits={bits} g={group_size}: max |diff| {err}")
     rec = {"M": M, "K": K, "N": N, "bits": bits, "g": group_size,
            "max_abs_err": err, "main": main, "moe": moe, "wa": wa,
-           "sched": sched, "encdec": encdec}
+           "sched": sched, "encdec": encdec, "tp": tp}
     config = kernel_config if name == "quant_matmul" else gemv_config
     rec["config"] = config(x, packed, scale, zero, **kw)
     rec["kernel_ms"] = cuda_ms(lambda: fn(x, packed, scale, zero, **kw),
@@ -412,12 +444,13 @@ def attention_operands(gen, B, S, Hkv, G, D, kv_len, q_pos, active):
 
 def check_attention(gen, B, S, Hkv, G, D, kv_len, q_pos, active, flush, card,
                     main=False, moe=False, long=False, timed=True,
-                    encdec=False):
+                    encdec=False, tp=False):
     """Kernel vs plain version at one shape (inactive slots exact zeros),
     then, if ``timed``, both timed with SDPA over the live positions where
     one call computes the same function.  ``main``, ``moe``, ``long`` and
     ``encdec`` mark the LLaMA decode shape, the Qwen3 shape, the long lane
-    and whisper-small's scheduled decode (summed in the kernels line).
+    and whisper-small's scheduled decode, ``tp`` the LLaMA decode shape at
+    tp = 2 (16 KV heads a rank) (summed in the kernels line).
     Each record names the plan the kernel's host code chose
     (``attention_config``)."""
     from repro_torch.kernels import build
@@ -442,7 +475,7 @@ def check_attention(gen, B, S, Hkv, G, D, kv_len, q_pos, active, flush, card,
     rec = {"B": B, "S": S, "Hkv": Hkv, "G": G, "D": D,
            "kv_len": list(kv_len), "q_pos": list(q_pos),
            "active": list(active), "max_abs_err": err, "main": main,
-           "moe": moe, "long": long, "encdec": encdec,
+           "moe": moe, "long": long, "encdec": encdec, "tp": tp,
            "config": attention_config(q, k, v)}
     if timed:
         time_attention(rec, q, k, v, kw, flush)
@@ -485,7 +518,8 @@ def time_attention(rec, q, k, v, kw, flush):
 
 
 def check_paged_attention(gen, B, W, psz, Hkv, G, D, kv_len, active, flush,
-                          card, main=False, timed=True, encdec=False):
+                          card, main=False, timed=True, encdec=False,
+                          tp=False):
     """Paged kernel vs its plain version, and vs the dense kernel on the
     gathered cache (bit for bit, on the same plan), over a permuted page
     table; then, if ``timed``, the times."""
@@ -529,7 +563,7 @@ def check_paged_attention(gen, B, W, psz, Hkv, G, D, kv_len, active, flush,
     rec = {"B": B, "W": W, "psz": psz, "Hkv": Hkv, "G": G, "D": D,
            "kv_len": list(kv_len), "active": list(active),
            "max_abs_err": err, "bit_identical_to_dense": True, "main": main,
-           "encdec": encdec, "config": config}
+           "encdec": encdec, "tp": tp, "config": config}
     if timed:
         rec["kernel_ms"] = cuda_ms(
             lambda: paged_decode_attention(q, kp, vp, ptab, **kw),
@@ -596,7 +630,11 @@ ATTN_PATHS = ((144, 32, 1, 128), (144, 8, 4, 128), (144, 4, 8, 128),
               (368, 32, 1, 64),
               # phase 18: whisper-small's decoder self-attention (12 heads
               # of 64, no GQA) at its scheduled width (32 + 48 tokens)
-              (80, 12, 1, 64))
+              (80, 12, 1, 64),
+              # phase 19: a tp = 2 rank's heads, LLaMA-2-7B (16 KV heads)
+              # at the lock-step and scheduled widths, Qwen3-30B-A3B (2 KV
+              # heads, G = 8)
+              (144, 16, 1, 128), (144, 2, 8, 128))
 # the paged walk at 8, 16 and 64 positions a page, and 2 (a warp's run spans
 # more than 32 pages: the table read per row), each over a permuted table
 # and bit for bit against the dense kernel: B, W, psz, Hkv, G, D
@@ -609,7 +647,10 @@ PAGED_PATHS = ((8, 46, 8, 32, 1, 128), (8, 23, 16, 4, 8, 128),
                # phase 17's scheduled pools: PaliGemma, Zamba2
                (8, 26, 16, 1, 8, 256), (8, 23, 16, 32, 1, 64),
                # phase 18's: whisper-small
-               (8, 5, 16, 12, 1, 64))
+               (8, 5, 16, 12, 1, 64),
+               # phase 19's: LLaMA-2-7B at tp = 2 (16 KV heads a rank) on
+               # its scheduled pool (9 pages of 16)
+               (4, 9, 16, 16, 1, 128))
 
 
 def attention_lengths(S, config):
@@ -954,7 +995,10 @@ EXPERT_ROWS_PATHS = ((EXPERTS, 8, 2048, 768, 2, 128, "zero"),
                      # groups of 128): decode, prefill and its count edges
                      (64, 8, 2048, 1408, 2, 128, "ragged"),
                      (64, 32, 1408, 2048, 2, 128, "full"),
-                     (64, 160, 2048, 1408, 2, 128, "edge"))
+                     (64, 160, 2048, 1408, 2, 128, "edge"),
+                     # Qwen3-30B-A3B at tp = 2: a rank's 64 experts
+                     (64, 8, 2048, 768, 2, 128, "ragged"),
+                     (64, 40, 768, 2048, 2, 128, "ragged"))
 # Moonlight's routed traffic (64 experts, top-6) through the same dispatch:
 # a decode step at 8 slots and the 4 x 128 prefill.  E, top-k, tokens, and
 # the expert products (K, N)
@@ -998,7 +1042,8 @@ def routed_operands(gen, tokens, E, Ks, top_k=ROUTED_TOP_K):
 
 
 def check_experts(gen, E, M, K, N, bits, group_size, flush, card,
-                  main=False, x=None, rows=None, routed=None, timed=True):
+                  main=False, x=None, rows=None, routed=None, timed=True,
+                  tp=False):
     """The expert-batched kernel vs its plain version, and vs one
     ``quant_matmul`` launch per expert (bit for bit), then timed with the
     unrolled launches and a ``torch.bmm`` yardstick on the pre-dequantized
@@ -1008,7 +1053,8 @@ def check_experts(gen, E, M, K, N, bits, group_size, flush, card,
     random x (a routed capacity buffer: ``routed`` is its token count, and
     the record is timed with and without ``rows``, the bound counting the
     bytes of the experts that hold a row).  A main record (random x) is
-    also timed with ``rows`` = M everywhere."""
+    also timed with ``rows`` = M everywhere; ``tp`` marks the records of
+    Qwen3-30B-A3B's 64 experts a rank at tp = 2 (phase 19)."""
     from repro_torch.core.qtensor import pack
     from repro_torch.kernels import build
     from repro_torch.kernels.quant_matmul import (
@@ -1063,7 +1109,7 @@ def check_experts(gen, E, M, K, N, bits, group_size, flush, card,
              f"quant_matmul launch's {single} at M={M} K={K} N={N}")
     rec = {"E": E, "M": M, "K": K, "N": N, "bits": bits, "g": group_size,
            "max_abs_err": err, "bit_identical_to_unrolled": True,
-           "main": main, "routed": routed, "config": config}
+           "main": main, "routed": routed, "tp": tp, "config": config}
     if live is not None:
         rec["touched_experts"] = int((live > 0).sum())
         rec["kept_rows"] = int(live.sum())
@@ -1128,6 +1174,7 @@ def summarize_experts(records):
     per_layer.update({(K, N): 2 if K < N else 1
                       for K, N in MOON_EXPERT_SHAPES})
     moon = [r for r in records if r["E"] != EXPERTS and r["routed"]]
+    tp = [r for r in records if r["tp"]]
     records = [r for r in records if r["E"] == EXPERTS]
 
     def layer(pick, keys):
@@ -1156,6 +1203,17 @@ def summarize_experts(records):
             "C": sel[0]["M"], "touched_experts": sel[0]["touched_experts"],
             "kept_rows": sel[0]["kept_rows"]}
     out["edges_checked"] = len(EXPERT_ROWS_PATHS)
+    # a tp = 2 rank's 64 experts: one layer's 3 launches at C = 8 and 40
+    out["tp"] = {}
+    for C in EXPERT_C:
+        sel = [r for r in tp if r["M"] == C]
+        out["tp"][f"C={C}"] = {
+            **{key: sum(per_layer[(r["K"], r["N"])] * r[src] for r in sel)
+               for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                                ("library_ms", "library_ms"),
+                                ("bound_ms", "bound_ms"),
+                                ("unrolled_ms", "unrolled_ms"))},
+            "bound_by": sel[0]["bound_by"], "E": sel[0]["E"]}
     # Moonlight's routed traffic: E = 64, top-6, one layer's 3 launches
     out["moonlight_routed"] = {}
     for E, k, T in MOON_ROUTED:
@@ -1360,7 +1418,10 @@ QM_PATHS = ((33, 4096, 4096, 2, 128, 0), (384, 4096, 4096, 2, 128, 0),
     # 128 decoder rows (its admission's 1500 frames and its decode step
     # are timed under ENCDEC_SHAPES)
     (512, K, N, 2, 128, 0) for K, N in ((768, 768), (768, 3072),
-                                        (3072, 768)))
+                                        (3072, 768))) + tuple(
+    # phase 19: Qwen3-30B-A3B's attention on a tp = 2 rank (LLaMA-2-7B's
+    # shards are timed under TP_SHAPES)
+    (512, K, N, 2, 128, 0) for K, N, _ in TP_MOE_ATTN_SHAPES)
 
 
 # quant_gemv on every path of its body: each row template (M = 1..32 run as
@@ -1384,7 +1445,9 @@ GEMV_PATHS = tuple((M, 4096, 11008, 2, 128, 0)
         (16384, 53248), (53248, 16384), (2048, 1408), (1408, 2048),
         # phase 17's widths, as in QM_PATHS
         (2048, 8384), (4096, 2048), (2560, 2560), (2560, 8960),
-        (8960, 2560), (2048, 16384), (16384, 2048)))
+        (8960, 2560), (2048, 16384), (16384, 2048))) + tuple(
+    # phase 19's Qwen3-30B-A3B attention on a tp = 2 rank
+    (4, K, N, 2, 128, 0) for K, N, _ in TP_MOE_ATTN_SHAPES)
 # batch invariance and determinism of the GEMV: K, N, bits, group_size
 GEMV_INVARIANCE = ((4096, 11008, 2, 128), (2048, 512, 2, 128),
                    (4096, 4096, 4, 4096))
@@ -1468,6 +1531,10 @@ def kernel_phase(card):
         for K, N, _ in MOE_ATTN_SHAPES:
             out[name].append(check_quant(name, fn, plain, gen, M, K, N, 2,
                                          128, flush, card, moe=True))
+        # a tp = 2 rank's LLaMA-2-7B shards (phase 19)
+        for K, N, _ in TP_SHAPES:
+            out[name].append(check_quant(name, fn, plain, gen, M, K, N, 2,
+                                         128, flush, card, tp=True))
         # whisper-small: an admission's encoder (M = 1500), a decode step
         # (8 slots)
         for K, N, _ in (ENCDEC_ENC_SHAPES if name == "quant_matmul"
@@ -1513,6 +1580,10 @@ def kernel_phase(card):
     out["decode_attention"].append(check_attention(
         gen, 4, 4096, 32, 1, 128, [4096] * 4, [4095] * 4, [1] * 4, flush,
         card, long=True))
+    # timed at a tp = 2 rank's LLaMA-2-7B decode (phase 19): 16 KV heads
+    out["decode_attention"].append(check_attention(
+        gen, 4, 144, 16, 1, 128, [136] * 4, [135] * 4, [1] * 4, flush, card,
+        tp=True))
     # timed at whisper-small's scheduled decode (phase 18): 8 slots of 12
     # heads of 64 over its 80-position lane, mid-sequence
     out["decode_attention"].append(check_attention(
@@ -1541,7 +1612,11 @@ def kernel_phase(card):
         # whisper-small's pool (phase 18), timed: 5 pages of 16 a slot
         check_paged_attention(gen, 8, 5, 16, 12, 1, 64,
                               [80, 17, 60, 41, 33, 8, 72, 50],
-                              [1] * 8, flush, card, encdec=True)]
+                              [1] * 8, flush, card, encdec=True),
+        # a tp = 2 rank's LLaMA-2-7B pool (phase 19), timed: 4 slots of 9
+        # pages of 16, 16 KV heads
+        check_paged_attention(gen, 4, 9, 16, 16, 1, 128, [144, 37, 100, 71],
+                              [1] * 4, flush, card, tp=True)]
     for B, W, psz, Hkv, G, D in PAGED_PATHS:
         S = W * psz
         lens = [S, 1, psz - 1, psz, psz + 1, S // 2 + 3, S - 1, 40][:B]
@@ -1563,6 +1638,13 @@ def kernel_phase(card):
         for K, N, _ in EXPERT_SHAPES:
             out["quant_matmul_experts"].append(check_experts(
                 gen, EXPERTS, C, K, N, 2, 128, flush, card))
+    # a tp = 2 rank's 64 experts (phase 19) at the decode and prefill
+    # capacities
+    for C in EXPERT_C:
+        for K, N, _ in EXPERT_SHAPES:
+            out["quant_matmul_experts"].append(check_experts(
+                gen, EXPERTS // TP_DEGREE, C, K, N, 2, 128, flush, card,
+                tp=True))
     # the routed traffic, then every edge of the counts (EXPERT_ROWS_PATHS)
     for T in ROUTED_TOKENS:
         out["quant_matmul_experts"] += check_routed(gen, T, flush, card)
@@ -5306,6 +5388,579 @@ def encdec_phase(card):
     return out, nums
 
 
+# --------------------------------------------------------------------------
+# phase 19: tensor-parallel serving on torch.distributed
+# --------------------------------------------------------------------------
+
+TP_DEGREE = 2
+# tokens a request of the lock-step runs generates (4 x (128 + 8): cut from
+# phase 3's 16 for the run's time, a gloo decode step taking 0.16–0.6 s)
+TP_GEN = 8
+# (b)'s scheduled dense == paged check at tp = 2, full depth: 4 slots, 3
+# seeded requests (prompts 16..64 tokens, budgets 2..8), 16-token pages
+# (cut from 8 requests of up to 128 + 16 for the phase's time: a gloo
+# decode step of LLaMA-2-7B on one card takes ~230 ms)
+TP_WORKLOAD = dict(n_requests=3, seed=0, prompt_lens=(16, 64),
+                   budgets=(2, 8), mean_gap=2.0)
+TP_SLOTS, TP_PSZ = 4, 16
+# (d): the serve CLI on the card with and without --tp 2 over gloo, the
+# reduced default arch with FP weights in f32: there the all-reduce's
+# reordered sum stays far below a token's margin, so the two must print the
+# same tokens (in bf16 a near-tie can flip one; the packed path is (b)'s)
+TP_CLI = ("--reduced", "--device", "cuda", "--method", "none", "--dtype",
+          "float32")
+TP_CLI_TP = ("--tp", str(TP_DEGREE), "--dist-backend", "gloo")
+TP_SPAWN_S = 300
+# (c)'s teacher-forced bound: the ranks' bf16 all-reduce of wo's partial
+# products rounds otherwise than one product does, and a routing near-tie
+# then picks another expert (phase 16: Moonlight 0.0482 against "xla" at 4
+# layers from such flips); a wrong expert slice reads O(1)
+MOE_TP_REL = 0.1
+# (c)'s layer check: layer 0's expert-split MoE FFN on the same bf16 input
+# as the control's, so routing is the same bytes; what is left is the
+# rounding of each rank's bf16 partial sum and of their all-reduce, a few
+# bf16 half-ulps (2^-9 each): the card read 0.0028 (prefill rows) and
+# 0.0027 (decode rows).  A wrong expert slice reads O(1)
+MOE_LAYER_REL = 0.005
+
+
+def _digest(a):
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _tree_bytes(tree):
+    """Bytes of every tensor of a param tree (a QTensor's fields and a
+    PsumWeight's shard included)."""
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.models.layers import PsumWeight
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, PsumWeight):
+        return _tree_bytes(tree.w)
+    if isinstance(tree, QTensor):
+        return sum(_tree_bytes(t) for t in (tree.packed, tree.scale,
+                                            tree.zero, tree.act_scale))
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def moe_layer_outputs(cfg, params, ctx):
+    """Layer 0's ``moe_ffn`` of ``params`` under ``ctx`` on N(0, 1) bf16
+    hidden states from seed 19, at a prefill's rows (4 x 128) and a decode
+    step's (4 x 1): {"prefill", "decode"} as f32 numpy."""
+    from repro_torch.models.common import take_layer
+    from repro_torch.models.moe import moe_ffn
+    rng = np.random.default_rng(19)
+    mp = take_layer(params["blocks"], 0)["moe"]
+    out = {}
+    with torch.no_grad():
+        for name, s in (("prefill", 128), ("decode", 1)):
+            x = torch.as_tensor(rng.standard_normal((4, s, cfg.d_model)),
+                                dtype=torch.float32, device="cuda")
+            out[name] = moe_ffn(mp, x.to(torch.bfloat16), cfg,
+                                ctx).float().cpu().numpy()
+    return out
+
+
+def _decode_syncs(run, steps):
+    """``run(steps')``, ``steps`` = (prefill, decode) with the decode step
+    wrapped to count the syncs it makes under
+    ``torch.cuda.set_sync_debug_mode("warn")``: (result, syncs inside
+    decode steps, decode steps)."""
+    import warnings
+    pstep, dstep = steps
+    n = [0, 0]
+    with warnings.catch_warnings(record=True) as log:
+        warnings.simplefilter("always")
+
+        def counted(*a, **k):
+            n0 = len(log)
+            out = dstep(*a, **k)
+            n[0] += sum("synchroniz" in str(w.message) for w in log[n0:])
+            n[1] += 1
+            return out
+
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = run((pstep, counted))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return res, n[0], n[1]
+
+
+_SYNC_APIS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+              "cudaDeviceSynchronize", "cudaMemcpy")
+
+
+def tp_decode_profile(steps, model, params, prompts):
+    """One decode step of the lock-step batch under ``torch.profiler``
+    (after a prefill and a warm step): wall (profiler on), device busy,
+    kernel launches, the runtime's synchronizing calls by name (the
+    closing ``cudaDeviceSynchronize`` left out: the profiler sees the
+    calls of every thread, gloo's too) and the host operators that take
+    the most time."""
+    from torch.profiler import ProfilerActivity, profile
+    pstep, dstep = steps
+    B, S = prompts.shape
+    with torch.no_grad():
+        cache = model.init_cache(B, S + 2, device="cuda")
+        lg, cache = pstep(params, {"tokens": torch.as_tensor(
+            prompts, dtype=torch.long, device="cuda")}, cache)
+        tok = torch.argmax(lg, -1)
+        pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        dstep(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            dstep(params, cache, tok, pos + 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    syncs = {e.key: e.count for e in events if e.key in _SYNC_APIS}
+    syncs["cudaDeviceSynchronize"] = syncs.get("cudaDeviceSynchronize",
+                                               1) - 1
+    host = sorted((e for e in events if e.device_type.name == "CPU"),
+                  key=lambda e: -e.self_cpu_time_total)
+    return {"wall_ms": wall * 1e3,
+            "busy_ms": sum(e.self_device_time_total for e in events
+                           if e.device_type.name == "CUDA") / 1e3,
+            "launches": sum(e.count for e in events
+                            if e.key == "cudaLaunchKernel"),
+            "syncs": {k: v for k, v in syncs.items() if v},
+            "host": "; ".join(f"{e.key[:40]} x{e.count} "
+                              f"{e.self_cpu_time_total / 1e3:.3f} ms"
+                              for e in host[:6])}
+
+
+def tp_lockstep(cfg, spec, tmp, name, sync_debug):
+    """One rank's lock-step serve of its placement ``spec`` (the control's
+    4 x (128 + ``TP_GEN``) on "pallas", warm-up first; the control is
+    ``tmp/<name>.npz``) through the TP steps: launch counts, the logits'
+    digest, the rank's peak device bytes through the serve, with
+    ``sync_debug`` the syncs inside decode steps under
+    ``set_sync_debug_mode`` (it sees the calling thread's syncs only), the
+    steps teacher-forced on the control's tokens (their relative L2
+    against the control's logits, and their digest), on more than one rank
+    one profiled decode step, and for the MoE the layer check of
+    ``moe_layer_outputs`` against the control's."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import compile_serve_steps, serve_requests
+    from repro_torch.core.pipeline import quantized_memory_report as report
+    from repro_torch.models import get_model
+    from repro_torch.models.common import make_ctx
+    ctrl = np.load(os.path.join(tmp, f"{name}.npz"))
+    prompts = ctrl["prompts"]
+    dev = spec.mesh.device
+    model = get_model(cfg)
+    steps = compile_serve_steps(cfg, kernel_backend="pallas", spec=spec)
+    run = lambda c, gen=TP_GEN, **k: serve_requests(
+        cfg, model, spec, prompts, gen=gen, kernel_backend="pallas",
+        device=dev, compiled=c, **k)
+    run(steps, gen=2, collect_logits=False)                      # warm-up
+    build.reset_launch_counts()
+    if sync_debug:
+        res, syncs, n = _decode_syncs(run, steps)
+    else:
+        res, syncs, n = run(steps), None, TP_GEN - 1
+    counts = dict(build.LAUNCHES)
+    peak_serve = torch.cuda.max_memory_allocated(dev)
+    # one rank is held bit for bit and counts syncs by the debug mode; the
+    # teacher-forced reading and the profiler's count are for more
+    one = spec.size == 1
+    lmodel = spec.cache_model(model)
+    forced = (ctrl["logits"] if one else _forced(
+        steps, lmodel, spec.params, prompts, ctrl["tokens"][:, :-1]))
+    prof = None if one else tp_decode_profile(steps, lmodel, spec.params,
+                                              prompts)
+    out = {"tokens": res.tokens, "logits": _digest(res.logits),
+           "profile": prof,
+           "forced": _digest(forced),
+           "forced_rel_l2": _rel_l2(forced, ctrl["logits"]),
+           "argmax_agree": float((forced.argmax(-1)
+                                  == ctrl["tokens"]).mean()),
+           "counts": counts, "decode_syncs": syncs, "decode_steps": n,
+           "prefill_ms": res.prefill_secs * 1e3,
+           "decode_ms": res.decode_secs * 1e3 / (TP_GEN - 1),
+           "local_bytes": report(spec.params)["quantized_bytes"],
+           "tree_bytes": _tree_bytes(spec.params), "peak_serve": peak_serve,
+           "plan": spec.plan, "cache_bytes": res.cache_stats["cache_bytes"]}
+    if "layer_prefill" in ctrl:
+        got = moe_layer_outputs(spec.local_cfg, spec.params, make_ctx(
+            kernel_backend="pallas", ep_inner=spec.ep_inner))
+        out["layer_rel_l2"] = {k: _rel_l2(v, ctrl[f"layer_{k}"])
+                               for k, v in got.items()}
+        out["layer"] = _digest(np.stack([got["prefill"][:, :1],
+                                         got["decode"]]))
+    return out
+
+
+def tp_schedule(cfg, spec):
+    """One rank's scheduled serve of its placement ``spec``
+    (``TP_WORKLOAD``) on the dense and the paged store through the TP
+    steps: launch counts exact (the single-device dispatch rules), dense
+    tokens == paged."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.scheduler import make_workload, serve_scheduled
+    reqs = make_workload(cfg.vocab_size, **TP_WORKLOAD)
+    width = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    kw = dict(slots=TP_SLOTS, max_seq=width + (-width) % TP_PSZ,
+              kernel_backend="pallas", page_size=TP_PSZ,
+              device=spec.mesh.device)
+    attn = {"dense": "decode_attention", "paged": "paged_decode_attention"}
+    out, runs = {}, {}
+    for store in ("dense", "paged"):
+        build.reset_launch_counts()
+        res = serve_scheduled(cfg, spec, reqs, store=store, **kw)
+        counts = dict(build.LAUNCHES)
+        want = expected_launches(cfg, prefill_calls(res, reqs), res.steps,
+                                 attn[store], "decode_attention")
+        if counts != want:
+            fail(f"tp-schedule {store} rank {spec.mesh.rank}: launches "
+                 f"{counts}, expected {want}")
+        runs[store] = res
+        out[store] = {"steps": res.steps, "counts": counts,
+                      "decode_ms": res.decode_secs * 1e3 / max(res.steps, 1),
+                      "prefill_s": res.prefill_secs,
+                      "cache_bytes": res.cache_stats["cache_bytes"],
+                      "tokens": _digest(np.concatenate(
+                          [res.requests[r.rid]["tokens"] for r in reqs]))}
+    out["dense_eq_paged"] = same_tokens(runs["dense"], runs["paged"], reqs)
+    out["max_seq"] = kw["max_seq"]
+    return out
+
+
+def allreduce_ms(group, shape, device, n=20):
+    """Mean wall ms of one ``dist.all_reduce`` of a bf16 ``shape`` tensor
+    on ``device`` over ``group``, each waited for (a decode step's and a
+    prefill's in-split output: what gloo stages through the host)."""
+    import torch.distributed as dist
+    x = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+    for _ in range(3):
+        dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        dist.all_reduce(x, group=group)
+        if x.is_cuda:
+            torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def tp_rank(tp, tmp, cfgs, schedule):
+    """One rank of phase 19 on the card: its ``tp``-way mesh, then for each
+    packed tree in ``cfgs`` (``{name: cfg}``) its placement — the global
+    tree read into host memory (``mmap``), the rank's shards cut there and
+    only they moved to the card (``ServeSpec.place``), once — the
+    lock-step serve of it, and with ``schedule`` the scheduled pair on
+    LLaMA-2-7B; the device bytes the rank holds after placement and at
+    its peak."""
+    from repro_torch.core.pipeline import quantized_memory_report as report
+    from repro_torch.launch.mesh import serve_mesh
+    from repro_torch.launch.sharding import ServeSpec
+    t_entry = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = serve_mesh(tp, device="cuda")
+    out = {"rank": mesh.rank, "shape": mesh.shape,
+           "backend": torch.distributed.get_backend(mesh.group),
+           "t_entry": t_entry, "t_mesh": time.time()}
+    for name, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        before = torch.cuda.memory_allocated(mesh.device)
+        host = torch.load(os.path.join(tmp, f"{name}.pt"), map_location="cpu",
+                          mmap=True, weights_only=False)
+        spec = ServeSpec.place(mesh, cfg, host)
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated(mesh.device) - before
+        glob = {"global_bytes": report(host)["quantized_bytes"],
+                "global_tree_bytes": _tree_bytes(host)}
+        del host
+        load_s = time.perf_counter() - t0
+        out[name] = tp_lockstep(cfg, spec, tmp, name,
+                                sync_debug=out["backend"] == "nccl")
+        out[name].update(glob, load_s=load_s, placed_bytes=placed)
+        if schedule and name == "llama":
+            out["schedule"] = tp_schedule(cfg, spec)
+            out["schedule"]["s"] = time.perf_counter() - t0
+        out[name]["peak"] = torch.cuda.max_memory_allocated(mesh.device) \
+            - before
+        out[name]["s"] = time.perf_counter() - t0
+        del spec
+        _free()
+    out["allreduce_ms"] = {
+        f"{where} {'x'.join(map(str, shape))}": allreduce_ms(
+            mesh.group, shape, where)
+        for shape in ((4, 4096), (512, 4096))
+        for where in (("cuda", "cpu") if out["backend"] == "gloo"
+                      else ("cuda",))}
+    out["t_end"] = time.time()
+    return out
+
+
+def _rank_times(t_spawn, r):
+    """Wall s from the spawn to the rank's entry, of its mesh (the process
+    group's first collective and ``dist.new_group``), and of its work."""
+    return (f"spawn {r['t_entry'] - t_spawn:.1f} s, mesh "
+            f"{r['t_mesh'] - r['t_entry']:.1f} s, work "
+            f"{r['t_end'] - r['t_mesh']:.1f} s")
+
+
+def _sum_counts(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _cli_requests(text):
+    return [ln.strip() for ln in text.splitlines() if ln.startswith("  req")]
+
+
+def tp_serve_phase(card):
+    """Phase 19: serve-time tensor parallelism (``launch.sharding.
+    ServeSpec``) on the card.  No-mesh controls first: LLaMA-2-7B at full
+    width and depth and Qwen3-30B-A3B at ``MOE_LAYERS`` of 48, RTN
+    W2A16g128 + pack, served 4 x (128 + ``TP_GEN``) on "pallas" with exact
+    launches and the device bytes the serve holds (the tree and its peak
+    above it); for the MoE, layer 0's FFN on seeded inputs.  Each packed
+    tree goes to the ranks in a temporary file, deleted with its
+    directory; a rank reads it into host memory and moves only its own
+    placement to the card.  (a) One NCCL rank: tokens and logits
+    bit-identical to the control, its launches, no sync inside a decode
+    step.  (b) Two gloo ranks sharing the card: each rank's launches equal
+    to the control's, both ranks' tokens and logits identical,
+    teacher-forced on the control's tokens within ``REL_L2`` of its
+    logits, per-rank packed bytes, the device bytes each rank holds after
+    placement (its own tree) and at its peak through the serve (below the
+    control's), a profiled decode step (the syncs gloo makes counted by
+    the profiler, not gated); LLaMA-2-7B scheduled (``TP_WORKLOAD``) on
+    the dense and the paged store: equal tokens, exact launches.  (c)
+    Qwen3's expert split at tp = 2 (64 experts a rank) in (b)'s ranks: the
+    same checks, teacher-forced within ``MOE_TP_REL``, and layer 0's
+    expert-split FFN within ``MOE_LAYER_REL`` of the control's on the same
+    input.  (d) The serve CLI (``TP_CLI``) with and without ``--tp 2
+    --dist-backend gloo`` as subprocesses beside (a): the same tokens.
+    Returns the launch counts by part."""
+    import tempfile
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.core.pipeline import quantized_memory_report
+    from repro_torch.models.common import make_ctx
+    times = {}
+    t0 = time.perf_counter()
+    cfgs, ctrl, trees = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="tp_serve_") as tmp:
+        for name, arch, layers in (("llama", "llama2-7b", None),
+                                   ("moe", MOE_ARCH, MOE_LAYERS)):
+            cfg, model, packed, prompts = build_packed(arch, layers,
+                                                       f"tp-{name}")
+            _free()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kw = dict(kernel_backend="pallas", device="cuda")
+            serve_requests(cfg, model, packed, prompts, gen=2,
+                           collect_logits=False, **kw)           # warm-up
+            build.reset_launch_counts()
+            res = serve_requests(cfg, model, packed, prompts, gen=TP_GEN,
+                                 **kw)
+            counts = dict(build.LAUNCHES)
+            held = (torch.cuda.max_memory_allocated() - resident
+                    + _tree_bytes(packed))
+            want = expected_launches(cfg, [(prompts.size, prompts.shape[1])],
+                                     TP_GEN - 1, "decode_attention",
+                                     "decode_attention")
+            if counts != want:
+                fail(f"tp control launches {counts}, expected {want}")
+            layer = ({f"layer_{k}": v for k, v in moe_layer_outputs(
+                cfg, packed, make_ctx(kernel_backend="pallas")).items()}
+                if name == "moe" else {})
+            np.savez(os.path.join(tmp, f"{name}.npz"), prompts=prompts,
+                     tokens=res.tokens, logits=res.logits, **layer)
+            cfgs[name], trees[name] = cfg, packed
+            ctrl[name] = {"counts": counts, "tokens": res.tokens,
+                          "logits": _digest(res.logits),
+                          "bytes": quantized_memory_report(packed)[
+                              "quantized_bytes"],
+                          "tree_bytes": _tree_bytes(packed), "held": held,
+                          "decode_ms": res.decode_secs * 1e3 / (TP_GEN - 1),
+                          "prefill_ms": res.prefill_secs * 1e3}
+            print(f"[tp-serve] control {cfg.name} L={cfg.num_layers}, no "
+                  f"mesh: prefill {res.prefill_secs * 1e3:.3f} ms, decode "
+                  f"{ctrl[name]['decode_ms']:.3f} ms/step, packed "
+                  f"{ctrl[name]['bytes']} B (tree {ctrl[name]['tree_bytes']}"
+                  f" B), device bytes the serve holds at its peak {held} B, "
+                  f"launches {counts}; card=[{card}]", flush=True)
+            del model, packed
+        times["controls"] = time.perf_counter() - t0
+
+        # (d) runs beside the hand-over of the packed trees and (a), whose
+        # readings are identity, launches and syncs, not time
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        clis = {k: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *TP_CLI,
+             *extra], cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for k, extra in (("tp", TP_CLI_TP), ("one", ()))}
+        try:
+            for name in list(trees):
+                torch.save(trees.pop(name), os.path.join(tmp, f"{name}.pt"))
+            _free()
+            times["save"] = time.perf_counter() - t0
+            t_spawn = time.time()
+            (one,) = run_ranks(tp_rank, 1, backend="nccl", device="cuda",
+                               args=(1, tmp, {"llama": cfgs["llama"]},
+                                     False), timeout=TP_SPAWN_S)
+            times["a"] = time.perf_counter() - t0
+            cli = {k: (p.communicate(timeout=TP_SPAWN_S), p.returncode)
+                   for k, p in clis.items()}
+            times["d"] = time.perf_counter() - t0
+        finally:
+            for p in clis.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        r = one["llama"]
+        print(f"[tp-serve] (a) one {one['backend']} rank, mesh "
+              f"{one['shape']}: prefill {r['prefill_ms']:.3f} ms, decode "
+              f"{r['decode_ms']:.3f} ms/step (sync debug mode on, the CLIs "
+              f"of (d) running beside), syncs inside decode steps "
+              f"{r['decode_syncs']} over {r['decode_steps']}, launches "
+              f"{r['counts']}, logits {r['logits']} (control "
+              f"{ctrl['llama']['logits']}), device bytes placed "
+              f"{r['placed_bytes']}, peak {r['peak']}, load "
+              f"{r['load_s']:.3f} s, {_rank_times(t_spawn, one)}; "
+              f"card=[{card}]", flush=True)
+        print(f"[tp-serve] (a) one all-reduce (bf16, ms): "
+              f"{one['allreduce_ms']}", flush=True)
+        if r["counts"] != ctrl["llama"]["counts"]:
+            fail(f"tp (a) launches {r['counts']}, the control's "
+                 f"{ctrl['llama']['counts']}")
+        if not (np.array_equal(r["tokens"], ctrl["llama"]["tokens"])
+                and r["logits"] == ctrl["llama"]["logits"]):
+            fail("tp (a): one NCCL rank is not bit-identical to the no-mesh "
+                 "run")
+        if r["decode_syncs"]:
+            fail(f"tp (a): {r['decode_syncs']} syncs inside decode steps")
+
+        t0 = time.perf_counter()
+        t_spawn = time.time()
+        two = run_ranks(tp_rank, TP_DEGREE, backend="gloo", device="cuda",
+                        args=(TP_DEGREE, tmp, cfgs, True),
+                        timeout=TP_SPAWN_S)
+        times["b+c"] = time.perf_counter() - t0
+    limit = {"llama": REL_L2, "moe": MOE_TP_REL}
+    for name, tag in (("llama", "(b)"), ("moe", "(c)")):
+        for r in two:
+            x = r[name]
+            print(f"[tp-serve] {tag} {cfgs[name].name} rank {r['rank']} of "
+                  f"{TP_DEGREE} over {r['backend']} on one card: plan "
+                  f"{x['plan']}, packed {x['local_bytes']} of "
+                  f"{x['global_bytes']} B, tree {x['tree_bytes']} of "
+                  f"{x['global_tree_bytes']} B, kv cache {x['cache_bytes']} "
+                  f"B; device bytes placed {x['placed_bytes']}, peak through "
+                  f"the serve {x['peak_serve']} (the control's "
+                  f"{ctrl[name]['held']}), peak {x['peak']}; prefill "
+                  f"{x['prefill_ms']:.3f} ms, decode "
+                  f"{x['decode_ms']:.3f} ms/step (no mesh "
+                  f"{ctrl[name]['decode_ms']:.3f}); teacher-forced rel. L2 "
+                  f"{x['forced_rel_l2']:.6g} "
+                  f"(gate {limit[name]}), argmax agreement "
+                  f"{x['argmax_agree']:.4f}; launches {x['counts']}; load "
+                  f"{x['load_s']:.1f} s, {x['s']:.1f} s; card=[{card}]",
+                  flush=True)
+            print(f"[tp-serve] {tag} rank {r['rank']} profiled decode step: "
+                  f"{x['profile']}", flush=True)
+            if x["counts"] != ctrl[name]["counts"]:
+                fail(f"tp {tag} rank {r['rank']}: launches {x['counts']}, "
+                     f"the control's {ctrl[name]['counts']}")
+            if not x["forced_rel_l2"] < limit[name]:
+                fail(f"tp {tag} rank {r['rank']}: teacher-forced rel. L2 "
+                     f"{x['forced_rel_l2']}, gate {limit[name]}")
+            # the rank's card holds its own tree, never the global one
+            if not x["placed_bytes"] < x["global_tree_bytes"] \
+                    or not x["placed_bytes"] <= x["tree_bytes"] * 1.01:
+                fail(f"tp {tag} rank {r['rank']}: {x['placed_bytes']} B on "
+                     f"the card after placement, its tree {x['tree_bytes']}"
+                     f" B of {x['global_tree_bytes']}")
+            if name == "llama" and not x["peak_serve"] < ctrl[name]["held"]:
+                fail(f"tp (b) rank {r['rank']}: peak {x['peak_serve']} B "
+                     f"through the serve, the control's {ctrl[name]['held']}")
+            if name == "moe":
+                print(f"[tp-serve] (c) rank {r['rank']} layer 0's "
+                      f"expert-split FFN on the control's input: rel. L2 "
+                      f"{x['layer_rel_l2']} (gate {MOE_LAYER_REL})",
+                      flush=True)
+                if not max(x["layer_rel_l2"].values()) < MOE_LAYER_REL:
+                    fail(f"tp (c) rank {r['rank']}: layer rel. L2 "
+                         f"{x['layer_rel_l2']}, gate {MOE_LAYER_REL}")
+        a, b = two[0][name], two[1][name]
+        if not (np.array_equal(a["tokens"], b["tokens"])
+                and a["logits"] == b["logits"]
+                and a["forced"] == b["forced"]
+                and a.get("layer") == b.get("layer")):
+            fail(f"tp {tag}: the two ranks' tokens or logits differ")
+        if name == "llama" and not set(a["plan"]) >= {"wq", "wo", "w_down"}:
+            fail(f"tp (b): plan {a['plan']} does not split attention and FFN")
+        if name == "moe" and a["plan"].get("w_gate") != "expert":
+            fail(f"tp (c): plan {a['plan']} does not split the experts")
+    for r in two:
+        x = r["schedule"]
+        print(f"[tp-serve] (b) scheduled rank {r['rank']}: "
+              + "; ".join(f"{st} {x[st]['steps']} steps "
+                          f"{x[st]['decode_ms']:.3f} ms/step, prefill "
+                          f"{x[st]['prefill_s']:.3f} s, kv cache "
+                          f"{x[st]['cache_bytes']} B, launches "
+                          f"{x[st]['counts']}" for st in ("dense", "paged"))
+              + f"; max_seq {x['max_seq']}, dense == paged "
+              f"{x['dense_eq_paged']}, {x['s']:.1f} s", flush=True)
+        if not x["dense_eq_paged"]:
+            fail(f"tp (b) rank {r['rank']}: paged tokens differ from dense")
+    for r in two:
+        print(f"[tp-serve] (b) rank {r['rank']} one all-reduce over gloo "
+              f"(bf16, ms): {r['allreduce_ms']}; {_rank_times(t_spawn, r)}; "
+              f"card=[{card}]", flush=True)
+    if two[0]["schedule"]["dense"]["tokens"] != \
+            two[1]["schedule"]["dense"]["tokens"]:
+        fail("tp (b): the ranks' scheduled tokens differ")
+
+    reqs = {k: _cli_requests(out) for k, ((out, _), _) in cli.items()}
+    for k, extra in (("tp", TP_CLI_TP), ("one", ())):
+        (out, err), rc = cli[k]
+        print(f"[tp-serve] (d) serve CLI {' '.join(TP_CLI + extra)}: rc "
+              f"{rc}, {len(reqs[k])} requests printed, {times['d']:.1f} s "
+              f"beside (a): "
+              + " | ".join(ln for ln in out.splitlines()
+                           if ln.startswith("[serve]"))
+              + " | " + " | ".join(reqs[k]), flush=True)
+        if rc or len(reqs[k]) != 4:
+            fail(f"tp (d): the CLI failed (rc {rc}):\n{out[-2000:]}\n"
+                 f"{err[-3000:]}")
+    if "tp=2 over gloo" not in cli["tp"][0][0]:
+        fail("tp (d): the --tp CLI did not serve over two gloo ranks")
+    if reqs["tp"] != reqs["one"]:
+        fail("tp (d): the CLI's tokens with --tp differ from without")
+    print(f"[time] phase 19: controls {times['controls']:.1f}s, hand-over "
+          f"{times['save']:.1f}s then (a) until {times['a']:.1f}s and (d) "
+          f"{times['d']:.1f}s side by side, (b)+(c) {times['b+c']:.1f}s",
+          flush=True)
+    return {"nccl rank": one["llama"]["counts"],
+            **{f"gloo rank {r['rank']}": _sum_counts(
+                r["llama"]["counts"], r["moe"]["counts"],
+                r["schedule"]["dense"]["counts"],
+                r["schedule"]["paged"]["counts"]) for r in two}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5416,6 +6071,12 @@ def main():
     encdec_counts, _ = encdec_phase(card)
     print(f"[time] encoder-decoder {time.perf_counter() - t0:.1f}s",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp_counts = tp_serve_phase(card)
+    print(f"[time] tensor-parallel serving {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     sources = {"quant_matmul": "src/repro/kernels/quant_matmul.py:146",
                "quant_gemv": "src/repro/kernels/quant_gemv.py:120",
@@ -5431,7 +6092,10 @@ def main():
                            "projections; 'wa' the 7 at W4 per-channel; "
                            "'encdec' one whisper-small encoder layer of an "
                            "admission: 6 launches at M=1500 (4 x 768 x "
-                           "768, 768 x 3072, 3072 x 768); '*_nospin' timed "
+                           "768, 768 x 3072, 3072 x 768); 'tp' one "
+                           "LLaMA-2-7B layer's 7 launches on a tp = 2 "
+                           "rank's shards (3 x 4096 x 2048, 2048 x 4096, 2 "
+                           "x 4096 x 5504, 5504 x 4096); '*_nospin' timed "
                            "without the device spin",
            "quant_gemv": "one layer of a decode step: 7 launches, M=4, W2 "
                          "g128; 'sched' the same at M=8 (the scheduled "
@@ -5439,7 +6103,8 @@ def main():
                          "attention projections; 'wa' the 7 at W4 "
                          "per-channel; 'encdec' one whisper-small decoder "
                          "layer of a decode step: 8 launches at M=8 (6 x "
-                         "768 x 768, 768 x 3072, 3072 x 768); '*_nospin' "
+                         "768 x 768, 768 x 3072, 3072 x 768); 'tp' the 7 "
+                         "on a tp = 2 rank's shards, M=4; '*_nospin' "
                          "the same launches timed "
                          "by events alone, without the device spin",
            "decode_attention": "one layer of a decode step: 1 launch, B=4 "
@@ -5449,7 +6114,8 @@ def main():
                                "Hkv=32 G=1 D=128 S=kv_len=4096 (SDPA over "
                                "the live positions in all three); "
                                "'encdec' whisper-small's: B=8 Hkv=12 G=1 "
-                               "D=64 S=80 kv_len=40; "
+                               "D=64 S=80 kv_len=40; 'tp' a tp = 2 rank's "
+                               "LLaMA shape: Hkv=16; "
                                "'*_nospin' timed without the device spin",
            "soft_round_fwd": "one layer of a Soften step: 7 launches (4 x "
                              "ng=32 out=4096, 2 x ng=32 out=11008, 1 x ng=86 "
@@ -5473,6 +6139,8 @@ def main():
                                      "mask on the gathered cache: a "
                                      "yardstick); 'encdec' whisper-small's: "
                                      "B=8 Hkv=12 G=1 D=64, 5 pages of 16; "
+                                     "'tp' a tp = 2 rank's LLaMA pool: B=4 "
+                                     "Hkv=16, 9 pages of 16; "
                                      "'*_nospin' timed without "
                                      "the device spin",
            "quant_matmul_experts": "one MoE layer of a decode step: 3 "
@@ -5486,7 +6154,8 @@ def main():
                                    "top-8, x zero past each count) with "
                                    "the dispatch's counts as rows, 'full_ms' "
                                    "without them, the bound over the "
-                                   "experts that hold a row",
+                                   "experts that hold a row; 'tp' a tp = 2 "
+                                   "rank's 64 experts at C=8 and 40",
            "int8_matmul": "one LLaMA-2-7B layer's 7 per-channel linears "
                           "(4 x K=4096 N=4096, 2 x K=4096 N=11008, 1 x "
                           "K=11008 N=4096), M=512, f32 out; 'decode' the "
@@ -5511,7 +6180,9 @@ def main():
                    **{f"families {part}": c[name]
                       for part, c in fam_counts.items()},
                    **{f"encdec {part}": c[name]
-                      for part, c in encdec_counts.items()}}
+                      for part, c in encdec_counts.items()},
+                   **{f"tp {part}": c[name]
+                      for part, c in tp_counts.items()}}
         if name.startswith("soft_round"):
             nums = summarize_soft_round(recs["soft_round"], name[-3:])
             nums["moe"] = summarize_soft_round(recs["soft_round"], name[-3:],
@@ -5548,6 +6219,7 @@ def main():
             if name in ("quant_matmul", "quant_gemv"):
                 nums["moe"] = summarize(recs[name], name, "moe",
                                         MOE_ATTN_SHAPES)
+                nums["tp"] = summarize(recs[name], name, "tp", TP_SHAPES)
                 nums["wa"] = summarize(recs[name], name, "wa")
                 nums["encdec"] = summarize(
                     recs[name], name, "encdec",
@@ -5555,6 +6227,7 @@ def main():
                     else ENCDEC_DEC_SHAPES)
             if name.endswith("decode_attention"):
                 nums["encdec"] = summarize(recs[name], name, "encdec")
+                nums["tp"] = summarize(recs[name], name, "tp")
             if name == "quant_gemv":
                 nums["sched"] = summarize(recs[name], name, "sched")
                 nums["invariance"] = recs["gemv_invariance"]

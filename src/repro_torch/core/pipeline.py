@@ -49,6 +49,7 @@ from repro_torch.core.capture import (capture_block_inputs,
 from repro_torch.core.qtensor import QTensor, pack
 from repro_torch.core.quantizer import resolve_group
 from repro_torch.models.common import Ctx, DEFAULT_CTX
+from repro_torch.models.layers import PsumWeight
 
 METHODS = ("tesseraq", "omniquant", "signround", "none")
 INITS = ("awq", "rtn", "gptq")
@@ -258,9 +259,13 @@ def pack_model(cfg: ModelConfig, params_q: Dict, qmeta_all: Dict,
 
 
 def _leaves(tree):
+    """Every weight of a param tree; a serve-time TP rank's in-split
+    weight (``PsumWeight``) counts as the shard it wraps."""
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
+    elif isinstance(tree, PsumWeight):
+        yield tree.w
     else:
         yield tree
 

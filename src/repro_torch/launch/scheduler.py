@@ -59,7 +59,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.serve import (_params_device, compile_serve_steps,
                                       serve_requests)
-from repro_torch.launch.steps import make_paged_install_step, make_sched_steps
+from repro_torch.launch.sharding import unplace
+from repro_torch.launch.steps import (check_serve_mesh,
+                                      make_paged_install_step,
+                                      make_sched_steps)
 from repro_torch.models.common import (DenseCacheStore, PagedCacheStore,
                                        write_slot)
 
@@ -114,6 +117,7 @@ class SchedSteps:
     decode: Any               # (params, cache, tok, pos, active[, ptab])
     install: Any = None       # paged admission (cache, c1, slot, ptab_row)
     page_size: int = 0
+    placement: Any = None     # ServeSpec.key of the TP steps (None: no TP)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,22 +235,28 @@ _SCHED_STEP_CACHE: dict = {}
 
 def compile_sched_steps(cfg: ModelConfig, *, max_seq: int,
                         kernel_backend=None, act_bits=None,
-                        page_size: int = 0) -> SchedSteps:
+                        page_size: int = 0, mesh=None,
+                        spec=None) -> SchedSteps:
     """The scheduler's step set for a serving configuration, built once and
-    memoized per (cfg, width, backend, act_bits, page_size).  PyTorch runs
-    eagerly, so nothing is compiled; the name is the reference's.
-    ``page_size > 0`` builds the paged-store step set (page-table-aware
-    steps plus the paged admission install step)."""
-    key = (cfg, max_seq, kernel_backend, act_bits, page_size)
+    memoized per (cfg, width, backend, act_bits, page_size, placement).
+    PyTorch runs eagerly, so nothing is compiled; the name is the
+    reference's.  ``page_size > 0`` builds the paged-store step set
+    (page-table-aware steps plus the paged admission install step).
+    ``spec`` (a placed ``launch.sharding.ServeSpec``) builds the
+    tensor-parallel steps of ``make_serve_steps``; their model allocates
+    the rank's local cache.  A ``mesh`` raises, as there."""
+    check_serve_mesh(mesh)
+    placement = None if spec is None else spec.key
+    key = (cfg, max_seq, kernel_backend, act_bits, page_size, placement)
     if key not in _SCHED_STEP_CACHE:
         model, pstep, dstep = make_sched_steps(
             cfg, max_seq=max_seq, act_bits=act_bits,
-            kernel_backend=kernel_backend, page_size=page_size)
+            kernel_backend=kernel_backend, page_size=page_size, spec=spec)
         install = (make_paged_install_step(model, page_size=page_size)
                    if page_size else None)
         _SCHED_STEP_CACHE[key] = SchedSteps(
             model=model, prefill=pstep, decode=dstep, install=install,
-            page_size=page_size)
+            page_size=page_size, placement=placement)
     return _SCHED_STEP_CACHE[key]
 
 
@@ -258,7 +268,7 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
                     store: str = "dense", page_size: int = 16,
                     num_pages: Optional[int] = None,
                     prefill_chunk: int = 0, share_prefix: bool = False,
-                    device="cuda") -> ServeResult:
+                    device="cuda", mesh=None) -> ServeResult:
     """Serve ``requests`` through the slot scheduler.
 
     Returns a :class:`ServeResult`; per-request records are keyed by rid
@@ -275,11 +285,20 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
     failing.  ``prefill_chunk > 0``: prompts of chunkable families prefill
     in chunks of that many tokens, one chunk interleaved per decode
     iteration.  ``share_prefix=True`` (paged + chunked only): full
-    prompt-prefix pages are shared copy-on-write across requests."""
+    prompt-prefix pages are shared copy-on-write across requests.
+
+    ``params`` may be a placed ``launch.sharding.ServeSpec``: the loop then
+    serves as one tensor-parallel rank, on the spec's local tree, and the
+    stores allocate the rank's local cache (its KV heads).  Every rank runs
+    this same host loop: admissions, pages and tokens agree because the
+    logits after each all-reduce are the same bytes on every rank.  A
+    ``mesh`` raises (the reference's GSPMD serve path)."""
     if slots < 1:
         raise ValueError(f"need at least one slot, got {slots}")
     if store not in ("dense", "paged"):
         raise ValueError(f"unknown store {store!r} (dense|paged)")
+    check_serve_mesh(mesh)
+    params, tp = unplace(params)
     dev = resolve_device(device)
     if _params_device(params).type != dev.type:
         raise ValueError(f"serve_scheduled: params live on "
@@ -300,11 +319,15 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
                 f"+ budget ({r.max_new_tokens}) exceeds max_seq ({max_seq})")
     steps_ = compiled if compiled is not None else compile_sched_steps(
         cfg, max_seq=max_seq, kernel_backend=kernel_backend,
-        act_bits=act_bits, page_size=page_size if paged else 0)
+        act_bits=act_bits, page_size=page_size if paged else 0, spec=tp)
     if steps_.page_size != (page_size if paged else 0):
         raise ValueError(
             f"step set was built for page_size={steps_.page_size}, run "
             f"wants {'page_size=%d' % page_size if paged else 'dense'}")
+    if steps_.placement != (None if tp is None else tp.key):
+        raise ValueError("step set was built for another tensor-parallel "
+                         "placement than the run's (compile_sched_steps("
+                         "spec=...) with the ServeSpec served)")
     model = steps_.model
     spec = model.cache_spec
 

@@ -36,7 +36,16 @@ the calibration's soft-rounding through the hand-written kernels.  Runs on
 ``--device cuda`` unless told otherwise; ``--device cpu`` runs the kernels'
 plain versions.
 
-Not ported yet, and raising: tensor parallelism (``--tp``).
+``--tp N`` serves with serve-time tensor parallelism: the params are built
+(and calibrated) once in this process, then N ranks of one
+``torch.distributed`` group (``launch.mesh.run_ranks``, backend
+``--dist-backend``: ``nccl``, one card a rank, or ``gloo``, on the CPU or on
+ranks that share a card) each hold their shards of the packed weights and
+KV heads (``launch.sharding.ServeSpec``) and serve the same requests; rank
+0 prints what the CLI prints without ``--tp``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+        --reduced --method none --device cpu --tp 2 --dist-backend gloo
 """
 from __future__ import annotations
 
@@ -57,7 +66,8 @@ from repro_torch.core.qtensor import PACK_FACTOR
 from repro_torch.core.tesseraq import TesseraQConfig
 from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
                                        calibration_batches)
-from repro_torch.launch.steps import make_serve_steps
+from repro_torch.launch.sharding import ServeSpec, unplace
+from repro_torch.launch.steps import check_serve_mesh, make_serve_steps
 from repro_torch.models import get_model
 from repro_torch.models.common import _nbytes
 
@@ -115,12 +125,16 @@ def build_params(cfg, params, qcfg: QuantConfig, data_cfg: DataConfig, *,
     return packed, report
 
 
-def compile_serve_steps(cfg, *, kernel_backend=None, act_bits=None):
+def compile_serve_steps(cfg, *, kernel_backend=None, act_bits=None,
+                        mesh=None, spec=None):
     """The (prefill, decode) step pair for a (backend, act_bits) serving
-    configuration.  PyTorch runs eagerly, so there is nothing to compile;
-    the name is the reference's."""
+    configuration; with ``spec`` (a placed ``launch.sharding.ServeSpec``)
+    the tensor-parallel pair of ``make_serve_steps``, and ``mesh`` raises
+    as there.  PyTorch runs eagerly, so there is nothing to compile; the
+    name is the reference's."""
     _, prefill_step, decode_step = make_serve_steps(
-        cfg, act_bits=act_bits, kernel_backend=kernel_backend)
+        cfg, mesh, act_bits=act_bits, kernel_backend=kernel_backend,
+        spec=spec)
     return prefill_step, decode_step
 
 
@@ -131,7 +145,8 @@ def _sync(dev: torch.device) -> None:
 
 def serve_requests(cfg, model, params, prompts, *, gen: int,
                    kernel_backend=None, act_bits=None, compiled=None,
-                   collect_logits=True, max_seq=None, device="cuda"):
+                   collect_logits=True, max_seq=None, device="cuda",
+                   mesh=None):
     """Prefill + lock-step batched decode (uniform lengths, fixed ``gen``).
 
     ``prompts``: (B, prompt_len) token ids (numpy or tensor); ``params``
@@ -145,8 +160,17 @@ def serve_requests(cfg, model, params, prompts, *, gen: int,
     serving a request alone at the scheduler's width reduces over the same
     cache extent as the scheduler.  Argmax stays on the device;
     device->host copies happen after both timing regions, which end in
-    ``torch.cuda.synchronize``."""
+    ``torch.cuda.synchronize``.
+
+    ``params`` may be a placed ``launch.sharding.ServeSpec``: the loop then
+    serves as one tensor-parallel rank, on the spec's local tree, with a
+    cache of the rank's KV heads (``cache_stats`` counts the local bytes);
+    ``compiled`` must then be a pair built for the same spec.  Every rank
+    returns the same tokens and logits.  A ``mesh`` raises (the
+    reference's GSPMD serve path)."""
     from repro_torch.launch.scheduler import ServeResult, _latency_stats
+    check_serve_mesh(mesh)
+    params, spec = unplace(params)
     dev = resolve_device(device)
     if _params_device(params).type != dev.type:
         raise ValueError(f"serve_requests: params live on "
@@ -157,9 +181,11 @@ def serve_requests(cfg, model, params, prompts, *, gen: int,
     elif max_seq < prompt_len + gen:
         raise ValueError(f"max_seq {max_seq} < prompt+gen "
                          f"{prompt_len + gen}")
+    if spec is not None:
+        model = spec.cache_model(model)
     pstep, dstep = (compiled if compiled is not None else
                     compile_serve_steps(cfg, kernel_backend=kernel_backend,
-                                        act_bits=act_bits))
+                                        act_bits=act_bits, spec=spec))
 
     cache = model.init_cache(B, max_seq, device=dev)
     toks_in = torch.as_tensor(prompts, dtype=torch.long, device=dev)
@@ -240,24 +266,35 @@ def main(argv=None):
                     help="copy-on-write sharing of full prompt-prefix pages "
                          "(paged store + chunked prefill only)")
     ap.add_argument("--tp", type=int, default=None,
-                    help="tensor-parallel serving (not ported yet)")
+                    help="serve-time tensor parallelism: N ranks, each "
+                         "holding its shards of the packed weights and KV "
+                         "heads (launch.sharding.ServeSpec); default: one "
+                         "process, no mesh")
+    ap.add_argument("--dist-backend", default="nccl",
+                    choices=["nccl", "gloo"],
+                    help="torch.distributed backend of the --tp ranks: "
+                         "nccl needs one card a rank; gloo runs on the CPU "
+                         "and on ranks that share a card")
     ap.add_argument("--calib-samples", type=int, default=8)
     ap.add_argument("--par-iters", type=int, default=4,
                     help="TesseraQ PAR iterations")
     ap.add_argument("--par-steps", type=int, default=20,
                     help="TesseraQ steps per PAR iteration")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", default=None,
+                    choices=["bfloat16", "float32"],
+                    help="the model's dtype (default: the config's)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
     args = ap.parse_args(argv)
 
-    if args.tp is not None:
-        raise NotImplementedError(
-            "--tp is not ported yet (ROADMAP queue 1, 'Parallelism')")
-
+    if args.tp is not None and args.tp < 1:
+        raise SystemExit(f"--tp must be >= 1, got {args.tp}")
     dev = resolve_device(args.device)
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
+    if args.dtype is not None:
+        cfg = cfg.replace(dtype=args.dtype)
     model = get_model(cfg)
     params = model.init_params(args.seed, dev)
 
@@ -273,16 +310,53 @@ def main(argv=None):
     # activations are quantized only for a quantized model, as the
     # reference's CLI does
     act = qcfg.act_bits if args.method != "none" else None
+    if args.tp is None:
+        return _serve_cli(args, cfg, served, qcfg, act, dev)
+    from repro_torch.bridge import params_to
+    from repro_torch.launch.mesh import run_ranks
+    # the ranks take the global tree through host memory and each moves
+    # only its own shards to its device; this process keeps no card copy
+    served = params_to(served, "cpu")
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rcs = run_ranks(_serve_cli_rank, args.tp, backend=args.dist_backend,
+                    device=dev, args=(args, cfg, served, qcfg, act))
+    return rcs[0]
+
+
+def _serve_cli_rank(args, cfg, served, qcfg, act) -> int:
+    """One ``--tp`` rank: its mesh and its placement of the host tree
+    ``served``, then the CLI's serve loop over its shards; rank 0
+    prints."""
+    from repro_torch.launch.mesh import serve_mesh
+    mesh = serve_mesh(args.tp, device=args.device)
+    return _serve_cli(args, cfg, ServeSpec.place(mesh, cfg, served), qcfg,
+                      act, mesh.device, echo=mesh.rank == 0)
+
+
+def _serve_cli(args, cfg, served, qcfg, act, dev, echo=True) -> int:
+    """The CLI's serve loop over a param tree or a placed ``ServeSpec``:
+    lock-step, or ``--slots`` through the scheduler; prints only with
+    ``echo``."""
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "CPU, plain versions")
+    if isinstance(served, ServeSpec):
+        where += (f", tp={served.size} over "
+                  f"{torch.distributed.get_backend(served.mesh.group)}")
     if args.slots is not None:
-        return _serve_scheduled_cli(args, cfg, served, qcfg, act, dev, where)
+        return _serve_scheduled_cli(args, cfg, served, qcfg, act, dev, where,
+                                    echo)
 
-    corpus = SyntheticCorpus(data_cfg)
-    prompts = corpus.batch(0)["tokens"][:, :args.prompt_len]
-    stats = serve_requests(cfg, model, served, prompts, gen=args.gen,
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.prompt_len,
+                          global_batch=args.requests, seed=args.seed)
+    prompts = SyntheticCorpus(data_cfg).batch(0)["tokens"][
+        :, :args.prompt_len]
+    stats = serve_requests(cfg, get_model(cfg), served, prompts, gen=args.gen,
                            kernel_backend=qcfg.kernel_backend, act_bits=act,
                            device=dev)
+    if not echo:
+        return 0
     B, gen = args.requests, args.gen
     dt = stats.prefill_secs + stats.decode_secs
     print(f"[serve] {B} requests x {gen} tokens in {dt:.2f}s "
@@ -297,7 +371,8 @@ def main(argv=None):
     return 0
 
 
-def _serve_scheduled_cli(args, cfg, served, qcfg, act, dev, where) -> int:
+def _serve_scheduled_cli(args, cfg, served, qcfg, act, dev, where,
+                         echo=True) -> int:
     """``--slots``: a seeded heterogeneous workload through the scheduler."""
     from repro_torch.launch.scheduler import make_workload, serve_scheduled
     if args.prompt_len < 1 or args.gen < 1:
@@ -315,6 +390,8 @@ def _serve_scheduled_cli(args, cfg, served, qcfg, act, dev, where) -> int:
                             num_pages=args.num_pages,
                             prefill_chunk=args.prefill_chunk,
                             share_prefix=args.share_prefix, device=dev)
+    if not echo:
+        return 0
     lat = sched.latency_steps
     print(f"[serve] scheduled {args.requests} requests over {args.slots} "
           f"slots in {sched.steps} decode steps ({sched.useful_tokens} "

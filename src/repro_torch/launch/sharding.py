@@ -1,0 +1,328 @@
+"""The serving stack's tensor-parallel placement contract (``ServeSpec``).
+
+The reference's serve-time TP runs each family's step under ``shard_map``
+with per-leaf specs; here each rank of a :class:`launch.mesh.ServeMesh`
+holds its LOCAL shard of every split leaf and runs the family forward on
+it.  What the reference expresses as spec trees plus ``place_params`` is
+:func:`shard_serve_params`: the global tree sliced into the rank's local
+tree once, at placement.  The split tables are family-keyed because leaf
+names collide across families with different layouts (rwkv's time-mix
+``wk``/``wv`` feed a global per-head group norm, so rwkv splits only its
+channel-mix pair).
+
+Feasibility is decided per ATOMIC GROUP: an out-split producer and its
+in-split consumer must agree (``wo`` consumes the heads ``wq``/``wk``/``wv``
+produced; ``w_down`` the d_ff ``w_gate``/``w_up`` produced), so if any
+member cannot split — head counts, or a QTensor's group-count or packed-row
+dims not dividing the TP degree — the whole group replicates.  Embedding
+and head stay replicated: the only collective a serve step makes is the
+all-reduce at the end of an in-split linear (``models.layers.PsumWeight``)
+and of the expert-local MoE FFN.
+
+All of this is a pure function of shapes.  The reference's ``ParamSpec``,
+``logical_table``, ``resolve_spec``, ``param_shardings``,
+``batch_shardings`` and ``cache_shardings`` wait for the sharded recon
+engine (ROADMAP queue 1, "Parallelism on torch.distributed").
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.qtensor import PACK_FACTOR, QTensor
+from repro_torch.launch.mesh import tp_axis, tp_size, validate_single_pod
+from repro_torch.models.common import (LEAF_FIXED, LEAF_TOKEN, _get_leaf,
+                                       _leaf_paths, _set_leaf)
+from repro_torch.models.layers import PsumWeight
+
+# leaf name -> split ("out" | "in" | "expert"), per family.  Absent names
+# (norms, routers, rwkv time-mix, mamba in/out_proj) replicate.
+SERVE_SPLIT_TABLES = {
+    "dense": {"wq": "out", "wk": "out", "wv": "out", "wo": "in",
+              "w_gate": "out", "w_up": "out", "w_down": "in"},
+    "moe": {"wq": "out", "wk": "out", "wv": "out", "wo": "in",
+            "w_gate": "expert", "w_up": "expert", "w_down": "expert"},
+    "encdec": {"wq": "out", "wk": "out", "wv": "out", "wo": "in",
+               "w_up": "out", "w_down": "in"},
+    "rwkv": {"ck": "out", "cv": "in"},
+}
+SERVE_SPLIT_TABLES["vlm"] = SERVE_SPLIT_TABLES["dense"]
+SERVE_SPLIT_TABLES["hybrid"] = SERVE_SPLIT_TABLES["dense"]
+
+# atomic fallback groups per family
+SERVE_GROUPS = {
+    "dense": (frozenset({"wq", "wk", "wv", "wo"}),
+              frozenset({"w_gate", "w_up", "w_down"})),
+    "moe": (frozenset({"wq", "wk", "wv", "wo"}),
+            frozenset({"w_gate", "w_up", "w_down"})),
+    "encdec": (frozenset({"wq", "wk", "wv", "wo"}),
+               frozenset({"w_up", "w_down"})),
+    "rwkv": (frozenset({"ck", "cv"}),),
+}
+SERVE_GROUPS["vlm"] = SERVE_GROUPS["dense"]
+SERVE_GROUPS["hybrid"] = SERVE_GROUPS["dense"]
+
+# the group whose split makes attention head-local (cfg and cache localize)
+_ATTN_GROUP_MEMBER = "wq"
+
+# the dim each split cuts: of a weight (..., in, out) and its packed /
+# scale / zero, and of an AWQ act_scale (..., in)
+_WEIGHT_DIM = {"out": -1, "in": -2, "expert": -3}
+_ACT_DIM = {"in": -1, "expert": -2}
+
+
+def _split_ok(leaf, split: str, tp: int) -> bool:
+    """Can ``leaf`` split ``split``-wise over a TP degree of ``tp``?  An
+    in-split QTensor shard must take whole quant groups (``ng % tp``) and
+    whole packed container rows (``(K // ppb) % tp``)."""
+    if tp <= 1:
+        return True
+    if isinstance(leaf, QTensor):
+        K, N = leaf.shape[-2], leaf.shape[-1]
+        ppb = PACK_FACTOR[leaf.bits]
+        ng = leaf.scale.shape[-2]
+        if split == "out":
+            return N % tp == 0
+        if split == "in":
+            return ng % tp == 0 and (K // ppb) % tp == 0
+        if split == "expert":
+            return leaf.packed.ndim >= 3 and leaf.packed.shape[-3] % tp == 0
+        return False
+    if getattr(leaf, "ndim", 0) < 2:
+        return False
+    if split == "out":
+        return leaf.shape[-1] % tp == 0
+    if split == "in":
+        return leaf.shape[-2] % tp == 0
+    if split == "expert":
+        return leaf.ndim >= 3 and leaf.shape[-3] % tp == 0
+    return False
+
+
+def serve_plan(cfg: ModelConfig, params, tp: int) -> dict:
+    """The placement decision: ``{leaf name: split}`` for every leaf that
+    splits over the TP axis (absent = replicated).  The attention group
+    also needs ``num_heads`` and ``num_kv_heads`` divisible by ``tp`` (the
+    forward reshapes heads)."""
+    if tp < 1:
+        raise ValueError(f"serve_plan: TP degree must be >= 1, got {tp}")
+    table = SERVE_SPLIT_TABLES.get(cfg.family, SERVE_SPLIT_TABLES["dense"])
+    groups = SERVE_GROUPS.get(cfg.family, SERVE_GROUPS["dense"])
+
+    found: dict = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+            return
+        name = path[-1]
+        if name in table:
+            found.setdefault(name, []).append(node)
+
+    walk(params, ())
+    plan: dict = {}
+    for group in groups:
+        members = sorted(n for n in group if n in found)
+        if not members:
+            continue
+        ok = all(_split_ok(leaf, table[n], tp)
+                 for n in members for leaf in found[n])
+        if _ATTN_GROUP_MEMBER in group:
+            ok = ok and cfg.num_heads % tp == 0 \
+                and cfg.num_kv_heads % tp == 0
+        if ok:
+            for n in members:
+                plan[n] = table[n]
+    return plan
+
+
+def _localize_qtensor(qt: QTensor) -> QTensor:
+    """Rebuild a QTensor's logical ``shape`` from its (shard-local) packed
+    tensor: an out-split shard shrinks ``out``, an in-split one ``in`` by
+    whole groups (``group_size`` stays); an expert split touches leading
+    dims only, which never live in ``shape``."""
+    k_local = qt.packed.shape[-2] * PACK_FACTOR[qt.bits]
+    n_local = qt.packed.shape[-1]
+    if (k_local, n_local) == tuple(qt.shape[-2:]):
+        return qt
+    return QTensor(packed=qt.packed, scale=qt.scale, zero=qt.zero,
+                   bits=qt.bits, group_size=qt.group_size,
+                   shape=(k_local, n_local), act_scale=qt.act_scale)
+
+
+def _shard(t: torch.Tensor, dim: int, rank: int, size: int,
+           device=None) -> torch.Tensor:
+    """Shard ``rank`` of ``size`` equal slices of ``t`` along ``dim``, made
+    contiguous where it lies (the kernels check contiguity), then moved to
+    ``device`` (None: left where it is); at ``size`` 1, ``t`` itself."""
+    if size > 1:
+        n = t.shape[dim] // size
+        t = t.narrow(dim, rank * n, n).contiguous()
+    return t if device is None else t.to(device)
+
+
+def shard_serve_params(params, plan: dict, rank: int, size: int,
+                       group=None, device=None):
+    """The rank's local tree of a global param tree under ``plan``: every
+    split leaf cut to shard ``rank`` of ``size`` (out-split: the last dim
+    of the weight, or of ``packed``/``scale``/``zero``; in-split: dim -2 of
+    those and the last dim of ``act_scale``; expert: dim -3, and dim -2 of
+    ``act_scale``), each slice contiguous, each QTensor's ``shape`` rebuilt
+    by :func:`_localize_qtensor`.  In-split leaves come wrapped in
+    ``PsumWeight(w, group)`` (``group`` None: the default group), so
+    ``layers.matmul`` all-reduces their partial products and the family
+    forwards stay free of sharding logic.
+
+    The slices are cut where ``params`` lies and only they move to
+    ``device`` (None: nothing moves), with the replicated leaves: slicing a
+    host tree puts no more than the rank's own tree on its card.  A leaf
+    already on ``device`` is not copied (at ``size`` 1 the local tree is
+    the global tensors themselves)."""
+    def move(t):
+        return t if device is None or t is None else t.to(device)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        split = plan.get(path[-1]) if path else None
+        if split is None or node is None:
+            return move(node)
+        dim = _WEIGHT_DIM[split]
+        if isinstance(node, QTensor):
+            act = node.act_scale
+            act = (_shard(act, _ACT_DIM[split], rank, size, device)
+                   if act is not None and split in _ACT_DIM else move(act))
+            node = _localize_qtensor(QTensor(
+                packed=_shard(node.packed, dim, rank, size, device),
+                scale=_shard(node.scale, dim, rank, size, device),
+                zero=_shard(node.zero, dim, rank, size, device),
+                bits=node.bits, group_size=node.group_size, shape=node.shape,
+                act_scale=act))
+        else:
+            node = _shard(node, dim, rank, size, device)
+        return PsumWeight(node, group) if split == "in" else node
+    return walk(params, ())
+
+
+def localize_serve_cfg(cfg: ModelConfig, plan: dict, tp: int) -> ModelConfig:
+    """Per-shard model config: head counts divided by the TP degree when
+    the attention group splits, with ``head_dim`` pinned to its resolved
+    value.  ``d_ff`` never appears in a forward reshape, and the MoE's
+    ``num_experts`` stays global (routing is over global expert ids)."""
+    if tp <= 1 or plan.get(_ATTN_GROUP_MEMBER) != "out":
+        return cfg
+    return cfg.replace(num_heads=cfg.num_heads // tp,
+                       num_kv_heads=cfg.num_kv_heads // tp,
+                       head_dim=cfg.resolved_head_dim)
+
+
+def serve_cache_layout(cache_spec, cache, plan: dict, tp: int) -> dict:
+    """The local cache layout: ``{leaf path: local shape}`` for a global
+    cache tree (a ``"meta"`` one will do), keyed on the declared leaf kind.
+    Token and fixed leaves (KV lanes ``(L, B, S, H, hd)``, paged pools,
+    encdec cross caches) take ``H // tp`` heads — dim -2 in every layout —
+    when the attention group splits and the head count divides; state
+    leaves (rwkv shift/wkv, mamba conv/ssm) replicate."""
+    attn = plan.get(_ATTN_GROUP_MEMBER) == "out" and tp > 1
+    out = {}
+    for path in _leaf_paths(cache):
+        shape = list(_get_leaf(cache, path).shape)
+        kind = cache_spec.leaf(path).kind
+        if (attn and kind in (LEAF_TOKEN, LEAF_FIXED) and len(shape) >= 2
+                and shape[-2] % tp == 0):
+            shape[-2] //= tp
+        out[path] = tuple(shape)
+    return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ServeSpec:
+    """One rank's serve-time placement: the one object that carries
+    tensor parallelism from the mesh to the decode kernels.
+
+    :meth:`place` decides the plan from the global params' shapes and cuts
+    the rank's local tree (``params``, on ``mesh.device``) once.  The serve
+    steps (``launch.steps.make_serve_steps(spec=...)``) run the family
+    forward on :attr:`local_cfg`, and the serve loops (``serve_requests``,
+    ``serve_scheduled``) take the spec where they take a param tree, so a
+    plan never meets params placed under another.  ``cfg`` is the global
+    config; the global model keeps describing the cache spec while
+    :meth:`cache_model` allocates the rank's KV heads.  Steps depend on
+    :attr:`key` only and never hold ``params``."""
+
+    mesh: Any
+    cfg: ModelConfig
+    plan: dict
+    params: Any = dataclasses.field(repr=False)
+
+    @classmethod
+    def place(cls, mesh, cfg: ModelConfig, params) -> "ServeSpec":
+        """Place the GLOBAL tree ``params`` on ``mesh`` (a
+        ``launch.mesh.ServeMesh``): the plan of its shapes over
+        ``tp_size(mesh)``, and the rank's shard of every split leaf
+        (:func:`shard_serve_params` at its ``model`` position, in-split
+        leaves reducing over its group) moved to ``mesh.device``.  Pass a
+        host tree: only the rank's own tree then reaches its card."""
+        if mesh is None or tp_axis(mesh) is None:
+            raise ValueError("ServeSpec.place needs a mesh with a 'model' "
+                             "axis (launch.mesh.serve_mesh)")
+        validate_single_pod(mesh, "ServeSpec.place")
+        size = tp_size(mesh)
+        plan = serve_plan(cfg, params, size)
+        return cls(mesh, cfg, plan, shard_serve_params(
+            params, plan, mesh.model_rank, size, mesh.group, mesh.device))
+
+    @property
+    def size(self) -> int:
+        return tp_size(self.mesh)
+
+    @property
+    def key(self) -> tuple:
+        """What the steps of this placement depend on: the mesh, the
+        global config and the plan."""
+        return self.mesh, self.cfg, tuple(sorted(self.plan.items()))
+
+    @property
+    def local_cfg(self) -> ModelConfig:
+        """The per-shard config the family forward runs on."""
+        return localize_serve_cfg(self.cfg, self.plan, self.size)
+
+    @property
+    def ep_inner(self):
+        """The model group when the MoE experts split over it, else None
+        (``Ctx.ep_inner``)."""
+        return self.mesh.group if self.plan.get("w_gate") == "expert" \
+            else None
+
+    def cache_model(self, model):
+        """``model`` with an ``init_cache`` that allocates the local cache
+        layout (:func:`serve_cache_layout`; zeros, as every family's
+        ``init_cache`` starts), so the dense and paged stores hold the
+        rank's heads only.  Everything else — the global config, the
+        cache spec — stays the global model's."""
+        plan, size = self.plan, self.size     # not self: it holds params
+
+        def init_cache(batch, max_seq, dtype=torch.bfloat16, device="cuda"):
+            struct = model.init_cache(batch, max_seq, dtype, "meta")
+            layout = serve_cache_layout(model.cache_spec, struct, plan, size)
+            cache = struct
+            for path, shape in layout.items():
+                cache = _set_leaf(cache, path, torch.zeros(
+                    shape, dtype=_get_leaf(struct, path).dtype,
+                    device=device))
+            return cache
+
+        return dataclasses.replace(model, init_cache=init_cache)
+
+
+def unplace(params):
+    """A serve loop's ``params`` argument as ``(param tree, spec)``: a
+    placed :class:`ServeSpec` gives its local tree and itself, a param
+    tree itself and None."""
+    if isinstance(params, ServeSpec):
+        return params.params, params
+    return params, None

@@ -1,6 +1,6 @@
 """The single-device train step (``make_train_harness``), the prefill/decode
-steps for single-device serving, the scheduler's masked decode step and the
-paged store's admission step."""
+steps for single-device and tensor-parallel serving, the scheduler's masked
+decode step and the paged store's admission step."""
 from __future__ import annotations
 
 import dataclasses
@@ -142,9 +142,9 @@ def train_donate_argnums(*argnums: int) -> tuple:
 # --------------------------------------------------------------------------
 
 
-def make_serve_steps(cfg: ModelConfig, *, act_bits=None,
+def make_serve_steps(cfg: ModelConfig, mesh=None, *, act_bits=None,
                      attn_chunk: int = 512, kv_bits=None,
-                     kernel_backend=None, page_size: int = 0):
+                     kernel_backend=None, page_size: int = 0, spec=None):
     """Returns (model, prefill_step, decode_step).
 
     ``kernel_backend`` ("xla" | "pallas" | None = env/default) selects the
@@ -155,7 +155,18 @@ def make_serve_steps(cfg: ModelConfig, *, act_bits=None,
     caller allocates the cache, int8 for an int8 store).  ``page_size > 0``
     builds paged-cache steps: prefill accepts ``start_pos``/``ptab``
     (chunked prefill over a page table) and decode accepts ``ptab``.
-    Meshes and tensor parallelism are not ported yet (ROADMAP queue 1)."""
+
+    ``spec`` (a placed ``launch.sharding.ServeSpec``) builds the steps of
+    serve-time tensor parallelism: they take the rank's local params
+    (``spec.params``) and cache, and the returned model allocates that
+    local cache.  ``mesh`` is the reference's GSPMD-annotated serve path,
+    which waits for the sharded engine (ROADMAP queue 1) and raises."""
+    check_serve_mesh(mesh)
+    if spec is not None:
+        return _make_tp_serve_steps(
+            cfg, spec, act_bits=act_bits, attn_chunk=attn_chunk,
+            kv_bits=kv_bits, kernel_backend=kernel_backend,
+            page_size=page_size)
     model = get_model(cfg)
     ctx = make_ctx(attn_chunk=attn_chunk, kernel_backend=kernel_backend,
                    act_bits=act_bits, kv_bits=kv_bits, page_size=page_size)
@@ -169,6 +180,51 @@ def make_serve_steps(cfg: ModelConfig, *, act_bits=None,
                                  active=active, ptab=ptab)
 
     return model, prefill_step, decode_step
+
+
+def check_serve_mesh(mesh) -> None:
+    """Refuse a serve ``mesh``: it is the reference's GSPMD-annotated serve
+    path, which waits for the sharded engine.  Tensor-parallel serving
+    takes a placed ``launch.sharding.ServeSpec`` instead."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "serving on a mesh is the reference's GSPMD serve path, which "
+            f"waits for the sharded engine ({_PARALLEL}); for tensor "
+            "parallelism, serve a placed launch.sharding.ServeSpec")
+
+
+def _make_tp_serve_steps(cfg: ModelConfig, spec, *, act_bits=None,
+                         attn_chunk: int = 512, kv_bits=None,
+                         kernel_backend=None, page_size: int = 0):
+    """Serve steps under the tensor-parallel contract: the reference's
+    ``shard_map`` body is this rank's own forward.  The family forward runs
+    on a model built from the LOCALIZED config (head counts per shard;
+    the forwards reshape by them) over the rank's local params, whose
+    in-split leaves all-reduce over the model group (``PsumWeight``);
+    ``Ctx.ep_inner`` carries that group when the MoE experts split.  The
+    global model keeps describing the cache spec; the returned model
+    allocates the local cache.  At TP degree 1 every shard is the whole
+    leaf and every all-reduce a one-rank identity: bit-identical to the
+    un-meshed steps."""
+    if spec.cfg != cfg:
+        raise ValueError(f"make_serve_steps: the spec was placed for "
+                         f"{spec.cfg.name}, the steps are for {cfg.name}")
+    model = get_model(cfg)
+    lcfg = spec.local_cfg
+    lmodel = model if lcfg is cfg else get_model(lcfg)
+    ctx = make_ctx(attn_chunk=attn_chunk, kernel_backend=kernel_backend,
+                   act_bits=act_bits, kv_bits=kv_bits, page_size=page_size,
+                   ep_inner=spec.ep_inner)
+
+    def prefill_step(params, batch, cache, start_pos=0, ptab=None):
+        return lmodel.prefill(params, batch, cache, ctx, start_pos=start_pos,
+                              ptab=ptab)
+
+    def decode_step(params, cache, tokens, pos, active=None, ptab=None):
+        return lmodel.decode_step(params, cache, tokens, pos, ctx,
+                                  active=active, ptab=ptab)
+
+    return spec.cache_model(model), prefill_step, decode_step
 
 
 def make_paged_install_step(model, *, page_size: int):
@@ -201,7 +257,8 @@ def make_paged_install_step(model, *, page_size: int):
 
 def make_sched_steps(cfg: ModelConfig, *, max_seq: int, act_bits=None,
                      attn_chunk: int = 512, kv_bits=None,
-                     kernel_backend=None, page_size: int = 0):
+                     kernel_backend=None, page_size: int = 0, mesh=None,
+                     spec=None):
     """Step pair for the slot scheduler (``repro_torch.launch.scheduler``).
 
     Returns ``(model, prefill_step, sched_decode_step)``.  The decode step
@@ -218,10 +275,13 @@ def make_sched_steps(cfg: ModelConfig, *, max_seq: int, act_bits=None,
 
     Active rows see exactly the arguments the plain serve loop passes (same
     pos, same kv_len), which is what makes scheduled decode bit-compatible
-    with serving a request alone."""
+    with serving a request alone.  ``spec``: the tensor-parallel steps of
+    ``make_serve_steps``; every rank then runs the same host loop on the
+    same logits (the all-reduce gives every rank the same bytes).  A
+    ``mesh`` raises, as in ``make_serve_steps``."""
     model, prefill_step, decode_step = make_serve_steps(
-        cfg, act_bits=act_bits, attn_chunk=attn_chunk, kv_bits=kv_bits,
-        kernel_backend=kernel_backend, page_size=page_size)
+        cfg, mesh, act_bits=act_bits, attn_chunk=attn_chunk, kv_bits=kv_bits,
+        kernel_backend=kernel_backend, page_size=page_size, spec=spec)
 
     def sched_decode_step(params, cache, tok, pos, active, ptab=None):
         write_pos = torch.where(active, pos, max_seq)

@@ -19,6 +19,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.qtensor import QTensor
+from repro_torch.models.layers import PsumWeight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,12 +45,17 @@ class Ctx:
     decoder layer's forward in the backward (``maybe_remat``; ``make_ctx``
     defaults it from ``cfg.remat``).
 
+    ``ep_inner`` is the serve-time TP ranks' model process group when the
+    MoE experts are split over it (``launch.steps.make_serve_steps(
+    spec=...)``): ``models.moe.moe_ffn`` then computes the rank's
+    local experts and all-reduces their output over it.
+
     Fields of the reference's Ctx that are not here yet, and where each is
-    queued: ``shard``/``mesh``/``dp_axes`` and the expert-parallel axes
-    (ROADMAP queue 1, "Parallelism on torch.distributed"; ``ep_axis`` and
-    ``ep_inner`` are kept so that ``models.moe.moe_ffn`` can refuse them)
-    and ``decode`` (read only by the reference's sharding rules, with the
-    mesh).
+    queued: ``shard``/``mesh``/``dp_axes`` and the mesh-wide expert
+    parallelism of calibration and training (ROADMAP queue 1, "Parallelism
+    on torch.distributed"; ``ep_axis`` is kept so that ``moe_ffn`` can
+    refuse it) and ``decode`` (read only by the reference's sharding
+    rules, with the mesh).
     """
     kernel_backend: Optional[str] = None
     act_bits: Optional[int] = None
@@ -59,7 +65,7 @@ class Ctx:
     page_size: int = 0
     remat: bool = False
     ep_axis: Optional[str] = None
-    ep_inner: Optional[str] = None
+    ep_inner: Any = None
 
 
 DEFAULT_CTX = Ctx()
@@ -123,6 +129,8 @@ def take_layer(params, i):
         return {k: take_layer(v, i) for k, v in params.items()}
     if isinstance(params, QTensor):
         return params.layer(i)
+    if isinstance(params, PsumWeight):
+        return PsumWeight(take_layer(params.w, i), params.group)
     return params[i]
 
 
@@ -137,6 +145,9 @@ def unstack_layers(params, n: int) -> list:
         return [{k: per_key[k][i] for k in params} for i in range(n)]
     if isinstance(params, QTensor):
         return [params.layer(i) for i in range(n)]
+    if isinstance(params, PsumWeight):
+        return [PsumWeight(w, params.group)
+                for w in unstack_layers(params.w, n)]
     return list(params.unbind(0))
 
 

@@ -10,14 +10,32 @@ runs the hand-written kernels (their plain versions on a CPU tensor).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.qtensor import QTensor, qmatmul
 
 KERNEL_BACKENDS = ("xla", "pallas")
+
+
+@dataclasses.dataclass
+class PsumWeight:
+    """An input-channel-split weight of serve-time tensor parallelism.
+
+    The TP contract (``launch.sharding.ServeSpec``) splits in-split linears
+    (``wo``/``w_down``/``cv``) over their reduction dim; each rank's
+    partial product must be summed over the model ``group`` before anything
+    nonlinear consumes it.  Wrapping the weight keeps the family forwards
+    free of sharding logic: :func:`matmul` multiplies the local shard and
+    all-reduces, the one place the in-channel epilogue lives
+    (``common.take_layer`` / ``unstack_layers`` keep the wrapper around
+    each layer's slice).  ``group`` None is the default process group."""
+    w: Any
+    group: Any = None
 
 
 def resolve_backend(backend: Optional[str]) -> str:
@@ -34,6 +52,14 @@ def resolve_backend(backend: Optional[str]) -> str:
 
 
 def matmul(x: torch.Tensor, w, backend: Optional[str] = None) -> torch.Tensor:
+    """``x @ w`` for a plain, packed (QTensor) or in-split (PsumWeight)
+    weight.  A PsumWeight's local product is summed over its group in the
+    activation dtype, as the reference's ``psum``: every rank gets the
+    same bytes, and on a one-rank group the sum is the product itself."""
+    if isinstance(w, PsumWeight):
+        y = matmul(x, w.w, backend).contiguous()
+        dist.all_reduce(y, group=w.group)
+        return y
     if isinstance(w, QTensor):
         if resolve_backend(backend) == "pallas":
             from repro_torch.kernels.ops import qtensor_matmul

@@ -1,5 +1,5 @@
 """Token-choice top-k MoE FFN with capacity-based dispatch (the reference's
-``models/moe.py``, single-shard path).
+``models/moe.py``: its single-shard and its inner expert-parallel paths).
 
 Each token picks its top-k experts from an f32 router; every (token,
 choice) pair takes the next free row of its expert's capacity buffer in
@@ -17,17 +17,24 @@ so that is the product the reference computes (for finite weights), and
 the combine never reads those rows.  Inactive decode slots route and take capacity
 like live ones, as in the reference (determinism, not alone-parity).
 
-The reference's expert-parallel paths (``ctx.ep_axis``, ``ctx.ep_inner``)
-are not ported and raise (ROADMAP queue 1, "Parallelism on
-torch.distributed").
+Under serve-time tensor parallelism (``ctx.ep_inner``, the reference's
+inner expert parallelism) each rank of the model group holds a contiguous
+slice of the experts: it routes over the global expert ids as above (the
+capacity keeps its single-device value), dispatches only the pairs routed
+to its local experts, runs the expert kernel over them, and one all-reduce
+over the group sums the ranks' outputs.  The mesh-wide expert parallelism
+of calibration and training (``ctx.ep_axis``) is not ported and raises
+(ROADMAP queue 1, "Parallelism on torch.distributed").
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.qtensor import QTensor
 from repro_torch.models import layers as L
 from repro_torch.models.common import Ctx
 
@@ -63,39 +70,49 @@ def _capacity(tokens: int, num_experts: int, top_k: int, cf: float) -> int:
     return max(8, -(-c // 8) * 8)                     # round up to 8
 
 
-def _dispatch(idx: torch.Tensor, num_experts: int, capacity: int):
-    """(keep (T*k,) bool, slot (T*k,) int64, rows (E,) int32) for the flat
-    token-major list of (token, choice) pairs: a pair takes the next free
-    row of its expert's queue (a cumsum over the one-hot expert column),
-    ``slot`` is its row in the ``E*C + 1``-row buffer, the last row for a
-    pair past its expert's capacity, and ``rows`` each expert's routed
-    pairs (the cumsum's last row, a view; the expert kernel clamps it to
-    the capacity, so its kept rows are ``min(rows, capacity)``).  (The
-    reference also drops pairs routed to another shard's experts; with
-    every expert local no pair is.)"""
+def _dispatch(idx: torch.Tensor, num_experts: int, capacity: int,
+              e_start: int = 0, e_local=None):
+    """(keep (T*k,) bool, slot (T*k,) int64, rows (E_l,) int32) for the flat
+    token-major list of (token, choice) pairs over the local experts
+    ``[e_start, e_start + e_local)`` (default: all ``num_experts``): a
+    pair takes the next free row of its expert's queue (a cumsum over the
+    one-hot expert column), ``slot`` is its row in the ``E_l*C + 1``-row
+    buffer, the last row for a pair past its expert's capacity or routed
+    to another rank's expert, and ``rows`` each local expert's routed pairs
+    (the cumsum's last row, a view; the expert kernel clamps it to the
+    capacity, so its kept rows are ``min(rows, capacity)``)."""
+    e_local = num_experts if e_local is None else e_local
     flat_e = idx.reshape(-1)
+    if e_start:
+        flat_e = flat_e - e_start
     onehot = (flat_e[:, None] == torch.arange(
-        num_experts, device=idx.device)).to(torch.int32)         # (T*k, E)
+        e_local, device=idx.device)).to(torch.int32)             # (T*k, E_l)
     count = torch.cumsum(onehot, dim=0, dtype=torch.int32)
-    pos = torch.gather(count, 1, flat_e[:, None])[:, 0] - 1     # (T*k,)
-    keep = pos < capacity
-    slot = torch.where(keep, flat_e * capacity + pos, num_experts * capacity)
+    if e_local == num_experts:
+        pos = torch.gather(count, 1, flat_e[:, None])[:, 0] - 1  # (T*k,)
+        keep = pos < capacity
+    else:
+        pos = torch.gather(count, 1, flat_e.clamp(0, e_local - 1)[:, None]
+                           )[:, 0] - 1
+        keep = (flat_e >= 0) & (flat_e < e_local) & (pos < capacity)
+    slot = torch.where(keep, flat_e * capacity + pos, e_local * capacity)
     return keep, slot, count[-1]
 
 
 def _expert_compute(x2d, idx, gate, w_gate, w_up, w_down, *,
                     num_experts: int, capacity: int, act_bits=None,
-                    backend=None):
-    """Capacity-gather the routed tokens, run the batched FFN, and
-    scatter-combine.  ``act_bits`` fake-quantizes the capacity buffer (its
-    zero padding rows included, as in the reference) and the gated
-    activation before ``w_down``.
+                    backend=None, e_start: int = 0, e_local=None):
+    """Capacity-gather the tokens routed to experts ``[e_start, e_start +
+    e_local)`` (default: all), run the batched FFN, and scatter-combine.
+    ``act_bits`` fake-quantizes the capacity buffer (its zero padding rows
+    included, as in the reference) and the gated activation before
+    ``w_down``.
 
-    x2d: (T, d); idx/gate: (T, k); w_*: (E, d, f) / (E, f, d)."""
+    x2d: (T, d); idx/gate: (T, k); w_*: (E_l, d, f) / (E_l, f, d)."""
     T, d = x2d.shape
     k = idx.shape[1]
-    E = num_experts
-    keep, slot, rows = _dispatch(idx, E, capacity)
+    E = num_experts if e_local is None else e_local
+    keep, slot, rows = _dispatch(idx, num_experts, capacity, e_start, E)
     tok_idx = torch.arange(T * k, device=x2d.device) // k
     buf = torch.zeros((E * capacity + 1, d), dtype=x2d.dtype,
                       device=x2d.device)
@@ -122,10 +139,12 @@ def _expert_compute(x2d, idx, gate, w_gate, w_up, w_down, *,
 
 def moe_ffn(mp: dict, x: torch.Tensor, cfg: ModelConfig,
             ctx: Ctx) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d), every expert on this device."""
-    if ctx.ep_axis is not None or ctx.ep_inner is not None:
+    """x: (B, S, d) -> (B, S, d): every expert on this device, or, under
+    ``ctx.ep_inner`` (the model group of serve-time TP), this rank's slice
+    of them, summed over the group."""
+    if ctx.ep_axis is not None:
         raise NotImplementedError(
-            "moe_ffn: expert parallelism (ctx.ep_axis / ctx.ep_inner) is not "
+            "moe_ffn: mesh-wide expert parallelism (ctx.ep_axis) is not "
             "ported yet (ROADMAP queue 1, 'Parallelism on "
             "torch.distributed')")
     B, S, d = x.shape
@@ -133,7 +152,20 @@ def moe_ffn(mp: dict, x: torch.Tensor, cfg: ModelConfig,
     x2d = x.reshape(B * S, d)
     idx, gate = _route(x2d, mp["router"], k)
     cap = _capacity(B * S, e, k, cfg.moe.capacity_factor)
+    if ctx.ep_inner is None:
+        y = _expert_compute(x2d, idx, gate, mp["w_gate"], mp["w_up"],
+                            mp["w_down"], num_experts=e, capacity=cap,
+                            act_bits=ctx.act_bits, backend=ctx.kernel_backend)
+        return y.reshape(B, S, d)
+    if not isinstance(ctx.ep_inner, dist.ProcessGroup):
+        raise TypeError(f"moe_ffn: ctx.ep_inner must be the model axis's "
+                        f"ProcessGroup, got {ctx.ep_inner!r}")
+    wg = mp["w_gate"]
+    e_local = int((wg.packed if isinstance(wg, QTensor) else wg).shape[-3])
     y = _expert_compute(x2d, idx, gate, mp["w_gate"], mp["w_up"],
                         mp["w_down"], num_experts=e, capacity=cap,
-                        act_bits=ctx.act_bits, backend=ctx.kernel_backend)
+                        act_bits=ctx.act_bits, backend=ctx.kernel_backend,
+                        e_start=dist.get_rank(ctx.ep_inner) * e_local,
+                        e_local=e_local)
+    dist.all_reduce(y, group=ctx.ep_inner)
     return y.reshape(B, S, d)

@@ -470,14 +470,19 @@ def test_moe_ffn_one_token_matches_reference(backend):
 
 
 def test_moe_refuses_expert_parallelism():
+    """The mesh-wide expert parallelism (``ep_axis``) is not ported and
+    raises; the serve-time inner one (``ep_inner``, held against the
+    reference in ``tests/test_torch_tp_serve.py``) takes the model axis's
+    ProcessGroup and refuses a mesh-axis name."""
     cfg = get_reduced_config(ARCH)
     mp = params_to_torch(_moe_weights(0, cfg.d_model, cfg.d_ff,
                                       cfg.moe.num_experts))
     x = torch.zeros(1, 2, cfg.d_model)
-    for kw in ({"ep_axis": "model"}, {"ep_inner": "model"}):
-        with pytest.raises(NotImplementedError,
-                           match="Parallelism on torch.distributed"):
-            tmoe.moe_ffn(mp, x, cfg, tcommon.make_ctx(**kw))
+    with pytest.raises(NotImplementedError,
+                       match="Parallelism on torch.distributed"):
+        tmoe.moe_ffn(mp, x, cfg, tcommon.make_ctx(ep_axis="model"))
+    with pytest.raises(TypeError, match="ProcessGroup"):
+        tmoe.moe_ffn(mp, x, cfg, tcommon.make_ctx(ep_inner="model"))
 
 
 def test_model_api_accepts_moe():

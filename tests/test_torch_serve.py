@@ -177,7 +177,10 @@ def test_cli_schedules_on_cpu(capsys, store):
 @pytest.mark.parametrize("argv", [["--method", "none", "--tp", "2"]],
                          ids=["tp"])
 def test_cli_refuses_paths_not_ported(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``--tp`` serves (``tests/test_torch_tp_serve.py``); on the CPU its
+    default NCCL backend has no card for its ranks, and the CLI refuses it
+    before spawning, naming gloo."""
+    with pytest.raises(ValueError, match="gloo"):
         tserve.main(["--reduced", "--device", "cpu"] + argv)
 
 
