@@ -223,8 +223,20 @@ Phases, each printing its own lines:
    2 holds every kernel at a rank's shard widths
    (``TP_SHAPES``, ``TP_MOE_ATTN_SHAPES`` in ``QM_PATHS``/``GEMV_PATHS``,
    16 and 2 KV heads, 64 experts);
-20. a JSON line listing the ported kernels with their numbers;
-21. last line: ``{"ok": true, "device": {...}}``.
+20. the mesh-sharded reconstruction engine (``engine="sharded"`` on
+   ``torch.distributed``): LLaMA-2-7B at full width and 2 layers,
+   W2A16g128, phase 5's 32 x 512 tokens at bs 4, AWQ + TesseraQ at K=2,
+   T=5 on block 0 against the device engine in this process: (a) one NCCL
+   rank on the ``(1,)`` and ``(1, 1)`` meshes, (b) two gloo ranks sharing
+   the card on ``(2,)``, (c) the same ranks on ``(1, 2)`` (TP = 2): the
+   control's hardened masks, codes and folded scales bit for bit, its
+   soft_round launches and log, no sync inside a step at (a), the state
+   bytes a TP rank keeps below the control's; each mesh's ms a Soften step,
+   exchange ms and bytes a step and peak bytes; (d) the same ranks:
+   ``quantize_model(engine="sharded")`` over both blocks at DP 2 equal to
+   the device walk;
+21. a JSON line listing the ported kernels with their numbers;
+22. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device, or without ``src/repro_torch`` beside this script,
@@ -5961,6 +5973,383 @@ def tp_serve_phase(card):
                 r["schedule"]["paged"]["counts"]) for r in two}}
 
 
+# --------------------------------------------------------------------------
+# phase 20: the mesh-sharded reconstruction engine on torch.distributed
+# --------------------------------------------------------------------------
+
+SHARD_K, SHARD_T = 2, 5
+# (d)'s walk; (a)-(c) calibrate its block 0 (phase 5's data: 32 x 512
+# tokens, bs 4, so C = 4 canonical chunks)
+SHARD_LAYERS = 2
+SHARD_SPAWN_S = 900
+
+
+def _moved(tree, device):
+    """The tensors of a tree of dicts and lists on ``device``; other leaves
+    (AWQ's choices, None) as they are."""
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_moved(v, device) for v in tree]
+    return tree.to(device) if torch.is_tensor(tree) else tree
+
+
+def shard_digest(qmeta):
+    """{linear: {codes, hard, scale: digest}} of a qmeta."""
+    return {".".join(map(str, p)): {
+        k: _digest(m[k].detach().cpu().numpy())
+        for k in ("codes", "hard", "scale") if m.get(k) is not None}
+        for p, m in qmeta.items()}
+
+
+class ShardMeter:
+    """What phase 20 reads around the engine in one process: every
+    ``torch.distributed.broadcast`` (the engine's gathers and chain hops)
+    counted, sized (bytes out of its source times its receivers) and timed
+    to the end of its device copy, split into those made inside
+    ``ReconstructionEngine.run`` (the Soften steps) and outside it
+    (hardening, the log and the final gathers); the wall time of the runs;
+    and the syncs ``torch.cuda.set_sync_debug_mode("warn")`` reports inside
+    them (gloo syncs on its own thread, which the mode does not see)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        from repro_torch.core import recon_engine as RE
+        self.dist, self.RE = dist, RE
+        self.inside = False
+        self.reset()
+        self._bcast, self._run = dist.broadcast, RE.ReconstructionEngine.run
+        meter = self
+
+        def broadcast(tensor, src, group=None, **kw):
+            t0 = time.perf_counter()
+            out = meter._bcast(tensor, src, group=group, **kw)
+            if tensor.is_cuda:
+                torch.cuda.synchronize()
+            where = meter.run_x if meter.inside else meter.other_x
+            where["n"] += 1
+            where["ms"] += (time.perf_counter() - t0) * 1e3
+            where["bytes"] += (tensor.numel() * tensor.element_size()
+                               * (dist.get_world_size(group) - 1))
+            return out
+
+        def run(eng, *a, **k):
+            n0 = len(meter.warnings)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            meter.inside = True
+            try:
+                out = meter._run(eng, *a, **k)
+                torch.cuda.synchronize()
+            finally:
+                meter.inside = False
+            meter.run_ms += (time.perf_counter() - t0) * 1e3
+            meter.step_syncs += sum("synchroniz" in str(w.message)
+                                    for w in meter.warnings[n0:])
+            return out
+
+        dist.broadcast, RE.ReconstructionEngine.run = broadcast, run
+
+    def reset(self):
+        self.run_x = {"n": 0, "ms": 0.0, "bytes": 0}
+        self.other_x = {"n": 0, "ms": 0.0, "bytes": 0}
+        self.run_ms, self.step_syncs, self.warnings = 0.0, 0, []
+
+    def close(self):
+        self.dist.broadcast = self._bcast
+        self.RE.ReconstructionEngine.run = self._run
+
+
+def shard_run(meter, call):
+    """``call()`` (a calibration on the engine under ``meter``) with the
+    launch counts, host reads, syncs inside the steps, peak device bytes
+    above what was allocated before, and the meter's readings per Soften
+    step; returns (call's result, record)."""
+    import warnings
+    from repro_torch.core import recon_engine as RE
+    from repro_torch.kernels import build
+    _free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    build.reset_launch_counts()
+    RE.reset_sync_count()
+    meter.reset()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as log:
+        warnings.simplefilter("always")
+        meter.warnings = log
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    steps = SHARD_K * SHARD_T
+    return res, {
+        "counts": dict(build.LAUNCHES), "host_reads": RE.sync_count(),
+        "step_syncs": meter.step_syncs, "s": time.perf_counter() - t0,
+        "peak": torch.cuda.max_memory_allocated() - before,
+        "step_ms": meter.run_ms / steps,
+        "exchange_ms": meter.run_x["ms"] / steps,
+        "exchange_bytes": meter.run_x["bytes"] / steps,
+        "broadcasts": meter.run_x["n"] / steps, "other": dict(meter.other_x)}
+
+
+def shard_block(meter, data, qcfg, engine, mesh):
+    """Block 0 of ``data`` (its bp and AWQ meta on the card, X and Y where
+    ``data`` holds them) calibrated with TesseraQ (K = ``SHARD_K``, T =
+    ``SHARD_T``, bs ``CAL_BS``, logged) on ``engine``: the record of
+    ``shard_run`` with the digests, the log's losses and soft rates and
+    its ``state_bytes``."""
+    from repro_torch.core import tesseraq as tq
+    from repro_torch.core.blocks import build_stages
+    stage = build_stages(data["cfg"])[0]
+    tcfg = tq.TesseraQConfig(par_iterations=SHARD_K,
+                             steps_per_iteration=SHARD_T, batch_size=CAL_BS,
+                             engine=engine, mesh=mesh)
+    log = []
+    (_, qm), rec = shard_run(meter, lambda: tq.reconstruct_block(
+        stage.apply, data["bp"], data["X"], data["Y"], None, data["meta"],
+        qcfg, tcfg, log=log))
+    rec.update(digest=shard_digest(qm), state_bytes=log[-1]["state_bytes"],
+               log=[(e["loss"], e["soft_rate"]) for e in log])
+    return rec
+
+
+def shard_warm(data, qcfg):
+    """One device-engine step on block 0 over its first ``CAL_BS``
+    samples, moved to the card (K = 1, T = 1, nothing kept), so a
+    process's first Soften steps (cuBLAS's and the kernels' first calls)
+    are not timed."""
+    from repro_torch.core import tesseraq as tq
+    from repro_torch.core.blocks import build_stages
+    X, Y = (data[k][:CAL_BS].to("cuda") for k in ("X", "Y"))
+    tq.reconstruct_block(
+        build_stages(data["cfg"])[0].apply, data["bp"], X, Y, None,
+        data["meta"], qcfg, tq.TesseraQConfig(
+            par_iterations=1, steps_per_iteration=1, batch_size=CAL_BS))
+    torch.cuda.synchronize()
+
+
+def shard_walk(meter, data, qcfg, engine, mesh):
+    """``quantize_model`` (AWQ + TesseraQ, K = ``SHARD_K``, T =
+    ``SHARD_T``) over ``data``'s ``SHARD_LAYERS`` blocks on ``engine``."""
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.tesseraq import TesseraQConfig
+    tcfg = TesseraQConfig(par_iterations=SHARD_K, steps_per_iteration=SHARD_T,
+                          batch_size=CAL_BS, engine=engine, mesh=mesh)
+    (_, qm, rep), rec = shard_run(meter, lambda: quantize_model(
+        data["cfg"], data["params"], data["calib"], qcfg, method="tesseraq",
+        init="awq", tcfg=tcfg))
+    for k in ("step_ms", "exchange_ms", "exchange_bytes", "broadcasts"):
+        rec[k] /= SHARD_LAYERS
+    rec.update(digest=shard_digest(qm),
+               mse=[b["recon_mse"] for b in rep["blocks"]])
+    return rec
+
+
+def shard_rank(tmp, shapes, walk):
+    """One rank of phase 20: the handed-over model and block read into
+    host memory, the block's weights and AWQ meta (and for ``walk`` the
+    params and tokens) moved to the card, X and Y left on the host (the
+    engine stages the rank's pool shard alone); block 0 calibrated on the
+    sharded engine on each mesh of ``shapes``, and with ``walk`` the
+    two-block walk on the ``(2,)`` data mesh."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import parse_quant
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    host = torch.load(os.path.join(tmp, "shard.pt"), map_location="cpu",
+                      mmap=True, weights_only=False)
+    qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
+    data = {"cfg": host["cfg"], "X": host["X"], "Y": host["Y"],
+            "bp": _moved(host["bp"], "cuda"),
+            "meta": _moved(host["meta"], "cuda")}
+    meter = ShardMeter()
+    out = {"rank": torch.distributed.get_rank(),
+           "backend": torch.distributed.get_backend()}
+    shard_warm(data, qcfg)
+    try:
+        for shape in shapes:
+            mesh = make_mesh(shape, device="cuda")
+            out[shape] = shard_block(meter, data, qcfg, "sharded", mesh)
+            out[shape]["coords"] = (mesh.data_rank, mesh.model_rank)
+        if walk:
+            data.update(params=_moved(host["params"], "cuda"),
+                        calib=_moved(host["calib"], "cuda"))
+            del data["bp"], data["meta"]
+            out["walk"] = shard_walk(meter, data, qcfg, "sharded",
+                                     make_mesh((2,), device="cuda"))
+    finally:
+        meter.close()
+    return out
+
+
+def _shard_line(tag, rec, control, card):
+    sb = rec["state_bytes"] if "state_bytes" in rec else None
+    return (f"[shard] {tag}: {rec['step_ms']:.3f} ms a Soften step "
+            f"(control {control['step_ms']:.3f}), exchange "
+            f"{rec['exchange_ms']:.3f} ms and {rec['exchange_bytes']:.0f} B "
+            f"a step in {rec['broadcasts']:.1f} broadcasts, outside the "
+            f"steps {rec['other']}; syncs inside the steps the debug mode "
+            f"sees {rec['step_syncs']}, host reads {rec['host_reads']}; "
+            + (f"state bytes kept between steps {sb} (control "
+               f"{control['state_bytes']}); " if sb else "")
+            + f"peak {rec['peak']} B (control {control['peak']}); launches "
+            f"{rec['counts']}; {rec['s']:.1f} s; card=[{card}]")
+
+
+def shard_phase(card):
+    """Phase 20: the mesh-sharded reconstruction engine (``engine=
+    "sharded"``) on the card.  LLaMA-2-7B at full width and
+    ``SHARD_LAYERS`` layers, W2A16g128, phase 5's 32 x 512 calibration
+    tokens at bs ``CAL_BS`` (C = 4 canonical chunks), AWQ + TesseraQ at K =
+    ``SHARD_K``, T = ``SHARD_T``.  Controls in this process on the device
+    engine: block 0 from its AWQ initialization, and the walk over both
+    blocks.  The model and block 0's streams, weights and meta go to the
+    ranks in a temporary file.  (a) One NCCL rank on the ``(1,)`` and ``(1,
+    1)`` meshes: the control's hardened masks, codes and folded scales bit
+    for bit, no sync inside a step, its soft_round launches.  (b) Two gloo
+    ranks sharing the card on ``(2,)``, (c) the same ranks on ``(1, 2)``
+    (TP = 2: ν, v, Adam's moments and the frozen state held half a rank):
+    the same equality and launches; each with its ms a Soften step, its
+    exchange ms and bytes a step, the bytes it keeps between steps and its
+    peak beside the control's.  (d) The same ranks:
+    ``quantize_model(engine="sharded")`` over both blocks at DP 2, its
+    codes, masks and scales the device walk's.  Returns the launch counts
+    by part."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.awq import quantize_block_awq
+    from repro_torch.core.blocks import build_stages
+    from repro_torch.core.capture import (capture_block_inputs,
+                                          split_minibatches)
+    from repro_torch.data.pipeline import DataConfig, calibration_batches
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.models import get_model
+    times = {}
+    t0 = time.perf_counter()
+    cfg = get_config("llama2-7b").replace(num_layers=SHARD_LAYERS)
+    qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
+    params = get_model(cfg).init_params(0, "cuda")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=CAL_SEQ,
+                    global_batch=CAL_BS, seed=0)
+    calib = [{"tokens": torch.as_tensor(b["tokens"][:, :-1], device="cuda")}
+             for b in calibration_batches(dc, CAL_SAMPLES // CAL_BS, CAL_BS)]
+    stage = build_stages(cfg)[0]
+    with torch.no_grad():
+        X = torch.cat([stage.init_x(params, b) for b in calib], 0)
+        bp = stage.get_block(params, 0)
+        parts = split_minibatches(X)
+        Y = torch.cat([stage.apply(bp, x) for x in parts], 0)
+        _, meta = quantize_block_awq(bp, capture_block_inputs(
+            stage.apply, bp, parts), qcfg)
+    data = {"cfg": cfg, "bp": bp, "meta": meta, "X": X, "Y": Y,
+            "params": params, "calib": calib}
+    shard_warm(data, qcfg)
+    meter = ShardMeter()
+    try:
+        ctrl = shard_block(meter, data, qcfg, "device", None)
+        ctrl_walk = shard_walk(meter, data, qcfg, "device", None)
+    finally:
+        meter.close()
+    times["controls"] = time.perf_counter() - t0
+    print(_shard_line(f"control {cfg.name} block 0 of {SHARD_LAYERS}, "
+                      f"device engine, {CAL_SAMPLES} x {CAL_SEQ} tokens, bs "
+                      f"{CAL_BS}, K={SHARD_K} T={SHARD_T}", ctrl, ctrl, card),
+          flush=True)
+    print(f"[shard] control walk over {SHARD_LAYERS} blocks: "
+          f"{ctrl_walk['step_ms']:.3f} ms a Soften step, recon_mse "
+          f"{ctrl_walk['mse']}, peak {ctrl_walk['peak']} B, launches "
+          f"{ctrl_walk['counts']}, {ctrl_walk['s']:.1f} s", flush=True)
+    steps = SHARD_K * SHARD_T
+    want = {"soft_round_fwd": 7 * steps, "soft_round_bwd": 7 * steps}
+    if {k: ctrl["counts"][k] for k in want} != want:
+        fail(f"shard control launches {ctrl['counts']}, expected {want}")
+    if ctrl["step_syncs"] or ctrl["host_reads"] != SHARD_K:
+        fail(f"shard control: {ctrl['step_syncs']} syncs inside steps, "
+             f"{ctrl['host_reads']} host reads for {SHARD_K} iterations")
+
+    with tempfile.TemporaryDirectory(prefix="shard_") as tmp:
+        t0 = time.perf_counter()
+        torch.save(_moved({"cfg": cfg, "bp": bp, "meta": meta, "X": X,
+                           "Y": Y, "params": params, "calib": calib}, "cpu"),
+                   os.path.join(tmp, "shard.pt"))
+        del data, params, calib, X, Y, bp, meta, parts
+        _free()
+        times["save"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (one,) = run_ranks(shard_rank, 1, backend="nccl", device="cuda",
+                           args=(tmp, [(1,), (1, 1)], False),
+                           timeout=SHARD_SPAWN_S)
+        times["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = run_ranks(shard_rank, 2, backend="gloo", device="cuda",
+                        args=(tmp, [(2,), (1, 2)], True),
+                        timeout=SHARD_SPAWN_S)
+        times["b-d"] = time.perf_counter() - t0
+
+    checks = [("(a)", one, (1,)), ("(a)", one, (1, 1))] + [
+        (tag, r, shape) for tag, shape in (("(b)", (2,)), ("(c)", (1, 2)))
+        for r in two]
+    for tag, r, shape in checks:
+        rec = r[shape]
+        print(_shard_line(f"{tag} {r['backend']} rank {r['rank']} on "
+                          f"{shape} (data, model) {rec['coords']}", rec, ctrl,
+                          card), flush=True)
+        if rec["digest"] != ctrl["digest"]:
+            bad = sorted(p for p in ctrl["digest"]
+                         if rec["digest"][p] != ctrl["digest"][p])
+            fail(f"shard {tag} rank {r['rank']} on {shape}: masks, codes or "
+                 f"scales differ from the device engine's at {bad}")
+        if rec["counts"] != ctrl["counts"]:
+            fail(f"shard {tag} rank {r['rank']} on {shape}: launches "
+                 f"{rec['counts']}, the control's {ctrl['counts']}")
+        if rec["log"] != ctrl["log"] or rec["host_reads"] != SHARD_K:
+            fail(f"shard {tag} rank {r['rank']} on {shape}: log {rec['log']}"
+                 f" ({rec['host_reads']} host reads), the control's "
+                 f"{ctrl['log']}")
+        if tag == "(a)" and rec["step_syncs"]:
+            fail(f"shard (a) on {shape}: {rec['step_syncs']} syncs inside "
+                 "the steps")
+        if tag == "(c)" and not all(
+                rec["state_bytes"][k] < ctrl["state_bytes"][k]
+                for k in ("trainable", "moments", "frozen", "block")):
+            fail(f"shard (c) rank {r['rank']}: state bytes "
+                 f"{rec['state_bytes']}, the control's "
+                 f"{ctrl['state_bytes']}")
+    for r in two:
+        w = r["walk"]
+        print(f"[shard] (d) gloo rank {r['rank']} quantize_model(engine="
+              f"\"sharded\") over {SHARD_LAYERS} blocks at DP 2: "
+              f"{w['step_ms']:.3f} ms a Soften step (control "
+              f"{ctrl_walk['step_ms']:.3f}), exchange {w['exchange_ms']:.3f}"
+              f" ms and {w['exchange_bytes']:.0f} B a step; recon_mse "
+              f"{w['mse']} (control {ctrl_walk['mse']}); peak {w['peak']} B "
+              f"(control {ctrl_walk['peak']}); launches {w['counts']}; "
+              f"{w['s']:.1f} s; card=[{card}]", flush=True)
+        if w["digest"] != ctrl_walk["digest"] or w["mse"] != ctrl_walk["mse"]:
+            bad = sorted(p for p in ctrl_walk["digest"]
+                         if w["digest"].get(p) != ctrl_walk["digest"][p])
+            fail(f"shard (d) rank {r['rank']}: the walk differs from the "
+                 f"device walk at {bad}")
+        if w["counts"] != ctrl_walk["counts"]:
+            fail(f"shard (d) rank {r['rank']}: launches {w['counts']}, the "
+                 f"device walk's {ctrl_walk['counts']}")
+    print(f"[time] phase 20: controls {times['controls']:.1f}s, hand-over "
+          f"{times['save']:.1f}s, (a) {times['a']:.1f}s, (b)-(d) "
+          f"{times['b-d']:.1f}s", flush=True)
+    return {"control": _sum_counts(ctrl["counts"], ctrl_walk["counts"]),
+            "nccl rank": _sum_counts(one[(1,)]["counts"],
+                                     one[(1, 1)]["counts"]),
+            **{f"gloo rank {r['rank']}": _sum_counts(
+                r[(2,)]["counts"], r[(1, 2)]["counts"], r["walk"]["counts"])
+               for r in two}}
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6077,6 +6466,11 @@ def main():
     tp_counts = tp_serve_phase(card)
     print(f"[time] tensor-parallel serving {time.perf_counter() - t0:.1f}s",
           flush=True)
+    _free()
+    t0 = time.perf_counter()
+    shard_counts = shard_phase(card)
+    print(f"[time] sharded reconstruction {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     sources = {"quant_matmul": "src/repro/kernels/quant_matmul.py:146",
                "quant_gemv": "src/repro/kernels/quant_gemv.py:120",
@@ -6182,7 +6576,9 @@ def main():
                    **{f"encdec {part}": c[name]
                       for part, c in encdec_counts.items()},
                    **{f"tp {part}": c[name]
-                      for part, c in tp_counts.items()}}
+                      for part, c in tp_counts.items()},
+                   **{f"shard {part}": c[name]
+                      for part, c in shard_counts.items()}}
         if name.startswith("soft_round"):
             nums = summarize_soft_round(recs["soft_round"], name[-3:])
             nums["moe"] = summarize_soft_round(recs["soft_round"], name[-3:],

@@ -26,20 +26,29 @@ import numpy as np
 import torch
 
 from repro_torch.core.blocks import get_path, quant_leaf_paths
+from repro_torch.launch.mesh import batch_rows
 from repro_torch.models import layers as L
 
 MAX_ROWS = 1024          # token subsample kept per linear for objectives
 CAPTURE_MINIBATCH = 4    # the reference's single-device capture minibatch
 
 
-def stage_calibration(X, Y, aux=None) -> Tuple:
+def stage_calibration(X, Y, aux=None, *, mesh=None) -> Tuple:
     """A block's calibration streams (X, Y as float32, aux or None), staged
     once on X's device.
 
     The reconstruction loop gathers its minibatches out of these tensors on
     the device; Y is promoted to float32, the dtype of the reconstruction
     loss; ``aux`` (a per-sample extra stream, indexed as X) keeps its
-    dtype."""
+    dtype.  With ``mesh`` (a ``launch.mesh.Mesh``) only the rank's pool
+    shard is staged, rows ``[r·N/D, (r+1)·N/D)`` of each stream
+    (``launch.mesh.batch_rows``), on the rank's device: the rows the
+    sharded engine's stratified plan sends to it, and only they move."""
+    if mesh is not None:
+        rows = batch_rows(mesh, X.shape[0])
+        dev = mesh.device
+        return (X[rows].to(dev), Y[rows].to(device=dev, dtype=torch.float32),
+                aux[rows].to(dev) if aux is not None else None)
     return (X, Y.to(device=X.device, dtype=torch.float32),
             aux.to(X.device) if aux is not None else None)
 

@@ -12,8 +12,9 @@ fake-quant weight, ``lane_loss`` applies the block to it.  With
 ``engine="reference"`` or ``"legacy"`` they run on the reference's host
 loop instead: every step's minibatch gathered on the host and pushed, one
 batch-mean gradient (``recon_engine.batch_mean_grad``) and the AdamW
-update.  The reference's ``"sharded"`` engine raises here, naming its
-ROADMAP item (``recon_engine.NOT_PORTED_ENGINES``).
+update.  ``engine="sharded"`` runs the device engine on a
+``launch.mesh.Mesh``, data-parallel only, as in the reference: on a mesh
+with a ``model`` axis the clipping logits replicate.
 """
 from __future__ import annotations
 
@@ -67,12 +68,14 @@ def _make_objective(apply: Callable, qcfg: QuantConfig) -> RE.Objective:
 def reconstruct_block(apply: Callable, bp, X, Y, aux, qcfg: QuantConfig, *,
                       steps: int = 2000, lr: float = 1e-2, batch_size: int = 4,
                       seed: int = 0, log: Optional[list] = None,
-                      engine: str = "device", cache: Optional[dict] = None):
+                      engine: str = "device", cache: Optional[dict] = None,
+                      mesh=None):
     """LWC block reconstruction from the FP block.  X/Y: the block's
     calibration streams on its device; ``aux`` the per-sample extra
     stream beside x (the encoder-decoder's encoder states) or None.
-    ``engine`` is "device", "reference" or "legacy" (the two
-    host-loop engines run the same loop here, as in the reference).
+    ``engine`` is "device", "reference", "legacy" (the two host-loop
+    engines run the same loop here, as in the reference) or "sharded" (on
+    ``mesh``, default the data mesh over every rank).
     ``cache`` (scoped by the caller to one stage) reuses the engine across
     the stage's blocks.  Log entries carry the loss of the last step of
     every 100 on the device engine, of steps 0, 100, ... on the host loop
@@ -90,12 +93,14 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qcfg: QuantConfig, *,
     ws = {p: get_path(bp, p).to(torch.float32) for p in paths}
 
     frozen = {"bp": bp, "ws": ws}
-    if engine == "device":
-        eng = RE.cached_engine(cache, "omniquant", lambda: (
-            RE.ReconstructionEngine(_make_objective(apply, qcfg),
-                                    AdamW(lr=lr))))
+    if engine in ("device", "sharded"):
+        m = RE.resolve_mesh(mesh, X.device) if engine == "sharded" else None
+        eng = RE.cached_engine(
+            cache, "omniquant" if m is None else ("omniquant", m), lambda: (
+                RE.ReconstructionEngine(_make_objective(apply, qcfg),
+                                        AdamW(lr=lr), mesh=m)))
         plan = RE.stage_plan(X, Y, aux, batch_size=batch_size,
-                             total_steps=steps, seed=seed)
+                             total_steps=steps, seed=seed, mesh=m)
         tr, _ = RE.run_logged(eng, tr, eng.init(tr), frozen, plan,
                               steps=steps, chunk=100, log=log)
     else:

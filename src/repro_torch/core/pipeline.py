@@ -1,4 +1,5 @@
-"""End-to-end PTQ pipeline at model scope, single device.
+"""End-to-end PTQ pipeline at model scope, on one device or, with
+``engine="sharded"``, on every rank of a mesh.
 
 ``quantize_model`` walks the architecture's stages block by block:
   1. collect the block's input stream X (paper Algorithm 1: from the FP
@@ -9,9 +10,9 @@
      guided column walk with error compensation);
   3. optimize with TesseraQ (``method="tesseraq"``), OmniQuant's learnable
      weight clipping (``"omniquant"``) or SignRound (``"signround"``), on
-     the engine ``tcfg.engine`` names (``"device"``, or the reference's
-     host-loop ``"reference"`` and ``"legacy"``), or keep the
-     initialization (``method="none"``);
+     the engine ``tcfg.engine`` names (``"device"``, the reference's
+     host-loop ``"reference"`` and ``"legacy"``, or the mesh-sharded
+     ``"sharded"``), or keep the initialization (``method="none"``);
   4. write the fake-quantized block back and advance the streams.
 A stage whose ``init_x`` returns None continues the running streams (the
 hybrid's one-block stages), and a stage with ``calibrate=False`` only
@@ -25,12 +26,28 @@ stage's final quantized stream, which that stage keeps under its
 
 The streams stay on the params' device; captures and forwards run over
 minibatches of ``capture.CAPTURE_MINIBATCH`` samples, as the reference's
-single-device walk does.  ``pack_model`` then converts the calibrated
-model into the deployment form: stacked packed QTensors per linear, with
-DST folded into the scales.
+single-device walk does.
+
+With ``engine="sharded"`` every rank of the mesh (``tcfg.mesh``, default
+the data mesh over every rank of the process group) runs the walk in
+lockstep and returns the same tree.  The mesh is resolved once, the batch
+size lifted to a multiple of the DP degree (clamped to the pool), and a
+pool smaller than the DP degree or a chunk count it does not divide fails
+before the first block, as in the reference.  Unlike the reference, which
+batch-shards its capture forwards over DP and TP-places the block for
+them (so its TP walk matches only within GSPMD's reordered contractions),
+the port runs the capture, the AWQ / GPTQ initialization and the target
+forwards replicated on every rank over the whole pool, exactly as with no
+mesh; only the engine's staged streams split.  The walk is then
+bit-identical to ``engine="device"`` at TP too.
+
+``pack_model`` then converts the calibrated model into the deployment
+form: stacked packed QTensors per linear, with DST folded into the
+scales.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -40,6 +57,7 @@ from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.core import awq as awq_mod
 from repro_torch.core import gptq as gptq_mod
 from repro_torch.core import omniquant as omni_mod
+from repro_torch.core import recon_engine as re_mod
 from repro_torch.core import rtn as rtn_mod
 from repro_torch.core import signround as sr_mod
 from repro_torch.core import tesseraq as tq_mod
@@ -48,6 +66,7 @@ from repro_torch.core.capture import (capture_block_inputs,
                                       split_minibatches, stage_calibration)
 from repro_torch.core.qtensor import QTensor, pack
 from repro_torch.core.quantizer import resolve_group
+from repro_torch.launch.mesh import dp_size, pod_count, pod_submeshes
 from repro_torch.models.common import Ctx, DEFAULT_CTX
 from repro_torch.models.layers import PsumWeight
 
@@ -107,6 +126,8 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
         raise ValueError(f"quantize_model: unknown input_source "
                          f"{input_source!r} (expected 'fp' or 'quant')")
     tcfg = tcfg or tq_mod.TesseraQConfig()
+    if tcfg.engine == "sharded":
+        tcfg = _sharded_tcfg(tcfg, batches)
     stages = build_stages(cfg, ctx)
     params_q = dict(params)
     for key in ("blocks", "shared_attn", "encoder", "decoder"):
@@ -188,14 +209,16 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
                         bp_q, qmeta = omni_mod.reconstruct_block(
                             stage.apply, bp_fp, Xd, Yd, auxd, qcfg,
                             steps=omni_steps, batch_size=tcfg.batch_size,
-                            log=log, engine=tcfg.engine, cache=recon_cache)
+                            log=log, engine=tcfg.engine, cache=recon_cache,
+                            mesh=tcfg.mesh)
                     else:
                         bp_q, qmeta = sr_mod.reconstruct_block(
                             stage.apply, bp_fp, Xd, Yd, auxd, qmeta, qcfg,
                             steps=max(tcfg.par_iterations
                                       * tcfg.steps_per_iteration, 50),
                             batch_size=tcfg.batch_size, log=log,
-                            engine=tcfg.engine, cache=recon_cache)
+                            engine=tcfg.engine, cache=recon_cache,
+                            mesh=tcfg.mesh)
                 recon_s = time.time() - tr0
                 params_q = stage.set_block(params_q, i, bp_q)
                 for p_, m_ in qmeta.items():
@@ -222,6 +245,38 @@ def quantize_model(cfg: ModelConfig, params: Dict, batches: List[Dict],
                 # the quantized stream, as the reference saves it
                 saved[stage.save_as] = X
     return params_q, qmeta_all, report
+
+
+def _sharded_tcfg(tcfg, batches):
+    """``tcfg`` for a sharded walk: the mesh resolved once (on the
+    batches' device), ``batch_size`` lifted to a multiple of the DP degree
+    and clamped to the largest such size the pool fills (``stage_plan``
+    clamps to the pool, which would undo a bare lift); the pool and chunk
+    checks of the reference's walk."""
+    first = next(iter(batches[0].values()))
+    mesh = re_mod.resolve_mesh(tcfg.mesh, first.device)
+    if pod_count(mesh) > 1:
+        pod_submeshes(mesh)        # the pod-pipelined walk: raises
+    D = dp_size(mesh)
+    n_pool = sum(next(iter(b.values())).shape[0] for b in batches)
+    if n_pool < D:
+        raise ValueError(
+            f"calibration pool ({n_pool} samples) is smaller than the "
+            f"mesh's data-parallel degree ({D}); add calibration data or "
+            "shrink the mesh")
+    bs = min(tcfg.batch_size + (-tcfg.batch_size % D), n_pool - n_pool % D)
+    if re_mod.grad_chunk_count(bs, n_pool) % D:
+        raise ValueError(
+            f"calibration pool size {n_pool} is incompatible with the "
+            f"mesh's data-parallel degree {D}: the canonical gradient chunk "
+            f"count gcd(batch={bs}, pool={n_pool}, "
+            f"cap={re_mod.CANONICAL_LANE_CHUNKS}) must be a multiple of "
+            f"{D} — use a calibration pool whose size is a multiple of the "
+            "DP degree, or set recon_engine.CANONICAL_LANE_CHUNKS to a "
+            "multiple of the DP degree (required for DP degrees that do not "
+            f"divide {re_mod.CANONICAL_LANE_CHUNKS}, e.g. 6-way), or shrink "
+            "the mesh")
+    return dataclasses.replace(tcfg, mesh=mesh, batch_size=bs)
 
 
 def pack_model(cfg: ModelConfig, params_q: Dict, qmeta_all: Dict,

@@ -51,8 +51,28 @@ engine's own step, ``ReconstructionEngine.step``) and ``"legacy"`` (the
 speed baseline: the same host loop with one batch-mean gradient,
 ``batch_mean_grad``, and the eager per-leaf optimizer update).  Their
 blocking transfers go through ``host_read``, ``host_stage`` and
-``host_push``, which count them.  The mesh-sharded engine is not ported yet
-(``NOT_PORTED_ENGINES``).
+``host_push``, which count them.
+
+The mesh-sharded engine (``"sharded"``) is this engine on a
+``launch.mesh.Mesh``: one process a rank, each running the loop on its
+share.  Its DP share is the rows of each step's minibatch whose canonical
+chunks it owns (rank r of D takes plan rows ``[r·bs/D, (r+1)·bs/D)``, which
+the stratified plan draws from its own pool shard, staged alone by
+``stage_plan(mesh=)``); the chunk partials then fold in an ordered chain
+over the data group — each rank continues the running sum with its own
+partials in chunk order and hands it on, the last sends the total to every
+rank — so the reduction is the device engine's ``add_`` fold, bit for bit,
+and every rank applies the same pullback and update (replicated trainables
+stay equal with no re-synchronization, as in the reference).  Its TP share
+(``param_specs``, from ``launch.sharding.ParamSpec``): the slices of the
+trainables and of their optimizer moments it keeps between steps; each
+step gathers the whole trainables over the model group, runs ``prepare``
+and the lanes on them, and keeps its slice of the gradient; the frozen
+side state is held as slices and gathered once a ``run``.  Gathers are
+broadcasts of each shard (exact bytes, −0.0 included); the chain is
+broadcasts over the data group: gloo runs both on CUDA tensors.  A mesh
+axis of extent 1 makes no collective, and ``mesh=None`` is the device
+engine itself.
 """
 from __future__ import annotations
 
@@ -62,27 +82,22 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.blocks import get_path, set_path
 from repro_torch.core.capture import stage_calibration
+from repro_torch.launch.mesh import (dp_axes, dp_size, make_data_mesh,
+                                     tp_axis, tp_size)
+from repro_torch.launch.sharding import shard_tree
 from repro_torch.optim.adam import tree_leaves, tree_map
 
 # The engines a reconstruction method takes (``engine=``), as the
-# reference names them, and the one not ported yet with its ROADMAP item.
+# reference names them.
 ENGINES = ("device", "legacy", "reference", "sharded")
-NOT_PORTED_ENGINES = {
-    "sharded": "ROADMAP queue 1, 'Parallelism on torch.distributed'",
-}
 
 
 def check_engine(engine: str, who: str) -> None:
-    """``"device"``, ``"reference"`` and ``"legacy"`` run here; the
-    mesh-sharded engine raises ``NotImplementedError`` naming its ROADMAP
-    item, anything else ``ValueError``."""
-    if engine in NOT_PORTED_ENGINES:
-        raise NotImplementedError(
-            f"{who}: engine {engine!r} is not ported yet "
-            f"({NOT_PORTED_ENGINES[engine]})")
+    """Refuse an engine the reference does not name (``ValueError``)."""
     if engine not in ENGINES:
         raise ValueError(f"{who}: unknown engine {engine!r} (expected one "
                          f"of {list(ENGINES)})")
@@ -151,7 +166,8 @@ def _hardness_score(nu: torch.Tensor) -> torch.Tensor:
     return torch.abs(torch.sigmoid(nu) - 0.5)          # HS (paper Eq. 6)
 
 
-def harden_device(states, target_soft_rate: float, use_inf: bool):
+def harden_device(states, target_soft_rate: float, use_inf: bool, *,
+                  mesh=None, specs=None):
     """Freeze the HIGHEST-HS soft variables (those already nearly binary, so
     rounding them perturbs the block least) until only
     ``int(total * target_soft_rate)`` variables remain soft across the WHOLE
@@ -167,7 +183,22 @@ def harden_device(states, target_soft_rate: float, use_inf: bool):
     ``torch.kthvalue``: PyTorch's CUDA kthvalue runs its radix select in
     one thread block per slice (``aten/src/ATen/native/cuda/Sorting.cu``),
     and here the slice is a whole block's ~2e8 scores; the sort's int64
-    indices cost 8 bytes per variable, transiently."""
+    indices cost 8 bytes per variable, transiently.
+
+    With ``mesh`` and ``specs`` (each leaf's ``{key: split dim}``, the
+    sharded engine's TP placement) the states hold the rank's slices:
+    ν and the masks are gathered over the model group, every TP peer
+    takes the same threshold of the whole block, and keeps its slice of
+    the new mask (and of ν under ``use_inf``)."""
+    if mesh is not None and specs is not None and tp_size(mesh) > 1:
+        keys = ("nu", "hard")
+        full = {p: {**st, **{k: _gather(st[k], specs[p][k], mesh)
+                             for k in keys}}
+                for p, st in states.items()}
+        full = harden_device(full, target_soft_rate, use_inf)
+        return {p: {**st, **{k: shard_tree(full[p][k], specs[p][k], mesh)
+                             for k in keys}}
+                for p, st in states.items()}
     total = sum(st["hard"].numel() for st in states.values())
     want_soft = int(total * target_soft_rate)
     if want_soft >= total:
@@ -223,6 +254,76 @@ class SignSGD:
 
 
 # ---------------------------------------------------------------------------
+# mesh plumbing for the sharded engine
+# ---------------------------------------------------------------------------
+
+def resolve_mesh(mesh=None, device="cuda"):
+    """The mesh of ``engine="sharded"``: the caller's, or the 1-D data
+    mesh over every rank of the process group (one rank without one) on
+    ``device`` (the callers pass their streams' device)."""
+    return mesh if mesh is not None else make_data_mesh(device=device)
+
+
+def _gather(x: torch.Tensor, dim, mesh) -> torch.Tensor:
+    """The whole of a leaf split along ``dim`` over the mesh's model group:
+    each member broadcasts its shard, in axis order, and the shards are
+    concatenated: the exact bytes (an all-reduce of zero-padded shards
+    would turn −0.0 into +0.0).  A None leaf or spec, or a model axis of
+    one rank, passes ``x`` through."""
+    if x is None or dim is None or tp_size(mesh) == 1:
+        return x
+    parts = []
+    for src in mesh.model_ranks:
+        buf = x if src == mesh.rank else torch.empty_like(x)
+        dist.broadcast(buf, src, group=mesh.group)
+        parts.append(buf)
+    return torch.cat(parts, dim)
+
+
+def gather_tree(tree, specs, mesh):
+    """:func:`_gather` over a tree (``specs`` mirrors it)."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return _gather(tree, specs, mesh)
+
+
+def _flat_views(flat: torch.Tensor, like):
+    """Views of ``flat`` shaped as the tensors of ``like``, and its last
+    element (the loss) as a 0-dim view."""
+    out, o = [], 0
+    for t in like:
+        out.append(flat[o:o + t.numel()].view(t.shape))
+        o += t.numel()
+    return out, flat[o]
+
+
+def _chain_receive(mesh, like):
+    """The running sum of the chunk partials handed on by the previous
+    rank of the data group (views shaped as ``like``, and the loss sum),
+    or (None, None) on its first rank.  Every rank joins every hop of the
+    chain in order: the hops of ranks before the previous one arrive into
+    the same buffer and are overwritten."""
+    r = mesh.data_rank
+    if r == 0:
+        return None, None
+    buf = torch.empty(sum(t.numel() for t in like) + 1,
+                      dtype=like[0].dtype, device=like[0].device)
+    for src in mesh.data_ranks[:r]:
+        dist.broadcast(buf, src, group=mesh.data_group)
+    return _flat_views(buf, like)
+
+
+def _chain_send(mesh, total, loss):
+    """Hand the rank's running sum (``total`` and the loss sum, one flat
+    buffer) on to the rest of the data group, then take the later ranks'
+    hops; the last rank's is the total, which every rank returns."""
+    flat = torch.cat([t.reshape(-1) for t in total] + [loss.reshape(1)])
+    for src in mesh.data_ranks[mesh.data_rank:]:
+        dist.broadcast(flat, src, group=mesh.data_group)
+    return _flat_views(flat, total)
+
+
+# ---------------------------------------------------------------------------
 # canonical (device-count-invariant) chunked batch gradients
 # ---------------------------------------------------------------------------
 
@@ -275,13 +376,19 @@ def block_mse_objective(apply: Callable, prepare: Callable) -> Objective:
 
 
 def canonical_grad(objective: Objective, tr, frozen, xb, yb, chunks: int,
-                   ab=None):
+                   ab=None, *, mesh=None, batch_size: Optional[int] = None):
     """(loss, grads) of the minibatch mean loss with the canonical chunked
     per-sample reduction; ``grads`` mirrors ``tr`` (zeros where a trainable
-    does not reach the loss).  ``ab``: the minibatch's aux rows, or
-    None."""
-    bs = xb.shape[0]
-    width = bs // chunks
+    does not reach the loss).  ``ab``: the minibatch's aux rows, or None.
+
+    With ``mesh`` (a data-parallel degree above 1) ``xb`` holds the rank's
+    ``chunks`` chunks of a ``batch_size``-row minibatch, and the partials
+    fold in the ordered chain over the data group (``_chain_receive`` /
+    ``_chain_send``): every rank returns the whole minibatch's loss and
+    gradient, the device engine's bits."""
+    chain = mesh is not None and dp_size(mesh) > 1
+    bs = xb.shape[0] if batch_size is None else batch_size
+    width = xb.shape[0] // chunks
     flat_tr = [t.detach().requires_grad_() for t in tree_leaves(tr)]
     tr_req = _unflatten(tr, iter(flat_tr))
     with torch.enable_grad():
@@ -306,12 +413,16 @@ def canonical_grad(objective: Objective, tr, frozen, xb, yb, chunks: int,
                     for a, g in zip(part, gs, strict=True):
                         a.add_(g)
                     loss_part = loss_part + lv
+            if total is None and chain:
+                total, loss_tot = _chain_receive(mesh, part)
             if total is None:
                 total, loss_tot = part, loss_part
             else:
                 for a, g in zip(total, part, strict=True):
                     a.add_(g)
                 loss_tot = loss_tot + loss_part
+        if chain:
+            total, loss_tot = _chain_send(mesh, total, loss_tot)
         cot = [g / bs for g in total]
         g_tr = torch.autograd.grad([inter[k] for k in keys], flat_tr,
                                    grad_outputs=cot, allow_unused=True)
@@ -354,13 +465,20 @@ def _unflatten(like, it):
 class BatchPlan:
     """Per-block staged calibration data (X, Y and the per-sample ``aux``
     stream or None) + the full minibatch index plan (drawn once by
-    ``draw_index_plan``, staged on the streams' device)."""
+    ``draw_index_plan``, staged on the streams' device).  On a mesh the
+    streams are the rank's pool shard and ``pool`` the whole pool's size;
+    the plan is the whole one on every rank."""
     X: Any
     Y: Any
     index_plan: Any        # (total_steps, bs) int64, on the device
     total_steps: int
     chunks: int = 1
     aux: Any = None
+    pool: Optional[int] = None
+
+    @property
+    def pool_size(self) -> int:
+        return self.X.shape[0] if self.pool is None else self.pool
 
 
 def draw_index_plan(N: int, batch_size: int, total_steps: int,
@@ -383,16 +501,40 @@ def draw_index_plan(N: int, batch_size: int, total_steps: int,
     return plan.astype(np.int32)
 
 
+def check_chunks(chunks: int, dp: int, batch_size: int, pool: int) -> None:
+    """The sharded engine's condition on the canonical chunk grid: the DP
+    degree must divide the chunk count, so that each rank owns whole
+    chunks (the reference's message)."""
+    if chunks % dp:
+        raise ValueError(
+            f"canonical gradient chunk count {chunks} (minibatch "
+            f"{batch_size}, pool {pool}, cap {CANONICAL_LANE_CHUNKS}) does "
+            f"not divide by the mesh's data-parallel degree {dp}; pick a "
+            "batch_size and calibration pool that are multiples of it (or "
+            "shrink the mesh).  For a DP degree that does not divide "
+            f"{CANONICAL_LANE_CHUNKS} (e.g. 6- or 16-way), set "
+            "recon_engine.CANONICAL_LANE_CHUNKS to a multiple of it before "
+            "building engines — note this changes the canonical rounding "
+            "trajectory for batches wider than the cap")
+
+
 def stage_plan(X, Y, aux=None, *, batch_size: int, total_steps: int,
-               seed: int = 0) -> BatchPlan:
-    Xd, Yd, auxd = stage_calibration(X, Y, aux)
-    N = Xd.shape[0]
+               seed: int = 0, mesh=None) -> BatchPlan:
+    """Stage a block's streams and draw its whole plan.  With ``mesh``
+    only the rank's pool shard is staged (``capture.stage_calibration``);
+    the plan stays a pure function of (N, bs, steps, seed), so every rank
+    draws the same one."""
+    N = X.shape[0]
     bs = min(batch_size, N)
+    chunks = grad_chunk_count(bs, N)
+    if mesh is not None:
+        check_chunks(chunks, dp_size(mesh), bs, N)
+    Xd, Yd, auxd = stage_calibration(X, Y, aux, mesh=mesh)
     plan = draw_index_plan(N, bs, total_steps, seed)
     return BatchPlan(Xd, Yd,
                      torch.as_tensor(plan, dtype=torch.long,
                                      device=Xd.device),
-                     total_steps, grad_chunk_count(bs, N), auxd)
+                     total_steps, chunks, auxd, N)
 
 
 class ReconstructionEngine:
@@ -403,11 +545,36 @@ class ReconstructionEngine:
     params and the hardened masks) handed to it unchanged.  ``optimizer``
     is AdamW or anything with the same ``init`` / ``update`` protocol.  The
     engine holds no per-block data, so one engine serves every block of a
-    stage."""
+    stage.
 
-    def __init__(self, objective: Objective, optimizer):
+    With ``mesh`` (a ``launch.mesh.Mesh``) it is the sharded engine (see
+    the module docstring): the plan's streams are the rank's pool shard,
+    and each step takes the rank's rows of the plan row and folds the
+    chunk partials in the chain over the data group.  ``param_specs``
+    (``{"tr": spec tree of the trainables, "frozen": spec tree of the
+    frozen state}``, split dims from ``launch.sharding.ParamSpec``) turns
+    on the TP share on a mesh with a ``model`` axis: trainables, their
+    optimizer moments and the frozen state enter and leave as the rank's
+    slices (``launch.sharding.shard_tree``)."""
+
+    def __init__(self, objective: Objective, optimizer, mesh=None,
+                 param_specs=None):
         self.objective = objective
         self.opt = optimizer
+        self.mesh = mesh
+        self.dp_degree = 1 if mesh is None else dp_size(mesh)
+        if mesh is not None and not dp_axes(mesh):
+            raise ValueError(f"mesh {mesh.axis_names} has no "
+                             "data-parallel axes ('pod'/'data')")
+        tp = (mesh is not None and param_specs is not None
+              and tp_axis(mesh) is not None)
+        self.tr_specs = param_specs["tr"] if tp else None
+        self.frozen_specs = param_specs["frozen"] if tp else None
+
+    @property
+    def tp(self) -> bool:
+        """Whether the trainables, moments and frozen state are slices."""
+        return self.tr_specs is not None
 
     def init(self, trainables):
         return self.opt.init(trainables)
@@ -420,31 +587,48 @@ class ReconstructionEngine:
         choice."""
         steps = plan.total_steps - start if steps is None else steps
         bs = plan.index_plan.shape[1]
-        chunks = grad_chunk_count(bs, plan.X.shape[0])
+        chunks = grad_chunk_count(bs, plan.pool_size)
         if chunks != plan.chunks:
             raise ValueError(
                 f"plan was staged for {plan.chunks} canonical gradient "
                 f"chunks but the engine now derives {chunks}: "
                 "CANONICAL_LANE_CHUNKS changed after stage_plan drew the "
                 "stratified index plan; re-stage the plan")
+        D = self.dp_degree
+        check_chunks(chunks, D, bs, plan.pool_size)
+        # the rank's rows of every plan row, rebased to its pool shard
+        r = 0 if self.mesh is None else self.mesh.data_rank
+        rows = plan.index_plan[start:start + steps,
+                               r * bs // D:(r + 1) * bs // D]
+        if r:
+            rows = rows - r * plan.pool_size // D
+        if self.tp:
+            frozen = gather_tree(frozen, self.frozen_specs, self.mesh)
         lv = None
-        for t in range(start, start + steps):
-            idx = plan.index_plan[t]
+        for idx in rows:
             xb = plan.X.index_select(0, idx)
             yb = plan.Y.index_select(0, idx)
             ab = (plan.aux.index_select(0, idx) if plan.aux is not None
                   else None)
-            trainables, opt_state, lv = self.step(trainables, opt_state,
-                                                  frozen, xb, yb, chunks, ab)
+            whole = (gather_tree(trainables, self.tr_specs, self.mesh)
+                     if self.tp else trainables)
+            lv, grads = canonical_grad(self.objective, whole, frozen, xb,
+                                       yb, chunks // D, ab, mesh=self.mesh,
+                                       batch_size=bs)
+            del whole
+            if self.tp:
+                grads = shard_tree(grads, self.tr_specs, self.mesh)
+            with torch.no_grad():
+                trainables, opt_state = self.opt.update(grads, opt_state,
+                                                        trainables)
         return trainables, opt_state, lv
 
     def step(self, trainables, opt_state, frozen, xb, yb, chunks: int,
              ab=None):
         """One step on the minibatch (xb, yb, aux rows ``ab`` or None): the
-        canonical chunked gradient, then the optimizer.  ``run`` takes it
-        on device-gathered minibatches, the host-loop ``"reference"``
-        engine on host-gathered ones.  Returns (trainables, opt_state,
-        loss)."""
+        canonical chunked gradient, then the optimizer: a step of ``run``
+        without a mesh, on the host-gathered minibatches of the host-loop
+        ``"reference"`` engine.  Returns (trainables, opt_state, loss)."""
         lv, grads = canonical_grad(self.objective, trainables, frozen,
                                    xb, yb, chunks, ab)
         with torch.no_grad():
@@ -453,7 +637,7 @@ class ReconstructionEngine:
         return trainables, opt_state, lv
 
 
-def cached_engine(cache: Optional[dict], key: str, make: Callable):
+def cached_engine(cache: Optional[dict], key, make: Callable):
     """The engine under ``key`` in ``cache`` (a dict the caller scopes to
     one stage), made by ``make()`` and kept there on first use."""
     eng = cache.get(key) if cache is not None else None
@@ -480,8 +664,8 @@ def run_logged(eng: ReconstructionEngine, tr, opt_state, frozen,
     return tr, opt_state
 
 
-__all__ = ["ENGINES", "NOT_PORTED_ENGINES",
-           "check_engine", "host_read", "host_stage", "host_push",
+__all__ = ["ENGINES", "check_engine", "resolve_mesh", "gather_tree",
+           "check_chunks", "host_read", "host_stage", "host_push",
            "host_batch",
            "sync_count", "reset_sync_count", "harden_device", "SignSGD",
            "grad_chunk_count", "CANONICAL_LANE_CHUNKS", "Objective",

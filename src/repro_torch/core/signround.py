@@ -15,9 +15,10 @@ perturbed fake-quant weight, ``lane_loss`` applies the block to it.  With
 ``engine="reference"`` or ``"legacy"`` they run on the reference's host
 loop instead: every step's minibatch gathered on the host and pushed, one
 batch-mean gradient (``recon_engine.batch_mean_grad``) and the sign step
-with the linear decay computed on the host and the clip to +-0.5.  The
-reference's ``"sharded"`` engine raises here, naming its ROADMAP item
-(``recon_engine.NOT_PORTED_ENGINES``).
+with the linear decay computed on the host and the clip to +-0.5.
+``engine="sharded"`` runs the device engine on a ``launch.mesh.Mesh``,
+data-parallel only, as in the reference: on a mesh with a ``model`` axis
+the perturbation replicates.
 """
 from __future__ import annotations
 
@@ -66,14 +67,15 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qmeta: Dict,
                       qcfg: QuantConfig, *, steps: int = 200, lr: float = 5e-3,
                       batch_size: int = 4, seed: int = 0,
                       log: Optional[list] = None, engine: str = "device",
-                      cache: Optional[dict] = None):
+                      cache: Optional[dict] = None, mesh=None):
     """Sign-SGD rounding optimization on one block.  ``qmeta`` supplies the
     (AWQ/RTN/GPTQ) scale/zero/act_scale initialization, exactly as for
     TesseraQ.  X/Y: the block's calibration streams on its device; ``aux``
     the per-sample extra stream beside x (the encoder-decoder's encoder
     states) or None.  ``engine`` is "device",
-    "reference" or "legacy" (the two host-loop engines run the same loop
-    here, as in the reference).  ``cache`` (scoped by the caller to one
+    "reference", "legacy" (the two host-loop engines run the same loop
+    here, as in the reference) or "sharded" (on ``mesh``, default the data
+    mesh over every rank).  ``cache`` (scoped by the caller to one
     stage) reuses the engine across the stage's blocks.  Log entries carry
     the loss of the last step of every 50 on the device engine, of steps
     0, 50, ... on the host loop (the reference's two logs).  Returns
@@ -91,13 +93,16 @@ def reconstruct_block(apply: Callable, bp, X, Y, aux, qmeta: Dict,
                             dtype=torch.float32, device=w.device)
 
     frozen = {"bp": bp, "fixed": fixed}
-    if engine == "device":
-        eng = RE.cached_engine(cache, "signround", lambda: (
-            RE.ReconstructionEngine(
-                _make_objective(apply, qcfg),
-                RE.SignSGD(lr=lr, total_steps=steps, clip=0.5))))
+    if engine in ("device", "sharded"):
+        m = RE.resolve_mesh(mesh, X.device) if engine == "sharded" else None
+        eng = RE.cached_engine(
+            cache, "signround" if m is None else ("signround", m), lambda: (
+                RE.ReconstructionEngine(
+                    _make_objective(apply, qcfg),
+                    RE.SignSGD(lr=lr, total_steps=steps, clip=0.5),
+                    mesh=m)))
         plan = RE.stage_plan(X, Y, aux, batch_size=batch_size,
-                             total_steps=steps, seed=seed)
+                             total_steps=steps, seed=seed, mesh=m)
         vs, _ = RE.run_logged(eng, vs, eng.init(vs), frozen, plan,
                               steps=steps, chunk=50, log=log)
     else:

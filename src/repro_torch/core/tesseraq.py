@@ -36,17 +36,27 @@ in the reference:
     per-sample products round apart, a rare code whose ν ends near 0
     flips).
 
+  * ``"sharded"``: the device engine on a ``launch.mesh.Mesh``
+    (``TesseraQConfig.mesh``, default the data mesh over every rank):
+    data-parallel over its DP axes and, with a ``model`` axis, ν, v,
+    their Adam moments and the frozen state held as the rank's slices by
+    the ``launch.sharding.ParamSpec`` contract.  Hardening gathers ν and
+    the masks, takes the block's one threshold on every TP peer and keeps
+    the rank's slice; the log's soft rate counts each slice's soft
+    variables as integers, summed over the model group; the final fold of
+    DST into ``qmeta`` reads the gathered whole state.  Masks, codes and
+    folded scales equal the device engine's bit for bit on every mesh.
+
 θ̂ is materialized once per step per linear on every engine: under
 ``QuantConfig.kernel_backend == "pallas"`` through the soft_round kernels
 (forward and backward; their plain versions on a CPU tensor), under
 ``"xla"`` as plain torch differentiated by autograd, as the reference does
-in jnp.  The reference's ``"sharded"`` engine raises here (ROADMAP queue 1,
-"Parallelism on torch.distributed").
+in jnp.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,6 +66,8 @@ from repro_torch.core import recon_engine as RE
 from repro_torch.core.blocks import get_path, quant_leaf_paths, set_path
 from repro_torch.core.quantizer import resolve_group
 from repro_torch.kernels.soft_round import SoftRound, soft_round_plain
+from repro_torch.launch.mesh import tp_size
+from repro_torch.launch.sharding import ParamSpec, shard_tree
 from repro_torch.models.layers import resolve_backend
 from repro_torch.optim.adam import AdamW
 
@@ -85,10 +97,13 @@ class TesseraQConfig:
     par: bool = True                      # progressive adaptive rounding
     use_inf_freeze: bool = False          # paper's memory-light hardening
     seed: int = 0
-    engine: str = "device"     # "device" | "reference" | "legacy"
+    engine: str = "device"   # "device" | "reference" | "legacy" | "sharded"
     # keep Adam moments across PAR iterations (the surviving soft variables
     # continue from warm state instead of cold restarts after every harden)
     carry_opt_state: bool = True
+    # the launch.mesh.Mesh of engine="sharded" (None: the data mesh over
+    # every rank of the process group)
+    mesh: Any = None
 
 
 def _leaf_state(w, meta, qcfg: QuantConfig):
@@ -261,28 +276,89 @@ def _schedule_index(k: int, K: int, n_rates: int) -> int:
             if K > 1 else n_rates - 1)
 
 
-def _log_stats(lv, hard):
+def _soft_count(hard, mesh=None, specs=None):
+    """(soft variables of the block as an int64 device tensor, their
+    total): counted as integers.  With ``specs`` (the TP placement) each
+    rank counts its slices, the slices' counts are gathered over the model
+    group and summed, and a leaf that replicates counts once."""
+    tp = tp_size(mesh) if specs is not None else 1
+    split = whole = 0
+    total = 0
+    for p, h in hard.items():
+        n = torch.sum(h == 0)
+        if tp > 1 and specs[p]["hard"] is not None:
+            split, total = split + n, total + h.numel() * tp
+        else:
+            whole, total = whole + n, total + h.numel()
+    if tp > 1 and torch.is_tensor(split):
+        split = RE.gather_tree(split.reshape(1), 0, mesh).sum()
+    return split + whole, total
+
+
+def _log_stats(lv, soft, total):
     """Per-iteration log payload: [last loss, global soft rate] in one
     device tensor, so the host pulls it with ONE blocking read."""
-    soft = sum(torch.sum((h == 0).to(torch.float32)) for h in hard.values())
-    total = sum(h.numel() for h in hard.values())
-    return torch.stack([lv.to(torch.float32), soft / max(total, 1)])
+    return torch.stack([lv.to(torch.float32),
+                        (soft / max(total, 1)).to(torch.float32)])
+
+
+def _nbytes(tree) -> int:
+    """Bytes of every tensor of a tree of dicts, tuples and tensors."""
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if torch.is_tensor(tree) \
+        else 0
+
+
+def _state_bytes(tr, opt_state, frozen) -> dict:
+    """The bytes the engine's loop keeps between steps: the trainables (ν
+    and v), their Adam moments, the frozen state (masks, bases, scales,
+    zeros, act_scale) and the block's weights; on a TP rank its slices."""
+    return {"trainable": _nbytes(tr), "moments": _nbytes(opt_state[1:]),
+            "frozen": _nbytes(frozen["sts"]), "block": _nbytes(frozen["bp"])}
 
 
 def _run_device(apply, bp, X, Y, aux, qcfg, tcfg: TesseraQConfig, states,
-                log: Optional[list], cache: Optional[dict] = None):
+                log: Optional[list], cache: Optional[dict] = None, *,
+                mesh=None):
     """Device engine: hardening on the device, T steps per PAR iteration
     with no host read, pre-staged batches.  The only blocking host read per
     iteration is the optional log line (loss + realized soft rate in one
-    transfer)."""
+    transfer; it also carries the bytes the loop keeps, ``state_bytes``).
+
+    With ``mesh`` it is the sharded engine (``engine="sharded"``), keyed in
+    ``cache`` by the mesh: an engine built for one mesh never serves
+    another.  On a mesh with a ``model`` axis the states and the block's
+    weights are cut to the rank's slices (``ParamSpec``) before the first
+    PAR iteration and gathered whole after the last."""
     K = tcfg.par_iterations if tcfg.par else 1
     T = tcfg.steps_per_iteration
     trainable_keys = ("nu", "v") if tcfg.dst else ("nu",)
-    eng = RE.cached_engine(cache, "device", lambda: (
-        RE.ReconstructionEngine(_make_loss_fn(apply, qcfg, tcfg),
-                                AdamW(lr=tcfg.lr))))
+    pspec = ParamSpec.for_mesh(mesh)
+    specs = param_specs = None
+    if mesh is not None and pspec.active:
+        specs = pspec.state_specs(states)
+        param_specs = {
+            "tr": {p: {k: specs[p][k] for k in trainable_keys}
+                   for p in states},
+            "frozen": {"bp": pspec.block_specs(bp),
+                       "sts": {p: {k: d for k, d in sp.items()
+                                   if k not in trainable_keys}
+                               for p, sp in specs.items()}}}
+    eng = RE.cached_engine(
+        cache, "device" if mesh is None else ("sharded", mesh), lambda: (
+            RE.ReconstructionEngine(_make_loss_fn(apply, qcfg, tcfg),
+                                    AdamW(lr=tcfg.lr), mesh=mesh,
+                                    param_specs=param_specs)))
     plan = RE.stage_plan(X, Y, aux, batch_size=tcfg.batch_size,
-                         total_steps=K * T, seed=tcfg.seed)
+                         total_steps=K * T, seed=tcfg.seed, mesh=mesh)
+    if not eng.tp:
+        specs = None
+    else:
+        states = shard_tree(states, specs, mesh)
+        bp = shard_tree(bp, eng.frozen_specs["bp"], mesh)
 
     sr = list(tcfg.soft_rate)
     opt_state = None
@@ -290,23 +366,38 @@ def _run_device(apply, bp, X, Y, aux, qcfg, tcfg: TesseraQConfig, states,
         if tcfg.par:
             states = RE.harden_device(
                 states, sr[_schedule_index(k, K, len(sr))],
-                tcfg.use_inf_freeze)
+                tcfg.use_inf_freeze, mesh=mesh, specs=specs)
         tr = _trainables(states, tcfg.dst)
         # strip trainable entries from the side state: tr owns those
-        frozen = {p: {kk: vv for kk, vv in st.items()
-                      if kk not in trainable_keys}
-                  for p, st in states.items()}
+        frozen = {"bp": bp,
+                  "sts": {p: {kk: vv for kk, vv in st.items()
+                              if kk not in trainable_keys}
+                          for p, st in states.items()}}
         if opt_state is None or not tcfg.carry_opt_state:
             opt_state = eng.init(tr)
-        tr, opt_state, lv = eng.run(tr, opt_state, {"bp": bp, "sts": frozen},
-                                    plan, start=k * T, steps=T)
+        tr, opt_state, lv = eng.run(tr, opt_state, frozen, plan,
+                                    start=k * T, steps=T)
         states = _merge(states, tr, tcfg.dst)
         if log is not None and lv is not None:
-            hard = {p: st["hard"] for p, st in states.items()}
-            stats = RE.host_read(_log_stats(lv, hard))
+            soft, total = _soft_count({p: st["hard"]
+                                       for p, st in states.items()},
+                                      mesh, specs)
+            stats = RE.host_read(_log_stats(lv, soft, total))
             log.append({"iter": k, "loss": float(stats[0]),
-                        "soft_rate": float(stats[1])})
+                        "soft_rate": float(stats[1]),
+                        "state_bytes": _state_bytes(tr, opt_state, frozen)})
+    if specs is not None:
+        states = RE.gather_tree(states, specs, mesh)
     return states
+
+
+def _run_sharded(apply, bp, X, Y, aux, qcfg, tcfg: TesseraQConfig, states,
+                 log: Optional[list], cache: Optional[dict] = None):
+    """The mesh-sharded engine: the device engine's loop on ``tcfg.mesh``
+    (or the data mesh over every rank).  The DP degree must divide the
+    canonical chunk count (``recon_engine.check_chunks``)."""
+    return _run_device(apply, bp, X, Y, aux, qcfg, tcfg, states, log, cache,
+                       mesh=RE.resolve_mesh(tcfg.mesh, X.device))
 
 
 def _soft_rate_of(states) -> float:
@@ -394,7 +485,7 @@ def _run_legacy(apply, bp, X, Y, aux, qcfg, tcfg: TesseraQConfig, states,
 
 
 _RUNNERS = {"device": _run_device, "reference": _run_reference,
-            "legacy": _run_legacy}
+            "legacy": _run_legacy, "sharded": _run_sharded}
 
 
 # ---------------------------------------------------------------------------

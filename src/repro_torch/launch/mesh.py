@@ -1,25 +1,35 @@
-"""The serve mesh on ``torch.distributed``, and the launcher of its ranks.
+"""The mesh on ``torch.distributed``, and the launcher of its ranks.
 
-The reference builds a ``("data", "model")`` jax Mesh over the devices of
-one process and runs each serve step under ``shard_map``.  Here one process
-is one rank: :class:`ServeMesh` is that rank's view of the same mesh — the
-world size, its rank, the shape ``(world // tp, tp)`` and the process group
-of its ``model`` axis (consecutive ranks, as the reference's row-major mesh
-places them) — and the device it runs on.  ``shard_map``'s per-shard body
-becomes the rank's own forward on its local shard, and ``psum`` over
-``model`` an all-reduce over that group.
+The reference builds a jax Mesh over the devices of one process — a
+``("data",)`` calibration mesh, a ``("data", "model")`` serve mesh — and
+runs its steps under ``shard_map``.  Here one process is one rank:
+:class:`Mesh` is that rank's view of the same mesh — the world size, its
+rank, the shape and axis names (row-major over the ranks, as the
+reference's mesh places its devices), the process group of its ``model``
+axis (the ``tp`` consecutive ranks that hold one model's shards) and of its
+data-parallel axes (the ranks with the same ``model`` index), and the
+device it runs on.  ``shard_map``'s per-shard body becomes the rank's own
+step on its local shard; ``psum`` / ``all_gather`` over an axis become
+collectives over that axis's group.
+
+:func:`make_mesh` and :func:`make_data_mesh` build the reference's general
+and calibration meshes (``engine="sharded"``), :func:`serve_mesh` the serve
+mesh (``--tp``); :func:`batch_rows` says which rows of a leading batch dim
+a rank owns (the reference's ``batch_spec``).  A mesh of one rank needs no
+process group: every exchange over it is the identity, so the sharded
+engine runs in a plain process, as the reference's 1-device mesh does.
 
 The backend of the process group is always the caller's choice
 (:func:`run_ranks`): NCCL needs one card per rank; gloo runs on the CPU and
-on ranks that share a card (it stages a CUDA all-reduce through the host).
+on ranks that share a card (it stages a CUDA collective through the host).
 
 Not here yet (ROADMAP queue 1, "Parallelism on torch.distributed"): the
-reference's ``make_mesh`` / ``make_data_mesh`` / ``make_production_mesh``
-and ``batch_spec`` wait for the sharded recon engine; the pod helpers raise.
+reference's ``make_production_mesh`` and the pod helpers, which raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import queue
 import tempfile
@@ -27,6 +37,7 @@ import time
 import traceback
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -34,36 +45,74 @@ import torch.multiprocessing as mp
 from repro_torch import resolve_device
 
 AXES = ("data", "model")
+DP_AXES = ("pod", "data")
 BACKENDS = ("nccl", "gloo")
 _POD_WALK = ("ROADMAP queue 1, 'Parallelism on torch.distributed': the "
              "pod-pipelined walk")
 
 
-@dataclasses.dataclass(frozen=True)
-class ServeMesh:
-    """One rank's view of the ``("data", "model")`` serve mesh.
+def _axis_groups(shape, axis_names, axes) -> np.ndarray:
+    """Every group of the mesh along ``axes``: (groups, members) global
+    ranks, each row one group, its members row-major over ``axes``."""
+    grid = np.arange(math.prod(shape)).reshape(shape)
+    along = [axis_names.index(a) for a in axes]
+    rest = [d for d in range(len(shape)) if d not in along]
+    size = math.prod(shape[d] for d in along)
+    return grid.transpose(rest + along).reshape(-1, size)
 
-    ``shape`` is ``(world // tp, tp)``; the rank sits at ``(rank // tp,
-    rank % tp)``.  ``group`` is the process group of the rank's ``model``
-    axis (the ``tp`` consecutive ranks that hold one model's shards; every
-    collective of the serve steps runs over it).  ``device`` is the
-    ``torch.device`` the rank runs on."""
+
+def _group_of(shape, axis_names, axes, rank) -> Tuple[int, ...]:
+    rows = _axis_groups(shape, axis_names, axes)
+    return tuple(int(r) for r in rows[(rows == rank).any(axis=1)][0])
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """One rank's view of a mesh: ``shape`` over ``axis_names``, the
+    ranks laid out row-major over it.
+
+    ``group`` is the process group of the rank's ``model`` axis (the
+    consecutive ranks that hold one model's shards; every collective of
+    the serve steps and the TP gathers of the sharded engine run over it),
+    ``data_group`` that of its data-parallel axes (``pod`` and ``data``:
+    the ranks with the same ``model`` index, over which the sharded
+    engine exchanges its gradient).  Both are None on a mesh of one rank
+    without a process group.  ``device`` is the ``torch.device`` the rank
+    runs on."""
     world: int
     rank: int
-    shape: Tuple[int, int]
+    shape: Tuple[int, ...]
     group: Any = dataclasses.field(repr=False)
     device: torch.device
     axis_names: Tuple[str, ...] = AXES
+    data_group: Any = dataclasses.field(default=None, repr=False)
+
+    @property
+    def model_ranks(self) -> Tuple[int, ...]:
+        """Global ranks of the rank's ``model`` group, in axis order."""
+        if tp_axis(self) is None:
+            return (self.rank,)
+        return _group_of(self.shape, self.axis_names, ("model",), self.rank)
+
+    @property
+    def data_ranks(self) -> Tuple[int, ...]:
+        """Global ranks of the rank's data-parallel group, row-major over
+        the DP axes."""
+        axes = dp_axes(self)
+        if not axes:
+            return (self.rank,)
+        return _group_of(self.shape, self.axis_names, axes, self.rank)
 
     @property
     def model_rank(self) -> int:
         """The rank's position on the ``model`` axis (its shard index)."""
-        return self.rank % self.shape[1]
+        return self.model_ranks.index(self.rank)
 
     @property
     def data_rank(self) -> int:
-        """The rank's position on the ``data`` axis (its replica index)."""
-        return self.rank // self.shape[1]
+        """The rank's position over the data-parallel axes (its replica
+        index, the reference's linearized ``_dp_rank``)."""
+        return self.data_ranks.index(self.rank)
 
 
 def check_backend(backend: str, world: int, device) -> None:
@@ -93,8 +142,86 @@ def rank_device(rank: int, device="cuda") -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
+def _groups(shape, axis_names, rank):
+    """The rank's (model group, data group), made by every rank of the
+    process group (each ``dist.new_group`` is a collective of all ranks,
+    called in the same order on every rank)."""
+    mine = {}
+    for key, axes in (("model", ("model",) if "model" in axis_names
+                       else ()),
+                      ("data", tuple(a for a in axis_names
+                                     if a in DP_AXES))):
+        mine[key] = None
+        if not axes:
+            continue
+        for members in _axis_groups(shape, axis_names, axes):
+            g = dist.new_group([int(m) for m in members])
+            if rank in members:
+                mine[key] = g
+    return mine["model"], mine["data"]
+
+
+def _build(shape, axis_names, device, who: str) -> Mesh:
+    """The rank's view of a ``shape`` mesh over ``axis_names``.  A mesh of
+    one rank without a process group has no groups; otherwise the process
+    group must hold exactly the mesh's ranks."""
+    shape = tuple(int(n) for n in shape)
+    axis_names = tuple(axis_names)
+    if len(shape) != len(axis_names) or min(shape, default=0) < 1:
+        raise ValueError(f"{who}: shape {shape} does not fit axes "
+                         f"{axis_names}")
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        if n != 1:
+            raise RuntimeError(
+                f"{who}: a mesh of {n} ranks needs an initialized process "
+                "group (launch.mesh.run_ranks starts one per rank)")
+        return Mesh(world=1, rank=0, shape=shape, group=None,
+                    device=resolve_device(device), axis_names=axis_names)
+    if n != dist.get_world_size():
+        raise ValueError(f"{who}: a mesh of {n} ranks {shape}, but the "
+                         f"process group has {dist.get_world_size()} ranks")
+    rank = dist.get_rank()
+    dev = rank_device(rank, device)
+    check_backend(dist.get_backend(), n, dev)
+    group, data_group = _groups(shape, axis_names, rank)
+    return Mesh(world=n, rank=rank, shape=shape, group=group, device=dev,
+                axis_names=axis_names, data_group=data_group)
+
+
+def make_mesh(shape, axes=None, *, device="cuda") -> Mesh:
+    """The rank's view of an arbitrary mesh (e.g. ``(2, 2)``), with the
+    reference's default axis names: ``("pod", "data", "model")`` for three
+    dims, else ``("data", "model")[:len(shape)]``.  Called by every rank of
+    the process group (its size is the mesh's), or, for a mesh of one
+    rank, by a plain process."""
+    if axes is None:
+        axes = (("pod", "data", "model") if len(shape) == 3
+                else ("data", "model")[:len(shape)])
+    return _build(shape, axes, device, "make_mesh")
+
+
+_DATA_MESH_CACHE: dict = {}
+
+
+def make_data_mesh(n=None, *, device="cuda") -> Mesh:
+    """The 1-D pure data-parallel mesh over ``n`` ranks (default: every
+    rank of the process group, or one rank without one): the default mesh
+    of ``engine="sharded"``.  Memoized, as the reference's is, so the
+    engines of a walk keyed by it are found again (and the groups are made
+    once)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = world if n is None else int(n)
+    key = (n, str(device),
+           id(dist.group.WORLD) if dist.is_initialized() else None)
+    if key not in _DATA_MESH_CACHE:
+        _DATA_MESH_CACHE[key] = _build((n,), ("data",), device,
+                                       "make_data_mesh")
+    return _DATA_MESH_CACHE[key]
+
+
 def serve_mesh(tp: int = 1, world: Optional[int] = None, *,
-               device="cuda") -> ServeMesh:
+               device="cuda") -> Mesh:
     """THE serve-mesh constructor (``--tp N`` on the serve CLI): a
     ``("data", "model")`` mesh whose ``model`` axis carries the TP degree,
     the remaining ranks on ``data``.  Needs an initialized process group
@@ -113,20 +240,24 @@ def serve_mesh(tp: int = 1, world: Optional[int] = None, *,
     if n != dist.get_world_size():
         raise ValueError(f"serve_mesh: world={n} but the process group "
                          f"has {dist.get_world_size()} ranks")
-    rank = dist.get_rank()
-    dev = rank_device(rank, device)
-    check_backend(dist.get_backend(), n, dev)
-    group = None
-    for first in range(0, n, tp):         # every rank creates every group
-        g = dist.new_group(list(range(first, first + tp)))
-        if first <= rank < first + tp:
-            group = g
-    return ServeMesh(world=n, rank=rank, shape=(n // tp, tp), group=group,
-                     device=dev)
+    return _build((n // tp, tp), AXES, device, "serve_mesh")
+
+
+def batch_rows(mesh, n: int) -> slice:
+    """The rows of a leading batch dim of ``n`` that the rank owns when it
+    is split over the mesh's data-parallel axes (the reference's
+    ``batch_spec``): ``[r * n / D, (r + 1) * n / D)`` for DP rank ``r`` of
+    ``D``."""
+    D = dp_size(mesh)
+    if n % D:
+        raise ValueError(f"batch_rows: {n} rows do not split over the "
+                         f"mesh's data-parallel degree {D}")
+    r = mesh.data_rank
+    return slice(r * n // D, (r + 1) * n // D)
 
 
 def dp_axes(mesh) -> tuple:
-    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+    return tuple(a for a in mesh.axis_names if a in DP_AXES)
 
 
 def _extent(mesh, axis: str) -> int:

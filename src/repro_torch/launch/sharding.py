@@ -1,7 +1,7 @@
 """The serving stack's tensor-parallel placement contract (``ServeSpec``).
 
 The reference's serve-time TP runs each family's step under ``shard_map``
-with per-leaf specs; here each rank of a :class:`launch.mesh.ServeMesh`
+with per-leaf specs; here each rank of a :class:`launch.mesh.Mesh`
 holds its LOCAL shard of every split leaf and runs the family forward on
 it.  What the reference expresses as spec trees plus ``place_params`` is
 :func:`shard_serve_params`: the global tree sliced into the rank's local
@@ -19,15 +19,21 @@ and head stay replicated: the only collective a serve step makes is the
 all-reduce at the end of an in-split linear (``models.layers.PsumWeight``)
 and of the expert-local MoE FFN.
 
-All of this is a pure function of shapes.  The reference's ``ParamSpec``,
-``logical_table``, ``resolve_spec``, ``param_shardings``,
-``batch_shardings`` and ``cache_shardings`` wait for the sharded recon
-engine (ROADMAP queue 1, "Parallelism on torch.distributed").
+All of this is a pure function of shapes.
+
+The reconstruction stack's side of the contract is :class:`ParamSpec`: for
+every per-block array the sharded engine carries (the weight, ν / v and
+their frozen companions, and through them the Adam moments) the dim it
+splits over the ``model`` axis, or None where it replicates.  The
+reference's ``logical_table``, ``resolve_spec``, ``param_shardings``,
+``batch_shardings`` and ``cache_shardings`` serve its GSPMD serve path and
+the dry-run; they wait with ``dryrun`` / ``hlo_stats`` (ROADMAP queue 1,
+"Parallelism on torch.distributed", item 5).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -37,6 +43,147 @@ from repro_torch.launch.mesh import tp_axis, tp_size, validate_single_pod
 from repro_torch.models.common import (LEAF_FIXED, LEAF_TOKEN, _get_leaf,
                                        _leaf_paths, _set_leaf)
 from repro_torch.models.layers import PsumWeight
+
+# --------------------------------------------------------------------------
+# ParamSpec: the reconstruction stack's tensor-parallel placement contract
+# --------------------------------------------------------------------------
+
+# leaf name -> logical dims of the trailing (in, out) dims, the reference's
+# table; ``recon_split`` reads where ``tensor`` sits
+PARAM_RULES = {
+    "wq": ("fsdp", "tensor"), "wk": ("fsdp", "tensor"),
+    "wv": ("fsdp", "tensor"), "wo": ("tensor", "fsdp"),
+    "w_gate": ("fsdp", "tensor"), "w_up": ("fsdp", "tensor"),
+    "w_down": ("tensor", "fsdp"),
+    # rwkv
+    "wr": ("fsdp", "tensor"), "wg": ("fsdp", "tensor"),
+    "ck": ("fsdp", "tensor"), "cv": ("tensor", "fsdp"),
+    "cr": ("fsdp", "tensor"),
+    # mamba2
+    "in_proj": ("fsdp", None), "out_proj": ("tensor", "fsdp"),
+    # embeddings / head
+    "embed": ("vocab", "fsdp"), "head": ("fsdp", "vocab"),
+    "router": (None, None),
+}
+
+# TesseraQ's per-linear state layouts (``core.tesseraq._leaf_state``): the
+# rounding variables and their frozen companions in the grouped weight
+# layout, the DST / scale family in the per-group layout
+RECON_GROUPED_KEYS = ("nu", "hard", "base")     # (..., ng, g, out)
+RECON_GROUPVEC_KEYS = ("v", "scale", "zero")    # (..., ng, out)
+
+
+def recon_split(name: str) -> Optional[str]:
+    """Which weight channel a reconstruction leaf splits over the TP axis:
+    ``"out"`` for output-channel-split linears (q/k/v/gate/up: ``tensor``
+    on their out dim), ``"in"`` for input-channel-split ones (o/down),
+    None for everything else."""
+    rule = PARAM_RULES.get(name)
+    if not rule or len(rule) < 2:
+        return None
+    if rule[-1] == "tensor":
+        return "out"
+    if rule[0] == "tensor":
+        return "in"
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Tensor-parallel placement contract for block reconstruction.
+
+    For every per-block array the sharded engine carries, the dim (an
+    index into its shape) it splits over ``tp_axis(mesh)``, or None where
+    it replicates (the reference's ``PartitionSpec`` entry):
+
+      * out-split leaves (wq/wk/wv/w_gate/w_up, ...): the ``out`` dim, the
+        last dim of the weight, of the grouped ν layout and of the
+        per-group ``scale`` / ``v`` layout;
+      * in-split leaves (wo/w_down, ...): the ``in`` dim, dim -2 of the
+        weight, the group-count dim (-3) of ν, dim -2 of ``scale`` and the
+        only dim of ``act_scale`` (quant groups tile the in dim, so the
+        three gathers concatenate consistently).
+
+    A dim that does not divide by the TP degree falls back to replication
+    per leaf (at LLaMA-2-7B W2 g128, TP = 4, ``w_down``'s 86 groups).  The
+    Adam moments follow their parameter (``optim.adam.AdamW.state_specs``).
+    Without a ``model`` axis nothing splits; at TP degree 1 every spec
+    names its dim, and the gathers are the identity."""
+
+    mesh: Any
+    axis: Optional[str]
+    size: int
+
+    @classmethod
+    def for_mesh(cls, mesh) -> "ParamSpec":
+        return cls(mesh, tp_axis(mesh) if mesh is not None else None,
+                   tp_size(mesh))
+
+    @property
+    def active(self) -> bool:
+        return self.axis is not None
+
+    def _split_at(self, ndim: int, dim: int, extent: int) -> Optional[int]:
+        if (self.axis is None or ndim + dim < 0
+                or extent % max(self.size, 1)):
+            return None
+        return ndim + dim
+
+    def weight_spec(self, name: str, shape) -> Optional[int]:
+        """Split dim of a quantizable weight leaf ``(..., in, out)``."""
+        split = recon_split(name)
+        if split == "out":
+            return self._split_at(len(shape), -1, shape[-1])
+        if split == "in" and len(shape) >= 2:
+            return self._split_at(len(shape), -2, shape[-2])
+        return None
+
+    def state_spec(self, name: str, key: str, shape) -> Optional[int]:
+        """Split dim of one reconstruction-state array of leaf ``name``."""
+        split = recon_split(name)
+        if split is None:
+            return None
+        ndim = len(shape)
+        if key in RECON_GROUPED_KEYS and ndim >= 3:
+            dim = -1 if split == "out" else -3
+        elif key in RECON_GROUPVEC_KEYS and ndim >= 2:
+            dim = -1 if split == "out" else -2
+        elif key == "act_scale" and ndim >= 1 and split == "in":
+            dim = -1
+        else:
+            return None
+        return self._split_at(ndim, dim, shape[dim])
+
+    def block_specs(self, bp):
+        """Spec tree matching a block-param tree (norms, routers and every
+        other non-split leaf None)."""
+        def walk(node, path):
+            if isinstance(node, dict):
+                return {k: walk(v, path + (k,)) for k, v in node.items()}
+            if node is None or not hasattr(node, "shape"):
+                return None
+            return self.weight_spec(path[-1], node.shape)
+        return walk(bp, ())
+
+    def state_specs(self, states):
+        """Spec tree matching a ``{path: {key: tensor}}`` reconstruction
+        state tree (an absent ``act_scale`` mirrored as None)."""
+        return {p: {k: (None if v is None
+                        else self.state_spec(p[-1], k, v.shape))
+                    for k, v in st.items()}
+                for p, st in states.items()}
+
+
+def shard_tree(tree, specs, mesh):
+    """The rank's slice of every split leaf of ``tree`` (``specs`` mirrors
+    it; a None spec or leaf passes through), each contiguous: shard
+    ``mesh.model_rank`` of ``tp_size(mesh)`` along its dim."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if tree is None or specs is None:
+        return tree
+    return _shard(tree, specs, mesh.model_rank, tp_size(mesh))
+
 
 # leaf name -> split ("out" | "in" | "expert"), per family.  Absent names
 # (norms, routers, rwkv time-mix, mamba in/out_proj) replicate.
@@ -262,7 +409,7 @@ class ServeSpec:
     @classmethod
     def place(cls, mesh, cfg: ModelConfig, params) -> "ServeSpec":
         """Place the GLOBAL tree ``params`` on ``mesh`` (a
-        ``launch.mesh.ServeMesh``): the plan of its shapes over
+        ``launch.mesh.Mesh``): the plan of its shapes over
         ``tp_size(mesh)``, and the rank's shard of every split leaf
         (:func:`shard_serve_params` at its ``model`` position, in-split
         leaves reducing over its group) moved to ``mesh.device``.  Pass a

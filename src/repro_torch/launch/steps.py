@@ -160,7 +160,7 @@ def make_serve_steps(cfg: ModelConfig, mesh=None, *, act_bits=None,
     serve-time tensor parallelism: they take the rank's local params
     (``spec.params``) and cache, and the returned model allocates that
     local cache.  ``mesh`` is the reference's GSPMD-annotated serve path,
-    which waits for the sharded engine (ROADMAP queue 1) and raises."""
+    which waits with the dry-run (ROADMAP queue 1, item 9.5) and raises."""
     check_serve_mesh(mesh)
     if spec is not None:
         return _make_tp_serve_steps(
@@ -184,12 +184,13 @@ def make_serve_steps(cfg: ModelConfig, mesh=None, *, act_bits=None,
 
 def check_serve_mesh(mesh) -> None:
     """Refuse a serve ``mesh``: it is the reference's GSPMD-annotated serve
-    path, which waits for the sharded engine.  Tensor-parallel serving
-    takes a placed ``launch.sharding.ServeSpec`` instead."""
+    path, whose only users are the dry-run's serve sharding cells, so it
+    waits with ``dryrun`` / ``hlo_stats``.  Tensor-parallel serving takes a
+    placed ``launch.sharding.ServeSpec`` instead."""
     if mesh is not None:
         raise NotImplementedError(
             "serving on a mesh is the reference's GSPMD serve path, which "
-            f"waits for the sharded engine ({_PARALLEL}); for tensor "
+            f"waits with the dry-run ({_PARALLEL}, item 9.5); for tensor "
             "parallelism, serve a placed launch.sharding.ServeSpec")
 
 

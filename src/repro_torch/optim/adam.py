@@ -55,6 +55,14 @@ class AdamW:
         return AdamState(torch.zeros((), dtype=torch.int32, device=dev),
                          tree_map(z, params), tree_map(z, params))
 
+    def state_specs(self, param_specs) -> AdamState:
+        """The state's split dims given a spec tree of the params' (as
+        ``launch.sharding.ParamSpec`` gives them): the moments follow
+        their parameter's shard, the step counter is replicated (None).
+        The update is elementwise with no clipping, so updating a slice
+        gives the bits that slicing the whole update gives."""
+        return AdamState(None, param_specs, param_specs)
+
     def _lr(self, step):
         return self.lr(step) if callable(self.lr) else self.lr
 

@@ -1,6 +1,6 @@
 """Serve runs of the port for the tensor-parallel tests: the same function
 serves one process without a mesh (in the test process) and one rank of a
-``launch.mesh.ServeMesh`` (spawned by ``launch.mesh.run_ranks``).  Torch
+``launch.mesh.Mesh`` (spawned by ``launch.mesh.run_ranks``).  Torch
 and the port only: a spawned rank imports this module, never jax."""
 import dataclasses
 

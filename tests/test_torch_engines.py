@@ -23,7 +23,6 @@ on the CPU (the soft_round kernels' plain versions).
 * OmniQuant and SignRound on the host loop against ``"device"``: codes
   equal; OmniQuant's scales rtol 1e-5, SignRound's (its initialization's)
   equal.
-* ``"sharded"`` still raises, naming its ROADMAP item.
 """
 import numpy as np
 import pytest
@@ -257,23 +256,3 @@ def test_omniquant_and_signround_host_loop_match_device(engine):
         # steps 0, 100, ... (OmniQuant) or 0, 50, ... (SignRound)
         assert [e["step"] for e in dlog] == [19]
         assert [e["step"] for e in hlog] == [0]
-
-
-def test_sharded_engine_still_raises():
-    b = _block()
-    qc = QuantConfig(**QC)
-    item = "Parallelism on torch.distributed"
-    with pytest.raises(NotImplementedError, match=item):
-        TRE.check_engine("sharded", "test")
-    with pytest.raises(NotImplementedError, match=item):
-        ttq.reconstruct_block(b["stage"].apply, b["bp"], b["X"], b["Y"],
-                              None, b["meta"], qc,
-                              ttq.TesseraQConfig(engine="sharded"))
-    with pytest.raises(NotImplementedError, match=item):
-        tomni.reconstruct_block(b["stage"].apply, b["bp"], b["X"], b["Y"],
-                                None, qc, steps=1, engine="sharded")
-    with pytest.raises(NotImplementedError, match=item):
-        tsr.reconstruct_block(b["stage"].apply, b["bp"], b["X"], b["Y"],
-                              None, b["meta"], qc, steps=1, engine="sharded")
-    assert TRE.NOT_PORTED_ENGINES == {"sharded": TRE.NOT_PORTED_ENGINES[
-        "sharded"]}

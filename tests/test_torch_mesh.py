@@ -10,9 +10,10 @@
   head counts, stacked containers) restated on the port, and
   ``shard_serve_params`` puts each split on the right trailing dim.
 * ``models.layers.PsumWeight`` rides ``take_layer`` / ``unstack_layers``;
-  a serve ``mesh=`` is the reference's GSPMD path, which raises (tensor
-  parallelism serves a placed ``ServeSpec``), and a placement moves only
-  the rank's own tree to its device.
+  a serve ``mesh=`` is the reference's GSPMD path, which raises naming
+  where it waits, with the dry-run (tensor parallelism serves a placed
+  ``ServeSpec``), and a placement moves only the rank's own tree to its
+  device.
 """
 import numpy as np
 import pytest
@@ -49,7 +50,7 @@ def _qt(K, N, bits, g, lead=(), seed=0):
 
 
 def _local_mesh(tp=1):
-    return tmesh.ServeMesh(world=tp, rank=0, shape=(1, tp), group=None,
+    return tmesh.Mesh(world=tp, rank=0, shape=(1, tp), group=None,
                            device=torch.device("cpu"))
 
 
@@ -95,7 +96,7 @@ def test_nccl_refuses_ranks_without_their_own_card(device):
 
 
 def test_mesh_helpers():
-    m = tmesh.ServeMesh(world=8, rank=5, shape=(4, 2), group=None,
+    m = tmesh.Mesh(world=8, rank=5, shape=(4, 2), group=None,
                         device=torch.device("cpu"))
     assert (m.model_rank, m.data_rank) == (1, 2)
     assert tmesh.tp_axis(m) == "model" and tmesh.tp_size(m) == 2
@@ -118,8 +119,9 @@ def test_serve_mesh_needs_a_process_group():
 
 
 def test_mesh_without_tp_shard_is_the_gspmd_path():
-    """A serve ``mesh=`` (the reference's GSPMD path) raises at every entry
-    point, a placed spec among the arguments or not; steps refuse a spec
+    """A serve ``mesh=`` (the reference's GSPMD path, which waits with the
+    dry-run) raises at every entry point, a placed spec among the
+    arguments or not; steps refuse a spec
     placed for another config, and a scheduler step set one built for
     another placement."""
     from repro_torch.launch.scheduler import (Request, compile_sched_steps,
@@ -129,19 +131,19 @@ def test_mesh_without_tp_shard_is_the_gspmd_path():
     model = get_model(cfg)
     params = model.init_params(0, "cpu")
     spec = ServeSpec.place(mesh, cfg, params)
-    with pytest.raises(NotImplementedError, match="sharded engine"):
+    with pytest.raises(NotImplementedError, match="waits with the dry-run"):
         make_serve_steps(cfg, mesh)
-    with pytest.raises(NotImplementedError, match="sharded engine"):
+    with pytest.raises(NotImplementedError, match="waits with the dry-run"):
         compile_serve_steps(cfg, mesh=mesh, spec=spec)
-    with pytest.raises(NotImplementedError, match="sharded engine"):
+    with pytest.raises(NotImplementedError, match="waits with the dry-run"):
         compile_sched_steps(cfg, max_seq=8, mesh=mesh)
     with pytest.raises(ValueError, match="placed for"):
         make_serve_steps(cfg.replace(num_layers=1), spec=spec)
-    with pytest.raises(NotImplementedError, match="sharded engine"):
+    with pytest.raises(NotImplementedError, match="waits with the dry-run"):
         serve_requests(cfg, model, params, np.zeros((1, 4), np.int64),
                        gen=2, device="cpu", mesh=mesh)
     reqs = [Request(rid=0, prompt=np.zeros(4, np.int64), max_new_tokens=2)]
-    with pytest.raises(NotImplementedError, match="sharded engine"):
+    with pytest.raises(NotImplementedError, match="waits with the dry-run"):
         serve_scheduled(cfg, params, reqs, slots=1, device="cpu", mesh=mesh)
     with pytest.raises(ValueError, match="placement"):
         serve_scheduled(cfg, spec, reqs, slots=1, max_seq=8, device="cpu",
@@ -293,7 +295,7 @@ def test_placement_moves_only_the_local_tree():
     here: nothing global follows the rank there)."""
     cfg = get_reduced_config("llama2-7b")
     params = {**_attn(), "embed": torch.rand(8, 64)}
-    mesh = tmesh.ServeMesh(world=2, rank=1, shape=(1, 2), group=None,
+    mesh = tmesh.Mesh(world=2, rank=1, shape=(1, 2), group=None,
                            device=torch.device("meta"))
     spec = ServeSpec.place(mesh, cfg, params)
     assert spec.plan == {"wq": "out", "wk": "out", "wv": "out", "wo": "in"}

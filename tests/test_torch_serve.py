@@ -219,21 +219,19 @@ def test_cli_calibrates_with_tesseraq_on_cpu(capsys):
 
 
 def test_quantize_model_refuses_engines_not_ported():
-    """Every reconstruction method runs on the ``"device"``, ``"reference"``
-    and ``"legacy"`` engines; the mesh-sharded engine raises naming its
-    ROADMAP item, and an unknown engine (the error lists all four names),
-    method or init is refused."""
+    """Every reconstruction method runs on all four engines the reference
+    names — the mesh-sharded one too (a data mesh of one rank here, the
+    default without a process group) — and an unknown engine (the error
+    lists all four names), method or init is refused."""
     cfg = get_reduced_config("llama2-7b")
     params = get_model(cfg).init_params(0, "cpu")
     batches = [{"tokens": torch.zeros(1, 4, dtype=torch.long)}]
     for method in ("tesseraq", "omniquant", "signround"):
-        with pytest.raises(NotImplementedError,
-                           match="Parallelism on torch.distributed"):
-            quantize_model(cfg, params, batches, QuantConfig(),
-                           method=method, init="rtn",
-                           tcfg=TesseraQConfig(par_iterations=1,
-                                               steps_per_iteration=1,
-                                               engine="sharded"))
+        _, qmeta, report = quantize_model(
+            cfg, params, batches, QuantConfig(), method=method, init="rtn",
+            tcfg=TesseraQConfig(par_iterations=1, steps_per_iteration=1,
+                                engine="sharded"), omni_steps=1)
+        assert len(report["blocks"]) == cfg.num_layers and qmeta
         with pytest.raises(ValueError, match="unknown engine.*'device', "
                            "'legacy', 'reference', 'sharded'"):
             quantize_model(cfg, params, batches, QuantConfig(),

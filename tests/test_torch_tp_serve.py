@@ -289,8 +289,8 @@ def test_local_cfg_and_cache_layout_match_reference(arch, tp):
 
 
 def _fake_mesh(tp, rank=0):
-    from repro_torch.launch.mesh import ServeMesh
-    return ServeMesh(world=tp, rank=rank, shape=(1, tp), group=None,
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(world=tp, rank=rank, shape=(1, tp), group=None,
                      device=torch.device("cpu"))
 
 
