@@ -138,10 +138,12 @@ Phases, each printing its own lines:
    flipped token from a wrong kernel, and at the CI settings the gate must
    pass with the ``"xla"`` dequantization rounded as the kernels round it;
 15. train: (a) ``python -m repro_torch.launch.train`` at smollm-135m's
-   full width and depth (40 steps, batch 8 x 256, checkpoints every 20):
-   the loss falls by ``TRAIN_MARGIN``, a second run resumes at step 40 for
-   20 more, and a run stopped by SIGTERM after step 10 saves, exits 2 and,
-   resumed, reaches the straight run's step-20 checkpoint within
+   full width and depth (24 steps, batch 8 x 256, checkpoints every 12;
+   cut from 40 and 20 for the run's time): the loss falls by
+   ``TRAIN_MARGIN``, a second
+   run resumes at step 24 for 12 more, and a run stopped by SIGTERM after
+   step 6 saves, exits 2 and, resumed, reaches the straight run's step-12
+   checkpoint within
    ``RESUME_ATOL``; (b) TinyLlama-1.1B at full width and depth, 3 steps at
    4 x 2048 tokens with remat on and off (finite losses, ms per step, peak
    GB), and one layer's recomputing attention backward against autograd
@@ -153,8 +155,8 @@ Phases, each printing its own lines:
    the CPU from the same params; training itself launches no kernel;
 16. the rest of the two families, the int8 KV cache and the host-loop
    engines, at W2A16g128 from seeded weights, each model freed before the
-   next: (a)-(d) Mistral-7B at 8 of 32 layers, Command-R-35B at 4 of 40,
-   LLaMA-3-405B at 2 of 126 and Moonlight-16B-A3B at 4 of 48, each at
+   next: (a)-(d) Mistral-7B at 4 of 32 layers, Command-R-35B at 2 of 40,
+   LLaMA-3-405B at 2 of 126 and Moonlight-16B-A3B at 2 of 48, each at
    its published widths, RTN-packed and served lock-step 4 x (128 + 16)
    with exact launches and the teacher-forced ``"xla"`` check of phase 3;
    Mistral and Moonlight also scheduled on the dense and the paged store
@@ -175,7 +177,9 @@ Phases, each printing its own lines:
    rtol 1e-5; ms per Soften step and host syncs of each), and OmniQuant
    and SignRound on the ``"legacy"`` host loop against ``"device"``;
 17. the VLM, RWKV and hybrid families at W2A16g128 RTN + pack, published
-   widths and full depth: (a) RWKV6-3B and (b) Zamba2-1.2B served
+   widths (PaliGemma-3B at full depth, RWKV6-3B and Zamba2-1.2B at 8 of
+   32 and 38 layers, for the run's time): (a) RWKV6-3B and (b) Zamba2-1.2B
+   served
    lock-step 4 x (128 + 16) with exact launches (RWKV: 8 projections a
    layer, no attention; Zamba2: 2 a mamba layer and the shared block's 7
    and one decode attention at each of its 6 sites) and the teacher-forced
@@ -183,7 +187,7 @@ Phases, each printing its own lines:
    and a profiled scheduled decode step; (c) PaliGemma-3B scheduled only (8
    slots, 16 requests of 256 seeded patches + 16..128 tokens, 4..32
    generated) on both stores, equal tokens, exact launches, 4 requests
-   teacher-forced against ``"xla"``; (d) AWQ + TesseraQ (K=3, T=10), 8 x
+   teacher-forced against ``"xla"``; (d) AWQ + TesseraQ (K=3, T=5), 8 x
    512 positions, on 2 blocks of RWKV6-3B and of PaliGemma-3B and on
    Zamba2-1.2B cut to depth 6 (six mamba stages, then the shared block):
    every block below AWQ's recon_mse, packed perplexity within ``PPL_REL``
@@ -195,7 +199,7 @@ Phases, each printing its own lines:
    decode step's 8 GEMVs and one decode attention a decoder layer), no
    host sync inside a decode step, equal tokens, requests alone equal to
    scheduled, 4 requests teacher-forced against ``"xla"``, a profiled
-   decode step and admission prefill; (b) AWQ + TesseraQ (K=3, T=10) over
+   decode step and admission prefill; (b) AWQ + TesseraQ (K=3, T=5) over
    4 encoder and 4 decoder blocks, 8 x (1500 frames + 128 tokens), the
    encoder's stream handed to the decoder stage: every block below AWQ's
    recon_mse, packed perplexity within ``PPL_REL`` of fake-quant, exact
@@ -226,7 +230,7 @@ Phases, each printing its own lines:
 20. the mesh-sharded reconstruction engine (``engine="sharded"`` on
    ``torch.distributed``): LLaMA-2-7B at full width and 2 layers,
    W2A16g128, phase 5's 32 x 512 tokens at bs 4, AWQ + TesseraQ at K=2,
-   T=5 on block 0 against the device engine in this process: (a) one NCCL
+   T=2 on block 0 against the device engine in this process: (a) one NCCL
    rank on the ``(1,)`` and ``(1, 1)`` meshes, (b) two gloo ranks sharing
    the card on ``(2,)``, (c) the same ranks on ``(1, 2)`` (TP = 2): the
    control's hardened masks, codes and folded scales bit for bit, its
@@ -235,8 +239,23 @@ Phases, each printing its own lines:
    exchange ms and bytes a step and peak bytes; (d) the same ranks:
    ``quantize_model(engine="sharded")`` over both blocks at DP 2 equal to
    the device walk;
-21. a JSON line listing the ported kernels with their numbers;
-22. last line: ``{"ok": true, "device": {...}}``.
+21. training on a mesh (``make_train_harness(cfg, mesh)`` on
+   ``torch.distributed``): Qwen3-30B-A3B at full width and 2 of 48 layers,
+   bf16 params, f32 Adam, 4 x 129 synthetic tokens, 3 steps at lr 1e-3,
+   against the no-mesh harness in this process: (a) one NCCL rank on
+   ``(1,)`` and ``(1, 1)``, bit-identical, no sync in a step; (b) two gloo
+   ranks sharing the card on ``(1, 2)`` (64 experts a rank, ``ep_axis``)
+   and (c) TinyLlama-1.1B at full width and 2 of 22 layers on ``(2, 1)``
+   (DP with FSDP slices): losses and grad norms within ``MESH_REL``, the
+   bytes a rank keeps below the control's, its peak and exchange ms a
+   step; (d) (b)'s trained params RTN-packed at W2A16g128 and sliced by
+   ``param_shardings``: the packed perplexity on ``(1, 2)`` through the
+   kernels within ``MESH_PPL_REL`` of the no-mesh one, with the exact
+   launches of kernel 1 and the expert kernel on each rank; (e) TinyLlama
+   saved from ``(2, 1)``, restored without a mesh, one more step against
+   the control's;
+22. a JSON line listing the ported kernels with their numbers;
+23. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device, or without ``src/repro_torch`` beside this script,
@@ -3540,12 +3559,14 @@ def harness_phase(card, argv=HARNESS_ARGS, ci=HARNESS_CI):
 # --------------------------------------------------------------------------
 
 TRAIN_ARCH = "smollm-135m"      # the train CLI's default: 30 L, d 576, tied
-TRAIN_ARGS = ("--batch", "8", "--seq", "256", "--ckpt-every", "20",
+TRAIN_ARGS = ("--batch", "8", "--seq", "256", "--ckpt-every", "12",
               "--log-every", "1")
-TRAIN_STEPS, TRAIN_MORE = 40, 60
-# the stopped run: SIGTERM after step 10, resumed, and SIGTERM again once
-# its step-20 checkpoint is written, held to the straight run's step 20
-TRAIN_STOP_AT, TRAIN_CMP = 10, 20
+# cut from 40 and 60 steps for the run's time (the card's losses fell by
+# 0.61 over the first 20 steps and 1.06 over 24: PERF.md §4)
+TRAIN_STEPS, TRAIN_MORE = 24, 36
+# the stopped run: SIGTERM after step 6, resumed, and SIGTERM again once
+# its step-12 checkpoint is written, held to the straight run's step 12
+TRAIN_STOP_AT, TRAIN_CMP = 6, 12
 # mean of the last 10 losses below the mean of the first 10 by this much:
 # the CPU rehearsal (the same width, vocab, schedule, batch and data at 2 of
 # the 30 layers) fell by 1.99 nats in 40 steps
@@ -3601,54 +3622,63 @@ def _ckpt_leaves(ckpt_dir, step):
 
 
 def train_cli_phase(card):
-    """(a) The train CLI at full width and depth: 40 steps with checkpoints
-    at 20 and 40, then 20 more resumed from 40; a run stopped by SIGTERM
-    after step 10, which saves and exits 2, resumed (and stopped again once
-    past its step-20 checkpoint), held to the straight run's step 20."""
+    """(a) The train CLI at full width and depth: 24 steps with checkpoints
+    at 12 and 24, then 12 more resumed from 24; beside them a run stopped
+    by SIGTERM after step 6, which saves and exits 2, resumed (and stopped
+    again once past its step-12 checkpoint), held to the straight run's
+    step 12."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         straight, stopped = (os.path.join(tmp, "straight"),
                              os.path.join(tmp, "stopped"))
-        t0 = time.perf_counter()
-        rc, losses, (ms, first_s), out = _train_cli(
-            ["--steps", str(TRAIN_STEPS)], straight)
-        secs = time.perf_counter() - t0
-        if rc != 0 or sorted(losses) != list(range(TRAIN_STEPS)):
-            fail(f"train CLI exit {rc}, steps {sorted(losses)}: "
-                 + "\n".join(out[-20:]))
-        ls = [losses[s][0] for s in range(TRAIN_STEPS)]
-        first, last = float(np.mean(ls[:10])), float(np.mean(ls[-10:]))
-        print(f"[train-cli] {TRAIN_ARCH} {' '.join(TRAIN_ARGS)}: "
-              f"{TRAIN_STEPS} steps: the first {first_s:.3f}s, then "
-              f"{ms:.3f} ms per step (split above); the process "
-              f"{secs:.3f}s; loss first 10 "
-              f"{first:.4f} last 10 {last:.4f} (margin {TRAIN_MARGIN}); "
-              f"losses {[round(x, 4) for x in ls]}; card=[{card}]",
-              flush=True)
-        if not (np.isfinite(ls).all() and last < first - TRAIN_MARGIN):
-            fail(f"train CLI loss did not fall: {first} -> {last}")
-        # the resumed run and the stopped runs share the card from here on
-        resumed = {}
-        more_thread = threading.Thread(target=lambda: resumed.update(
-            zip(("rc", "losses", "ms", "out"),
-                _train_cli(["--steps", str(TRAIN_MORE)], straight))))
-        more_thread.start()
+        # the stopped runs share the host and the card with the straight
+        # and the resumed run (for the run's time); the chain only
+        # collects, the checks follow its join
+        chain = {}
+
+        def stopped_chain():
+            chain["first"] = _train_cli(["--steps", str(TRAIN_STEPS)],
+                                        stopped, stop_at=TRAIN_STOP_AT)
+            chain["saved"] = [n for n in os.listdir(stopped)
+                              if n.startswith("step_")]
+            chain["second"] = _train_cli(["--steps", str(TRAIN_STEPS)],
+                                         stopped, stop_at=TRAIN_CMP)
+        chain_thread = threading.Thread(target=stopped_chain)
+        chain_thread.start()
         try:
-            rc, part, _, out = _train_cli(["--steps", str(TRAIN_STEPS)],
-                                          stopped, stop_at=TRAIN_STOP_AT)
-            saved = [n for n in os.listdir(stopped) if n.startswith("step_")]
-            if rc != 2 or len(saved) != 1 or not any(
-                    "preempted" in line for line in out):
-                fail(f"SIGTERM run: exit {rc}, checkpoints {saved}: "
-                     + "\n".join(out[-10:]))
-            at = int(saved[0].split("_")[1])
-            rc, rest, _, out = _train_cli(["--steps", str(TRAIN_STEPS)],
-                                          stopped, stop_at=TRAIN_CMP)
-            if rc != 2 or f"[train] resumed from step {at}" not in out:
-                fail(f"resume after SIGTERM: exit {rc}: "
-                     + "\n".join(out[-10:]))
+            t0 = time.perf_counter()
+            rc, losses, (ms, first_s), out = _train_cli(
+                ["--steps", str(TRAIN_STEPS)], straight)
+            secs = time.perf_counter() - t0
+            if rc != 0 or sorted(losses) != list(range(TRAIN_STEPS)):
+                fail(f"train CLI exit {rc}, steps {sorted(losses)}: "
+                     + "\n".join(out[-20:]))
+            ls = [losses[s][0] for s in range(TRAIN_STEPS)]
+            first, last = float(np.mean(ls[:10])), float(np.mean(ls[-10:]))
+            print(f"[train-cli] {TRAIN_ARCH} {' '.join(TRAIN_ARGS)}: "
+                  f"{TRAIN_STEPS} steps (beside the stopped runs): the first "
+                  f"{first_s:.3f}s, then {ms:.3f} ms per step (split above);"
+                  f" the process {secs:.3f}s; loss first 10 "
+                  f"{first:.4f} last 10 {last:.4f} (margin {TRAIN_MARGIN}); "
+                  f"losses {[round(x, 4) for x in ls]}; card=[{card}]",
+                  flush=True)
+            if not (np.isfinite(ls).all() and last < first - TRAIN_MARGIN):
+                fail(f"train CLI loss did not fall: {first} -> {last}")
+            resumed = dict(zip(("rc", "losses", "ms", "out"), _train_cli(
+                ["--steps", str(TRAIN_MORE)], straight)))
         finally:
-            more_thread.join()
+            chain_thread.join()
+        rc, part, _, out = chain["first"]
+        saved = chain["saved"]
+        if rc != 2 or len(saved) != 1 or not any(
+                "preempted" in line for line in out):
+            fail(f"SIGTERM run: exit {rc}, checkpoints {saved}: "
+                 + "\n".join(out[-10:]))
+        at = int(saved[0].split("_")[1])
+        rc, rest, _, out = chain["second"]
+        if rc != 2 or f"[train] resumed from step {at}" not in out:
+            fail(f"resume after SIGTERM: exit {rc}: "
+                 + "\n".join(out[-10:]))
         more = resumed["losses"]
         if (resumed["rc"] != 0
                 or f"[train] resumed from step {TRAIN_STEPS}"
@@ -3658,8 +3688,8 @@ def train_cli_phase(card):
             fail(f"train CLI resume: exit {resumed['rc']}, steps "
                  f"{sorted(more)}: " + "\n".join(resumed["out"][-20:]))
         print(f"[train-cli] resumed at {TRAIN_STEPS}, "
-              f"{TRAIN_MORE - TRAIN_STEPS} more steps (beside the stopped "
-              f"runs) at {resumed['ms'][0]:.3f} ms per step; last loss "
+              f"{TRAIN_MORE - TRAIN_STEPS} more steps at "
+              f"{resumed['ms'][0]:.3f} ms per step; last loss "
               f"{more[TRAIN_MORE - 1][0]:.4f}", flush=True)
         a = _ckpt_leaves(straight, TRAIN_CMP)
         b = _ckpt_leaves(stopped, TRAIN_CMP)
@@ -3936,13 +3966,13 @@ def train_phase(card):
 
 # each arch at its published widths and a depth that fits one card in bf16
 # beside the RTN walk's copy of the block stack, and since PR 26 the run's
-# time limit (None: full depth): Mistral-7B 8 of 32 layers (whole, ~14.5
-# GB, before PR 26; 16 before PR 27); Command-R-35B 4 of 40 layers (8.4 GB
-# of embedding and head, 1.41 GB a layer); LLaMA-3-405B 2 of 126 (8.4 GB +
-# 6.4 GB a layer); Moonlight-16B-A3B 4 of 48 (16 before PR 26, 8 before PR
-# 27; 28.06B params in all, ~56 GB, so not whole beside the walk's copy)
-ARCH_DEPTHS = (("mistral-7b", 8), ("command-r-35b", 4),
-               ("llama3-405b", 2), ("moonshot-v1-16b-a3b", 4))
+# time limit (None: full depth; each cut and its seconds in PERF.md §4):
+# Mistral-7B 4 of 32 layers (whole is ~14.5 GB); Command-R-35B 2 of 40
+# layers (8.4 GB of embedding and head, 1.41 GB a layer); LLaMA-3-405B 2
+# of 126 (8.4 GB + 6.4 GB a layer); Moonlight-16B-A3B 2 of 48 (28.06B
+# params in all, ~56 GB, so not whole beside the walk's copy)
+ARCH_DEPTHS = (("mistral-7b", 4), ("command-r-35b", 2),
+               ("llama3-405b", 2), ("moonshot-v1-16b-a3b", 2))
 # which of them also run the scheduler (phase 7's workload on both stores)
 # and one calibration: (depth, K, T, samples); Mistral's two blocks at a
 # shortened schedule, one block of Command-R (soft_round at 8192 x 22528)
@@ -3968,7 +3998,8 @@ KV_REL = 5e-2
 KV_REL_DEEP = 1e-1
 # the engines on phase 5's block, at depth 1 since PR 26 (the run's time
 # limit: the host-loop engines took ~70 s at depth 2), a short schedule
-ENGINE_K, ENGINE_T, ENGINE_LAYERS = 3, 10, 1
+# (T cut from 10 to 5 for the run's time: PERF.md §4)
+ENGINE_K, ENGINE_T, ENGINE_LAYERS = 3, 5, 1
 METHOD_HOST_STEPS = 20
 # the legacy host loop against the device engine on the card, in f32: its
 # one batched backward and the canonical per-sample lanes take different
@@ -4390,7 +4421,7 @@ def _differ(a, b, keys):
 
 def engines_phase(card):
     """Phase 16 (f): AWQ + TesseraQ on phase 5's LLaMA-2-7B at depth 1 in
-    f32 (K=3, T=10) on the ``"device"``, ``"reference"`` and ``"legacy"``
+    f32 (K=3, T=5) on the ``"device"``, ``"reference"`` and ``"legacy"``
     engines, with ms per Soften step (hardens and host transfers included)
     and host syncs per PAR iteration of each: the reference engine's codes,
     masks and folded scales equal to the device engine's; the legacy
@@ -4543,7 +4574,7 @@ def new_configs_phase(card):
 
 # --------------------------------------------------------------------------
 # phase 17: the VLM, RWKV and hybrid families (PaliGemma-3B, RWKV6-3B,
-# Zamba2-1.2B) at published widths and full depth
+# Zamba2-1.2B) at published widths
 # --------------------------------------------------------------------------
 
 # RWKV6-3B and Zamba2-1.2B: lock-step 4 x (128 + 16), phase 7's workload on
@@ -4556,12 +4587,13 @@ VLM_WORKLOAD = dict(n_requests=16, seed=0, prompt_lens=(16, 128),
                     budgets=(4, 32), mean_gap=2.0)
 VLM_FORCED = 4          # requests teacher-forced against "xla"
 PATCH_STD = 0.1
-# AWQ + TesseraQ (K=3, T=10), 8 samples of 512 positions (PaliGemma: 256
+# AWQ + TesseraQ (K=3, T=5; T cut from 10 for the run's time),
+# 8 samples of 512 positions (PaliGemma: 256
 # patches + 256 tokens) at these depths: two RWKV6 and two PaliGemma
 # blocks, Zamba2 cut to its first segment (six mamba stages, then the
 # shared block's first site)
 FAMILY_CAL = (("rwkv6-3b", 2), ("paligemma-3b", 2), ("zamba2-1.2b", 6))
-FAMILY_K, FAMILY_T = 3, 10
+FAMILY_K, FAMILY_T = 3, 5
 CAL_SAMPLES_F = 8
 # The teacher-forced "xla" check's limit per family.  At W2 on these
 # random-weight groups the zero point is 1 or 2, so |code - zero| <= 2 and
@@ -4571,10 +4603,13 @@ CAL_SAMPLES_F = 8
 # PaliGemma-3B 0.0170, held to phase 3's REL_L2; RWKV6-3B 0.0514 and
 # Zamba2-1.2B 0.0710 at full depth (32 and 38 recurrent layers), held to
 # 0.1, while the same two at FAMILY_CONTROL_LAYERS layers are held to
-# REL_L2.  A wrong kernel moves the logits by O(1) of their norm, and phase
-# 2 holds each kernel to its plain version at these widths.
+# REL_L2.  Served at FAMILY_SERVED_LAYERS (cut from full depth for the
+# run's time: PERF.md §4), still held to 0.1.  A wrong kernel moves the
+# logits by O(1) of their norm, and phase 2 holds each kernel to its plain
+# version at these widths.
 FAMILY_REL_L2 = {"rwkv6-3b": 0.1, "zamba2-1.2b": 0.1, VLM_ARCH: REL_L2}
 FAMILY_CONTROL_LAYERS = 6
+FAMILY_SERVED_LAYERS = 8
 
 
 def seeded_patches(cfg, n, seed):
@@ -4588,14 +4623,16 @@ def seeded_patches(cfg, n, seed):
 
 
 def family_serve_phase(arch, card):
-    """(a) / (b): ``arch`` whole, RTN W2A16g128 + pack; lock-step with exact
+    """(a) / (b): ``arch`` at its widths and ``FAMILY_SERVED_LAYERS``
+    layers, RTN W2A16g128 + pack; lock-step with exact
     launches and the teacher-forced ``"xla"`` check; phase 7's workload on
     both stores (exact launches, equal tokens); a profiled scheduled decode
     step.  Returns (summed counts, {"lockstep_ms", "profile"})."""
     from repro_torch.launch.scheduler import compile_sched_steps, \
         make_workload
     tag = f"families {arch}"
-    cfg, model, packed, prompts = build_packed(arch, None, tag)
+    cfg, model, packed, prompts = build_packed(arch, FAMILY_SERVED_LAYERS,
+                                               tag)
     counts, res = lockstep_phase(tag, cfg, model, packed, prompts, card)
     rel = teacher_forced_check(tag, cfg, model, packed, prompts, res,
                                limit=FAMILY_REL_L2[arch])
@@ -4926,12 +4963,13 @@ ENCDEC_ALONE = (0, 5, 10, 15)
 # the teacher-forced check's control depth (encoder and decoder layers),
 # read only when the full depth is over REL_L2
 ENCDEC_CONTROL_LAYERS = 4
-# AWQ + TesseraQ (K=3, T=10) at whisper-small's widths over 4 encoder and 4
+# AWQ + TesseraQ (K=3, T=5; T cut from 10 for the run's time) at
+# whisper-small's widths over 4 encoder and 4
 # decoder blocks (depth cut from 12 + 12: the whole depth took 46.1 s of
 # walk + pack and ~70 s with its AWQ-only walk and perplexities, PERF.md §6,
 # PR 27), 8 samples of 1500 frames + 128 tokens
 ENCDEC_CAL = (4, 4)
-ENCDEC_K, ENCDEC_T = 3, 10
+ENCDEC_K, ENCDEC_T = 3, 5
 ENCDEC_CAL_SAMPLES, ENCDEC_CAL_TOKENS = 8, 128
 
 
@@ -5977,7 +6015,7 @@ def tp_serve_phase(card):
 # phase 20: the mesh-sharded reconstruction engine on torch.distributed
 # --------------------------------------------------------------------------
 
-SHARD_K, SHARD_T = 2, 5
+SHARD_K, SHARD_T = 2, 2         # T cut from 5 for the run's time
 # (d)'s walk; (a)-(c) calibrate its block 0 (phase 5's data: 32 x 512
 # tokens, bs 4, so C = 4 canonical chunks)
 SHARD_LAYERS = 2
@@ -6350,6 +6388,447 @@ def shard_phase(card):
 
 
 
+MESH_ARCH = MOE_ARCH            # Qwen3-30B-A3B at full width
+MESH_DENSE = BIG_ARCH           # TinyLlama-1.1B at full width
+MESH_LAYERS = 2                 # depth cut from 48 and 22
+MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_LR = 4, 128, 3, 1e-3
+MESH_REL = 2e-2                 # bf16 losses / grad norms, mesh vs control
+MESH_PPL_REL = 1e-2             # packed perplexity, (1, 2) vs no mesh
+MESH_SPAWN_S = 600
+
+
+def _leaf_bytes(tree):
+    from repro_torch.checkpoint.manager import flatten
+    return int(sum(t.numel() * t.element_size() for t in flatten(tree)))
+
+
+def card_digest(tree):
+    """Per leaf of ``tree``, (sum, index-weighted sum) of its bytes read
+    as int32 words, in int64 on the card; one read to the host.  Two
+    processes compare params by it (CUDA IPC is refused where
+    ``expandable_segments`` is on)."""
+    from repro_torch.checkpoint.manager import flatten
+    out = []
+    for t in flatten(tree):
+        w = t.detach().contiguous().view(-1).view(torch.uint8)
+        if w.numel() % 4:
+            w = torch.cat([w, w.new_zeros((-w.numel()) % 4)])
+        w = w.view(torch.int32).to(torch.int64)
+        idx = torch.arange(w.numel(), device=w.device) % 1000003 + 1
+        out.append(torch.stack([w.sum(), (w * idx).sum()]))
+        del w, idx
+    return torch.stack(out).cpu().tolist()
+
+
+def mesh_batches(cfg, n):
+    """``n`` batches of MESH_BATCH x (MESH_SEQ + 1) tokens of the synthetic
+    corpus, on the card."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    data = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=MESH_SEQ,
+                                      global_batch=MESH_BATCH, seed=0))
+    return [{"tokens": torch.as_tensor(data.batch(s)["tokens"],
+                                       device="cuda")} for s in range(n)]
+
+
+def mesh_reckon(cfg, shape):
+    """Bytes reckoned from the shapes alone: params (in the model's dtype),
+    gradients (the same) and Adam's two f32 moments, whole; and what a rank
+    of ``shape`` keeps between steps (its slices of params and moments)."""
+    from repro_torch.checkpoint.manager import flatten
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import param_shardings, replicas
+    from repro_torch.launch.steps import param_struct
+    st = param_struct(cfg)
+    n = sum(t.numel() for t in flatten(st))
+    item = flatten(st)[0].element_size()
+    mesh = Mesh(world=int(np.prod(shape)), rank=0, shape=shape, group=None,
+                device=torch.device("cpu"))
+    sh = param_shardings(mesh, st, cfg)
+    local = sum(t.numel() * replicas(s) // mesh.world
+                for t, s in zip(flatten(st), flatten(sh)))
+    return {"params": n, "whole_bytes": n * (2 * item + 8),
+            "rank_bytes": local * (item + 8),
+            "control_kept_bytes": n * (item + 8)}
+
+
+class MeshMeter:
+    """Every ``dist.broadcast`` (the gathers) and ``dist.all_reduce`` (the
+    data-group mean, the norm, the expert sums) a rank makes, counted,
+    sized and timed to the end of its device copy; the syncs this adds are
+    outside phase 21 (a), which makes no collective."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist = dist
+        self._b, self._a = dist.broadcast, dist.all_reduce
+        self.reset()
+        meter = self
+
+        def timed(kind, real):
+            def call(tensor, *a, **k):
+                t0 = time.perf_counter()
+                out = real(tensor, *a, **k)
+                if tensor.is_cuda:
+                    torch.cuda.synchronize()
+                rec = meter.x[kind]
+                rec["n"] += 1
+                rec["ms"] += (time.perf_counter() - t0) * 1e3
+                rec["bytes"] += tensor.numel() * tensor.element_size()
+                return out
+            return call
+        dist.broadcast = timed("gather", self._b)
+        dist.all_reduce = timed("all_reduce", self._a)
+
+    def reset(self):
+        self.x = {k: {"n": 0, "ms": 0.0, "bytes": 0}
+                  for k in ("gather", "all_reduce")}
+
+    def close(self):
+        self.dist.broadcast, self.dist.all_reduce = self._b, self._a
+
+
+def mesh_train(cfg, params, batches, mesh, steps, sync_debug=False,
+               meter=None):
+    """``steps`` steps of the train harness (lr MESH_LR) on ``mesh`` (None:
+    the control) from ``params`` (whole); returns (params, opt state, the
+    harness, record): (loss, grad_norm) a step, ms a step after the first,
+    the bytes kept between steps, the peak above what was allocated
+    before, and per step the exchange of ``meter`` and the syncs the debug
+    mode reports inside the last step."""
+    import warnings
+    from repro_torch.launch.sharding import shard_tree
+    from repro_torch.launch.steps import make_train_harness
+    _free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    h = make_train_harness(cfg, mesh, lr=MESH_LR)
+    p = params if mesh is None else shard_tree(params, h.param_sharding)
+    o = h.init_opt(p)
+    kept = _leaf_bytes(p) + _leaf_bytes(o)
+    rec = {"metrics": [], "ms": [], "syncs": 0}
+    for s in range(steps):
+        if meter is not None and s == 1:
+            meter.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as log:
+            warnings.simplefilter("always")
+            last = sync_debug and s == steps - 1
+            if last:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                p, o, m = h.step_fn(p, o, batches[s % len(batches)])
+            finally:
+                if last:
+                    torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        if last:
+            # "called a synchronizing CUDA operation": the mode's own
+            # one-time notice that it is a prototype does not count
+            sites = [f"{os.path.basename(w.filename)}:{w.lineno}"
+                     for w in log
+                     if "called a synchronizing" in str(w.message)]
+            rec["syncs"], rec["sync_sites"] = len(sites), sites
+        rec["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
+    rec.update(kept=kept, peak=torch.cuda.max_memory_allocated() - before,
+               step_ms=float(np.mean(rec["ms"][1:])))
+    if meter is not None:
+        rec["exchange"] = {k: {f: v / max(steps - 1, 1) for f, v in r.items()}
+                           for k, r in meter.x.items()}
+    return p, o, h, rec
+
+
+def mesh_rank_a(cfg, batches, want_digest, want_metrics):
+    """Phase 21 (a): one NCCL rank on ``(1,)`` and ``(1, 1)``, from the
+    control's initial params (seed 0 on the card, as the control's); each
+    run's params bit-equal to the control's by :func:`card_digest`."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import unshard_tree
+    from repro_torch.models import get_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = get_model(cfg).init_params(0, "cuda")
+    batches = [{k: v.to("cuda") for k, v in b.items()} for b in batches]
+    out = {"rank": torch.distributed.get_rank(),
+           "backend": torch.distributed.get_backend()}
+    for shape in ((1,), (1, 1)):
+        mesh = make_mesh(shape, device="cuda")
+        p, o, h, rec = mesh_train(cfg, params, batches, mesh, MESH_STEPS,
+                                  sync_debug=True)
+        del o
+        rec["params_equal"] = card_digest(
+            unshard_tree(p, h.param_sharding)) == want_digest
+        rec["metrics_equal"] = rec["metrics"] == want_metrics
+        out[shape] = rec
+        del p
+        _free()
+    return out
+
+
+def mesh_rank_b(cfg, batches, dcfg, dbatches, ckpt, eval_batch):
+    """Phase 21 (b)-(e) on one of two gloo ranks sharing the card: (b)
+    Qwen3 on ``(1, 2)``; (d) its trained params gathered, RTN-packed,
+    sliced and the packed perplexity on ``(1, 2)`` and without a mesh,
+    with the launches of each; (c) TinyLlama on ``(2, 1)``, (e) saved
+    there after its steps."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.pipeline import pack_model, quantize_model
+    from repro_torch.eval.ppl import perplexity
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.launch.sharding import (param_shardings, shard_tree,
+                                             unshard_tree)
+    from repro_torch.models.common import make_ctx
+    from repro_torch.models import get_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    on_card = lambda bs: [{k: v.to("cuda") for k, v in b.items()}  # noqa
+                          for b in bs]
+    batches, dbatches = on_card(batches), on_card(dbatches)
+    eval_batch = on_card([eval_batch])[0]
+    out = {"rank": torch.distributed.get_rank(),
+           "backend": torch.distributed.get_backend()}
+    meter = MeshMeter()
+    try:
+        mesh = make_mesh((1, 2), device="cuda")
+        params = get_model(cfg).init_params(0, "cuda")
+        out["b_coords"] = (mesh.data_rank, mesh.model_rank)
+        t0 = time.perf_counter()
+        p, o, h, out["b"] = mesh_train(cfg, params, batches, mesh,
+                                       MESH_STEPS, meter=meter)
+        del o, params
+        out["b"]["s"] = time.perf_counter() - t0
+        # (d) the trained params, packed, on (1, 2) and without a mesh
+        t0 = time.perf_counter()
+        whole = unshard_tree(p, h.param_sharding)
+        del p
+        _free()
+        qcfg = parse_quant("W2A16g128", kernel_backend="pallas")
+        calib = [{"tokens": b["tokens"][:1, :-1]} for b in batches[:2]]
+        pfq, qmeta, _ = quantize_model(cfg, whole, calib, qcfg,
+                                       method="none", init="rtn")
+        packed = pack_model(cfg, pfq, qmeta, qcfg)
+        del whole, pfq, qmeta
+        _free()
+        qspec = param_shardings(mesh, packed, cfg)
+        local = shard_tree(packed, qspec)
+        d = {"pack_s": time.perf_counter() - t0}
+        for tag, tree, ctx, kw in (
+                ("mesh", local, make_ctx(cfg, mesh=mesh,
+                                         kernel_backend="pallas"),
+                 {"shardings": qspec}),
+                ("none", packed, make_ctx(cfg, kernel_backend="pallas"),
+                 {})):
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            ppl = perplexity(cfg, tree, [eval_batch], ctx, **kw)
+            torch.cuda.synchronize()
+            d[tag] = {"ppl": ppl, "counts": dict(build.LAUNCHES),
+                      "s": time.perf_counter() - t0}
+        d["ep_axis"] = make_ctx(cfg, mesh=mesh).ep_axis
+        d["local_experts"] = int(local["blocks"]["moe"]["w_gate"]
+                                 .packed.shape[-3])
+        out["d"] = d
+        del local, packed
+        _free()
+        # (c) and (e): TinyLlama on (2, 1), saved after its steps
+        mesh = make_mesh((2, 1), device="cuda")
+        out["c_coords"] = (mesh.data_rank, mesh.model_rank)
+        dparams = get_model(dcfg).init_params(0, "cuda")
+        t0 = time.perf_counter()
+        p, o, h, out["c"] = mesh_train(dcfg, dparams, dbatches, mesh,
+                                       MESH_STEPS, meter=meter)
+        out["c"]["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        CheckpointManager(ckpt).save(
+            MESH_STEPS, {"params": p, "opt": o},
+            shardings={"params": h.param_sharding, "opt": h.opt_sharding})
+        out["e_save_s"] = time.perf_counter() - t0
+    finally:
+        meter.close()
+    return out
+
+
+def _mesh_line(tag, rec, ctrl, card):
+    x = rec.get("exchange", {})
+    ex = "; ".join(f"{k} {v['ms']:.1f} ms in {v['n']:.0f} calls, "
+                   f"{v['bytes'] / 1e9:.3f} GB" for k, v in x.items())
+    return (f"[mesh-train] {tag}: losses/grad_norms {rec['metrics']} "
+            f"(control {ctrl['metrics']}); {rec['step_ms']:.1f} ms a step "
+            f"(control {ctrl['step_ms']:.1f}); exchange a step: "
+            f"{ex or 'none'}; kept between steps {rec['kept'] / 1e9:.3f} GB "
+            f"(control {ctrl['kept'] / 1e9:.3f}); peak "
+            f"{rec['peak'] / 1e9:.3f} GB (control {ctrl['peak'] / 1e9:.3f});"
+            f" syncs in the last step {rec['syncs']} "
+            f"{rec.get('sync_sites', [])}; card=[{card}]")
+
+
+def _within(got, want, rel):
+    return all(abs(g - w) <= rel * abs(w)
+               for gs, ws in zip(got, want) for g, w in zip(gs, ws))
+
+
+def mesh_train_phase(card):
+    """Phase 21: training on a mesh (``make_train_harness(cfg, mesh)``).
+    Qwen3-30B-A3B at full width and ``MESH_LAYERS`` of 48, bf16 params, f32
+    Adam, 4 x 129 synthetic tokens, ``MESH_STEPS`` steps at lr 1e-3; the
+    no-mesh harness in this process is the control.  (a) One NCCL rank on
+    ``(1,)`` and ``(1, 1)``: losses, grad norms and params bit-identical to
+    the control, no sync in a step.  (b) Two gloo ranks sharing the card
+    on ``(1, 2)`` (64 experts a rank): losses and grad norms within
+    ``MESH_REL`` of the control, the bytes a rank keeps, its peak and its
+    exchange ms a step.  (c) TinyLlama-1.1B at full width and
+    ``MESH_LAYERS`` of 22 on ``(2, 1)`` (DP with FSDP slices) in the same
+    ranks, the same checks against its own control.  (d) Qwen3's trained
+    params from (b) gathered, RTN W2A16g128-packed and sliced by
+    ``param_shardings``: the packed perplexity of 4 x 128 tokens on ``(1,
+    2)`` through the kernels within ``MESH_PPL_REL`` of the no-mesh one,
+    the expert kernel and kernel 1 launched the counts the config gives on
+    each rank, beside the no-mesh run's.  (e) TinyLlama saved from ``(2,
+    1)`` (whole leaves), restored without a mesh here, one more step:
+    within ``MESH_REL`` of the control's step 4.  Returns the launch
+    counts by part."""
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.steps import make_train_harness
+    from repro_torch.models import get_model
+    times = {}
+    t0 = time.perf_counter()
+    cfg = get_config(MESH_ARCH).replace(num_layers=MESH_LAYERS)
+    dcfg = get_config(MESH_DENSE).replace(num_layers=MESH_LAYERS)
+    for c, shape in ((cfg, (1, 2)), (dcfg, (2, 1))):
+        r = mesh_reckon(c, shape)
+        print(f"[mesh-train] {c.name} L={c.num_layers}: {r['params']} params;"
+              f" params + grads + Adam moments whole "
+              f"{r['whole_bytes'] / 1e9:.3f} GB; kept between steps: the "
+              f"control {r['control_kept_bytes'] / 1e9:.3f} GB, a rank of "
+              f"{shape} {r['rank_bytes'] / 1e9:.3f} GB (from the shapes)",
+              flush=True)
+    batches = mesh_batches(cfg, MESH_STEPS)
+    dbatches = mesh_batches(dcfg, MESH_STEPS + 1)
+    build.reset_launch_counts()
+    cp, co, _, ctrl = mesh_train(cfg, get_model(cfg).init_params(0, "cuda"),
+                                 batches, None, MESH_STEPS, sync_debug=True)
+    del co
+    ctrl_digest = card_digest(cp)
+    del cp
+    _free()
+    dp, do, dh, dctrl = mesh_train(dcfg, get_model(dcfg).init_params(
+        0, "cuda"), dbatches, None, MESH_STEPS + 1)
+    del dp, do
+    ctrl_counts = dict(build.LAUNCHES)
+    _free()
+    # the ranks take host copies: CUDA IPC is refused with expandable
+    # segments on this machine
+    host = lambda bs: [{k: v.cpu() for k, v in b.items()}  # noqa: E731
+                       for b in bs]
+    times["controls"] = time.perf_counter() - t0
+    for tag, rec in (("control qwen3", ctrl), ("control tinyllama", dctrl)):
+        print(_mesh_line(tag, rec, rec, card), flush=True)
+    eval_batch = {"tokens": batches[0]["tokens"]}
+
+    with tempfile.TemporaryDirectory(prefix="mesh_train_") as ckpt:
+        t0 = time.perf_counter()
+        (one,) = run_ranks(mesh_rank_a, 1, backend="nccl", device="cuda",
+                           args=(cfg, host(batches), ctrl_digest,
+                                 ctrl["metrics"]),
+                           timeout=MESH_SPAWN_S)
+        times["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = run_ranks(mesh_rank_b, 2, backend="gloo", device="cuda",
+                        args=(cfg, host(batches), dcfg,
+                              host(dbatches[:MESH_STEPS]), ckpt,
+                              host([eval_batch])[0]),
+                        timeout=MESH_SPAWN_S)
+        times["b-d"] = time.perf_counter() - t0
+        # (e) the (2, 1) checkpoint restored without a mesh, one more step
+        t0 = time.perf_counter()
+        h = make_train_harness(dcfg, None, lr=MESH_LR)
+        like = get_model(dcfg).init_params(0, "cuda")
+        state = CheckpointManager(ckpt).restore(
+            MESH_STEPS, {"params": like, "opt": h.init_opt(like)})
+        _, _, m = h.step_fn(state["params"], state["opt"],
+                            dbatches[MESH_STEPS])
+        e_metrics = [(float(m["loss"]), float(m["grad_norm"]))]
+        times["e"] = time.perf_counter() - t0
+        del state, like
+
+    for shape in ((1,), (1, 1)):
+        rec = one[shape]
+        print(_mesh_line(f"(a) {one['backend']} rank 0 on {shape}", rec, ctrl,
+                         card) + f"; params bit-equal {rec['params_equal']}",
+              flush=True)
+        if not (rec["params_equal"] and rec["metrics_equal"]):
+            fail(f"mesh-train (a) on {shape}: not bit-identical to the "
+                 f"control ({rec['metrics']} vs {ctrl['metrics']})")
+        if rec["syncs"]:
+            fail(f"mesh-train (a) on {shape}: {rec['syncs']} syncs in a "
+                 f"step at {rec['sync_sites']}")
+    for r in two:
+        for part, want, shape in (("b", ctrl, "(1, 2)"),
+                                  ("c", dctrl, "(2, 1)")):
+            rec = r[part]
+            print(_mesh_line(f"({part}) gloo rank {r['rank']} on {shape} "
+                             f"(data, model) {r[part + '_coords']}", rec,
+                             want, card) + f"; {rec['s']:.1f} s", flush=True)
+            if not _within(rec["metrics"], want["metrics"][:MESH_STEPS],
+                           MESH_REL):
+                fail(f"mesh-train ({part}) rank {r['rank']}: "
+                     f"{rec['metrics']} vs the control's {want['metrics']}")
+            if rec["kept"] >= want["kept"]:
+                fail(f"mesh-train ({part}) rank {r['rank']} keeps "
+                     f"{rec['kept']} B, the control {want['kept']}")
+        d = r["d"]
+        L = cfg.num_layers
+        want_counts = {"quant_matmul": 4 * L, "quant_matmul_experts": 3 * L}
+        print(f"[mesh-train] (d) gloo rank {r['rank']}: {cfg.name} trained, "
+              f"RTN W2A16g128 + pack + slice {d['pack_s']:.1f} s; ep_axis "
+              f"{d['ep_axis']!r}, {d['local_experts']} experts a rank; packed"
+              f" perplexity on (1, 2) {d['mesh']['ppl']:.6g} "
+              f"({d['mesh']['s']:.2f} s), no mesh {d['none']['ppl']:.6g} "
+              f"({d['none']['s']:.2f} s); launches on (1, 2) "
+              f"{d['mesh']['counts']}, no mesh {d['none']['counts']}; "
+              f"card=[{card}]", flush=True)
+        if abs(d["mesh"]["ppl"] - d["none"]["ppl"]) > \
+                MESH_PPL_REL * d["none"]["ppl"] \
+                or not np.isfinite(d["mesh"]["ppl"]):
+            fail(f"mesh-train (d) rank {r['rank']}: perplexity "
+                 f"{d['mesh']['ppl']} vs {d['none']['ppl']}")
+        for tag in ("mesh", "none"):
+            got = {k: d[tag]["counts"][k] for k in want_counts}
+            if got != want_counts or any(
+                    v for k, v in d[tag]["counts"].items()
+                    if k not in want_counts):
+                fail(f"mesh-train (d) rank {r['rank']} {tag}: launches "
+                     f"{d[tag]['counts']}, expected {want_counts}")
+        if d["local_experts"] != cfg.moe.num_experts // 2:
+            fail(f"mesh-train (d): {d['local_experts']} experts a rank")
+    print(f"[mesh-train] (e) {dcfg.name} saved from (2, 1) at step "
+          f"{MESH_STEPS} ({two[0]['e_save_s']:.1f} s), restored without a "
+          f"mesh, step {MESH_STEPS + 1}: {e_metrics} (control "
+          f"{dctrl['metrics'][MESH_STEPS:]}); {times['e']:.1f} s",
+          flush=True)
+    if not _within(e_metrics, dctrl["metrics"][MESH_STEPS:], MESH_REL):
+        fail(f"mesh-train (e): {e_metrics} vs the control's "
+             f"{dctrl['metrics'][MESH_STEPS:]}")
+    if ctrl["syncs"]:
+        fail(f"mesh-train control: {ctrl['syncs']} syncs in a step at "
+             f"{ctrl['sync_sites']}")
+    print(f"[time] phase 21: controls {times['controls']:.1f}s, (a) "
+          f"{times['a']:.1f}s, (b)-(d) {times['b-d']:.1f}s, (e) "
+          f"{times['e']:.1f}s", flush=True)
+    return {"control": ctrl_counts,
+            **{f"gloo rank {r['rank']} (d)": _sum_counts(
+                r["d"]["mesh"]["counts"], r["d"]["none"]["counts"])
+               for r in two}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6471,6 +6950,11 @@ def main():
     shard_counts = shard_phase(card)
     print(f"[time] sharded reconstruction {time.perf_counter() - t0:.1f}s",
           flush=True)
+    _free()
+    t0 = time.perf_counter()
+    mesh_counts = mesh_train_phase(card)
+    print(f"[time] training on a mesh {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     sources = {"quant_matmul": "src/repro/kernels/quant_matmul.py:146",
                "quant_gemv": "src/repro/kernels/quant_gemv.py:120",
@@ -6578,7 +7062,9 @@ def main():
                    **{f"tp {part}": c[name]
                       for part, c in tp_counts.items()},
                    **{f"shard {part}": c[name]
-                      for part, c in shard_counts.items()}}
+                      for part, c in shard_counts.items()},
+                   **{f"mesh train {part}": c[name]
+                      for part, c in mesh_counts.items()}}
         if name.startswith("soft_round"):
             nums = summarize_soft_round(recs["soft_round"], name[-3:])
             nums["moe"] = summarize_soft_round(recs["soft_round"], name[-3:],

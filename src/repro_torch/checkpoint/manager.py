@@ -17,6 +17,12 @@ NamedTuple fields in order (``AdamState(step, m, v)``), a ``QTensor`` as
 the reference's names (``leaf_<i>``) with bf16 staged through f32, so each
 package restores the other's checkpoints.  A restored leaf takes the device
 and dtype of the ``like`` leaf it replaces.
+
+Elastic re-scale, as in the reference: a run on a mesh saves whole leaves
+(``save(..., shardings=...)`` gathers the ranks' slices, rank 0 writes,
+every rank waits on a barrier), so the on-disk format does not depend on
+the mesh, and ``restore(..., shardings=...)`` cuts each whole leaf to the
+rank's slice of another mesh's shardings, or of none.
 """
 from __future__ import annotations
 
@@ -28,8 +34,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.qtensor import QTensor
+from repro_torch.launch.sharding import shard_leaf, unshard_tree
 
 _NUMPY_DTYPES = (torch.float32, torch.float64, torch.float16, torch.int8,
                  torch.int16, torch.int32, torch.int64, torch.uint8,
@@ -139,7 +147,21 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, tree: Any, extra: Optional[dict] = None):
+    def save(self, step: int, tree: Any, extra: Optional[dict] = None,
+             shardings: Any = None):
+        """Write ``tree`` as step ``step``.  On a mesh, ``tree`` holds the
+        rank's slices and ``shardings`` (the tree of
+        ``launch.sharding.NamedSharding`` they were cut by) says how:
+        every rank calls ``save``, the whole leaves are gathered, rank 0
+        writes them and the others wait for it on a barrier."""
+        if shardings is not None:
+            whole = unshard_tree(tree, shardings)
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                if dist.get_rank() == 0:
+                    self.save(step, whole, extra)
+                dist.barrier()
+                return
+            tree = whole
         leaves = flatten(tree)
         tmp = self._step_dir(step) + ".tmp"
         if os.path.exists(tmp):
@@ -181,11 +203,10 @@ class CheckpointManager:
     # -- restore ------------------------------------------------------------
     def restore(self, step: int, like: Any, shardings: Any = None) -> Any:
         """Restore step ``step`` into the structure of ``like``, each leaf
-        on the device and in the dtype of ``like``'s leaf."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) needs a device mesh (ROADMAP queue "
-                "1, 'Parallelism on torch.distributed')")
+        on the device and in the dtype of ``like``'s leaf.  ``shardings``
+        (a tree of ``launch.sharding.NamedSharding`` mirroring ``like``,
+        on any mesh): each whole leaf is cut to the rank's slice — the
+        elastic path, whatever mesh the checkpoint was saved from."""
         with np.load(os.path.join(self._step_dir(step), "leaves.npz")) as data:
             arrays = [data[f"leaf_{i}"] for i in range(len(data.files))]
         like_leaves = flatten(like)
@@ -193,6 +214,13 @@ class CheckpointManager:
             raise ValueError(f"checkpoint/model mismatch: step {step} holds "
                              f"{len(arrays)} leaves, the structure "
                              f"{len(like_leaves)}")
+        if shardings is not None:
+            specs = flatten(shardings)
+            if len(specs) != len(arrays):
+                raise ValueError(f"restore: {len(specs)} shardings for "
+                                 f"{len(arrays)} leaves")
+            arrays = [shard_leaf(torch.from_numpy(np.array(a)), sh).numpy()
+                      for a, sh in zip(arrays, specs)]
         return unflatten(like, [_restore_leaf(a, r)
                                 for a, r in zip(arrays, like_leaves)])
 

@@ -88,7 +88,7 @@ from repro_torch.core.blocks import get_path, set_path
 from repro_torch.core.capture import stage_calibration
 from repro_torch.launch.mesh import (dp_axes, dp_size, make_data_mesh,
                                      tp_axis, tp_size)
-from repro_torch.launch.sharding import shard_tree
+from repro_torch.launch.sharding import shard_tree, unshard_tree
 from repro_torch.optim.adam import tree_leaves, tree_map
 
 # The engines a reconstruction method takes (``engine=``), as the
@@ -192,7 +192,7 @@ def harden_device(states, target_soft_rate: float, use_inf: bool, *,
     the new mask (and of ν under ``use_inf``)."""
     if mesh is not None and specs is not None and tp_size(mesh) > 1:
         keys = ("nu", "hard")
-        full = {p: {**st, **{k: _gather(st[k], specs[p][k], mesh)
+        full = {p: {**st, **{k: unshard_tree(st[k], specs[p][k], mesh)
                              for k in keys}}
                 for p, st in states.items()}
         full = harden_device(full, target_soft_rate, use_inf)
@@ -262,29 +262,6 @@ def resolve_mesh(mesh=None, device="cuda"):
     mesh over every rank of the process group (one rank without one) on
     ``device`` (the callers pass their streams' device)."""
     return mesh if mesh is not None else make_data_mesh(device=device)
-
-
-def _gather(x: torch.Tensor, dim, mesh) -> torch.Tensor:
-    """The whole of a leaf split along ``dim`` over the mesh's model group:
-    each member broadcasts its shard, in axis order, and the shards are
-    concatenated: the exact bytes (an all-reduce of zero-padded shards
-    would turn −0.0 into +0.0).  A None leaf or spec, or a model axis of
-    one rank, passes ``x`` through."""
-    if x is None or dim is None or tp_size(mesh) == 1:
-        return x
-    parts = []
-    for src in mesh.model_ranks:
-        buf = x if src == mesh.rank else torch.empty_like(x)
-        dist.broadcast(buf, src, group=mesh.group)
-        parts.append(buf)
-    return torch.cat(parts, dim)
-
-
-def gather_tree(tree, specs, mesh):
-    """:func:`_gather` over a tree (``specs`` mirrors it)."""
-    if isinstance(tree, dict):
-        return {k: gather_tree(v, specs[k], mesh) for k, v in tree.items()}
-    return _gather(tree, specs, mesh)
 
 
 def _flat_views(flat: torch.Tensor, like):
@@ -603,14 +580,14 @@ class ReconstructionEngine:
         if r:
             rows = rows - r * plan.pool_size // D
         if self.tp:
-            frozen = gather_tree(frozen, self.frozen_specs, self.mesh)
+            frozen = unshard_tree(frozen, self.frozen_specs, self.mesh)
         lv = None
         for idx in rows:
             xb = plan.X.index_select(0, idx)
             yb = plan.Y.index_select(0, idx)
             ab = (plan.aux.index_select(0, idx) if plan.aux is not None
                   else None)
-            whole = (gather_tree(trainables, self.tr_specs, self.mesh)
+            whole = (unshard_tree(trainables, self.tr_specs, self.mesh)
                      if self.tp else trainables)
             lv, grads = canonical_grad(self.objective, whole, frozen, xb,
                                        yb, chunks // D, ab, mesh=self.mesh,
@@ -664,7 +641,7 @@ def run_logged(eng: ReconstructionEngine, tr, opt_state, frozen,
     return tr, opt_state
 
 
-__all__ = ["ENGINES", "check_engine", "resolve_mesh", "gather_tree",
+__all__ = ["ENGINES", "check_engine", "resolve_mesh",
            "check_chunks", "host_read", "host_stage", "host_push",
            "host_batch",
            "sync_count", "reset_sync_count", "harden_device", "SignSGD",

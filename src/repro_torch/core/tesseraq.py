@@ -67,7 +67,7 @@ from repro_torch.core.blocks import get_path, quant_leaf_paths, set_path
 from repro_torch.core.quantizer import resolve_group
 from repro_torch.kernels.soft_round import SoftRound, soft_round_plain
 from repro_torch.launch.mesh import tp_size
-from repro_torch.launch.sharding import ParamSpec, shard_tree
+from repro_torch.launch.sharding import ParamSpec, shard_tree, unshard_tree
 from repro_torch.models.layers import resolve_backend
 from repro_torch.optim.adam import AdamW
 
@@ -291,7 +291,7 @@ def _soft_count(hard, mesh=None, specs=None):
         else:
             whole, total = whole + n, total + h.numel()
     if tp > 1 and torch.is_tensor(split):
-        split = RE.gather_tree(split.reshape(1), 0, mesh).sum()
+        split = unshard_tree(split.reshape(1), 0, mesh).sum()
     return split + whole, total
 
 
@@ -387,7 +387,7 @@ def _run_device(apply, bp, X, Y, aux, qcfg, tcfg: TesseraQConfig, states,
                         "soft_rate": float(stats[1]),
                         "state_bytes": _state_bytes(tr, opt_state, frozen)})
     if specs is not None:
-        states = RE.gather_tree(states, specs, mesh)
+        states = unshard_tree(states, specs, mesh)
     return states
 
 

@@ -6,6 +6,12 @@ more than 32 token rows goes through the quant-matmul kernel (its plain
 version on a CPU tensor).  It is inert for plain or fake-quant params.
 Batches may hold numpy arrays or tensors; they are moved to the params'
 device.
+
+Under a mesh ctx (``make_ctx(cfg, mesh=...)``) ``perplexity`` takes the
+rank's slices of the params and the shardings they were cut by
+(``launch.sharding.param_shardings``): it gathers them as the mesh train
+step does (the MoE experts stay split over the ``model`` axis), runs the
+rank's rows of each batch and averages the losses over the data group.
 """
 from __future__ import annotations
 
@@ -14,7 +20,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.launch.mesh import batch_rows, dp_size
+from repro_torch.launch.sharding import unshard_tree
+from repro_torch.launch.steps import entry_shardings
 from repro_torch.models import get_model
 from repro_torch.models.common import DEFAULT_CTX
 
@@ -29,17 +39,33 @@ def _device(params) -> torch.device:
 
 
 def perplexity(cfg, params, batches: List[Dict], ctx=DEFAULT_CTX,
-               backend: Optional[str] = None) -> float:
+               backend: Optional[str] = None, shardings=None) -> float:
     """exp(mean NLL) over token batches (the WikiText2-style metric); the
-    per-batch losses stay on the device until one read at the end."""
+    per-batch losses stay on the device until one read at the end.  On a
+    mesh ctx ``params`` are the rank's slices under ``shardings``."""
     ctx = _with_backend(ctx, backend)
     model = get_model(cfg)
     dev = _device(params)
+    mesh, rows = ctx.mesh, (lambda b: b)
+    if mesh is not None:
+        if shardings is None:
+            raise ValueError("perplexity on a mesh needs the shardings the "
+                             "params were cut by")
+        params = unshard_tree(params, entry_shardings(shardings, cfg))
+
+        def rows(b):
+            r = batch_rows(mesh, next(iter(b.values())).shape[0])
+            return {k: v[r] for k, v in b.items()}
     losses = []
     with torch.no_grad():
         for b in batches:
-            b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+            b = rows({k: torch.as_tensor(v, device=dev)
+                      for k, v in b.items()})
             losses.append(model.loss_fn(params, b, ctx).to(torch.float64))
+    if mesh is not None and losses and dp_size(mesh) > 1:
+        total = torch.stack(losses)
+        dist.all_reduce(total, group=mesh.data_group)
+        losses = list(total / dp_size(mesh))
     if not losses:
         return 1.0
     tot = float(torch.stack(losses).sum())

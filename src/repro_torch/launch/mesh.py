@@ -6,11 +6,12 @@ runs its steps under ``shard_map``.  Here one process is one rank:
 :class:`Mesh` is that rank's view of the same mesh — the world size, its
 rank, the shape and axis names (row-major over the ranks, as the
 reference's mesh places its devices), the process group of its ``model``
-axis (the ``tp`` consecutive ranks that hold one model's shards) and of its
-data-parallel axes (the ranks with the same ``model`` index), and the
-device it runs on.  ``shard_map``'s per-shard body becomes the rank's own
-step on its local shard; ``psum`` / ``all_gather`` over an axis become
-collectives over that axis's group.
+axis (the ``tp`` consecutive ranks that hold one model's shards), of its
+data-parallel axes (the ranks with the same ``model`` index) and of each
+named axis on its own (:meth:`Mesh.group_of`), and the device it runs
+on.  ``shard_map``'s per-shard body becomes the rank's own step on its
+local shard; ``psum`` / ``all_gather`` over an axis become collectives
+over that axis's group.
 
 :func:`make_mesh` and :func:`make_data_mesh` build the reference's general
 and calibration meshes (``engine="sharded"``), :func:`serve_mesh` the serve
@@ -24,7 +25,8 @@ The backend of the process group is always the caller's choice
 on ranks that share a card (it stages a CUDA collective through the host).
 
 Not here yet (ROADMAP queue 1, "Parallelism on torch.distributed"): the
-reference's ``make_production_mesh`` and the pod helpers, which raise.
+reference's ``make_production_mesh`` and the pod walk's helpers
+(``pod_submeshes``, ``reshard_between_pods``, item 9.4), which raise.
 """
 from __future__ import annotations
 
@@ -76,9 +78,12 @@ class Mesh:
     the serve steps and the TP gathers of the sharded engine run over it),
     ``data_group`` that of its data-parallel axes (``pod`` and ``data``:
     the ranks with the same ``model`` index, over which the sharded
-    engine exchanges its gradient).  Both are None on a mesh of one rank
-    without a process group.  ``device`` is the ``torch.device`` the rank
-    runs on."""
+    engine exchanges its gradient).  ``axis_groups`` maps each axis name
+    to the process group of the rank's line along that axis alone (the
+    collectives of ``pmax`` / ``psum`` over one named axis, e.g.
+    ``optim.compression.compressed_psum``'s ``pod``).  All are None on a
+    mesh of one rank without a process group.  ``device`` is the
+    ``torch.device`` the rank runs on."""
     world: int
     rank: int
     shape: Tuple[int, ...]
@@ -86,22 +91,19 @@ class Mesh:
     device: torch.device
     axis_names: Tuple[str, ...] = AXES
     data_group: Any = dataclasses.field(default=None, repr=False)
+    axis_groups: Any = dataclasses.field(default=None, repr=False,
+                                         compare=False)
 
     @property
     def model_ranks(self) -> Tuple[int, ...]:
         """Global ranks of the rank's ``model`` group, in axis order."""
-        if tp_axis(self) is None:
-            return (self.rank,)
-        return _group_of(self.shape, self.axis_names, ("model",), self.rank)
+        return self.ranks_of(("model",) if tp_axis(self) else ())
 
     @property
     def data_ranks(self) -> Tuple[int, ...]:
         """Global ranks of the rank's data-parallel group, row-major over
         the DP axes."""
-        axes = dp_axes(self)
-        if not axes:
-            return (self.rank,)
-        return _group_of(self.shape, self.axis_names, axes, self.rank)
+        return self.ranks_of(dp_axes(self))
 
     @property
     def model_rank(self) -> int:
@@ -113,6 +115,51 @@ class Mesh:
         """The rank's position over the data-parallel axes (its replica
         index, the reference's linearized ``_dp_rank``)."""
         return self.data_ranks.index(self.rank)
+
+    def _axes(self, axes) -> Tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        bad = [a for a in axes if a not in self.axis_names]
+        if bad:
+            raise ValueError(f"axes {bad} are not on the mesh's "
+                             f"{self.axis_names}")
+        return axes
+
+    def size_of(self, axes) -> int:
+        """The extent of one axis, or the product over a tuple of axes."""
+        return math.prod(int(self.shape[self.axis_names.index(a)])
+                         for a in self._axes(axes))
+
+    def ranks_of(self, axes) -> Tuple[int, ...]:
+        """Global ranks of the rank's line along ``axes`` (a name or a
+        tuple; none: the rank alone), row-major over them: the order in
+        which a dim split over ``axes`` concatenates."""
+        axes = self._axes(axes)
+        if not axes:
+            return (self.rank,)
+        return _group_of(self.shape, self.axis_names, axes, self.rank)
+
+    def index_of(self, axes) -> int:
+        """The rank's position along ``axes`` (row-major over a tuple)."""
+        return self.ranks_of(axes).index(self.rank)
+
+    def group_of(self, axes):
+        """The process group of the rank's line along ``axes``: one named
+        axis, the data-parallel axes together, or every axis of the mesh
+        (the default group, None).  None too on a line of one rank, where
+        no collective runs."""
+        axes = self._axes(axes)
+        if self.size_of(axes) == 1:
+            return None
+        if set(axes) == set(self.axis_names):
+            return None
+        if axes == ("model",):
+            return self.group
+        if len(axes) == 1:
+            return self.axis_groups[axes[0]]
+        if set(axes) == set(dp_axes(self)):
+            return self.data_group
+        raise ValueError(f"no process group over {axes} on a mesh of "
+                         f"{self.axis_names}")
 
 
 def check_backend(backend: str, world: int, device) -> None:
@@ -143,22 +190,27 @@ def rank_device(rank: int, device="cuda") -> torch.device:
 
 
 def _groups(shape, axis_names, rank):
-    """The rank's (model group, data group), made by every rank of the
-    process group (each ``dist.new_group`` is a collective of all ranks,
-    called in the same order on every rank)."""
-    mine = {}
-    for key, axes in (("model", ("model",) if "model" in axis_names
-                       else ()),
-                      ("data", tuple(a for a in axis_names
-                                     if a in DP_AXES))):
-        mine[key] = None
+    """The rank's (model group, data group, {axis: group}), made by every
+    rank of the process group (each ``dist.new_group`` is a collective of
+    all ranks, called in the same order on every rank).  A set of axes
+    already made (the data axes of a ``("data",)`` mesh are its one axis)
+    is not made twice."""
+    made = {}
+
+    def group(axes):
         if not axes:
-            continue
-        for members in _axis_groups(shape, axis_names, axes):
-            g = dist.new_group([int(m) for m in members])
-            if rank in members:
-                mine[key] = g
-    return mine["model"], mine["data"]
+            return None
+        if axes not in made:
+            made[axes] = None
+            for members in _axis_groups(shape, axis_names, axes):
+                g = dist.new_group([int(m) for m in members])
+                if rank in members:
+                    made[axes] = g
+        return made[axes]
+
+    model = group(("model",) if "model" in axis_names else ())
+    data = group(tuple(a for a in axis_names if a in DP_AXES))
+    return model, data, {a: group((a,)) for a in axis_names}
 
 
 def _build(shape, axis_names, device, who: str) -> Mesh:
@@ -184,9 +236,10 @@ def _build(shape, axis_names, device, who: str) -> Mesh:
     rank = dist.get_rank()
     dev = rank_device(rank, device)
     check_backend(dist.get_backend(), n, dev)
-    group, data_group = _groups(shape, axis_names, rank)
+    group, data_group, axis_groups = _groups(shape, axis_names, rank)
     return Mesh(world=n, rank=rank, shape=shape, group=group, device=dev,
-                axis_names=axis_names, data_group=data_group)
+                axis_names=axis_names, data_group=data_group,
+                axis_groups=axis_groups)
 
 
 def make_mesh(shape, axes=None, *, device="cuda") -> Mesh:
@@ -299,13 +352,14 @@ def pod_count(mesh) -> int:
 
 def pod_submeshes(mesh) -> list:
     """The reference's per-pod submeshes of the pipelined block walk."""
-    raise NotImplementedError(f"pod_submeshes is not ported yet ({_POD_WALK})")
+    raise NotImplementedError(f"pod_submeshes is not ported yet ({_POD_WALK}"
+                              ", item 9.4)")
 
 
 def reshard_between_pods(x, dst_mesh, spec=None):
     """The reference's cross-pod transfer of the pipelined block walk."""
     raise NotImplementedError(
-        f"reshard_between_pods is not ported yet ({_POD_WALK})")
+        f"reshard_between_pods is not ported yet ({_POD_WALK}, item 9.4)")
 
 
 def validate_single_pod(mesh, what: str) -> None:
@@ -329,6 +383,10 @@ def _rank_main(rank, fn, world, backend, device, init, args, results):
             torch.cuda.set_device(dev)
         dist.init_process_group(backend, init_method=init, world_size=world,
                                 rank=rank)
+        # no rank runs (and may finish and leave) before every rank has
+        # joined: a rank that leaves early closes the connections a slower
+        # rank's gloo handshake still needs
+        dist.barrier()
         try:
             out = fn(*args)
         finally:

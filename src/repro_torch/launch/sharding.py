@@ -24,22 +24,34 @@ All of this is a pure function of shapes.
 The reconstruction stack's side of the contract is :class:`ParamSpec`: for
 every per-block array the sharded engine carries (the weight, ν / v and
 their frozen companions, and through them the Adam moments) the dim it
-splits over the ``model`` axis, or None where it replicates.  The
-reference's ``logical_table``, ``resolve_spec``, ``param_shardings``,
-``batch_shardings`` and ``cache_shardings`` serve its GSPMD serve path and
-the dry-run; they wait with ``dryrun`` / ``hlo_stats`` (ROADMAP queue 1,
-"Parallelism on torch.distributed", item 5).
+splits over the ``model`` axis, or None where it replicates.
+
+Training on a mesh reads the reference's logical-axis rules:
+:func:`logical_table` maps logical dim names to mesh axes,
+:func:`resolve_spec` turns a leaf's logical dims into a
+:class:`PartitionSpec` (a dim that does not divide by its axes' extent
+replicates, and the first dim to claim an axis keeps it), and
+:func:`param_shardings` / :func:`batch_shardings` give a tree of
+:class:`NamedSharding` for params (``QTensor``-aware) and batches.  Each
+rank holds the slice its shardings name (:func:`shard_tree`) and gathers
+whole leaves from the slices with :func:`unshard_tree`.  The reference's
+``cache_shardings`` and ``make_sharder`` serve only its GSPMD serve path
+and the dry-run, and wait with them (ROADMAP queue 1, "Parallelism on
+torch.distributed", item 9.5).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qtensor import PACK_FACTOR, QTensor
-from repro_torch.launch.mesh import tp_axis, tp_size, validate_single_pod
+from repro_torch.launch.mesh import (dp_axes, tp_axis, tp_size,
+                                     validate_single_pod)
 from repro_torch.models.common import (LEAF_FIXED, LEAF_TOKEN, _get_leaf,
                                        _leaf_paths, _set_leaf)
 from repro_torch.models.layers import PsumWeight
@@ -174,15 +186,244 @@ class ParamSpec:
                 for p, st in states.items()}
 
 
-def shard_tree(tree, specs, mesh):
-    """The rank's slice of every split leaf of ``tree`` (``specs`` mirrors
-    it; a None spec or leaf passes through), each contiguous: shard
-    ``mesh.model_rank`` of ``tp_size(mesh)`` along its dim."""
+# --------------------------------------------------------------------------
+# the reference's logical-axis rules: specs, shardings, slices and gathers
+# --------------------------------------------------------------------------
+
+class PartitionSpec(tuple):
+    """One entry per leading dim of a tensor: the mesh axis it splits over,
+    a tuple of axes (split over their product, row-major), or None
+    (replicated); dims past the last entry replicate.  The reference's
+    ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A :class:`PartitionSpec` on a mesh (the reference's
+    ``NamedSharding``): which slice of a leaf each rank holds."""
+    mesh: Any
+    spec: PartitionSpec
+
+
+def logical_table(mesh, overrides=None) -> dict:
+    """Logical dim name -> tuple of mesh axes."""
+    tp = ("model",) if "model" in mesh.axis_names else ()
+    table = {
+        "batch": dp_axes(mesh),
+        "fsdp": ("data",) if "data" in mesh.axis_names else (),
+        "tensor": tp, "expert": tp, "vocab": tp, "heads": tp,
+        "kv_heads": tp,
+        None: (), "seq": (),
+        "res_seq": (),      # residual-stream sequence dim
+        "embed": (),
+    }
+    if overrides:
+        table.update(overrides)
+    return table
+
+
+def _axis_size(mesh, axes) -> int:
+    return math.prod(int(mesh.shape[mesh.axis_names.index(a)]) for a in axes)
+
+
+def resolve_spec(mesh, logical: tuple, shape, overrides=None) -> PartitionSpec:
+    """Logical dim names -> :class:`PartitionSpec`: a dim that its axes'
+    extent does not divide replicates, and an axis goes to the first dim
+    that claims it.  A spec may name fewer dims than the tensor has."""
+    table = logical_table(mesh, overrides)
+    out, used = [], set()
+    for name, dim in zip(logical, shape):
+        axes = tuple(table.get(name, ()))
+        if axes and dim % _axis_size(mesh, axes) == 0 \
+                and not (set(axes) & used):
+            out.append(axes if len(axes) > 1 else axes[0])
+            used.update(axes)
+        else:
+            out.append(None)
+    return PartitionSpec(*out)
+
+
+MOE_EXPERT_LEAVES = frozenset({"w_gate", "w_up", "w_down"})
+
+
+def _leaf_ndim(leaf) -> int:
+    return leaf.packed.ndim if isinstance(leaf, QTensor) else leaf.ndim
+
+
+def _leaf_logical(path, leaf, cfg: ModelConfig) -> tuple:
+    """Logical dim names of a param leaf: ``PARAM_RULES`` on its trailing
+    (in, out) dims, None on the leading (layer) dims; a stacked MoE
+    expert weight puts ``expert`` on its expert dim and ``fsdp`` on its
+    reduction dim (the reference gathers that dim at its ``shard_map``
+    entry, ZeRO-3 style)."""
+    n = _leaf_ndim(leaf)
+    if path[-1] not in PARAM_RULES:
+        return (None,) * n
+    rule = PARAM_RULES[path[-1]]
+    lead = [None] * (n - 2)
+    # stacked MoE experts: (L, E, in, out) or (E, in, out)
+    if cfg.family == "moe" and path[-1] in MOE_EXPERT_LEAVES and n >= 3:
+        lead[-1] = "expert"
+        rule = ("fsdp", None)
+    return tuple(lead) + rule
+
+
+def _qtensor_spec(mesh, qt: QTensor, logical, overrides=None) -> QTensor:
+    """A QTensor of shardings: ``packed`` takes the leaf's logical dims,
+    ``scale`` / ``zero`` the out dim alone, ``act_scale`` none of the
+    trailing ones."""
+    lead, in_l, out_l = logical[:-2], logical[-2], logical[-1]
+
+    def named(lg, t):
+        return NamedSharding(mesh, resolve_spec(mesh, lg, t.shape, overrides))
+    return QTensor(
+        packed=named(lead + (in_l, out_l), qt.packed),
+        scale=named(lead + (None, out_l), qt.scale),
+        zero=named(lead + (None, out_l), qt.zero),
+        bits=qt.bits, group_size=qt.group_size, shape=qt.shape,
+        act_scale=(named(lead + (None,), qt.act_scale)
+                   if qt.act_scale is not None else None))
+
+
+def param_shardings(mesh, params, cfg: ModelConfig, overrides=None):
+    """A tree of :class:`NamedSharding` matching ``params`` (a QTensor
+    gets a QTensor of them).  Reads only the mesh's axis names and
+    extents and the leaves' shapes."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, QTensor):
+            return _qtensor_spec(mesh, node, _leaf_logical(path, node, cfg),
+                                 overrides)
+        return NamedSharding(mesh, resolve_spec(
+            mesh, _leaf_logical(path, node, cfg), node.shape, overrides))
+    return walk(params, ())
+
+
+def batch_shardings(mesh, batch_struct):
+    """Batch dicts: dim 0 over the data-parallel axes, where they divide
+    it; scalars replicate."""
+    dp = dp_axes(mesh)
+
+    def one(leaf):
+        spec = [None] * leaf.ndim
+        if leaf.ndim and dp and leaf.shape[0] % _axis_size(mesh, dp) == 0:
+            spec[0] = dp if len(dp) > 1 else dp[0]
+        return NamedSharding(mesh, PartitionSpec(*spec))
+    return {k: one(v) for k, v in batch_struct.items()}
+
+
+def _axes_of(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _spec_of(spec, mesh):
+    """(PartitionSpec, mesh) of one spec leaf: a NamedSharding, a
+    PartitionSpec on ``mesh``, or an int — :class:`ParamSpec`'s split dim
+    over the ``model`` axis."""
+    if isinstance(spec, NamedSharding):
+        return spec.spec, spec.mesh
+    if isinstance(spec, int):
+        ent = [None] * (spec + 1)
+        ent[spec] = tp_axis(mesh)
+        return PartitionSpec(*ent), mesh
+    return spec, mesh
+
+
+def shard_leaf(t: torch.Tensor, spec, mesh=None) -> torch.Tensor:
+    """The rank's slice of ``t`` under ``spec`` (see :func:`_spec_of`):
+    along each split dim, block ``mesh.index_of(axes)`` of
+    ``mesh.size_of(axes)``, contiguous; ``t`` itself where nothing
+    splits."""
+    spec, mesh = _spec_of(spec, mesh)
+    for dim, entry in enumerate(spec):
+        axes = _axes_of(entry)
+        if axes:
+            t = _shard(t, dim, mesh.index_of(axes), mesh.size_of(axes))
+    return t
+
+
+def _gather_dim(x: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
+    """The whole of ``x`` along ``dim`` from the slices of the rank's line
+    over ``axes``: each member broadcasts its slice, in line order, and
+    they are concatenated (the exact bytes; gloo runs broadcast on CUDA
+    tensors)."""
+    n = mesh.size_of(axes)
+    if n == 1:
+        return x
+    group = mesh.group_of(axes)
+    x = x.contiguous()
+    parts = []
+    for src in mesh.ranks_of(axes):
+        buf = x if src == mesh.rank else torch.empty_like(x)
+        dist.broadcast(buf, src, group=group)
+        parts.append(buf)
+    return torch.cat(parts, dim)
+
+
+def unshard_leaf(t: torch.Tensor, spec, mesh=None) -> torch.Tensor:
+    """The inverse of :func:`shard_leaf`: the whole leaf gathered from
+    the ranks' slices (a collective of every rank of each split line)."""
+    spec, mesh = _spec_of(spec, mesh)
+    for dim, entry in reversed(list(enumerate(spec))):
+        axes = _axes_of(entry)
+        if axes:
+            t = _gather_dim(t, dim, axes, mesh)
+    return t
+
+
+def _map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of dicts, QTensors and named tuples
+    (an optimizer state) and its spec tree; a None leaf or spec passes the
+    leaf through."""
     if isinstance(tree, dict):
-        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, QTensor):       # its shape follows its packed
+        return _localize_qtensor(QTensor(
+            packed=_map_specs(fn, tree.packed, specs.packed),
+            scale=_map_specs(fn, tree.scale, specs.scale),
+            zero=_map_specs(fn, tree.zero, specs.zero), bits=tree.bits,
+            group_size=tree.group_size, shape=tree.shape,
+            act_scale=_map_specs(fn, tree.act_scale, specs.act_scale)))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_specs(fn, v, s)
+                            for v, s in zip(tree, specs)))
     if tree is None or specs is None:
         return tree
-    return _shard(tree, specs, mesh.model_rank, tp_size(mesh))
+    return fn(tree, specs)
+
+
+def shard_tree(tree, specs, mesh=None):
+    """The rank's slice of every split leaf of ``tree`` (``specs`` mirrors
+    it with NamedShardings, PartitionSpecs on ``mesh``, or ParamSpec's
+    split dims over the ``model`` axis); a QTensor's ``shape`` follows its
+    sliced ``packed``."""
+    return _map_specs(lambda t, s: shard_leaf(t, s, mesh), tree, specs)
+
+
+def unshard_tree(tree, specs, mesh=None):
+    """The inverse of :func:`shard_tree`: every leaf whole, gathered from
+    the ranks' slices; called by every rank of the mesh."""
+    return _map_specs(lambda t, s: unshard_leaf(t, s, mesh), tree, specs)
+
+
+def replicas(sharding) -> int:
+    """How many ranks hold each slice of a leaf under ``sharding``: the
+    mesh's ranks over the product of the extents it splits over."""
+    spec, mesh = _spec_of(sharding, None)
+    split = math.prod(mesh.size_of(_axes_of(e)) for e in spec if e)
+    return mesh.world // split
 
 
 # leaf name -> split ("out" | "in" | "expert"), per family.  Absent names

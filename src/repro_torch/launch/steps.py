@@ -1,14 +1,23 @@
-"""The single-device train step (``make_train_harness``), the prefill/decode
-steps for single-device and tensor-parallel serving, the scheduler's masked
-decode step and the paged store's admission step."""
+"""The train step on one device or on a mesh (``make_train_harness``,
+``jit_train_step``), the prefill/decode steps for single-device and
+tensor-parallel serving, the scheduler's masked decode step and the paged
+store's admission step."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.checkpoint.manager import flatten
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.qtensor import QTensor
+from repro_torch.launch.mesh import batch_rows, dp_size
+from repro_torch.launch.sharding import (MOE_EXPERT_LEAVES, NamedSharding,
+                                         PartitionSpec, batch_shardings,
+                                         param_shardings, replicas,
+                                         shard_tree, unshard_tree)
 from repro_torch.models import get_model
 from repro_torch.models.common import (CACHE_SLOT_AXIS, _get_leaf, make_ctx,
                                        page_rows)
@@ -28,8 +37,10 @@ _PARALLEL = "ROADMAP queue 1, 'Parallelism on torch.distributed'"
 class TrainHarness:
     """``step_fn(params, opt_state, batch) -> (params, opt_state, metrics)``
     with ``metrics = {"loss", "grad_norm"}`` (f32 device scalars);
-    ``init_params(seed, device)``; ``init_opt(params)``.  The sharding
-    fields are the reference's and stay None on one device."""
+    ``init_params(seed, device)``; ``init_opt(params)``.  On a mesh
+    ``param_sharding`` / ``opt_sharding`` are the placement ``step_fn``
+    reads (trees of ``launch.sharding.NamedSharding``); None on one
+    device.  ``mesh`` is the harness's mesh."""
     cfg: ModelConfig
     step_fn: Any
     init_params: Any
@@ -37,6 +48,7 @@ class TrainHarness:
     param_sharding: Any = None
     opt_sharding: Any = None
     batch_sharding: Any = None
+    mesh: Any = None
 
 
 def _value_and_grad(model, ctx, params, batch):
@@ -50,6 +62,15 @@ def _value_and_grad(model, ctx, params, batch):
     return loss.detach(), tree_map(lambda _: next(grads), p)
 
 
+def param_struct(cfg: ModelConfig):
+    """The whole param tree of ``cfg`` as fake tensors: shapes and dtypes,
+    nothing allocated (the reference's ``jax.eval_shape`` of
+    ``init_params``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return get_model(cfg).init_params(0, "cpu")
+
+
 def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
                        grad_clip: float = 1.0,
                        grad_compression: bool = False,
@@ -57,24 +78,32 @@ def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
                        microbatches: int = 1,
                        seq_parallel: bool = False,
                        extra_overrides=None) -> TrainHarness:
-    """The reference's train harness on one device: next-token loss,
-    gradients (averaged over ``microbatches`` slices of the batch, summed in
+    """The reference's train harness: next-token loss, gradients (averaged
+    over ``microbatches`` slices of the batch, summed in
     ``cfg.optimizer_dtype``), clipping to ``grad_clip`` by the global norm,
     optional int8 compression with error feedback, then AdamW (``lr`` a
     float or a schedule of the step, e.g. ``optim.adam.cosine_schedule``).
 
     ``step_fn`` is pure: it returns new tensors and never writes its
     inputs, so one ``params`` may start two runs.  ``remat`` follows
-    ``cfg.remat``.  A mesh, ``seq_parallel`` and ``extra_overrides`` (the
-    reference's mesh-axis remaps) need the port's parallel modes."""
-    if mesh is not None or seq_parallel or extra_overrides:
+    ``cfg.remat``.
+
+    On a ``mesh`` (a ``launch.mesh.Mesh``; every rank calls ``step_fn``)
+    the params and the optimizer state are the rank's slices under
+    ``param_shardings`` / ``opt_sharding_like`` and the batch is the
+    global one; see :func:`_mesh_step`.  ``seq_parallel`` and
+    ``extra_overrides`` remap only the reference's activation sharding
+    constraints, which wait with its GSPMD serve path, and raise."""
+    if seq_parallel or extra_overrides:
         raise NotImplementedError(
-            "make_train_harness: meshes, sequence parallelism and sharding "
-            f"overrides are not ported yet ({_PARALLEL})")
+            "make_train_harness: sequence parallelism and sharding "
+            "overrides remap the reference's activation sharding "
+            f"constraints, which wait with make_sharder ({_PARALLEL}, "
+            "item 9.5)")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     model = get_model(cfg)
-    ctx = make_ctx(cfg, attn_chunk=attn_chunk)
+    ctx = make_ctx(cfg, attn_chunk=attn_chunk, mesh=mesh)
     acc_dt = _DTYPES[cfg.optimizer_dtype]           # Adam m/v and sums
     opt = AdamW(lr=lr, state_dtype=acc_dt)
 
@@ -84,47 +113,192 @@ def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
             state["ef"] = init_error(params)
         return state
 
-    def step_fn(params, opt_state, batch):
+    def grads_of(params, batch, local=None):
+        """(loss, grads) over ``microbatches`` slices of ``batch``.  On a
+        mesh ``local(ub) -> (rows, weight)`` cuts each slice to the rank's
+        rows and weighs its loss and gradients by the rank's share of it."""
+        n = next(iter(batch.values())).shape[0]
+        if n % microbatches:
+            raise ValueError(f"batch of {n} does not split into "
+                             f"{microbatches} microbatches")
+
+        def one(ub):
+            if local is None:
+                return _value_and_grad(model, ctx, params, ub)
+            rows, w = local(ub)
+            l_i, g_i = _value_and_grad(model, ctx, params,
+                                       {k: v[rows] for k, v in ub.items()})
+            if w is None:
+                return l_i, g_i
+            return l_i * w, tree_map(lambda g: g * w.to(g.dtype), g_i)
+        if microbatches == 1:
+            return one(batch)
         dev = tree_leaves(params)[0].device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        if microbatches > 1:
-            n = next(iter(batch.values())).shape[0]
-            if n % microbatches:
-                raise ValueError(f"batch of {n} does not split into "
-                                 f"{microbatches} microbatches")
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
-            grads = tree_map(lambda t: torch.zeros(t.shape, dtype=acc_dt,
-                                                   device=dev), params)
-            for i in range(microbatches):
-                ub = {k: v.reshape(microbatches, n // microbatches,
-                                   *v.shape[1:])[i] for k, v in batch.items()}
-                l_i, g_i = _value_and_grad(model, ctx, params, ub)
-                loss = loss + l_i
-                grads = tree_map(lambda a, g: a + g.to(acc_dt), grads, g_i)
-            loss = loss / microbatches
-            grads = tree_map(lambda g: g / microbatches, grads)
-        else:
-            loss, grads = _value_and_grad(model, ctx, params, batch)
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        grads = tree_map(lambda t: torch.zeros(t.shape, dtype=acc_dt,
+                                               device=dev), params)
+        for i in range(microbatches):
+            l_i, g_i = one({k: v.reshape(microbatches, n // microbatches,
+                                         *v.shape[1:])[i]
+                            for k, v in batch.items()})
+            loss = loss + l_i
+            grads = tree_map(lambda a, g: a + g.to(acc_dt), grads, g_i)
+        return loss / microbatches, tree_map(lambda g: g / microbatches,
+                                             grads)
+
+    def finish(params, opt_state, grads, loss, pspec=None):
+        reps = None if pspec is None else tree_map(replicas, pspec)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, reps)
         new_state = {}
         if grad_compression:
-            grads, new_state["ef"] = compress_decompress(grads,
-                                                         opt_state["ef"])
+            grads, new_state["ef"] = compress_decompress(
+                grads, opt_state["ef"], mesh)
         new_p, new_state["adam"] = opt.update(grads, opt_state["adam"],
                                               params)
         return new_p, new_state, {"loss": loss, "grad_norm": gnorm}
 
-    return TrainHarness(cfg, step_fn, model.init_params, init_opt)
+    if mesh is None:
+        def step_fn(params, opt_state, batch):
+            dev = tree_leaves(params)[0].device
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in batch.items()}
+            loss, grads = grads_of(params, batch)
+            return finish(params, opt_state, grads, loss)
+        return TrainHarness(cfg, step_fn, model.init_params, init_opt)
+
+    pspec = param_shardings(mesh, param_struct(cfg), cfg)
+    ospec = _opt_sharding(mesh, pspec, grad_compression)
+
+    def step_fn(params, opt_state, batch):
+        return _mesh_step(mesh, cfg, pspec, grads_of, finish, params,
+                          opt_state, batch)
+    return TrainHarness(cfg, step_fn, model.init_params, init_opt,
+                        param_sharding=pspec, opt_sharding=ospec, mesh=mesh)
 
 
-def jit_train_step(harness: TrainHarness, mesh, params_struct, batch_struct):
-    """The reference's sharded, donated train step over a mesh."""
-    raise NotImplementedError(f"jit_train_step needs a mesh ({_PARALLEL})")
+def _opt_sharding(mesh, pspec, compressed: bool) -> dict:
+    """The optimizer state's shardings: Adam's moments and the error
+    feedback buffers like their params (ZeRO-1 falls out of the ``fsdp``
+    split), the step counter replicated."""
+    out = {"adam": AdamW().state_specs(pspec)._replace(
+        step=NamedSharding(mesh, PartitionSpec()))}
+    if compressed:
+        out["ef"] = pspec
+    return out
 
 
 def opt_sharding_like(mesh, opt_struct, params_struct, cfg):
-    """The reference's optimizer-state shardings over a mesh."""
-    raise NotImplementedError(f"opt_sharding_like needs a mesh ({_PARALLEL})")
+    """Adam m/v (and EF buffers) shard exactly like their parameters; the
+    step counter replicates.  ``opt_struct`` names which parts exist."""
+    return _opt_sharding(mesh, param_shardings(mesh, params_struct, cfg),
+                         "ef" in opt_struct)
+
+
+def jit_train_step(harness: TrainHarness, mesh, params_struct, batch_struct):
+    """The reference's sharded train step over ``mesh``: returns ``(step,
+    (pspec, ospec, bspec))``, ``step(params, opt_state, batch)`` taking the
+    rank's slices (``shard_tree(whole, pspec)``) and the global batch.
+    There is nothing to compile or donate: ``step`` is the harness's
+    ``step_fn``, which must have been made for ``mesh`` and place the
+    params as ``params_struct``'s shardings do."""
+    if harness.mesh is not mesh:
+        raise ValueError("jit_train_step: the harness was made for another "
+                         "mesh (make_train_harness(cfg, mesh))")
+    pspec = param_shardings(mesh, params_struct, harness.cfg)
+    if _specs(pspec) != _specs(harness.param_sharding):
+        raise ValueError("jit_train_step: params_struct places the params "
+                         "otherwise than the harness's config does")
+    return harness.step_fn, (pspec, harness.opt_sharding,
+                             batch_shardings(mesh, batch_struct))
+
+
+def _specs(tree) -> list:
+    return [s.spec for s in flatten(tree)]
+
+
+def entry_shardings(pspec, cfg: ModelConfig):
+    """What a mesh step gathers of each leaf: its sharding, except that a
+    stacked MoE expert weight keeps its ``model`` split (the rank computes
+    its own experts) and gathers only its ``fsdp`` dim — the reference's
+    ``shard_map`` entry."""
+    def local(sh):
+        if sh is None:
+            return None
+        return NamedSharding(sh.mesh, PartitionSpec(*(
+            None if e == "model" else e for e in sh.spec)))
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        spec = (node.packed if isinstance(node, QTensor) else node).spec
+        if (cfg.family != "moe" or path[-1] not in MOE_EXPERT_LEAVES
+                or len(spec) < 3):
+            return node
+        if isinstance(node, QTensor):
+            return QTensor(local(node.packed), local(node.scale),
+                           local(node.zero), node.bits, node.group_size,
+                           node.shape, local(node.act_scale))
+        return local(node)
+    return walk(pspec, ())
+
+
+def _reduce_over_data(mesh, loss, grads):
+    """Sum ``loss`` and ``grads`` over the mesh's data-parallel group, one
+    all-reduce a dtype over the flattened leaves."""
+    leaves = [loss] + tree_leaves(grads)
+    by_dtype: dict = {}
+    for i, t in enumerate(leaves):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    out = list(leaves)
+    for idx in by_dtype.values():
+        flat = torch.cat([leaves[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=mesh.data_group)
+        o = 0
+        for i in idx:
+            n = leaves[i].numel()
+            out[i] = flat[o:o + n].view(leaves[i].shape)
+            o += n
+    it = iter(out[1:])
+    return out[0], tree_map(lambda _: next(it), grads)
+
+
+def _mesh_step(mesh, cfg, pspec, grads_of, finish, params, opt_state, batch):
+    """One train step on a mesh, from the rank's slices:
+
+    * every leaf gathered whole over its split axes, except the MoE expert
+      weights, which gather only their ``fsdp`` dim
+      (:func:`entry_shardings`);
+    * the loss and its gradients on the rank's rows of each microbatch
+      (its block over the data-parallel axes) under the mesh ctx;
+    * loss and gradients summed over the data group, each rank's weighted
+      by its share of the global batch's loss weights (``1 / D`` without a
+      ``loss_mask``), so they are the global batch's mean;
+    * the gradients cut to the rank's slices, clipped by the global norm
+      (each distinct slice counted once), compressed with the whole leaf's
+      amax, and AdamW on the slices."""
+    entry = entry_shardings(pspec, cfg)
+    batch = {k: torch.as_tensor(v, device=mesh.device)
+             for k, v in batch.items()}
+    D = dp_size(mesh)
+
+    def local(ub):
+        n = next(iter(ub.values())).shape[0]
+        rows = batch_rows(mesh, n)
+        if D == 1:
+            return rows, None
+        if "loss_mask" not in ub:
+            return rows, torch.full((), 1.0 / D, device=mesh.device)
+        lw = ub["loss_mask"][:, 1:].to(torch.float32)
+        return rows, (torch.clamp(lw[rows].sum(), min=1.0)
+                      / torch.clamp(lw.sum(), min=1.0))
+
+    whole = unshard_tree(params, entry)
+    loss, grads = grads_of(whole, batch, local)
+    del whole
+    if D > 1:
+        loss, grads = _reduce_over_data(mesh, loss, grads)
+    grads = shard_tree(grads, entry)
+    return finish(params, opt_state, grads, loss, pspec)
 
 
 def train_donate_argnums(*argnums: int) -> tuple:
@@ -135,6 +309,7 @@ def train_donate_argnums(*argnums: int) -> tuple:
     the old ones, so the caching allocator hands their memory to the next
     step; nothing is updated in place.  Returns ``()``."""
     return ()
+
 
 
 # --------------------------------------------------------------------------

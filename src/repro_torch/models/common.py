@@ -50,12 +50,17 @@ class Ctx:
     spec=...)``): ``models.moe.moe_ffn`` then computes the rank's
     local experts and all-reduces their output over it.
 
-    Fields of the reference's Ctx that are not here yet, and where each is
-    queued: ``shard``/``mesh``/``dp_axes`` and the mesh-wide expert
-    parallelism of calibration and training (ROADMAP queue 1, "Parallelism
-    on torch.distributed"; ``ep_axis`` is kept so that ``moe_ffn`` can
-    refuse it) and ``decode`` (read only by the reference's sharding
-    rules, with the mesh).
+    ``mesh`` (a ``launch.mesh.Mesh``), ``dp_axes`` and ``ep_axis`` are the
+    mesh ctx of training and evaluation on a mesh (``make_ctx(cfg,
+    mesh=...)``): the forward runs on the rank's rows of the batch (its
+    block over ``dp_axes``), and ``ep_axis`` (``"model"`` for the MoE
+    family on a ``model`` axis of more than one rank) splits the experts
+    over that axis (``models.moe.moe_ffn``).
+
+    Fields of the reference's Ctx that are not here, and why: ``shard``
+    (its activation sharding constraints; a rank's activations are its own
+    rows, and the sequence-parallel remaps wait with the GSPMD serve path,
+    ROADMAP queue 1, item 9.5) and ``decode`` (read only by those rules).
     """
     kernel_backend: Optional[str] = None
     act_bits: Optional[int] = None
@@ -66,21 +71,26 @@ class Ctx:
     remat: bool = False
     ep_axis: Optional[str] = None
     ep_inner: Any = None
+    mesh: Any = None
+    dp_axes: tuple = ()
 
 
 DEFAULT_CTX = Ctx()
 
 _CTX_FIELDS = {f.name for f in dataclasses.fields(Ctx)}
+_MESH_FIELDS = {"mesh", "ep_axis", "dp_axes"}
 
 
-def make_ctx(cfg=None, **fields) -> Ctx:
+def make_ctx(cfg=None, *, mesh=None, **fields) -> Ctx:
     """THE :class:`Ctx` constructor: validates the fields and rejects
     unknown names.  ``remat`` (omitted or None) defaults to ``cfg.remat``
     when a config is given, as the reference's ``make_ctx`` does, else to
     False (the serve steps).  ``kv_bits`` must be None or 8, as in the
-    reference.  Fields not ported yet (the class docstring says where each
-    is queued) are unknown here."""
-    unknown = set(fields) - _CTX_FIELDS
+    reference.  ``mesh`` derives ``dp_axes`` and ``ep_axis`` as the
+    reference does: ``"model"`` only for the MoE family on a ``model``
+    axis of more than one rank.  Fields the reference has and this Ctx
+    has not (the class docstring says why) are unknown here."""
+    unknown = set(fields) - (_CTX_FIELDS - _MESH_FIELDS)
     if unknown:
         raise TypeError(f"make_ctx: unknown Ctx field(s) {sorted(unknown)}; "
                         f"valid fields: {sorted(_CTX_FIELDS)}")
@@ -103,6 +113,13 @@ def make_ctx(cfg=None, **fields) -> Ctx:
     if page_size and chunk % page_size:
         raise ValueError(f"make_ctx: attn_chunk ({chunk}) must be a "
                          f"multiple of page_size ({page_size})")
+    if mesh is not None:
+        # lazy import: models sit below launch/ in the layering
+        from repro_torch.launch.mesh import dp_axes, tp_axis, tp_size
+        moe = cfg is not None and cfg.family == "moe"
+        fields.update(mesh=mesh, dp_axes=dp_axes(mesh),
+                      ep_axis=(tp_axis(mesh) if moe and tp_size(mesh) > 1
+                               else None))
     return Ctx(**fields)
 
 

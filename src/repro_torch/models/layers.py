@@ -38,6 +38,55 @@ class PsumWeight:
     group: Any = None
 
 
+class _ReduceFromGroup(torch.autograd.Function):
+    """Forward: the sum over ``group`` (an all-reduce).  Backward: the
+    cotangent as it is: psum's transpose under the reference's
+    ``shard_map``, whose output is replicated over the axis, so every rank
+    already holds the whole cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Forward: the identity.  Backward: the sum of the ranks' cotangents
+    over ``group``: the transpose of handing one replicated input to every
+    shard of a ``shard_map``, each of which takes its own part of the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = dy.contiguous().clone()
+        dist.all_reduce(dx, group=ctx.group)
+        return dx, None
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The differentiable all-reduce (sum) over ``group`` of a value whose
+    consumers run alike on every rank of it (the expert-parallel MoE's
+    output): its gradient is the cotangent itself."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged, entering a computation that each rank of ``group``
+    runs on its own part (its local experts): the gradient sums the
+    ranks' parts over ``group``."""
+    return _CopyToGroup.apply(x, group)
+
+
 def resolve_backend(backend: Optional[str]) -> str:
     """Resolve the QTensor matmul backend for ONE dispatch; ``None`` falls
     back to the ``REPRO_KERNEL_BACKEND`` env var (read at call time) and

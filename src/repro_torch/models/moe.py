@@ -22,9 +22,28 @@ inner expert parallelism) each rank of the model group holds a contiguous
 slice of the experts: it routes over the global expert ids as above (the
 capacity keeps its single-device value), dispatches only the pairs routed
 to its local experts, runs the expert kernel over them, and one all-reduce
-over the group sums the ranks' outputs.  The mesh-wide expert parallelism
-of calibration and training (``ctx.ep_axis``) is not ported and raises
-(ROADMAP queue 1, "Parallelism on torch.distributed").
+over the group sums the ranks' outputs.
+
+On a mesh (``ctx.mesh``: training and evaluation, each rank holding its
+own rows of the batch) there are two more paths, each computing what the
+reference's mesh computes:
+
+* ``ctx.ep_axis`` set (the MoE family on a ``model`` axis of more than one
+  rank): the rank routes its own rows, with the capacity of its data
+  shard's tokens (the reference's ``B*S // dp_degree``), computes its
+  contiguous ``E / tp`` experts and all-reduces over the model group.
+  The all-reduce's gradient is the cotangent itself and the inputs' is
+  summed over the group (``layers.reduce_from_group`` /
+  ``copy_to_group``), as psum's transpose under the reference's
+  ``shard_map`` gives.
+* ``ctx.ep_axis`` None with data parallelism: the reference is one program
+  over the global batch, so the capacity comes from the global token
+  count and a pair's queue position from a cumsum over the global token
+  order.  Each rank's rows are a contiguous block of that order, so the
+  rank offsets its positions per expert by the pairs the lower data ranks
+  routed there (one all-reduce of E int32 counts a layer over the data
+  group) and keeps and drops exactly as the global cumsum does; the
+  combine stays local.
 """
 from __future__ import annotations
 
@@ -35,6 +54,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qtensor import QTensor
+from repro_torch.launch.mesh import dp_size
 from repro_torch.models import layers as L
 from repro_torch.models.common import Ctx
 
@@ -71,7 +91,7 @@ def _capacity(tokens: int, num_experts: int, top_k: int, cf: float) -> int:
 
 
 def _dispatch(idx: torch.Tensor, num_experts: int, capacity: int,
-              e_start: int = 0, e_local=None):
+              e_start: int = 0, e_local=None, offset=None):
     """(keep (T*k,) bool, slot (T*k,) int64, rows (E_l,) int32) for the flat
     token-major list of (token, choice) pairs over the local experts
     ``[e_start, e_start + e_local)`` (default: all ``num_experts``): a
@@ -80,7 +100,13 @@ def _dispatch(idx: torch.Tensor, num_experts: int, capacity: int,
     buffer, the last row for a pair past its expert's capacity or routed
     to another rank's expert, and ``rows`` each local expert's routed pairs
     (the cumsum's last row, a view; the expert kernel clamps it to the
-    capacity, so its kept rows are ``min(rows, capacity)``)."""
+    capacity, so its kept rows are ``min(rows, capacity)``).
+
+    ``offset`` (E,) int32: pairs that earlier rows of a longer token order
+    routed to each expert ahead of these.  A pair is then kept while its
+    position in that order, ``offset + pos``, is within the capacity; its
+    slot stays ``pos`` in its expert's rows of this buffer, and ``rows``
+    counts the kept pairs alone."""
     e_local = num_experts if e_local is None else e_local
     flat_e = idx.reshape(-1)
     if e_start:
@@ -88,20 +114,26 @@ def _dispatch(idx: torch.Tensor, num_experts: int, capacity: int,
     onehot = (flat_e[:, None] == torch.arange(
         e_local, device=idx.device)).to(torch.int32)             # (T*k, E_l)
     count = torch.cumsum(onehot, dim=0, dtype=torch.int32)
+    rows = count[-1]
     if e_local == num_experts:
         pos = torch.gather(count, 1, flat_e[:, None])[:, 0] - 1  # (T*k,)
-        keep = pos < capacity
+        if offset is None:
+            keep = pos < capacity
+        else:
+            keep = pos + offset[flat_e] < capacity
+            rows = torch.minimum(rows, (capacity - offset).clamp(min=0))
     else:
         pos = torch.gather(count, 1, flat_e.clamp(0, e_local - 1)[:, None]
                            )[:, 0] - 1
         keep = (flat_e >= 0) & (flat_e < e_local) & (pos < capacity)
     slot = torch.where(keep, flat_e * capacity + pos, e_local * capacity)
-    return keep, slot, count[-1]
+    return keep, slot, rows
 
 
 def _expert_compute(x2d, idx, gate, w_gate, w_up, w_down, *,
                     num_experts: int, capacity: int, act_bits=None,
-                    backend=None, e_start: int = 0, e_local=None):
+                    backend=None, e_start: int = 0, e_local=None,
+                    offset=None):
     """Capacity-gather the tokens routed to experts ``[e_start, e_start +
     e_local)`` (default: all), run the batched FFN, and scatter-combine.
     ``act_bits`` fake-quantizes the capacity buffer (its zero padding rows
@@ -112,7 +144,8 @@ def _expert_compute(x2d, idx, gate, w_gate, w_up, w_down, *,
     T, d = x2d.shape
     k = idx.shape[1]
     E = num_experts if e_local is None else e_local
-    keep, slot, rows = _dispatch(idx, num_experts, capacity, e_start, E)
+    keep, slot, rows = _dispatch(idx, num_experts, capacity, e_start, E,
+                                 offset)
     tok_idx = torch.arange(T * k, device=x2d.device) // k
     buf = torch.zeros((E * capacity + 1, d), dtype=x2d.dtype,
                       device=x2d.device)
@@ -139,19 +172,22 @@ def _expert_compute(x2d, idx, gate, w_gate, w_up, w_down, *,
 
 def moe_ffn(mp: dict, x: torch.Tensor, cfg: ModelConfig,
             ctx: Ctx) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d): every expert on this device, or, under
-    ``ctx.ep_inner`` (the model group of serve-time TP), this rank's slice
-    of them, summed over the group."""
-    if ctx.ep_axis is not None:
-        raise NotImplementedError(
-            "moe_ffn: mesh-wide expert parallelism (ctx.ep_axis) is not "
-            "ported yet (ROADMAP queue 1, 'Parallelism on "
-            "torch.distributed')")
+    """x: (B, S, d) -> (B, S, d): every expert on this device; under
+    ``ctx.ep_inner`` (the model group of serve-time TP) this rank's slice
+    of them, summed over the group; on a mesh (``ctx.mesh``, ``x`` the
+    rank's rows) the two mesh paths of the module docstring."""
     B, S, d = x.shape
     e, k = cfg.moe.num_experts, cfg.moe.top_k
+    cf = cfg.moe.capacity_factor
     x2d = x.reshape(B * S, d)
     idx, gate = _route(x2d, mp["router"], k)
-    cap = _capacity(B * S, e, k, cfg.moe.capacity_factor)
+    if ctx.ep_axis is not None:
+        return _moe_expert_parallel(mp, x2d, idx, gate, cfg, ctx).reshape(
+            B, S, d)
+    if ctx.mesh is not None and dp_size(ctx.mesh) > 1:
+        return _moe_global_queue(mp, x2d, idx, gate, cfg, ctx).reshape(
+            B, S, d)
+    cap = _capacity(B * S, e, k, cf)
     if ctx.ep_inner is None:
         y = _expert_compute(x2d, idx, gate, mp["w_gate"], mp["w_up"],
                             mp["w_down"], num_experts=e, capacity=cap,
@@ -160,8 +196,7 @@ def moe_ffn(mp: dict, x: torch.Tensor, cfg: ModelConfig,
     if not isinstance(ctx.ep_inner, dist.ProcessGroup):
         raise TypeError(f"moe_ffn: ctx.ep_inner must be the model axis's "
                         f"ProcessGroup, got {ctx.ep_inner!r}")
-    wg = mp["w_gate"]
-    e_local = int((wg.packed if isinstance(wg, QTensor) else wg).shape[-3])
+    e_local = _experts_held(mp)
     y = _expert_compute(x2d, idx, gate, mp["w_gate"], mp["w_up"],
                         mp["w_down"], num_experts=e, capacity=cap,
                         act_bits=ctx.act_bits, backend=ctx.kernel_backend,
@@ -169,3 +204,57 @@ def moe_ffn(mp: dict, x: torch.Tensor, cfg: ModelConfig,
                         e_local=e_local)
     dist.all_reduce(y, group=ctx.ep_inner)
     return y.reshape(B, S, d)
+
+
+def _experts_held(mp: dict) -> int:
+    wg = mp["w_gate"]
+    return int((wg.packed if isinstance(wg, QTensor) else wg).shape[-3])
+
+
+def _moe_expert_parallel(mp, x2d, idx, gate, cfg, ctx):
+    """``ctx.ep_axis``: the rank's rows through its contiguous experts,
+    summed over the model group.  Capacity is per data shard: the rank's
+    own tokens."""
+    mesh = ctx.mesh
+    e = cfg.moe.num_experts
+    tp = mesh.size_of(ctx.ep_axis)
+    if e % tp:
+        raise ValueError(f"moe_ffn: {e} experts do not split over {tp} "
+                         f"expert-parallel ranks")
+    e_local = e // tp
+    if _experts_held(mp) != e_local:
+        raise ValueError(f"moe_ffn: expert weights hold "
+                         f"{_experts_held(mp)} experts, the rank's share "
+                         f"of the '{ctx.ep_axis}' axis is {e_local}")
+    group = mesh.group_of(ctx.ep_axis)
+    cap = _capacity(x2d.shape[0], e, cfg.moe.top_k,
+                    cfg.moe.capacity_factor)
+    y = _expert_compute(L.copy_to_group(x2d, group), idx,
+                        L.copy_to_group(gate, group), mp["w_gate"],
+                        mp["w_up"], mp["w_down"], num_experts=e, capacity=cap,
+                        act_bits=ctx.act_bits, backend=ctx.kernel_backend,
+                        e_start=mesh.index_of(ctx.ep_axis) * e_local,
+                        e_local=e_local)
+    return L.reduce_from_group(y, group)
+
+
+def _moe_global_queue(mp, x2d, idx, gate, cfg, ctx):
+    """``ctx.ep_axis`` None on a data-parallel mesh: the capacity of the
+    global token count, and each expert's queue continued from the lower
+    data ranks' pairs (an all-reduce of the ranks' E counts, each in its
+    own row)."""
+    mesh = ctx.mesh
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    axes = ctx.dp_axes
+    D, r = dp_size(mesh, axes), mesh.index_of(axes)
+    cap = _capacity(x2d.shape[0] * D, e, k, cfg.moe.capacity_factor)
+    counts = torch.zeros((D, e), dtype=torch.int32, device=x2d.device)
+    flat = idx.reshape(-1)
+    counts[r].scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    dist.all_reduce(counts, group=mesh.group_of(axes))
+    offset = counts[:r].sum(0, dtype=torch.int32)
+    y = _expert_compute(x2d, idx, gate, mp["w_gate"], mp["w_up"],
+                        mp["w_down"], num_experts=e, capacity=cap,
+                        act_bits=ctx.act_bits, backend=ctx.kernel_backend,
+                        offset=offset)
+    return y

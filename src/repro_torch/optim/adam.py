@@ -16,6 +16,7 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 
 class AdamState(NamedTuple):
@@ -109,15 +110,30 @@ def _leaves_sorted(tree) -> list:
     return [tree]
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, replicas=None):
     """Scale every gradient by ``min(1, max_norm / max(gn, 1e-12))``, where
     ``gn`` is the f32 global L2 norm over all leaves, summed leaf by leaf in
     the reference's leaf order (so a tree's key order, e.g. after a
     checkpoint restore, cannot change it).  Returns (clipped grads, gn);
-    nothing is read to the host."""
+    nothing is read to the host.
+
+    On a mesh ``grads`` are the rank's slices and ``replicas`` mirrors
+    them with the number of ranks that hold each slice
+    (``launch.sharding.replicas``): every rank weighs its squares by one
+    over that, so each distinct slice counts once, and the sums are
+    all-reduced over the process group (the mesh's ranks)."""
     leaves = _leaves_sorted(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in leaves))
+    weights = ([1] * len(leaves) if replicas is None
+               else _leaves_sorted(replicas))
+
+    def sq(g, n):
+        s = torch.sum(torch.square(g.to(torch.float32)))
+        return s if n == 1 else s / n
+    total = sum(sq(g, n) for g, n in zip(leaves, weights))
+    if replicas is not None and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        dist.all_reduce(total)
+    gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     # the product in f32, rounded once to the leaf's dtype, as the reference
     # promotes a bf16 leaf times an f32 scale

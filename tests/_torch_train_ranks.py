@@ -1,0 +1,152 @@
+"""Training runs of the port for the mesh train-step tests: the same
+functions run a case in the test process (no mesh, or a mesh of one rank
+without a process group) and inside a spawned rank of
+``launch.mesh.run_ranks`` (gloo).  Torch and the port only: a spawned rank
+imports this module, never jax.
+
+Every case starts from params the test process hands over (the
+reference's, bridged) and trains on one batch made here from a numpy seed,
+so the reference, the test process and the ranks see the same bytes.  A
+run returns its (loss, grad_norm) a step and its final params, gathered
+whole, as numpy in the checkpoint's leaf order.
+"""
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager, flatten
+from repro_torch.configs import get_reduced_config
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.sharding import (param_shardings, shard_tree,
+                                         unshard_tree)
+from repro_torch.launch.steps import make_train_harness
+from repro_torch.optim.compression import compressed_psum
+
+# family -> reduced arch; the MoE's capacity factor drops routed pairs
+ARCHS = {"moe": "qwen3-moe-30b-a3b", "dense": "tinyllama-1.1b",
+         "rwkv": "rwkv6-3b"}
+MOE_CF = 0.5
+STEPS, LR, BATCH = 3, 1e-3, (8, 33)
+WORLD_MESHES = {1: ((1,), (1, 1)), 2: ((2,), (1, 2)), 4: ((4,), (2, 2))}
+ELASTIC = "dense"           # the family saved at (2, 2) and resumed
+SAVE_AT = 2
+
+
+def config(family):
+    """The reduced f32 config of ``family`` (the MoE's capacity factor
+    cut to ``MOE_CF``)."""
+    cfg = get_reduced_config(ARCHS[family]).replace(dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=MOE_CF))
+    return cfg
+
+
+def tokens(cfg):
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=BATCH).astype(np.int32)
+
+
+def loss_mask():
+    """A (8, 33) loss mask keeping a different number of tokens in each
+    half of the batch's rows."""
+    rng = np.random.default_rng(1)
+    m = (rng.random(BATCH) < 0.7).astype(np.int32)
+    m[BATCH[0] // 2:, BATCH[1] // 2:] = 0
+    return m
+
+
+def psum_input(n):
+    """The inputs of ``tests/test_sharding.py``'s compressed_psum test at
+    ``n`` pods: (n * 2, 64) f32, block ``i`` rows ``[2i, 2i + 2)``."""
+    rng = np.random.default_rng(0)
+    return rng.normal(size=(n * 2, 64)).astype(np.float32) * 3.0
+
+
+def _numpy(tree):
+    return [t.detach().cpu().numpy() for t in flatten(tree)]
+
+
+def train(family, params, mesh=None, steps=STEPS, microbatches=1,
+          ckpt=None, start=None, compression=False, mask=False):
+    """``steps`` steps of the harness on ``mesh`` (None: one device) from
+    ``params`` (whole), or from ``start = (step, like)`` restored out of
+    ``ckpt`` at the harness's shardings.  With ``ckpt`` and no ``start``
+    the run saves at step ``SAVE_AT``.  ``compression``: int8 gradient
+    compression with error feedback; ``mask``: the batch carries
+    :func:`loss_mask`.  Returns (metrics, whole params)."""
+    cfg = config(family)
+    h = make_train_harness(cfg, mesh, lr=LR, microbatches=microbatches,
+                           grad_compression=compression)
+    shard = {"params": h.param_sharding, "opt": h.opt_sharding}
+    p = params if mesh is None else shard_tree(params, h.param_sharding)
+    o = h.init_opt(p)
+    if start is not None:
+        state = CheckpointManager(ckpt).restore(
+            start, {"params": p, "opt": o},
+            shardings=None if mesh is None else shard)
+        p, o = state["params"], state["opt"]
+    batch = {"tokens": tokens(cfg)}
+    if mask:
+        batch["loss_mask"] = loss_mask()
+    out = []
+    for s in range(steps):
+        p, o, m = h.step_fn(p, o, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+        if ckpt is not None and start is None and s + 1 == SAVE_AT:
+            CheckpointManager(ckpt).save(
+                SAVE_AT, {"params": p, "opt": o},
+                shardings=None if mesh is None else shard)
+    if mesh is not None:
+        p = unshard_tree(p, h.param_sharding)
+    return out, _numpy(p)
+
+
+def train_rank(params, ckpt, cases):
+    """One rank: every ``(tag, family, shape, kw)`` of ``cases`` trained
+    on ``make_mesh(shape)``; ``kw`` passes on to :func:`train` (``ckpt``
+    joined in where it names ``"ckpt"``).  Returns {tag: (metrics, params)}
+    on rank 0 and {tag: (metrics, None)} elsewhere, each rank's
+    coordinates, and whether ``unshard_tree(shard_tree(params))`` gave the
+    params back bit for bit."""
+    torch.set_num_threads(1)
+    rank = torch.distributed.get_rank()
+    out = {}
+    for tag, family, shape, kw in cases:
+        kw = dict(kw)
+        if kw.pop("ckpt", False):
+            kw["ckpt"] = ckpt
+        mesh = make_mesh(shape, device="cpu")
+        metrics, p = train(family, params[family], mesh, **kw)
+        out[tag] = (metrics, p) if rank == 0 else (metrics, None)
+        out[tag + "/coords"] = (mesh.data_rank, mesh.model_rank)
+        shard = param_shardings(mesh, params[family], config(family))
+        back = unshard_tree(shard_tree(params[family], shard), shard)
+        out[tag + "/roundtrip"] = all(
+            torch.equal(a, b) for a, b in zip(flatten(back),
+                                              flatten(params[family])))
+    return out
+
+
+def psum_rank(shapes):
+    """``compressed_psum`` on each ``(shape, axes, axis)``: the rank's
+    block of :func:`psum_input` over the axis's extent, and the result."""
+    rank = torch.distributed.get_rank()
+    out = {}
+    for shape, axes, axis in shapes:
+        mesh = make_mesh(shape, axes, device="cpu")
+        n = mesh.size_of(axis)
+        x = psum_input(n).reshape(n, 2, 64)[mesh.index_of(axis)]
+        got = compressed_psum(torch.from_numpy(x.copy()), mesh, axis)
+        out[(shape, axis)] = (rank, x, got.numpy())
+    return out
+
+
+def rank_main(params, ckpt, cases, psum_shapes):
+    """The spawned body: the training cases, then the psum cases."""
+    out = train_rank(params, ckpt, cases)
+    out["psum"] = psum_rank(psum_shapes)
+    out["pid"] = os.getpid()
+    return out

@@ -168,8 +168,18 @@ def test_restore_takes_the_like_leafs_dtype_and_device(tmp_path):
     assert got["a"].device == torch.device("cpu")
     with pytest.raises(ValueError, match="mismatch"):
         mgr.restore(1, {"a": torch.zeros(4), "b": torch.zeros(1)})
-    with pytest.raises(NotImplementedError,
-                       match="Parallelism on torch.distributed"):
+    # the elastic path: each whole leaf cut to the rank's slice (rank 1 of
+    # a (2,) data mesh holds rows [2, 4)); one sharding a leaf
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import NamedSharding, PartitionSpec
+    mesh = Mesh(world=2, rank=1, shape=(2,), group=None,
+                device=torch.device("cpu"), axis_names=("data",))
+    got = mgr.restore(1, {"a": torch.zeros(2, dtype=torch.float64)},
+                      shardings={"a": NamedSharding(mesh,
+                                                    PartitionSpec("data"))})
+    assert got["a"].tolist() == [2.0, 3.0]
+    assert got["a"].dtype == torch.float64
+    with pytest.raises(ValueError, match="shardings"):
         mgr.restore(1, {"a": torch.zeros(4)}, shardings={"a": None})
 
 

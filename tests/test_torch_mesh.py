@@ -108,9 +108,24 @@ def test_mesh_helpers():
         tmesh.check_backend("mpi", 2, "cpu")
     for fn in (tmesh.pod_submeshes, lambda m: tmesh.reshard_between_pods(
             None, m)):
-        with pytest.raises(NotImplementedError,
-                           match="Parallelism on torch.distributed"):
+        with pytest.raises(NotImplementedError, match="item 9.4"):
             fn(m)
+    # the axis groups: a rank's line along each axis, row-major
+    p = tmesh.Mesh(world=8, rank=5, shape=(2, 2, 2), group=None,
+                   device=torch.device("cpu"),
+                   axis_names=("pod", "data", "model"))
+    assert tmesh.pod_axis(p) == "pod" and tmesh.pod_count(p) == 2
+    assert p.ranks_of("pod") == (1, 5) and p.index_of("pod") == 1
+    assert p.ranks_of("data") == (5, 7) and p.index_of("data") == 0
+    assert p.ranks_of(("pod", "data")) == (1, 3, 5, 7)
+    assert p.index_of(("pod", "data")) == p.data_rank == 2
+    assert p.size_of(("pod", "model")) == 4
+    with pytest.raises(ValueError, match="not on the mesh"):
+        p.size_of("tensor")
+    with pytest.raises(ValueError, match="no process group"):
+        p.group_of(("pod", "model"))
+    one = tmesh.make_mesh((1,), ("pod",), device="cpu")
+    assert one.group_of("pod") is None and one.size_of("pod") == 1
 
 
 def test_serve_mesh_needs_a_process_group():

@@ -470,17 +470,31 @@ def test_moe_ffn_one_token_matches_reference(backend):
 
 
 def test_moe_refuses_expert_parallelism():
-    """The mesh-wide expert parallelism (``ep_axis``) is not ported and
-    raises; the serve-time inner one (``ep_inner``, held against the
+    """The mesh-wide expert parallelism (``ep_axis``) comes from a mesh
+    alone: ``make_ctx`` derives it (``"model"`` for the MoE family on a
+    model axis of more than one rank) and refuses it as a field.  On a
+    mesh of one rank the mesh paths are the single-device one, bit for
+    bit.  The serve-time inner one (``ep_inner``, held against the
     reference in ``tests/test_torch_tp_serve.py``) takes the model axis's
-    ProcessGroup and refuses a mesh-axis name."""
+    ProcessGroup and refuses a mesh-axis name.  Both mesh paths on several
+    ranks are held against the reference in
+    ``tests/test_torch_train_mesh.py``."""
+    from repro_torch.launch.mesh import Mesh, make_mesh
     cfg = get_reduced_config(ARCH)
     mp = params_to_torch(_moe_weights(0, cfg.d_model, cfg.d_ff,
                                       cfg.moe.num_experts))
-    x = torch.zeros(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError,
-                       match="Parallelism on torch.distributed"):
-        tmoe.moe_ffn(mp, x, cfg, tcommon.make_ctx(ep_axis="model"))
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 5, cfg.d_model)).astype(np.float32))
+    with pytest.raises(TypeError, match="unknown Ctx field"):
+        tcommon.make_ctx(ep_axis="model")
+    tp2 = Mesh(world=2, rank=0, shape=(1, 2), group=None,
+               device=torch.device("cpu"))
+    assert tcommon.make_ctx(cfg, mesh=tp2).ep_axis == "model"
+    want = tmoe.moe_ffn(mp, x, cfg, tcommon.make_ctx())
+    for shape in ((1,), (1, 1)):
+        ctx = tcommon.make_ctx(cfg, mesh=make_mesh(shape, device="cpu"))
+        assert ctx.ep_axis is None
+        assert torch.equal(tmoe.moe_ffn(mp, x, cfg, ctx), want)
     with pytest.raises(TypeError, match="ProcessGroup"):
         tmoe.moe_ffn(mp, x, cfg, tcommon.make_ctx(ep_inner="model"))
 

@@ -264,21 +264,26 @@ def test_step_fn_is_pure():
 
 
 def test_parallel_paths_raise():
+    """A mesh harness now trains (held against the reference's
+    ``jit_train_step`` in ``tests/test_torch_train_mesh.py``; on a mesh of
+    one rank it is the single-device step, and ``compressed_psum`` over a
+    pod of one is the int8 round trip); ``seq_parallel`` and
+    ``extra_overrides`` remap the reference's activation sharding
+    constraints and still raise, naming item 9.5."""
+    from repro_torch.launch.mesh import make_mesh
     cfg = get_reduced_config("llama2-7b")
-    for kw in (dict(mesh=object()), dict(seq_parallel=True),
+    for kw in (dict(seq_parallel=True),
                dict(extra_overrides={"seq": ("model",)})):
-        with pytest.raises(NotImplementedError,
-                           match="Parallelism on torch.distributed"):
+        with pytest.raises(NotImplementedError, match="item 9.5"):
             tsteps.make_train_harness(cfg, **kw)
-    with pytest.raises(NotImplementedError,
-                       match="Parallelism on torch.distributed"):
-        tsteps.jit_train_step(None, None, None, None)
-    with pytest.raises(NotImplementedError,
-                       match="Parallelism on torch.distributed"):
-        tsteps.opt_sharding_like(None, None, None, cfg)
-    with pytest.raises(NotImplementedError,
-                       match="Parallelism on torch.distributed"):
-        tcomp.compressed_psum(torch.zeros(4), None)
+    mesh = make_mesh((1, 1), device="cpu")
+    h = tsteps.make_train_harness(cfg, mesh, lr=1e-2)
+    assert h.mesh is mesh and h.param_sharding is not None
+    x = torch.linspace(-3, 3, 16)
+    q, scale = tcomp._quantize_int8(x)
+    assert torch.equal(tcomp.compressed_psum(x, make_mesh((1,), ("pod",),
+                                                          device="cpu")),
+                       q.to(torch.float32) * scale)
     assert tsteps.train_donate_argnums(0, 1) == ()
 
 
