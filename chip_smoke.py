@@ -6170,9 +6170,11 @@ def shard_warm(data, qcfg):
     torch.cuda.synchronize()
 
 
-def shard_walk(meter, data, qcfg, engine, mesh):
+def shard_walk(meter, data, qcfg, engine, mesh, blocks=SHARD_LAYERS):
     """``quantize_model`` (AWQ + TesseraQ, K = ``SHARD_K``, T =
-    ``SHARD_T``) over ``data``'s ``SHARD_LAYERS`` blocks on ``engine``."""
+    ``SHARD_T``) over ``data``'s ``SHARD_LAYERS`` blocks on ``engine``;
+    ``blocks``: how many of them this process reconstructs (the per-step
+    readings are averaged over them)."""
     from repro_torch.core.pipeline import quantize_model
     from repro_torch.core.tesseraq import TesseraQConfig
     tcfg = TesseraQConfig(par_iterations=SHARD_K, steps_per_iteration=SHARD_T,
@@ -6181,9 +6183,44 @@ def shard_walk(meter, data, qcfg, engine, mesh):
         data["cfg"], data["params"], data["calib"], qcfg, method="tesseraq",
         init="awq", tcfg=tcfg))
     for k in ("step_ms", "exchange_ms", "exchange_bytes", "broadcasts"):
-        rec[k] /= SHARD_LAYERS
+        rec[k] /= blocks
     rec.update(digest=shard_digest(qm),
-               mse=[b["recon_mse"] for b in rep["blocks"]])
+               mse=[b["recon_mse"] for b in rep["blocks"]],
+               pipeline=rep.get("pipeline"))
+    return rec
+
+
+def pod_walk(meter, data, qcfg):
+    """(e): ``quantize_model(engine="sharded")`` on ``make_mesh((2, 1,
+    1))``, two pods of one rank each (pod p owns block p), with every
+    cross-pod hop of FP targets timed to the end of its device copy and
+    sized (its tensors' bytes, on the side that sends or receives)."""
+    import torch.distributed as dist
+    from repro_torch.core import pipeline
+    from repro_torch.launch.mesh import make_mesh
+    hop = pipeline.reshard_between_pods
+    hops = []
+
+    def timed(x, dst_mesh, spec=None, *, src_mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = hop(x, dst_mesh, spec, src_mesh=src_mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        side = x if dist.get_rank() == src_mesh.ranks[0] else out
+        if side is not None:
+            hops.append({"from": src_mesh.ranks, "to": dst_mesh.ranks,
+                         "ms": ms, "bytes": sum(t.numel() * t.element_size()
+                                                for t in side)})
+        return out
+    pipeline.reshard_between_pods = timed
+    try:
+        rec = shard_walk(meter, data, qcfg, "sharded",
+                         make_mesh((2, 1, 1), device="cuda"),
+                         blocks=SHARD_LAYERS // 2)
+    finally:
+        pipeline.reshard_between_pods = hop
+    rec["hops"] = hops
     return rec
 
 
@@ -6193,7 +6230,8 @@ def shard_rank(tmp, shapes, walk):
     params and tokens) moved to the card, X and Y left on the host (the
     engine stages the rank's pool shard alone); block 0 calibrated on the
     sharded engine on each mesh of ``shapes``, and with ``walk`` the
-    two-block walk on the ``(2,)`` data mesh."""
+    two-block walk on the ``(2,)`` data mesh, then on ``(2, 1, 1)``: two
+    pods, one block each (``pod_walk``)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import parse_quant
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6219,6 +6257,7 @@ def shard_rank(tmp, shapes, walk):
             del data["bp"], data["meta"]
             out["walk"] = shard_walk(meter, data, qcfg, "sharded",
                                      make_mesh((2,), device="cuda"))
+            out["pod"] = pod_walk(meter, data, qcfg)
     finally:
         meter.close()
     return out
@@ -6255,8 +6294,14 @@ def shard_phase(card):
     exchange ms and bytes a step, the bytes it keeps between steps and its
     peak beside the control's.  (d) The same ranks:
     ``quantize_model(engine="sharded")`` over both blocks at DP 2, its
-    codes, masks and scales the device walk's.  Returns the launch counts
-    by part."""
+    codes, masks and scales the device walk's.  (e) The same ranks as two
+    pods of one rank (``(2, 1, 1)``: the pod-pipelined walk, block 0 on
+    pod 0, block 1 on pod 1, block 0's FP targets hopping to pod 1 before
+    block 0 reconstructs): the device walk's codes, masks and scales,
+    each rank the control's soft_round launches for its one block,
+    ``report["pipeline"]`` (pods, per-block pods, block 1's wait
+    measured), the efficiency, the walk's wall and each hop's ms and
+    bytes.  Returns the launch counts by part."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.core.awq import quantize_block_awq
@@ -6327,7 +6372,7 @@ def shard_phase(card):
         two = run_ranks(shard_rank, 2, backend="gloo", device="cuda",
                         args=(tmp, [(2,), (1, 2)], True),
                         timeout=SHARD_SPAWN_S)
-        times["b-d"] = time.perf_counter() - t0
+        times["b-e"] = time.perf_counter() - t0
 
     checks = [("(a)", one, (1,)), ("(a)", one, (1, 1))] + [
         (tag, r, shape) for tag, shape in (("(b)", (2,)), ("(c)", (1, 2)))
@@ -6376,14 +6421,50 @@ def shard_phase(card):
         if w["counts"] != ctrl_walk["counts"]:
             fail(f"shard (d) rank {r['rank']}: launches {w['counts']}, the "
                  f"device walk's {ctrl_walk['counts']}")
+    for r in two:
+        w = r["pod"]
+        pl = w["pipeline"]
+        blocks = [(b["pod"], b["recon_secs"], b["capture_wait_secs"],
+                   b["fill_secs"]) for b in pl["blocks"]]
+        print(f"[shard] (e) gloo rank {r['rank']} quantize_model(engine="
+              f"\"sharded\") on (2, 1, 1), two pods of one rank: wall "
+              f"{w['s']:.1f} s (device walk {ctrl_walk['s']:.1f} s, (d) "
+              f"{r['walk']['s']:.1f} s); pipeline pods {pl['pods']} dp "
+              f"{pl['dp']} tp {pl['tp']}, blocks (pod, recon s, wait s, "
+              f"fill s) {blocks}, recon {pl['recon_secs']:.3f} s, wait "
+              f"{pl['capture_wait_secs']}, fill {pl['fill_secs']:.3f} s, "
+              f"efficiency {pl['efficiency']}; hops {w['hops']}; "
+              f"{w['step_ms']:.3f} ms a Soften step on its block; "
+              f"broadcasts outside the steps {w['other']}; recon_mse "
+              f"{w['mse']}; peak {w['peak']} B; launches {w['counts']}; "
+              f"card=[{card}]", flush=True)
+        if w["digest"] != ctrl_walk["digest"] or w["mse"] != ctrl_walk["mse"]:
+            bad = sorted(p for p in ctrl_walk["digest"]
+                         if w["digest"].get(p) != ctrl_walk["digest"][p])
+            fail(f"shard (e) rank {r['rank']}: the pod walk differs from "
+                 f"the device walk at {bad}")
+        owned = sum(b["pod"] == r["rank"] for b in pl["blocks"])
+        for k in ("soft_round_fwd", "soft_round_bwd"):
+            want_k = ctrl_walk["counts"][k] * owned // SHARD_LAYERS
+            if w["counts"][k] != want_k:
+                fail(f"shard (e) rank {r['rank']}: {k} launched "
+                     f"{w['counts'][k]} times, the control's {want_k} for "
+                     f"its {owned} block(s)")
+        if pl["pods"] != 2 or [b["pod"] for b in pl["blocks"]] != [0, 1] \
+                or pl["blocks"][1]["capture_wait_secs"] is None:
+            fail(f"shard (e) rank {r['rank']}: report['pipeline'] {pl}")
+        if not w["hops"]:
+            fail(f"shard (e) rank {r['rank']}: no cross-pod hop")
     print(f"[time] phase 20: controls {times['controls']:.1f}s, hand-over "
-          f"{times['save']:.1f}s, (a) {times['a']:.1f}s, (b)-(d) "
-          f"{times['b-d']:.1f}s", flush=True)
+          f"{times['save']:.1f}s, (a) {times['a']:.1f}s, (b)-(e) "
+          f"{times['b-e']:.1f}s (the (e) walk "
+          f"{max(r['pod']['s'] for r in two):.1f}s)", flush=True)
     return {"control": _sum_counts(ctrl["counts"], ctrl_walk["counts"]),
             "nccl rank": _sum_counts(one[(1,)]["counts"],
                                      one[(1, 1)]["counts"]),
             **{f"gloo rank {r['rank']}": _sum_counts(
-                r[(2,)]["counts"], r[(1, 2)]["counts"], r["walk"]["counts"])
+                r[(2,)]["counts"], r[(1, 2)]["counts"], r["walk"]["counts"],
+                r["pod"]["counts"])
                for r in two}}
 
 

@@ -20,13 +20,20 @@ a rank owns (the reference's ``batch_spec``).  A mesh of one rank needs no
 process group: every exchange over it is the identity, so the sharded
 engine runs in a plain process, as the reference's 1-device mesh does.
 
+A mesh need not span the whole process group: it holds its members'
+global ranks (``Mesh.ranks``, row-major over its shape; every rank of the
+group by default), so every group it makes and every ``broadcast(src=)``
+over it names global ranks.  :func:`pod_submeshes` carves a ``("pod",
+"data", "model")`` mesh into one ``("data", "model")`` submesh a pod, over
+that pod's ranks, and :func:`reshard_between_pods` moves a tensor tree from
+one pod's ranks to another's: the seam of the pod-pipelined block walk
+(``core.pipeline``).  :func:`make_production_mesh` is the reference's
+16 x 16 (or 2 x 16 x 16) chip grid as a rank's view; its rank layout is the
+pure :func:`production_layout`.
+
 The backend of the process group is always the caller's choice
 (:func:`run_ranks`): NCCL needs one card per rank; gloo runs on the CPU and
 on ranks that share a card (it stages a CUDA collective through the host).
-
-Not here yet (ROADMAP queue 1, "Parallelism on torch.distributed"): the
-reference's ``make_production_mesh`` and the pod walk's helpers
-(``pod_submeshes``, ``reshard_between_pods``, item 9.4), which raise.
 """
 from __future__ import annotations
 
@@ -49,23 +56,27 @@ from repro_torch import resolve_device
 AXES = ("data", "model")
 DP_AXES = ("pod", "data")
 BACKENDS = ("nccl", "gloo")
-_POD_WALK = ("ROADMAP queue 1, 'Parallelism on torch.distributed': the "
-             "pod-pipelined walk")
 
 
-def _axis_groups(shape, axis_names, axes) -> np.ndarray:
+def _axis_groups(shape, axis_names, axes, ranks=None) -> np.ndarray:
     """Every group of the mesh along ``axes``: (groups, members) global
-    ranks, each row one group, its members row-major over ``axes``."""
-    grid = np.arange(math.prod(shape)).reshape(shape)
+    ranks, each row one group, its members row-major over ``axes``.
+    ``ranks``: the mesh's global ranks, row-major (default ``0..n-1``)."""
+    grid = np.asarray(range(math.prod(shape)) if ranks is None
+                      else ranks).reshape(shape)
     along = [axis_names.index(a) for a in axes]
     rest = [d for d in range(len(shape)) if d not in along]
     size = math.prod(shape[d] for d in along)
     return grid.transpose(rest + along).reshape(-1, size)
 
 
-def _group_of(shape, axis_names, axes, rank) -> Tuple[int, ...]:
-    rows = _axis_groups(shape, axis_names, axes)
-    return tuple(int(r) for r in rows[(rows == rank).any(axis=1)][0])
+def _group_of(shape, axis_names, axes, rank, ranks=None) -> Tuple[int, ...]:
+    rows = _axis_groups(shape, axis_names, axes, ranks)
+    hit = rows[(rows == rank).any(axis=1)]
+    if not len(hit):
+        raise ValueError(f"rank {rank} is not a member of the mesh over "
+                         f"ranks {tuple(ranks)}")
+    return tuple(int(r) for r in hit[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,9 +92,17 @@ class Mesh:
     engine exchanges its gradient).  ``axis_groups`` maps each axis name
     to the process group of the rank's line along that axis alone (the
     collectives of ``pmax`` / ``psum`` over one named axis, e.g.
-    ``optim.compression.compressed_psum``'s ``pod``).  All are None on a
-    mesh of one rank without a process group.  ``device`` is the
-    ``torch.device`` the rank runs on."""
+    ``optim.compression.compressed_psum``'s ``pod``), and ``mesh_group``
+    is that of every rank of the mesh: None where the mesh is the whole
+    process group (the default group).  All are None on a mesh of one rank
+    without a process group.  ``device`` is the ``torch.device`` the rank
+    runs on.
+
+    ``world`` is the mesh's number of ranks and ``ranks`` their global
+    ranks, row-major over ``shape`` (default ``0..world-1``: the whole
+    process group).  ``rank`` is the rank's own global rank; a view of a
+    mesh the rank is not a member of (another pod's submesh) has no
+    groups, and only its shape and ranks may be read."""
     world: int
     rank: int
     shape: Tuple[int, ...]
@@ -93,6 +112,22 @@ class Mesh:
     data_group: Any = dataclasses.field(default=None, repr=False)
     axis_groups: Any = dataclasses.field(default=None, repr=False,
                                          compare=False)
+    ranks: Optional[Tuple[int, ...]] = None
+    mesh_group: Any = dataclasses.field(default=None, repr=False,
+                                        compare=False)
+
+    def __post_init__(self):
+        ranks = (tuple(range(self.world)) if self.ranks is None
+                 else tuple(int(r) for r in self.ranks))
+        if len(ranks) != self.world or len(set(ranks)) != self.world:
+            raise ValueError(f"a mesh of {self.world} ranks needs as many "
+                             f"distinct global ranks, got {ranks}")
+        object.__setattr__(self, "ranks", ranks)
+
+    @property
+    def member(self) -> bool:
+        """Whether the rank is one of the mesh's."""
+        return self.rank in self.ranks
 
     @property
     def model_ranks(self) -> Tuple[int, ...]:
@@ -136,7 +171,8 @@ class Mesh:
         axes = self._axes(axes)
         if not axes:
             return (self.rank,)
-        return _group_of(self.shape, self.axis_names, axes, self.rank)
+        return _group_of(self.shape, self.axis_names, axes, self.rank,
+                         self.ranks)
 
     def index_of(self, axes) -> int:
         """The rank's position along ``axes`` (row-major over a tuple)."""
@@ -145,13 +181,14 @@ class Mesh:
     def group_of(self, axes):
         """The process group of the rank's line along ``axes``: one named
         axis, the data-parallel axes together, or every axis of the mesh
-        (the default group, None).  None too on a line of one rank, where
-        no collective runs."""
+        (``mesh_group``: None, the default group, where the mesh is the
+        whole process group).  None too on a line of one rank, where no
+        collective runs."""
         axes = self._axes(axes)
         if self.size_of(axes) == 1:
             return None
         if set(axes) == set(self.axis_names):
-            return None
+            return self.mesh_group
         if axes == ("model",):
             return self.group
         if len(axes) == 1:
@@ -189,12 +226,20 @@ def rank_device(rank: int, device="cuda") -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def _groups(shape, axis_names, rank):
-    """The rank's (model group, data group, {axis: group}), made by every
-    rank of the process group (each ``dist.new_group`` is a collective of
-    all ranks, called in the same order on every rank).  A set of axes
-    already made (the data axes of a ``("data",)`` mesh are its one axis)
-    is not made twice."""
+def _new_group(members):
+    """``dist.new_group`` over ``members`` (global ranks), called by every
+    rank of the process group; the group on a member, None elsewhere."""
+    g = dist.new_group([int(m) for m in members])
+    return g if dist.get_rank() in members else None
+
+
+def _groups(shape, axis_names, rank, ranks):
+    """The rank's (model group, data group, {axis: group}, mesh group),
+    made by every rank of the process group (each ``dist.new_group`` is a
+    collective of all ranks, called in the same order on every rank, the
+    mesh's members or not).  A set of axes already made (the data axes of
+    a ``("data",)`` mesh are its one axis) is not made twice; the mesh
+    group is made only where the mesh is not the whole process group."""
     made = {}
 
     def group(axes):
@@ -202,21 +247,25 @@ def _groups(shape, axis_names, rank):
             return None
         if axes not in made:
             made[axes] = None
-            for members in _axis_groups(shape, axis_names, axes):
-                g = dist.new_group([int(m) for m in members])
+            for members in _axis_groups(shape, axis_names, axes, ranks):
+                g = _new_group(members)
                 if rank in members:
                     made[axes] = g
         return made[axes]
 
     model = group(("model",) if "model" in axis_names else ())
     data = group(tuple(a for a in axis_names if a in DP_AXES))
-    return model, data, {a: group((a,)) for a in axis_names}
+    axis = {a: group((a,)) for a in axis_names}
+    whole = (None if len(ranks) == 1
+             or set(ranks) == set(range(dist.get_world_size()))
+             else _new_group(ranks))
+    return model, data, axis, whole
 
 
-def _build(shape, axis_names, device, who: str) -> Mesh:
-    """The rank's view of a ``shape`` mesh over ``axis_names``.  A mesh of
-    one rank without a process group has no groups; otherwise the process
-    group must hold exactly the mesh's ranks."""
+def _build(shape, axis_names, device, who: str, ranks=None) -> Mesh:
+    """The rank's view of a ``shape`` mesh over ``axis_names`` and the
+    global ``ranks`` (row-major; default every rank of the process group).
+    A mesh of one rank without a process group has no groups."""
     shape = tuple(int(n) for n in shape)
     axis_names = tuple(axis_names)
     if len(shape) != len(axis_names) or min(shape, default=0) < 1:
@@ -224,34 +273,76 @@ def _build(shape, axis_names, device, who: str) -> Mesh:
                          f"{axis_names}")
     n = math.prod(shape)
     if not dist.is_initialized():
-        if n != 1:
+        if n != 1 or ranks not in (None, (0,), [0]):
             raise RuntimeError(
                 f"{who}: a mesh of {n} ranks needs an initialized process "
                 "group (launch.mesh.run_ranks starts one per rank)")
         return Mesh(world=1, rank=0, shape=shape, group=None,
                     device=resolve_device(device), axis_names=axis_names)
-    if n != dist.get_world_size():
-        raise ValueError(f"{who}: a mesh of {n} ranks {shape}, but the "
-                         f"process group has {dist.get_world_size()} ranks")
+    world = dist.get_world_size()
+    if ranks is None:
+        if n != world:
+            raise ValueError(f"{who}: a mesh of {n} ranks {shape}, but the "
+                             f"process group has {world} ranks (pass "
+                             "ranks= for a mesh over some of them)")
+        ranks = range(n)
+    ranks = tuple(int(r) for r in ranks)
+    if len(ranks) != n or len(set(ranks)) != n \
+            or not all(0 <= r < world for r in ranks):
+        raise ValueError(f"{who}: a mesh of {n} ranks {shape} needs as many "
+                         f"distinct ranks of the process group's {world}, "
+                         f"got {ranks}")
     rank = dist.get_rank()
     dev = rank_device(rank, device)
-    check_backend(dist.get_backend(), n, dev)
-    group, data_group, axis_groups = _groups(shape, axis_names, rank)
+    check_backend(dist.get_backend(), world, dev)
+    group, data_group, axis_groups, whole = _groups(shape, axis_names, rank,
+                                                    ranks)
     return Mesh(world=n, rank=rank, shape=shape, group=group, device=dev,
                 axis_names=axis_names, data_group=data_group,
-                axis_groups=axis_groups)
+                axis_groups=axis_groups, ranks=ranks, mesh_group=whole)
 
 
-def make_mesh(shape, axes=None, *, device="cuda") -> Mesh:
+def make_mesh(shape, axes=None, *, device="cuda", ranks=None) -> Mesh:
     """The rank's view of an arbitrary mesh (e.g. ``(2, 2)``), with the
     reference's default axis names: ``("pod", "data", "model")`` for three
-    dims, else ``("data", "model")[:len(shape)]``.  Called by every rank of
-    the process group (its size is the mesh's), or, for a mesh of one
-    rank, by a plain process."""
+    dims, else ``("data", "model")[:len(shape)]``.  ``ranks``: the global
+    ranks it spans, row-major over ``shape`` (default: every rank of the
+    process group, whose size must then be the mesh's).  Called by every
+    rank of the process group, members or not (the groups are collectives
+    of all ranks), or, for a mesh of one rank, by a plain process."""
     if axes is None:
         axes = (("pod", "data", "model") if len(shape) == 3
                 else ("data", "model")[:len(shape)])
-    return _build(shape, axes, device, "make_mesh")
+    return _build(shape, axes, device, "make_mesh", ranks)
+
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def production_layout(multi_pod: bool = False) -> dict:
+    """The rank layout of :func:`make_production_mesh`, without a process
+    group: its ``shape`` and ``axes``, ``ranks`` (the global ranks as a
+    grid, row-major), and for each axis the lines of ranks along it
+    (``lines[axis]``: (groups, members)); with ``multi_pod`` also each
+    pod's ranks as its ``("data", "model")`` grid (``pods``)."""
+    shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
+    grid = np.arange(math.prod(shape)).reshape(shape)
+    out = {"shape": shape, "axes": axes, "ranks": grid,
+           "lines": {a: _axis_groups(shape, axes, (a,)) for a in axes}}
+    if multi_pod:
+        out["pods"] = [grid[p] for p in range(shape[0])]
+    return out
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """The reference's production mesh as the rank's view: 16 x 16
+    ``("data", "model")`` (one pod of 256 ranks) or 2 x 16 x 16 ``("pod",
+    "data", "model")`` (512).  The ``pod`` axis is pure data parallelism:
+    the pipelined block walk runs one block a pod.  Needs a process group
+    of exactly that many ranks, all of which call it."""
+    lay = production_layout(multi_pod)
+    return _build(lay["shape"], lay["axes"], device, "make_production_mesh")
 
 
 _DATA_MESH_CACHE: dict = {}
@@ -350,16 +441,168 @@ def pod_count(mesh) -> int:
     return _extent(mesh, ax) if ax is not None else 1
 
 
+_POD_SUBMESH_CACHE: dict = {}
+# (source pod's ranks, destination pod's ranks) -> the group of the
+# source's first rank and the destination's ranks (None off it)
+_POD_LINKS: dict = {}
+
+
+def pod_layout(mesh) -> list:
+    """The global ranks of each pod of ``mesh``, each as its ``("data",
+    "model")`` grid (the reference's ``np.moveaxis(devices, pod_dim,
+    0)[p]``); the whole mesh as one pod where it has no ``pod`` axis."""
+    grid = np.asarray(mesh.ranks).reshape(mesh.shape)
+    ax = pod_axis(mesh)
+    if ax is None:
+        return [grid]
+    return list(np.moveaxis(grid, mesh.axis_names.index(ax), 0))
+
+
 def pod_submeshes(mesh) -> list:
-    """The reference's per-pod submeshes of the pipelined block walk."""
-    raise NotImplementedError(f"pod_submeshes is not ported yet ({_POD_WALK}"
-                              ", item 9.4)")
+    """One ``("data", "model")``-shaped submesh per pod of a ``("pod",
+    "data", "model")`` mesh, over that pod's ranks (``[mesh]`` without a
+    ``pod`` axis).  The pipelined block walk reconstructs block k on pod
+    ``k % n_pods``.  A rank is a member of its own pod's submesh; the
+    others are views without groups (their shape and ranks).
+
+    Memoized per mesh, as the reference's is: the engine cache is keyed by
+    the mesh, so a pod's submesh must be the same object on every call.
+    On first use every rank of the process group makes every pod's groups
+    and, for each ordered pair of pods, the group of the source pod's
+    first rank and the destination's ranks (:func:`reshard_between_pods`),
+    in the same order."""
+    if pod_axis(mesh) is None:
+        return [mesh]
+    key = (mesh.ranks, mesh.shape, mesh.axis_names, mesh.rank,
+           str(mesh.device),
+           id(dist.group.WORLD) if dist.is_initialized() else None)
+    if key not in _POD_SUBMESH_CACHE:
+        rest = tuple(a for a in mesh.axis_names if a != "pod")
+        subs = [_build(grid.shape, rest, mesh.device, "pod_submeshes",
+                       tuple(int(r) for r in grid.flat))
+                if dist.is_initialized() else
+                Mesh(world=grid.size, rank=mesh.rank, shape=grid.shape,
+                     group=None, device=mesh.device, axis_names=rest,
+                     ranks=tuple(int(r) for r in grid.flat))
+                for grid in pod_layout(mesh)]
+        if dist.is_initialized():
+            for src in subs:
+                for dst in subs:
+                    if src is not dst:
+                        _POD_LINKS[(src.ranks, dst.ranks)] = _new_group(
+                            (src.ranks[0],) + dst.ranks)
+        _POD_SUBMESH_CACHE[key] = subs
+    return _POD_SUBMESH_CACHE[key]
 
 
-def reshard_between_pods(x, dst_mesh, spec=None):
-    """The reference's cross-pod transfer of the pipelined block walk."""
-    raise NotImplementedError(
-        f"reshard_between_pods is not ported yet ({_POD_WALK}, item 9.4)")
+class _Leaf:
+    """A tensor's place in a tree sent by :func:`broadcast_tree`."""
+
+    def __init__(self, dtype, shape):
+        self.dtype, self.shape = dtype, tuple(shape)
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
+
+
+def _map_tree(fn, tree):
+    """``fn`` on every leaf of a tree of dicts, lists and tuples (not named
+    tuples), in order."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+_ALIGN = 16         # every tensor starts 16-byte aligned in the buffer
+
+
+def broadcast_tree(tree, src: int, group, device):
+    """``tree`` (dicts, lists and tuples of tensors and picklable values)
+    from global rank ``src`` to every rank of ``group`` (None: the default
+    group), each of which calls this (``tree`` is read on ``src`` only).
+    Its structure with the tensors' dtypes and shapes goes first, pickled;
+    then every tensor's bytes in one flat buffer on ``device``: the exact
+    bytes.  On the other ranks the tensors are views of that buffer;
+    ``src`` gets ``tree`` itself back."""
+    me = dist.get_rank()
+    tensors: list = []
+
+    def skel(leaf):
+        if not torch.is_tensor(leaf):
+            return leaf
+        tensors.append(leaf)
+        return _Leaf(leaf.dtype, leaf.shape)
+    head = [_map_tree(skel, tree) if me == src else None]
+    dist.broadcast_object_list(head, src, group=group)
+    slots: list = []
+    _map_tree(lambda v: slots.append(v) if isinstance(v, _Leaf) else None,
+              head[0])
+    spans = [s.nbytes + (-s.nbytes % _ALIGN) for s in slots]
+    if me == src:
+        pieces = []
+        for t, s, n in zip(tensors, slots, spans):
+            pieces.append(t.detach().to(device).contiguous().reshape(-1)
+                          .view(torch.uint8))
+            pieces.append(torch.zeros(n - s.nbytes, dtype=torch.uint8,
+                                      device=device))
+        buf = (torch.cat(pieces) if pieces
+               else torch.empty(0, dtype=torch.uint8, device=device))
+    else:
+        buf = torch.empty(sum(spans), dtype=torch.uint8, device=device)
+    if buf.numel():
+        dist.broadcast(buf, src, group=group)
+    if me == src:
+        return tree
+    offs = iter(np.cumsum([0] + spans[:-1]).tolist())
+
+    def fill(v):
+        if not isinstance(v, _Leaf):
+            return v
+        o = next(offs)
+        return buf[o:o + v.nbytes].view(v.dtype).view(v.shape)
+    return _map_tree(fill, head[0])
+
+
+def reshard_between_pods(x, dst_mesh, spec=None, *, src_mesh):
+    """Move a tensor or a tree of them from the ranks of pod ``src_mesh``
+    to the ranks of pod ``dst_mesh`` (two submeshes of one
+    :func:`pod_submeshes`): the cross-pod seam of the pipelined block
+    walk.  Every rank of the process group calls it in lockstep; ``x`` is
+    read on the source pod's first rank only.  That rank broadcasts over
+    the group of itself and the destination's ranks: gloo runs
+    ``broadcast`` on CUDA tensors (staged through the host), where its
+    ``send`` / ``recv`` would hand the transport a device pointer, and
+    NCCL runs it card to card.  The bytes are exact.
+
+    Returns, on the destination's ranks, the tree on ``dst_mesh.device``:
+    whole with ``spec`` None (the port keeps a pod's streams replicated on
+    its ranks, where the reference's default batch-shards them), else the
+    rank's slice under ``spec`` (a ``sharding.PartitionSpec`` for every
+    tensor, or a tree of specs mirroring ``x``); None on every other rank.
+    With ``src_mesh is dst_mesh`` it returns ``x``."""
+    if src_mesh is dst_mesh:
+        return x
+    link = (src_mesh.ranks, dst_mesh.ranks)
+    if link not in _POD_LINKS:
+        raise ValueError("reshard_between_pods: the two meshes are not pods "
+                         "of one pod_submeshes")
+    me = dist.get_rank()
+    if me != src_mesh.ranks[0] and me not in dst_mesh.ranks:
+        return None
+    out = broadcast_tree(x, src_mesh.ranks[0], _POD_LINKS[link],
+                         dst_mesh.device)
+    if me not in dst_mesh.ranks:
+        return None
+    if spec is None:
+        return out
+    from repro_torch.launch import sharding
+    if isinstance(spec, sharding.PartitionSpec):
+        return _map_tree(lambda t: sharding.shard_leaf(t, spec, dst_mesh)
+                         if torch.is_tensor(t) else t, out)
+    return sharding.shard_tree(out, spec, dst_mesh)
 
 
 def validate_single_pod(mesh, what: str) -> None:

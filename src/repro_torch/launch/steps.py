@@ -148,7 +148,8 @@ def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
 
     def finish(params, opt_state, grads, loss, pspec=None):
         reps = None if pspec is None else tree_map(replicas, pspec)
-        grads, gnorm = clip_by_global_norm(grads, grad_clip, reps)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, reps,
+                                           None if pspec is None else mesh)
         new_state = {}
         if grad_compression:
             grads, new_state["ef"] = compress_decompress(

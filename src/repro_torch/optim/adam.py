@@ -110,18 +110,19 @@ def _leaves_sorted(tree) -> list:
     return [tree]
 
 
-def clip_by_global_norm(grads, max_norm: float, replicas=None):
+def clip_by_global_norm(grads, max_norm: float, replicas=None, mesh=None):
     """Scale every gradient by ``min(1, max_norm / max(gn, 1e-12))``, where
     ``gn`` is the f32 global L2 norm over all leaves, summed leaf by leaf in
     the reference's leaf order (so a tree's key order, e.g. after a
     checkpoint restore, cannot change it).  Returns (clipped grads, gn);
     nothing is read to the host.
 
-    On a mesh ``grads`` are the rank's slices and ``replicas`` mirrors
-    them with the number of ranks that hold each slice
-    (``launch.sharding.replicas``): every rank weighs its squares by one
-    over that, so each distinct slice counts once, and the sums are
-    all-reduced over the process group (the mesh's ranks)."""
+    On a ``mesh`` (a ``launch.mesh.Mesh``) ``grads`` are the rank's slices
+    and ``replicas`` mirrors them with the number of the mesh's ranks that
+    hold each slice (``launch.sharding.replicas``): every rank weighs its
+    squares by one over that, so each distinct slice counts once, and the
+    sums are all-reduced over the mesh's ranks (its own group: a mesh need
+    not be the whole process group)."""
     leaves = _leaves_sorted(grads)
     weights = ([1] * len(leaves) if replicas is None
                else _leaves_sorted(replicas))
@@ -130,9 +131,8 @@ def clip_by_global_norm(grads, max_norm: float, replicas=None):
         s = torch.sum(torch.square(g.to(torch.float32)))
         return s if n == 1 else s / n
     total = sum(sq(g, n) for g, n in zip(leaves, weights))
-    if replicas is not None and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        dist.all_reduce(total)
+    if mesh is not None and mesh.world > 1:
+        dist.all_reduce(total, group=mesh.group_of(mesh.axis_names))
     gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     # the product in f32, rounded once to the leaf's dtype, as the reference

@@ -35,15 +35,16 @@ def compress_decompress(grads: Any, error: Any,
                         mesh=None) -> Tuple[Any, Any]:
     """Returns (decompressed grads in each leaf's dtype, new f32 error
     feedback buffers).  On a ``mesh`` of several ranks the leaves are the
-    rank's slices, and their amaxes are MAX-all-reduced over the mesh in
-    one collective (a replica's slice repeats another's, so the maximum is
-    the whole leaf's)."""
+    rank's slices, and their amaxes are MAX-all-reduced over the mesh's
+    ranks (its own group) in one collective (a replica's slice repeats
+    another's, so the maximum is the whole leaf's)."""
     gfs = tree_map(lambda g, e: g.to(torch.float32) + e, grads, error)
     amax = None
     if mesh is not None and mesh.world > 1:
         flat = tree_leaves(gfs)
         maxes = torch.stack([torch.amax(torch.abs(g)) for g in flat])
-        dist.all_reduce(maxes, op=dist.ReduceOp.MAX)
+        dist.all_reduce(maxes, op=dist.ReduceOp.MAX,
+                        group=mesh.group_of(mesh.axis_names))
         it = iter(maxes.unbind(0))
         amax = tree_map(lambda _: next(it), gfs)
 

@@ -106,14 +106,26 @@ def test_mesh_helpers():
     tmesh.validate_single_pod(m, "serving")
     with pytest.raises(ValueError, match="unknown backend"):
         tmesh.check_backend("mpi", 2, "cpu")
-    for fn in (tmesh.pod_submeshes, lambda m: tmesh.reshard_between_pods(
-            None, m)):
-        with pytest.raises(NotImplementedError, match="item 9.4"):
-            fn(m)
+    assert tmesh.pod_submeshes(m) == [m] and m.ranks == tuple(range(8))
     # the axis groups: a rank's line along each axis, row-major
     p = tmesh.Mesh(world=8, rank=5, shape=(2, 2, 2), group=None,
                    device=torch.device("cpu"),
                    axis_names=("pod", "data", "model"))
+    # one ("data", "model") submesh a pod, over that pod's global ranks:
+    # the rank's own (pod 1) with its lines, the other a view of its ranks
+    pods = tmesh.pod_submeshes(p)
+    assert pods is tmesh.pod_submeshes(p) and pods[0] != pods[1]
+    assert [q.ranks for q in pods] == [(0, 1, 2, 3), (4, 5, 6, 7)]
+    assert all(q.shape == (2, 2) and q.axis_names == ("data", "model")
+               and q.world == 4 for q in pods)
+    assert [q.member for q in pods] == [False, True]
+    own = pods[1]
+    assert own.ranks_of("model") == own.model_ranks == (4, 5)
+    assert own.ranks_of("data") == own.data_ranks == (5, 7)
+    assert (own.model_rank, own.data_rank) == (1, 0)
+    assert own.ranks_of(("data", "model")) == (4, 5, 6, 7)
+    with pytest.raises(ValueError, match="not a member"):
+        pods[0].ranks_of("data")
     assert tmesh.pod_axis(p) == "pod" and tmesh.pod_count(p) == 2
     assert p.ranks_of("pod") == (1, 5) and p.index_of("pod") == 1
     assert p.ranks_of("data") == (5, 7) and p.index_of("data") == 0

@@ -8,9 +8,12 @@ backend: its ``"pallas"`` decode path cannot run on the installed jax
 (ROADMAP fault 3.1).
 
 Tolerances:
-* f32 model, port ``"pallas"`` (plain versions): atol 1e-4 on logits
-  (summation order only; the KV cache is bf16 in both packages) and equal
-  tokens;
+* f32 model, port ``"pallas"`` (plain versions): atol 1e-4 on logits and
+  equal tokens, with an f32 KV cache in both packages (summation order
+  only: measured ~3e-6).  A bf16 cache in an f32 model would let an f32
+  summation-order difference of ~1e-7 flip a bf16 rounding of K or V,
+  which reaches the logits (measured up to 1.47e-4); the bf16 cache is
+  held by the bf16 cases below;
 * f32 model, port ``"xla"``: atol 1e-4, as above;
 * bf16 model, port ``"xla"``: the same operations as the reference in the
   same dtype, but XLA's CPU backend fuses bf16 elementwise chains in f32
@@ -27,6 +30,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import dataclasses  # noqa: E402
 
 import jax  # noqa: E402
 
@@ -66,8 +71,18 @@ def _prompts(vocab):
 _CACHE = {}
 
 
+def _cache_dtype(model, dtype):
+    """``model`` with its caches allocated in ``dtype`` whatever the caller
+    asks for (either package)."""
+    init = model.init_cache
+    return dataclasses.replace(
+        model, init_cache=lambda b, s, _=None, *a, **kw: init(b, s, dtype,
+                                                             *a, **kw))
+
+
 def _reference(arch, dtype):
-    """JAX params, RTN+pack artifacts and xla-backend serve, memoized."""
+    """JAX params, RTN+pack artifacts and xla-backend serve, memoized.  An
+    f32 model serves from an f32 KV cache."""
     key = (arch, dtype)
     if key not in _CACHE:
         cfg = jget_reduced(arch).replace(dtype=dtype)
@@ -79,7 +94,9 @@ def _reference(arch, dtype):
                                              method="none", init="rtn")
         packed = jpack_model(cfg, pfq, qmeta, qcfg)
         prompts = _prompts(cfg.vocab_size)
-        res = jserve(cfg, model, packed, prompts, gen=GEN,
+        smodel = (_cache_dtype(model, jax.numpy.float32)
+                  if dtype == "float32" else model)
+        res = jserve(cfg, smodel, packed, prompts, gen=GEN,
                      kernel_backend="xla")
         to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
         _CACHE[key] = dict(params=to_np(params), packed=to_np(packed),
@@ -92,7 +109,10 @@ def _port_serve(arch, dtype, backend):
     ref = _reference(arch, dtype)
     cfg = get_reduced_config(arch).replace(dtype=dtype)
     packed = params_to_torch(ref["packed"], "cpu")
-    res = tserve.serve_requests(cfg, get_model(cfg), packed, ref["prompts"],
+    model = get_model(cfg)
+    if dtype == "float32":
+        model = _cache_dtype(model, torch.float32)
+    res = tserve.serve_requests(cfg, model, packed, ref["prompts"],
                                 gen=GEN, kernel_backend=backend,
                                 device="cpu")
     return ref, res
