@@ -137,14 +137,13 @@ Phases, each printing its own lines:
    both backends and a teacher-forced reading tell bf16 rounding or a
    flipped token from a wrong kernel, and at the CI settings the gate must
    pass with the ``"xla"`` dequantization rounded as the kernels round it;
-15. train: (a) ``python -m repro_torch.launch.train`` at smollm-135m's
+15. train ((a)'s children beside (b)-(d)): (a) ``python -m
+   repro_torch.launch.train`` at smollm-135m's
    full width and depth (24 steps, batch 8 x 256, checkpoints every 12;
    cut from 40 and 20 for the run's time): the loss falls by
-   ``TRAIN_MARGIN``, a second
-   run resumes at step 24 for 12 more, and a run stopped by SIGTERM after
-   step 6 saves, exits 2 and, resumed, reaches the straight run's step-12
-   checkpoint within
-   ``RESUME_ATOL``; (b) TinyLlama-1.1B at full width and depth, 3 steps at
+   ``TRAIN_MARGIN``, and a run stopped by SIGTERM after step 6 saves,
+   exits 2 and, resumed, reaches the straight run's step-12 checkpoint
+   within ``RESUME_ATOL``; (b) TinyLlama-1.1B at full width and depth, 3 steps at
    4 x 2048 tokens with remat on and off (finite losses, ms per step, peak
    GB), and one layer's recomputing attention backward against autograd
    through the plain loop at S = 2048 with both peaks; (c)
@@ -171,8 +170,8 @@ Phases, each printing its own lines:
    scheduled on int8 dense and paged stores
    (equal tokens; the paged run's decode on the dense decode-attention
    kernel, exact launches); (f) phase 5's block at depth 1, in f32,
-   calibrated on the ``"device"``, ``"reference"`` and ``"legacy"``
-   engines (reference
+   calibrated (K=2, T=2) on the ``"device"``, ``"reference"`` and
+   ``"legacy"`` engines (reference
    equal to device bit for bit, legacy codes equal and scales within
    rtol 1e-5; ms per Soften step and host syncs of each), and OmniQuant
    and SignRound on the ``"legacy"`` host loop against ``"device"``;
@@ -191,7 +190,8 @@ Phases, each printing its own lines:
    512 positions, on 2 blocks of RWKV6-3B and of PaliGemma-3B and on
    Zamba2-1.2B cut to depth 6 (six mamba stages, then the shared block):
    every block below AWQ's recon_mse, packed perplexity within ``PPL_REL``
-   of fake-quant; (e) ``examples/quantize_every_family_torch.py``;
+   of fake-quant; (e) ``examples/quantize_every_family_torch.py`` in a
+   child process beside (a)-(d);
 18. the encoder-decoder, whisper-small at W2A16g128 RTN + pack, published
    widths: (a) whole (12 + 12 layers), scheduled on both stores (8 slots,
    16 requests of 1500 seeded frames + 4..32 tokens, 8..48 generated):
@@ -254,8 +254,20 @@ Phases, each printing its own lines:
    launches of kernel 1 and the expert kernel on each rank; (e) TinyLlama
    saved from ``(2, 1)``, restored without a mesh, one more step against
    the control's;
-22. a JSON line listing the ported kernels with their numbers;
-23. last line: ``{"ok": true, "device": {...}}``.
+22. the reference's GSPMD serve path (``make_serve_steps(cfg, mesh)``, a
+   ``MeshPlacement``): LLaMA-2-7B at full width and 2 of 32 layers, RTN
+   W2A16g128, 4 x (128 + 8) and a scheduled run against the no-mesh
+   control: (a) one NCCL rank on ``(1, 1)``, bit-identical; (b) two gloo
+   ranks sharing the card on ``(1, 2)`` and ``(2, 1)``: the control's
+   tokens, its logits bit for bit (or within ``parity_gate`` where a
+   kernel's plan moves with a rank's rows), exact launches, the bytes a
+   rank keeps equal to the shardings' prediction, the params' gather
+   timed alone, a decode step's collective bytes; beside them the
+   sanitizer (``debug.sanitized``: a guarded scheduled run and PAR
+   iteration clean, a planted ``.item()`` raising),
+   ``assert_no_recompiles`` and the dry-run CLI in a subprocess;
+23. a JSON line listing the ported kernels with their numbers;
+24. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 Without a CUDA device, or without ``src/repro_torch`` beside this script,
@@ -284,10 +296,6 @@ import torch  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (dense): the bound_ms denominators
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-INT8_OP_PER_S = 1979e12
 
 # kernel vs plain version: both accumulate in f32, in different orders, and
 # round the result to bf16.  Allowed: 2 bf16 ulps of the larger magnitude,
@@ -376,12 +384,14 @@ def cuda_ms(fn, iters=20, flush=None, spin=SPIN_CYCLES):
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def bound(nbytes, flops, peak=BF16_FLOP_PER_S):
+def bound(nbytes, flops, peak=None):
     """Least time for moving ``nbytes`` and doing ``flops`` operations at
     ``peak`` operations per second (bf16 unless stated: the int8 kernel's
-    rows pass the int8 peak)."""
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / peak * 1e3
+    rows pass the int8 peak), at the H100 SXM's published dense peaks of
+    ``launch/hlo_stats.py`` (the dry-run's roofline reads the same)."""
+    from repro_torch.launch.hlo_stats import HBM_BW, PEAK_FLOPS
+    t_b = nbytes / HBM_BW * 1e3
+    t_f = flops / (PEAK_FLOPS if peak is None else peak) * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
@@ -1359,8 +1369,9 @@ def check_int8(gen, M, K, N, flush, card, lda=None, out_dtype=torch.float32,
             rec[f"library_col_ms{reading}"] = col
             rec[f"library_ms{reading}"] = min(row, col)
     nbytes = M * K + K * N + 4 * (M + N) + M * N * out_b
+    from repro_torch.launch.hlo_stats import INT8_PEAK_OPS
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * M * K * N,
-                                             INT8_OP_PER_S)
+                                             INT8_PEAK_OPS)
     rec["launches"] = build.LAUNCHES["int8_matmul"] - n0
     show("int8_matmul", rec, card)
     return rec
@@ -3561,9 +3572,11 @@ def harness_phase(card, argv=HARNESS_ARGS, ci=HARNESS_CI):
 TRAIN_ARCH = "smollm-135m"      # the train CLI's default: 30 L, d 576, tied
 TRAIN_ARGS = ("--batch", "8", "--seq", "256", "--ckpt-every", "12",
               "--log-every", "1")
-# cut from 40 and 60 steps for the run's time (the card's losses fell by
-# 0.61 over the first 20 steps and 1.06 over 24: PERF.md §4)
-TRAIN_STEPS, TRAIN_MORE = 24, 36
+# cut from 40 steps for the run's time (the card's losses fell by 0.61
+# over the first 20 steps and 1.06 over 24: PERF.md §4); the resumed run
+# of 12 more steps is gone (the stopped chain's resume holds resume
+# bit-equality)
+TRAIN_STEPS = 24
 # the stopped run: SIGTERM after step 6, resumed, and SIGTERM again once
 # its step-12 checkpoint is written, held to the straight run's step 12
 TRAIN_STOP_AT, TRAIN_CMP = 6, 12
@@ -3623,10 +3636,9 @@ def _ckpt_leaves(ckpt_dir, step):
 
 def train_cli_phase(card):
     """(a) The train CLI at full width and depth: 24 steps with checkpoints
-    at 12 and 24, then 12 more resumed from 24; beside them a run stopped
-    by SIGTERM after step 6, which saves and exits 2, resumed (and stopped
-    again once past its step-12 checkpoint), held to the straight run's
-    step 12."""
+    at 12 and 24; beside them a run stopped by SIGTERM after step 6, which
+    saves and exits 2, resumed (and stopped again once past its step-12
+    checkpoint), held to the straight run's step 12."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         straight, stopped = (os.path.join(tmp, "straight"),
@@ -3664,8 +3676,6 @@ def train_cli_phase(card):
                   flush=True)
             if not (np.isfinite(ls).all() and last < first - TRAIN_MARGIN):
                 fail(f"train CLI loss did not fall: {first} -> {last}")
-            resumed = dict(zip(("rc", "losses", "ms", "out"), _train_cli(
-                ["--steps", str(TRAIN_MORE)], straight)))
         finally:
             chain_thread.join()
         rc, part, _, out = chain["first"]
@@ -3679,18 +3689,6 @@ def train_cli_phase(card):
         if rc != 2 or f"[train] resumed from step {at}" not in out:
             fail(f"resume after SIGTERM: exit {rc}: "
                  + "\n".join(out[-10:]))
-        more = resumed["losses"]
-        if (resumed["rc"] != 0
-                or f"[train] resumed from step {TRAIN_STEPS}"
-                not in resumed["out"]
-                or sorted(more) != list(range(TRAIN_STEPS, TRAIN_MORE))
-                or not all(np.isfinite(v[0]) for v in more.values())):
-            fail(f"train CLI resume: exit {resumed['rc']}, steps "
-                 f"{sorted(more)}: " + "\n".join(resumed["out"][-20:]))
-        print(f"[train-cli] resumed at {TRAIN_STEPS}, "
-              f"{TRAIN_MORE - TRAIN_STEPS} more steps at "
-              f"{resumed['ms'][0]:.3f} ms per step; last loss "
-              f"{more[TRAIN_MORE - 1][0]:.4f}", flush=True)
         a = _ckpt_leaves(straight, TRAIN_CMP)
         b = _ckpt_leaves(stopped, TRAIN_CMP)
         if len(a) != len(b):
@@ -3938,24 +3936,40 @@ def moe_train_phase(card):
 
 
 def train_phase(card):
-    """Phase 15: (a) the train CLI, (b) TinyLlama-1.1B, (c) the quickstart,
-    (d) the MoE card vs CPU.  Only (c) launches kernels: training runs
-    none, which (b) and (d) check."""
+    """Phase 15: (a) the train CLI's child processes beside (b)
+    TinyLlama-1.1B, (d) the MoE card vs CPU and (c) the quickstart (for the
+    run's time: PERF.md §4).  Only (c) launches kernels:
+    training runs none, which (b) and (d) check; the CLI's children count
+    their own."""
     from repro_torch.kernels import build
-    out = {}
+    out, cli = {}, {}
     t0 = time.perf_counter()
-    out["cli"] = train_cli_phase(card)
-    t1 = time.perf_counter()
-    build.reset_launch_counts()
-    out["big"] = big_train_phase(card)
-    out["moe"] = moe_train_phase(card)
-    if any(build.LAUNCHES.values()):
-        fail(f"training launched kernels: {dict(build.LAUNCHES)}")
-    t2 = time.perf_counter()
-    counts, out["quickstart"] = quickstart_phase(card)
-    t3 = time.perf_counter()
-    print(f"[train] (a) CLI {t1 - t0:.1f}s, (b) + (d) {t2 - t1:.1f}s, (c) "
-          f"quickstart {t3 - t2:.1f}s", flush=True)
+
+    def run_cli():
+        try:
+            cli["out"] = train_cli_phase(card)
+        except BaseException as e:      # re-raised in this thread below
+            cli["err"] = e
+        cli["s"] = time.perf_counter() - t0
+    thread = threading.Thread(target=run_cli)
+    thread.start()
+    try:
+        build.reset_launch_counts()
+        out["big"] = big_train_phase(card)
+        out["moe"] = moe_train_phase(card)
+        if any(build.LAUNCHES.values()):
+            fail(f"training launched kernels: {dict(build.LAUNCHES)}")
+        t1 = time.perf_counter()
+        counts, out["quickstart"] = quickstart_phase(card)
+        t2 = time.perf_counter()
+    finally:
+        thread.join()
+    if "err" in cli:
+        raise cli["err"]
+    out["cli"] = cli["out"]
+    print(f"[train] (a) CLI {cli['s']:.1f}s beside (b) + (d) "
+          f"{t1 - t0:.1f}s and (c) quickstart {t2 - t1:.1f}s: "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     return counts, out
 
 
@@ -3998,9 +4012,11 @@ KV_REL = 5e-2
 KV_REL_DEEP = 1e-1
 # the engines on phase 5's block, at depth 1 since PR 26 (the run's time
 # limit: the host-loop engines took ~70 s at depth 2), a short schedule
-# (T cut from 10 to 5 for the run's time: PERF.md §4)
-ENGINE_K, ENGINE_T, ENGINE_LAYERS = 3, 5, 1
-METHOD_HOST_STEPS = 20
+# (T cut from 10 to 5, then K from 3 to 2, T to 2 and the
+# OmniQuant / SignRound host steps from 20 to 10, for the run's time: the
+# host engines pay a NumPy harden a PAR iteration: PERF.md §4)
+ENGINE_K, ENGINE_T, ENGINE_LAYERS = 2, 2, 1
+METHOD_HOST_STEPS = 10
 # the legacy host loop against the device engine on the card, in f32: its
 # one batched backward and the canonical per-sample lanes take different
 # cuBLAS products, so the gradients differ by f32 rounding, and Adam (or
@@ -4885,10 +4901,36 @@ def family_calibrate_phase(arch, layers, card):
     return counts, {"blocks": blocks, "secs": t_cal, "peak_gb": peak / 1e9}
 
 
-def every_family_phase(card):
-    """(e) ``examples/quantize_every_family_torch.py`` on the card: TesseraQ
-    within 2% of AWQ's mean recon_mse or below on every family (the
-    example's own mark), ``soft_round`` once a leaf and Soften step."""
+# (e) runs in a child process beside (a)-(d) (the run's time:
+# PERF.md §4): the example's own main, its launches counted in the child
+EVERY_FAMILY_CHILD = r"""
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import torch
+from repro_torch.kernels import build
+import quantize_every_family_torch as ex
+build.reset_launch_counts()
+res = ex.main(["--device", "cuda"])
+torch.cuda.synchronize()
+print("[every-family-json]", json.dumps({"res": res,
+                                          "counts": dict(build.LAUNCHES)}))
+"""
+
+
+def every_family_start():
+    """Start (e): ``examples/quantize_every_family_torch.py`` in a child
+    process on the card, its launches counted there from 0."""
+    return subprocess.Popen(
+        [sys.executable, "-c", EVERY_FAMILY_CHILD, os.path.join(HERE, "src"),
+         os.path.join(HERE, "examples")], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def every_family_phase(card, proc):
+    """(e) The every-family example's child (``every_family_start``):
+    TesseraQ within 2% of AWQ's mean recon_mse or below on every family
+    (the example's own mark), ``soft_round`` once a leaf and Soften
+    step."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.core.blocks import build_stages, quant_leaf_paths
     from repro_torch.kernels import build
@@ -4897,14 +4939,18 @@ def every_family_phase(card):
     leaves = 0
     for arch in ex.ARCHS:
         cfg = get_reduced_config(arch)
-        params = get_model(cfg).init_params(0, "cuda")
+        params = get_model(cfg).init_params(0, "cpu")
         leaves += sum(len(quant_leaf_paths(st.get_block(params, i)))
                       for st in build_stages(cfg) if st.calibrate
                       for i in range(st.n_blocks))
-    build.reset_launch_counts()
-    res = ex.main(["--device", "cuda"])
-    torch.cuda.synchronize()
-    counts = dict(build.LAUNCHES)
+    out, err = proc.communicate(timeout=900)
+    line = [ln for ln in out.splitlines()
+            if ln.startswith("[every-family-json]")]
+    if proc.returncode or not line:
+        fail(f"every-family child exited {proc.returncode}:\n{out[-2000:]}"
+             f"\n{err[-3000:]}")
+    got = json.loads(line[0].split(" ", 1)[1])
+    res, counts = got["res"], got["counts"]
     n = leaves * 3 * 12             # the example's K = 3, T = 12
     want = {k: 0 for k in build.KERNELS}
     want.update(soft_round_fwd=n, soft_round_bwd=n)
@@ -4921,29 +4967,35 @@ def every_family_phase(card):
 
 def families_phase(card):
     """Phase 17: (a) RWKV6-3B and (b) Zamba2-1.2B served, (c) PaliGemma-3B
-    scheduled, (d) the three calibrated, (e) the every-family example,
-    each path's launches counted from 0.  Returns {part: counts} and the
-    numbers."""
+    scheduled, (d) the three calibrated, (e) the every-family example (in
+    a child process beside (a)-(d)), each path's launches counted from 0.
+    Returns {part: counts} and the numbers."""
     from repro_torch.kernels import build
     out, nums, t = {}, {}, [time.perf_counter()]
-    for arch in FAMILY_SERVED:
-        out[arch], nums[arch] = family_serve_phase(arch, card)
+    example = every_family_start()
+    try:
+        for arch in FAMILY_SERVED:
+            out[arch], nums[arch] = family_serve_phase(arch, card)
+            t.append(time.perf_counter())
+        out[VLM_ARCH], nums[VLM_ARCH] = vlm_schedule_phase(card)
         t.append(time.perf_counter())
-    out[VLM_ARCH], nums[VLM_ARCH] = vlm_schedule_phase(card)
-    t.append(time.perf_counter())
-    cal = {k: 0 for k in build.KERNELS}
-    for arch, layers in FAMILY_CAL:
-        c, nums[f"{arch} calibrate"] = family_calibrate_phase(arch, layers,
-                                                              card)
-        cal = {k: cal[k] + c[k] for k in cal}
-    out["calibrate"] = cal
-    t.append(time.perf_counter())
-    out["example"], nums["example"] = every_family_phase(card)
-    t.append(time.perf_counter())
+        cal = {k: 0 for k in build.KERNELS}
+        for arch, layers in FAMILY_CAL:
+            c, nums[f"{arch} calibrate"] = family_calibrate_phase(
+                arch, layers, card)
+            cal = {k: cal[k] + c[k] for k in cal}
+        out["calibrate"] = cal
+        t.append(time.perf_counter())
+        out["example"], nums["example"] = every_family_phase(card, example)
+        t.append(time.perf_counter())
+    finally:
+        if example.poll() is None:
+            example.kill()
+            example.communicate()
     print(f"[time] phase 17: (a) rwkv6 {t[1] - t[0]:.1f}s, (b) zamba2 "
           f"{t[2] - t[1]:.1f}s, (c) paligemma {t[3] - t[2]:.1f}s, (d) "
-          f"calibrate {t[4] - t[3]:.1f}s, (e) example {t[5] - t[4]:.1f}s",
-          flush=True)
+          f"calibrate {t[4] - t[3]:.1f}s, (e) the example's child (beside "
+          f"(a)-(d)) waited for {t[5] - t[4]:.1f}s", flush=True)
     return out, nums
 
 
@@ -5853,8 +5905,9 @@ def tp_serve_phase(card):
             del model, packed
         times["controls"] = time.perf_counter() - t0
 
-        # (d) runs beside the hand-over of the packed trees and (a), whose
-        # readings are identity, launches and syncs, not time
+        # (d) runs beside the hand-over of the packed trees, and (a) and
+        # (b)+(c) beside each other: their readings are identity, launches,
+        # syncs and bytes; their times are each rank's own
         t0 = time.perf_counter()
         env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
         clis = {k: subprocess.Popen(
@@ -5868,23 +5921,40 @@ def tp_serve_phase(card):
             _free()
             times["save"] = time.perf_counter() - t0
             t_spawn = time.time()
-            (one,) = run_ranks(tp_rank, 1, backend="nccl", device="cuda",
-                               args=(1, tmp, {"llama": cfgs["llama"]},
-                                     False), timeout=TP_SPAWN_S)
-            times["a"] = time.perf_counter() - t0
-            cli = {k: (p.communicate(timeout=TP_SPAWN_S), p.returncode)
-                   for k, p in clis.items()}
-            times["d"] = time.perf_counter() - t0
+            ranks = {}
+
+            def gloo_ranks():
+                ranks["two"] = run_ranks(
+                    tp_rank, TP_DEGREE, backend="gloo", device="cuda",
+                    args=(TP_DEGREE, tmp, cfgs, True), timeout=TP_SPAWN_S)
+                times["b+c"] = time.perf_counter() - t0
+            gloo = threading.Thread(target=gloo_ranks)
+            gloo.start()
+            try:
+                (one,) = run_ranks(tp_rank, 1, backend="nccl", device="cuda",
+                                   args=(1, tmp, {"llama": cfgs["llama"]},
+                                         False), timeout=TP_SPAWN_S)
+                times["a"] = time.perf_counter() - t0
+                cli = {k: (p.communicate(timeout=TP_SPAWN_S), p.returncode)
+                       for k, p in clis.items()}
+                times["d"] = time.perf_counter() - t0
+            finally:
+                gloo.join()
         finally:
             for p in clis.values():
                 if p.poll() is None:
                     p.kill()
                     p.communicate()
+        if "two" not in ranks:
+            fail("tp (b)+(c): the spawn of the gloo ranks failed (its "
+                 "traceback above)")
+        two = ranks["two"]
         r = one["llama"]
         print(f"[tp-serve] (a) one {one['backend']} rank, mesh "
               f"{one['shape']}: prefill {r['prefill_ms']:.3f} ms, decode "
               f"{r['decode_ms']:.3f} ms/step (sync debug mode on, the CLIs "
-              f"of (d) running beside), syncs inside decode steps "
+              f"of (d) and the ranks of (b) running beside), syncs inside "
+              f"decode steps "
               f"{r['decode_syncs']} over {r['decode_steps']}, launches "
               f"{r['counts']}, logits {r['logits']} (control "
               f"{ctrl['llama']['logits']}), device bytes placed "
@@ -5902,13 +5972,6 @@ def tp_serve_phase(card):
                  "run")
         if r["decode_syncs"]:
             fail(f"tp (a): {r['decode_syncs']} syncs inside decode steps")
-
-        t0 = time.perf_counter()
-        t_spawn = time.time()
-        two = run_ranks(tp_rank, TP_DEGREE, backend="gloo", device="cuda",
-                        args=(TP_DEGREE, tmp, cfgs, True),
-                        timeout=TP_SPAWN_S)
-        times["b+c"] = time.perf_counter() - t0
     limit = {"llama": REL_L2, "moe": MOE_TP_REL}
     for name, tag in (("llama", "(b)"), ("moe", "(c)")):
         for r in two:
@@ -6001,8 +6064,8 @@ def tp_serve_phase(card):
     if reqs["tp"] != reqs["one"]:
         fail("tp (d): the CLI's tokens with --tp differ from without")
     print(f"[time] phase 19: controls {times['controls']:.1f}s, hand-over "
-          f"{times['save']:.1f}s then (a) until {times['a']:.1f}s and (d) "
-          f"{times['d']:.1f}s side by side, (b)+(c) {times['b+c']:.1f}s",
+          f"{times['save']:.1f}s then (a) until {times['a']:.1f}s, (d) "
+          f"{times['d']:.1f}s and (b)+(c) {times['b+c']:.1f}s side by side",
           flush=True)
     return {"nccl rank": one["llama"]["counts"],
             **{f"gloo rank {r['rank']}": _sum_counts(
@@ -6910,6 +6973,418 @@ def mesh_train_phase(card):
                for r in two}}
 
 
+# --------------------------------------------------------------------------
+# phase 22: the GSPMD-placed serve path, the sanitizer and the dry-run
+# --------------------------------------------------------------------------
+
+GSPMD_LAYERS = 2                # depth cut from 32 (the phase's time)
+GSPMD_GEN = 8                   # 4 x (128 + 8)
+# the scheduled run: 4 slots (2 a rank on (2, 1)), 4 seeded requests
+GSPMD_WORKLOAD = dict(n_requests=4, seed=0, prompt_lens=(16, 64),
+                      budgets=(2, 8), mean_gap=2.0)
+GSPMD_SLOTS = 4
+GSPMD_MESHES = ((1, 2), (2, 1))       # the two gloo ranks' meshes
+GSPMD_SCHEDULED = (2, 1)              # the gloo ranks' scheduled mesh
+GSPMD_SPAWN_S = 300
+# (b): one PAR iteration of TesseraQ on a full-width LLaMA-2-7B layer,
+# RTN init, 8 x 512 calibration tokens at bs 4
+SANITIZE_CAL = dict(layers=1, samples=8, seq=512, bs=4, steps=2)
+DRYRUN_ARGS = ("--arch", "llama2-7b", "--shape", "decode_32k", "--mesh",
+               "single", "--quant", "W2A16g128")
+
+
+def _shard_bytes(tree, specs):
+    """Bytes of the rank's slices of a global tree under its shardings
+    (``shard_shape``), QTensor fields leaf by leaf."""
+    import math
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.launch.sharding import shard_shape
+    if isinstance(tree, dict):
+        return sum(_shard_bytes(v, specs[k]) for k, v in tree.items())
+    if isinstance(tree, QTensor):
+        return sum(_shard_bytes(getattr(tree, f), getattr(specs, f))
+                   for f in ("packed", "scale", "zero", "act_scale"))
+    if tree is None:
+        return 0
+    return math.prod(shard_shape(tree.shape, specs)) * tree.element_size()
+
+
+def gspmd_lockstep(cfg, host, ctrl, mesh):
+    """One rank's lock-step serve on ``mesh`` (the control's 4 x (128 +
+    ``GSPMD_GEN``) on "pallas", warm-up first): its placement of the host
+    tree ``host`` (only its slices moved to the card), the tokens and the
+    logits, exact launches, the bytes it keeps against ``param_shardings``
+    / ``cache_shardings``' prediction, the ms of the params' gather, and
+    one decode step counted by ``hlo_stats.OpCounter`` (its collectives,
+    their bytes, its host transfers)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import hlo_stats
+    from repro_torch.launch.serve import compile_serve_steps, serve_requests
+    from repro_torch.launch.sharding import (MeshPlacement, cache_shardings,
+                                             param_shardings, SERVE_OVERRIDES)
+    from repro_torch.models import get_model
+    prompts = ctrl["prompts"]
+    B, P = prompts.shape
+    t0 = time.perf_counter()
+    placed = MeshPlacement.place(mesh, cfg, host)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    model = get_model(cfg)
+    pstep, dstep = compile_serve_steps(cfg, kernel_backend="pallas",
+                                       mesh=mesh)
+    record = {}
+
+    def counted(*a, **k):
+        counter = hlo_stats.OpCounter()
+        with counter:
+            out = dstep(*a, **k)
+        record.update(
+            ops=hlo_stats.collective_op_counts(counter.collectives),
+            coll_bytes=sum(c.nbytes for c in counter.collectives),
+            host_transfers=hlo_stats.host_transfer_ops(counter))
+        return out
+
+    def run(gen, compiled=(pstep, dstep), **k):
+        return serve_requests(cfg, model, placed, prompts, gen=gen,
+                              kernel_backend="pallas", compiled=compiled,
+                              mesh=mesh, **k)
+    run(2, compiled=(pstep, counted), collect_logits=False)   # warm-up
+    build.reset_launch_counts()
+    res = run(GSPMD_GEN)
+    counts = dict(build.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        whole = placed.whole()
+        del whole
+    torch.cuda.synchronize()
+    gather_ms = (time.perf_counter() - t0) / 3 * 1e3
+    struct = model.init_cache(B, P + GSPMD_GEN, device="meta")
+    predicted = (_shard_bytes(host, param_shardings(mesh, host, cfg,
+                                                    SERVE_OVERRIDES))
+                 + _shard_bytes(struct, cache_shardings(mesh, struct, cfg)))
+    return {"tokens": res.tokens, "logits": res.logits,
+            "digest": _digest(res.logits), "counts": counts,
+            "prefill_ms": res.prefill_secs * 1e3,
+            "decode_ms": res.decode_secs * 1e3 / (GSPMD_GEN - 1),
+            "kept": _tree_bytes(placed.params)
+            + res.cache_stats["cache_bytes"],
+            "predicted": predicted, "gather_ms": gather_ms,
+            "place_s": place_s, "step": record}, placed
+
+
+def gspmd_schedule(cfg, placed, mesh):
+    """One rank's scheduled run (``GSPMD_WORKLOAD``, ``GSPMD_SLOTS`` slots
+    on the dense store) on ``mesh``: tokens, exact launches."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.scheduler import make_workload, serve_scheduled
+    reqs = make_workload(cfg.vocab_size, **GSPMD_WORKLOAD)
+    build.reset_launch_counts()
+    res = serve_scheduled(cfg, placed, reqs, slots=GSPMD_SLOTS,
+                          kernel_backend="pallas", mesh=mesh)
+    counts = dict(build.LAUNCHES)
+    want = expected_launches(cfg, prefill_calls(res, reqs), res.steps,
+                             "decode_attention", "decode_attention")
+    return {"tokens": {r.rid: res.requests[r.rid]["tokens"] for r in reqs},
+            "counts": counts, "want": want, "steps": res.steps,
+            "decode_ms": res.decode_secs * 1e3 / max(res.steps, 1)}
+
+
+def gspmd_rank(tmp, cfg, shapes):
+    """One rank of phase 22: the packed tree read into host memory
+    (``mmap``), then on each mesh of ``shapes`` the lock-step serve and,
+    on ``GSPMD_SCHEDULED`` (or a mesh of one rank), the scheduled run."""
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctrl = dict(np.load(os.path.join(tmp, "ctrl.npz")))
+    host = torch.load(os.path.join(tmp, "packed.pt"), map_location="cpu",
+                      mmap=True, weights_only=False)
+    out = {"rank": torch.distributed.get_rank(),
+           "backend": torch.distributed.get_backend()}
+    for shape in shapes:
+        mesh = make_mesh(shape, device="cuda")
+        out[shape], placed = gspmd_lockstep(cfg, host, ctrl, mesh)
+        if shape == GSPMD_SCHEDULED or mesh.world == 1:
+            out[shape]["schedule"] = gspmd_schedule(cfg, placed, mesh)
+        del placed
+        _free()
+    return out
+
+
+def sanitize_phase(card, cfg, packed, prompts, reqs, want):
+    """(b) ``sanitized(transfer_guard=True)`` around the scheduled run (its
+    decode steps between admissions; the admissions' first-token reads
+    and the off-clock fetches are its ``allowed_transfer`` points) and
+    around one PAR iteration's Soften steps (``ReconstructionEngine.run``,
+    the first call of a TesseraQ walk): no raise; a planted ``.item()`` on
+    a decode step's logits inside raises.  (c) ``assert_no_recompiles``
+    quiet on a repeat of the scheduled run, raising on a new
+    ``max_seq``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import recon_engine as RE
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.core.tesseraq import TesseraQConfig
+    from repro_torch.data.pipeline import DataConfig, calibration_batches
+    from repro_torch.debug import (RecompileError, assert_no_recompiles,
+                                   sanitized)
+    from repro_torch.kernels import build
+    from repro_torch.launch.scheduler import (compile_sched_steps,
+                                              serve_scheduled)
+    from repro_torch.launch.serve import compile_serve_steps, parse_quant
+    from repro_torch.models import get_model
+    width = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    kw = dict(slots=GSPMD_SLOTS, kernel_backend="pallas", device="cuda")
+    steps = compile_sched_steps(cfg, max_seq=width, kernel_backend="pallas")
+    with sanitized(transfer_guard=True):
+        res = serve_scheduled(cfg, packed, reqs, compiled=steps, **kw)
+    if not all(np.array_equal(res.requests[r.rid]["tokens"], want[r.rid])
+               for r in reqs):
+        fail("sanitize (b): the guarded scheduled run's tokens differ")
+    model = get_model(cfg)
+    pstep, dstep = compile_serve_steps(cfg, kernel_backend="pallas")
+    cache = model.init_cache(4, 136, device="cuda")
+    toks = torch.as_tensor(prompts, device="cuda")
+    with torch.no_grad():
+        lg, cache = pstep(packed, {"tokens": toks}, cache)
+        tok = torch.argmax(lg, -1)
+        pos = torch.full((4,), prompts.shape[1], dtype=torch.int32,
+                         device="cuda")
+        torch.cuda.synchronize()
+        planted = None
+        try:
+            with sanitized(transfer_guard=True):
+                lg, cache = dstep(packed, cache, tok, pos)
+                lg[0, 0].item()
+        except RuntimeError as e:
+            planted = str(e).splitlines()[0]
+    torch.cuda.set_sync_debug_mode("default")
+    if planted is None or "synchroniz" not in planted:
+        fail(f"sanitize (b): a planted .item() did not raise ({planted})")
+
+    c = SANITIZE_CAL
+    lcfg = get_config("llama2-7b").replace(num_layers=c["layers"])
+    params = get_model(lcfg).init_params(0, "cuda")
+    data = DataConfig(vocab_size=lcfg.vocab_size, seq_len=c["seq"],
+                      global_batch=c["bs"], seed=0)
+    calib = [{"tokens": torch.as_tensor(b["tokens"][:, :-1], device="cuda")}
+             for b in calibration_batches(data, c["samples"] // c["bs"],
+                                          c["bs"])]
+    run = RE.ReconstructionEngine.run
+    guarded = []
+
+    def first_guarded(self, *a, **k):
+        if guarded:
+            return run(self, *a, **k)
+        with sanitized(transfer_guard=True):
+            out = run(self, *a, **k)
+        torch.cuda.synchronize()
+        guarded.append(k.get("steps"))
+        return out
+    build.reset_launch_counts()
+    RE.ReconstructionEngine.run = first_guarded
+    try:
+        quantize_model(lcfg, params, calib,
+                       parse_quant("W2A16g128", kernel_backend="pallas"),
+                       method="tesseraq", init="rtn",
+                       tcfg=TesseraQConfig(par_iterations=1,
+                                           steps_per_iteration=c["steps"],
+                                           batch_size=c["bs"]))
+    finally:
+        RE.ReconstructionEngine.run = run
+    cal_counts = dict(build.LAUNCHES)
+    del params, calib
+    _free()
+    if guarded != [c["steps"]] or cal_counts["soft_round_fwd"] != \
+            7 * c["steps"] * c["layers"]:
+        fail(f"sanitize (b): guarded PAR iterations {guarded}, launches "
+             f"{cal_counts}")
+
+    with assert_no_recompiles(compile_sched_steps, compile_serve_steps,
+                              build.build_library):
+        again = serve_scheduled(cfg, packed, reqs, max_seq=width, **kw)
+    recompiled = None
+    try:
+        with assert_no_recompiles(compile_sched_steps):
+            serve_scheduled(cfg, packed, reqs, max_seq=width + 16, **kw)
+    except RecompileError as e:
+        recompiled = str(e).splitlines()[0]
+    if recompiled is None:
+        fail("sanitize (c): a new max_seq built no new step set")
+    if not all(np.array_equal(again.requests[r.rid]["tokens"], want[r.rid])
+               for r in reqs):
+        fail("sanitize (c): the repeated scheduled run's tokens differ")
+    print(f"[sanitize] (b) transfer guard: the scheduled run (max_seq "
+          f"{width}, {res.steps} decode steps) clean, tokens equal; one PAR "
+          f"iteration of {c['steps']} Soften steps on a full-width "
+          f"{lcfg.name} layer clean (soft_round launches "
+          f"{cal_counts['soft_round_fwd']} + {cal_counts['soft_round_bwd']});"
+          f" the planted .item() raised: {planted!r}; (c) no new step set on "
+          f"the repeat, a new max_seq raised: {recompiled!r}; card=[{card}]",
+          flush=True)
+
+
+def gspmd_phase(card):
+    """Phase 22: the reference's GSPMD serve path on the card, the
+    sanitizer and the dry-run.  LLaMA-2-7B at full width and
+    ``GSPMD_LAYERS`` of 32, RTN W2A16g128 + pack; the no-mesh control
+    serves 4 x (128 + ``GSPMD_GEN``) and the ``GSPMD_WORKLOAD`` scheduled
+    run on "pallas".  The packed tree reaches the ranks in a temporary
+    file; each reads it into host memory and places its slices
+    (``MeshPlacement``).  (a) One NCCL rank on ``(1, 1)``: tokens and
+    logits bit-identical to the control, its launches, the scheduled
+    tokens.  (b) Two gloo ranks sharing the card on ``(1, 2)`` (params,
+    KV heads and vocab split over ``model``; every step gathers them) and
+    ``(2, 1)`` (rows and slots over ``data``): the control's tokens, its
+    logits bit for bit or, where a kernel's plan moves with the rows a
+    rank runs (kernel 1 at the prefill's 256 rows against 512), within
+    ``parity_gate``; exact launches; the bytes a rank keeps equal to
+    ``param_shardings`` / ``cache_shardings``' prediction; the params'
+    gather timed alone and a decode step's collective bytes; on ``(2,
+    1)`` the scheduled run's tokens.  Beside them, in this process: (b) the
+    sanitizer, (c) ``assert_no_recompiles`` (``sanitize_phase``); and (d)
+    the dry-run CLI (``DRYRUN_ARGS``) in a subprocess, exit 0: the fake
+    process group on this torch.  Returns the launch counts by part."""
+    import tempfile
+    from repro_torch.eval.harness import parity_gate
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.scheduler import make_workload, serve_scheduled
+    times = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gspmd_") as tmp:
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        dry_out = os.path.join(tmp, "dryrun.json")
+        dry = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+             "--out", dry_out], cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            cfg, model, packed, prompts = build_packed(
+                "llama2-7b", GSPMD_LAYERS, "gspmd")
+            counts, res = lockstep_phase("gspmd control", cfg, model, packed,
+                                         prompts, card, gen=GSPMD_GEN)
+            reqs = make_workload(cfg.vocab_size, **GSPMD_WORKLOAD)
+            sres = serve_scheduled(cfg, packed, reqs, slots=GSPMD_SLOTS,
+                                   kernel_backend="pallas", device="cuda")
+            want = {r.rid: sres.requests[r.rid]["tokens"] for r in reqs}
+            np.savez(os.path.join(tmp, "ctrl.npz"), prompts=prompts)
+            torch.save(packed, os.path.join(tmp, "packed.pt"))
+            times["controls"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ranks = {}
+            nccl = threading.Thread(target=lambda: ranks.update(a=run_ranks(
+                gspmd_rank, 1, backend="nccl", device="cuda",
+                args=(tmp, cfg, ((1, 1),)), timeout=GSPMD_SPAWN_S)))
+            gloo = threading.Thread(target=lambda: ranks.update(b=run_ranks(
+                gspmd_rank, 2, backend="gloo", device="cuda",
+                args=(tmp, cfg, GSPMD_MESHES), timeout=GSPMD_SPAWN_S)))
+            nccl.start()
+            gloo.start()
+            try:
+                sanitize_phase(card, cfg, packed, prompts, reqs, want)
+                times["sanitize"] = time.perf_counter() - t0
+            finally:
+                nccl.join()
+                gloo.join()
+            times["ranks"] = time.perf_counter() - t0
+            dry_rc = dry.wait(timeout=GSPMD_SPAWN_S)
+            dry_err = dry.stderr.read()
+            dry_res = (json.load(open(dry_out)) if os.path.exists(dry_out)
+                       else None)
+        finally:
+            if dry.poll() is None:
+                dry.kill()
+                dry.wait()
+    if "a" not in ranks or "b" not in ranks:
+        fail(f"gspmd: a spawn of ranks failed (got {sorted(ranks)}); see "
+             f"its traceback above")
+    ctrl_digest = _digest(res.logits)
+    out = {}
+    for part, rs in (("(a)", ranks["a"]), ("(b)", ranks["b"])):
+        for r in rs:
+            total = {}
+            for shape in ((1, 1),) if part == "(a)" else GSPMD_MESHES:
+                x = r[shape]
+                same = x["digest"] == ctrl_digest
+                gate = None if same else parity_gate(
+                    x["logits"], res.logits, atol=5e-2, rtol=2e-2)
+                print(f"[gspmd] {part} rank {r['rank']} over {r['backend']}"
+                      f" on {shape}: prefill {x['prefill_ms']:.3f} ms, decode"
+                      f" {x['decode_ms']:.3f} ms/step (control "
+                      f"{res.decode_secs * 1e3 / (GSPMD_GEN - 1):.3f}); "
+                      f"logits bit-identical {same}"
+                      + ("" if same else f", parity_gate {gate}")
+                      + f"; tokens equal "
+                      f"{np.array_equal(x['tokens'], res.tokens)}; kept "
+                      f"{x['kept']} B (predicted {x['predicted']}); params' "
+                      f"gather timed alone after the run "
+                      f"{x['gather_ms']:.3f} ms; a decode step's "
+                      f"collectives {x['step']['ops']} "
+                      f"({x['step']['coll_bytes']} B), host transfers "
+                      f"{x['step']['host_transfers']}; placement "
+                      f"{x['place_s']:.3f} s; launches {x['counts']}; "
+                      f"card=[{card}]", flush=True)
+                if not np.array_equal(x["tokens"], res.tokens):
+                    fail(f"gspmd {part} rank {r['rank']} {shape}: tokens "
+                         f"differ from the control's")
+                if shape != (2, 1) and not same:
+                    fail(f"gspmd {part} rank {r['rank']} {shape}: logits "
+                         f"not bit-identical to the control's")
+                if not same and not gate["ok"]:
+                    fail(f"gspmd {part} rank {r['rank']} {shape}: "
+                         f"parity_gate {gate}")
+                if x["counts"] != counts:
+                    fail(f"gspmd {part} rank {r['rank']} {shape}: launches "
+                         f"{x['counts']}, the control's {counts}")
+                if x["kept"] != x["predicted"]:
+                    fail(f"gspmd {part} rank {r['rank']} {shape}: keeps "
+                         f"{x['kept']} B, predicted {x['predicted']}")
+                if x["step"]["host_transfers"] or set(x["step"]["ops"]) - {
+                        "broadcast_"}:
+                    fail(f"gspmd {part} rank {r['rank']} {shape}: a decode "
+                         f"step's record {x['step']}")
+                total = _sum_counts(total, x["counts"])
+                if "schedule" in x:
+                    s = x["schedule"]
+                    print(f"[gspmd] {part} rank {r['rank']} on {shape} "
+                          f"scheduled: {s['steps']} decode steps "
+                          f"{s['decode_ms']:.3f} ms/step, launches "
+                          f"{s['counts']}, tokens equal the control's "
+                          f"{all(np.array_equal(s['tokens'][k], v) for k, v in want.items())}",
+                          flush=True)
+                    if s["counts"] != s["want"]:
+                        fail(f"gspmd {part} scheduled launches "
+                             f"{s['counts']}, expected {s['want']}")
+                    if not all(np.array_equal(s["tokens"][k], v)
+                               for k, v in want.items()):
+                        fail(f"gspmd {part} rank {r['rank']}: scheduled "
+                             f"tokens differ from the control's")
+                    total = _sum_counts(total, s["counts"])
+            out[f"{part} {r['backend']} rank {r['rank']}"] = total
+    a, b = ranks["b"]
+    for shape in GSPMD_MESHES:
+        if a[shape]["digest"] != b[shape]["digest"]:
+            fail(f"gspmd (b) {shape}: the two ranks' logits differ")
+    if dry_rc != 0 or dry_res is None or dry_res["status"] != "ok":
+        fail(f"gspmd (d): the dry-run exited {dry_rc}:\n{dry_err[-3000:]}")
+    km, rf = dry_res["kernel_modeled"], dry_res["roofline"]
+    print(f"[gspmd] (d) dry-run {' '.join(DRYRUN_ARGS)} on this torch: rc "
+          f"{dry_rc}, {dry_res['chips']} ranks, counted in "
+          f"{dry_res['compile_secs']:.1f} s; kernel_modeled t_step "
+          f"{km['t_step'] * 1e3:.4f} ms (t_memory {km['t_memory'] * 1e3:.4f}"
+          f" ms; the fused line, the port's gathers left out); the unfused "
+          f"roofline of {dry_res['counted']}: compute "
+          f"{rf['t_compute'] * 1e3:.4f} ms, "
+          f"memory {rf['t_memory'] * 1e3:.4f} ms, collective "
+          f"{rf['t_collective'] * 1e3:.4f} ms; memory "
+          f"{dry_res['memory']}", flush=True)
+    print(f"[time] phase 22: controls {times['controls']:.1f}s, ranks "
+          f"{times['ranks']:.1f}s (the sanitizer beside them "
+          f"{times['sanitize']:.1f}s)", flush=True)
+    out["control"] = counts
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7036,6 +7511,11 @@ def main():
     mesh_counts = mesh_train_phase(card)
     print(f"[time] training on a mesh {time.perf_counter() - t0:.1f}s",
           flush=True)
+    _free()
+    t0 = time.perf_counter()
+    gspmd_counts = gspmd_phase(card)
+    print(f"[time] GSPMD serving, sanitizer, dry-run "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     sources = {"quant_matmul": "src/repro/kernels/quant_matmul.py:146",
                "quant_gemv": "src/repro/kernels/quant_gemv.py:120",
@@ -7145,7 +7625,9 @@ def main():
                    **{f"shard {part}": c[name]
                       for part, c in shard_counts.items()},
                    **{f"mesh train {part}": c[name]
-                      for part, c in mesh_counts.items()}}
+                      for part, c in mesh_counts.items()},
+                   **{f"gspmd serve {part}": c[name]
+                      for part, c in gspmd_counts.items()}}
         if name.startswith("soft_round"):
             nums = summarize_soft_round(recs["soft_round"], name[-3:])
             nums["moe"] = summarize_soft_round(recs["soft_round"], name[-3:],

@@ -86,6 +86,7 @@ import torch.distributed as dist
 
 from repro_torch.core.blocks import get_path, set_path
 from repro_torch.core.capture import stage_calibration
+from repro_torch.debug.sanitize import allowed_transfer
 from repro_torch.launch.mesh import (dp_axes, dp_size, make_data_mesh,
                                      tp_axis, tp_size)
 from repro_torch.launch.sharding import shard_tree, unshard_tree
@@ -116,7 +117,8 @@ def host_read(x: torch.Tensor) -> np.ndarray:
     assert the engine's one-sync-per-iteration contract."""
     global _SYNC_COUNT
     _SYNC_COUNT += 1
-    return x.detach().cpu().numpy()
+    with allowed_transfer():
+        return x.detach().cpu().numpy()
 
 
 def host_stage(X: torch.Tensor, Y: torch.Tensor, aux=None):
@@ -125,8 +127,9 @@ def host_stage(X: torch.Tensor, Y: torch.Tensor, aux=None):
     has no bfloat16).  One counted read each."""
     global _SYNC_COUNT
     _SYNC_COUNT += 2 + (aux is not None)
-    return (X.detach().cpu(), Y.detach().to(torch.float32).cpu(),
-            aux.detach().cpu() if aux is not None else None)
+    with allowed_transfer():
+        return (X.detach().cpu(), Y.detach().to(torch.float32).cpu(),
+                aux.detach().cpu() if aux is not None else None)
 
 
 def host_push(a, device) -> torch.Tensor:
@@ -136,7 +139,8 @@ def host_push(a, device) -> torch.Tensor:
     global _SYNC_COUNT
     _SYNC_COUNT += 1
     t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
-    return t.to(device)
+    with allowed_transfer():
+        return t.to(device)
 
 
 def host_batch(Xh: torch.Tensor, Yh: torch.Tensor, idx: np.ndarray, device,

@@ -129,6 +129,8 @@ def build_library(verbose: bool = False) -> Path:
     lib_path = out_dir / "libreprotorch_kernels.so"
     if lib_path.exists():
         return lib_path
+    global _NVCC_BUILDS
+    _NVCC_BUILDS += 1
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}"
@@ -160,6 +162,18 @@ def build_library(verbose: bool = False) -> Path:
     for _, o, _ in procs:
         o.unlink()
     return lib_path
+
+
+_NVCC_BUILDS = 0        # builds of a source set this process ran nvcc for
+
+
+def _nvcc_builds() -> int:
+    return _NVCC_BUILDS
+
+
+# what debug.sanitize.assert_no_recompiles probes: a region that compiles
+# the kernels grows it
+build_library._cache_size = _nvcc_builds
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:

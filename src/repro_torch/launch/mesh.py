@@ -102,7 +102,9 @@ class Mesh:
     ranks, row-major over ``shape`` (default ``0..world-1``: the whole
     process group).  ``rank`` is the rank's own global rank; a view of a
     mesh the rank is not a member of (another pod's submesh) has no
-    groups, and only its shape and ranks may be read."""
+    groups, and only its shape and ranks may be read.  ``cache_layouts``
+    records the shardings of the caches allocated on the mesh
+    (``launch.sharding.mesh_cache_model``)."""
     world: int
     rank: int
     shape: Tuple[int, ...]
@@ -115,6 +117,8 @@ class Mesh:
     ranks: Optional[Tuple[int, ...]] = None
     mesh_group: Any = dataclasses.field(default=None, repr=False,
                                         compare=False)
+    cache_layouts: dict = dataclasses.field(default_factory=dict, repr=False,
+                                            compare=False)
 
     def __post_init__(self):
         ranks = (tuple(range(self.world)) if self.ranks is None
@@ -200,15 +204,23 @@ class Mesh:
 
 
 def check_backend(backend: str, world: int, device) -> None:
-    """Refuse a process group that cannot run: an unknown backend, or NCCL
+    """Refuse a process group that cannot run: an unknown backend, NCCL
     where ranks would share a card (NCCL refuses a duplicate GPU in one
-    communicator) or run on the CPU."""
+    communicator) or run on the CPU, or the ``"fake"`` backend (torch's
+    test group, whose collectives move nothing) anywhere but on a dry mesh
+    of ``device="meta"``, which computes nothing."""
+    dev = torch.device(device)
+    if backend == "fake":
+        if dev.type != "meta":
+            raise ValueError("backend 'fake' moves no bytes: it runs only a "
+                             "dry mesh (device='meta'), never a path that "
+                             f"computes (device {dev})")
+        return
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
     if backend != "nccl":
         return
-    dev = torch.device(device)
     cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if world > cards:
         raise ValueError(
@@ -219,9 +231,9 @@ def check_backend(backend: str, world: int, device) -> None:
 
 def rank_device(rank: int, device="cuda") -> torch.device:
     """The device rank ``rank`` runs on: ``cuda:{rank % device_count}``,
-    or the CPU when ``device`` says so."""
+    or the CPU (or ``"meta"``, a dry mesh) when ``device`` says so."""
     dev = resolve_device(device)
-    if dev.type == "cpu":
+    if dev.type != "cuda":
         return dev
     return torch.device("cuda", rank % torch.cuda.device_count())
 
@@ -309,7 +321,11 @@ def make_mesh(shape, axes=None, *, device="cuda", ranks=None) -> Mesh:
     ranks it spans, row-major over ``shape`` (default: every rank of the
     process group, whose size must then be the mesh's).  Called by every
     rank of the process group, members or not (the groups are collectives
-    of all ranks), or, for a mesh of one rank, by a plain process."""
+    of all ranks), or, for a mesh of one rank, by a plain process.
+
+    ``device="meta"`` makes a dry mesh: one rank's view over a ``"fake"``
+    process group of the mesh's size (``launch.dryrun``), whose steps run
+    on fake tensors and are counted, not computed."""
     if axes is None:
         axes = (("pod", "data", "model") if len(shape) == 3
                 else ("data", "model")[:len(shape)])
@@ -340,7 +356,8 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
     ``("data", "model")`` (one pod of 256 ranks) or 2 x 16 x 16 ``("pod",
     "data", "model")`` (512).  The ``pod`` axis is pure data parallelism:
     the pipelined block walk runs one block a pod.  Needs a process group
-    of exactly that many ranks, all of which call it."""
+    of exactly that many ranks, all of which call it; ``device="meta"``
+    over a ``"fake"`` group of that size is the dry-run's view."""
     lay = production_layout(multi_pod)
     return _build(lay["shape"], lay["axes"], device, "make_production_mesh")
 
@@ -657,6 +674,9 @@ def run_ranks(fn, world: int, *, backend: str, device, args=(),
     (seconds) bounds the whole run."""
     if world < 1:
         raise ValueError(f"run_ranks: world must be >= 1, got {world}")
+    if backend not in BACKENDS:
+        raise ValueError(f"run_ranks: backend {backend!r}; its ranks compute, "
+                         f"so it takes one of {BACKENDS}")
     check_backend(backend, world, resolve_device(device))
     ctx = mp.get_context("spawn")
     results = ctx.Queue()

@@ -57,12 +57,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.debug.sanitize import allowed_transfer
 from repro_torch.launch.serve import (_params_device, compile_serve_steps,
-                                      serve_requests)
+                                      place_on_mesh, serve_requests)
 from repro_torch.launch.sharding import unplace
 from repro_torch.launch.steps import (check_serve_mesh,
                                       make_paged_install_step,
-                                      make_sched_steps)
+                                      make_sched_steps, mesh_write_slot)
 from repro_torch.models.common import (DenseCacheStore, PagedCacheStore,
                                        write_slot)
 
@@ -106,7 +107,8 @@ def _set_slot(a: torch.Tensor, s: int, v: int) -> torch.Tensor:
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        with allowed_transfer():
+            torch.cuda.synchronize(dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,7 +119,8 @@ class SchedSteps:
     decode: Any               # (params, cache, tok, pos, active[, ptab])
     install: Any = None       # paged admission (cache, c1, slot, ptab_row)
     page_size: int = 0
-    placement: Any = None     # ServeSpec.key of the TP steps (None: no TP)
+    placement: Any = None     # ServeSpec.key of the TP steps, or the mesh
+                              # of the GSPMD steps (None: neither)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,21 +246,27 @@ def compile_sched_steps(cfg: ModelConfig, *, max_seq: int,
     reference's.  ``page_size > 0`` builds the paged-store step set
     (page-table-aware steps plus the paged admission install step).
     ``spec`` (a placed ``launch.sharding.ServeSpec``) builds the
-    tensor-parallel steps of ``make_serve_steps``; their model allocates
-    the rank's local cache.  A ``mesh`` raises, as there."""
-    check_serve_mesh(mesh)
-    placement = None if spec is None else spec.key
+    tensor-parallel steps of ``make_serve_steps``, ``mesh`` its
+    GSPMD-placed steps (dense store only); their model allocates the
+    rank's local cache."""
+    check_serve_mesh(mesh, spec)
+    placement = spec.key if spec is not None else mesh
     key = (cfg, max_seq, kernel_backend, act_bits, page_size, placement)
     if key not in _SCHED_STEP_CACHE:
         model, pstep, dstep = make_sched_steps(
             cfg, max_seq=max_seq, act_bits=act_bits,
-            kernel_backend=kernel_backend, page_size=page_size, spec=spec)
+            kernel_backend=kernel_backend, page_size=page_size, mesh=mesh,
+            spec=spec)
         install = (make_paged_install_step(model, page_size=page_size)
                    if page_size else None)
         _SCHED_STEP_CACHE[key] = SchedSteps(
             model=model, prefill=pstep, decode=dstep, install=install,
             page_size=page_size, placement=placement)
     return _SCHED_STEP_CACHE[key]
+
+
+# what debug.sanitize.assert_no_recompiles probes
+compile_sched_steps._cache_size = lambda: len(_SCHED_STEP_CACHE)
 
 
 def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
@@ -291,18 +300,28 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
     serves as one tensor-parallel rank, on the spec's local tree, and the
     stores allocate the rank's local cache (its KV heads).  Every rank runs
     this same host loop: admissions, pages and tokens agree because the
-    logits after each all-reduce are the same bytes on every rank.  A
-    ``mesh`` raises (the reference's GSPMD serve path)."""
+    logits after each all-reduce are the same bytes on every rank.  With a
+    ``mesh`` the loop serves as one rank of the reference's GSPMD
+    placement (``serve_requests`` says how), on the dense store; every
+    rank runs it too, on the global logits its steps return."""
     if slots < 1:
         raise ValueError(f"need at least one slot, got {slots}")
     if store not in ("dense", "paged"):
         raise ValueError(f"unknown store {store!r} (dense|paged)")
-    check_serve_mesh(mesh)
-    params, tp = unplace(params)
+    check_serve_mesh(mesh, params)
+    if mesh is not None and store != "dense":
+        raise ValueError("serve_scheduled(mesh=...): the GSPMD-placed steps "
+                         "run on the dense store")
+    params = place_on_mesh(mesh, cfg, params)     # what the steps take
+    tree, tp = unplace(params)
+    if tp is not None:
+        params = tree
+    if mesh is not None:
+        device = mesh.device
     dev = resolve_device(device)
-    if _params_device(params).type != dev.type:
+    if _params_device(tree).type != dev.type:
         raise ValueError(f"serve_scheduled: params live on "
-                         f"{_params_device(params)}, device is {dev}")
+                         f"{_params_device(tree)}, device is {dev}")
     paged = store == "paged"
     order = sorted(requests, key=lambda r: (r.arrival, r.rid))
     if max_seq is None:
@@ -319,15 +338,16 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
                 f"+ budget ({r.max_new_tokens}) exceeds max_seq ({max_seq})")
     steps_ = compiled if compiled is not None else compile_sched_steps(
         cfg, max_seq=max_seq, kernel_backend=kernel_backend,
-        act_bits=act_bits, page_size=page_size if paged else 0, spec=tp)
+        act_bits=act_bits, page_size=page_size if paged else 0, mesh=mesh,
+        spec=tp)
     if steps_.page_size != (page_size if paged else 0):
         raise ValueError(
             f"step set was built for page_size={steps_.page_size}, run "
             f"wants {'page_size=%d' % page_size if paged else 'dense'}")
-    if steps_.placement != (None if tp is None else tp.key):
-        raise ValueError("step set was built for another tensor-parallel "
-                         "placement than the run's (compile_sched_steps("
-                         "spec=...) with the ServeSpec served)")
+    if steps_.placement != (tp.key if tp is not None else mesh):
+        raise ValueError("step set was built for another placement than "
+                         "the run's (compile_sched_steps(spec=...) with the "
+                         "ServeSpec served, or mesh=... with the mesh)")
     model = steps_.model
     spec = model.cache_spec
 
@@ -350,6 +370,11 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
                                  device=dev)
     cache = cstore.cache
     cdtype = cstore.dtype
+    if mesh is None:
+        put_slot = write_slot
+    else:
+        def put_slot(cache, c1, s):
+            return mesh_write_slot(mesh, cache, c1, s, slots)
     ptab_d = _push(cstore.ptab_h, dev) if paged else None
     # chunked prefill applies to chunkable families only; prefix sharing
     # additionally needs the paged store (pages are the sharing unit)
@@ -382,16 +407,18 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
         """Common post-prefill bookkeeping (whole or final chunk); returns
         whether the slot goes live."""
         nonlocal tok, pos
-        # reprolint: ok[host-sync] — the one per-admission sync: the first generated token
-        tok0 = int(torch.argmax(lg1[0], -1).item())
+        with allowed_transfer():
+            # reprolint: ok[host-sync] — the one per-admission sync: the first generated token
+            tok0 = int(torch.argmax(lg1[0], -1).item())
         tok = _set_slot(tok, s, tok0)
         pos = _set_slot(pos, s, _prefill_len(cfg, req))
         r = res[req.rid]
         r["admit_step"] = t
         r["tokens"].append(tok0)
         if collect_logits:
-            # reprolint: ok[host-sync] — admission-time logits fetch; rides the per-admission sync above
-            r["logits"].append(lg1[0].float().cpu().numpy())
+            with allowed_transfer():
+                # reprolint: ok[host-sync] — admission-time logits fetch; rides the per-admission sync above
+                r["logits"].append(lg1[0].float().cpu().numpy())
         if share_ok:
             cstore.register_prefix(s, req.prompt)
         if req.max_new_tokens == 1:
@@ -448,7 +475,7 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
                                            _push(cstore.ptab_h[s], dev),
                                            plen=_prefill_len(cfg, req))
                 else:
-                    cache = write_slot(cache, c1, s)
+                    cache = put_slot(cache, c1, s)
                 # finish_prefill's first-token read waits for the prefill
                 # and the install: it closes the admission window
                 dirty |= finish_prefill(s, req, lg1)
@@ -472,7 +499,7 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
                 inflight["cursor"] = end
                 if end == plen:
                     if not paged:
-                        cache = write_slot(cache, inflight["c1"], s)
+                        cache = put_slot(cache, inflight["c1"], s)
                     dirty |= finish_prefill(s, req, lg1)
                     ptab_dirty |= paged
                     inflight = None
@@ -503,8 +530,9 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
             logits, tok, pos, cache = steps_.decode(params, cache, tok, pos,
                                                     active_d, ptab_d)
             if collect_logits:
-                # reprolint: ok[host-sync] — per-step fetch only when collect_logits=True; an untimed parity/debug path
-                lg_np = logits.float().cpu().numpy()
+                with allowed_transfer():
+                    # reprolint: ok[host-sync] — per-step fetch only when collect_logits=True; an untimed parity/debug path
+                    lg_np = logits.float().cpu().numpy()
                 for s in np.flatnonzero(active_h):
                     res[slot_rid[s]]["logits"].append(lg_np[s])
             del logits
@@ -530,8 +558,9 @@ def serve_scheduled(cfg: ModelConfig, params, requests: List[Request], *,
 
     # ---- reconstruct per-request streams (host transfers OFF the clock) ---
     if trace:
-        # reprolint: ok[host-sync] — off-clock fetch of every step's tokens at once; timed region already closed
-        tok_np = torch.stack([tk for _, _, tk in trace]).cpu().numpy()
+        with allowed_transfer():
+            # reprolint: ok[host-sync] — off-clock fetch of every step's tokens at once; timed region already closed
+            tok_np = torch.stack([tk for _, _, tk in trace]).cpu().numpy()
         for (mask, rids, _), row in zip(trace, tok_np, strict=True):
             for s in np.flatnonzero(mask):
                 res[rids[s]]["tokens"].append(int(row[s]))

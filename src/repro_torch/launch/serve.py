@@ -66,7 +66,9 @@ from repro_torch.core.qtensor import PACK_FACTOR
 from repro_torch.core.tesseraq import TesseraQConfig
 from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
                                        calibration_batches)
-from repro_torch.launch.sharding import ServeSpec, unplace
+from repro_torch.debug.sanitize import allowed_transfer
+from repro_torch.launch.sharding import (MeshPlacement, ServeSpec,
+                                         mesh_cache_model, unplace)
 from repro_torch.launch.steps import check_serve_mesh, make_serve_steps
 from repro_torch.models import get_model
 from repro_torch.models.common import _nbytes
@@ -129,18 +131,44 @@ def compile_serve_steps(cfg, *, kernel_backend=None, act_bits=None,
                         mesh=None, spec=None):
     """The (prefill, decode) step pair for a (backend, act_bits) serving
     configuration; with ``spec`` (a placed ``launch.sharding.ServeSpec``)
-    the tensor-parallel pair of ``make_serve_steps``, and ``mesh`` raises
-    as there.  PyTorch runs eagerly, so there is nothing to compile; the
-    name is the reference's."""
-    _, prefill_step, decode_step = make_serve_steps(
-        cfg, mesh, act_bits=act_bits, kernel_backend=kernel_backend,
-        spec=spec)
-    return prefill_step, decode_step
+    the tensor-parallel pair of ``make_serve_steps``, with ``mesh`` its
+    GSPMD-placed pair (they take a ``MeshPlacement``).  PyTorch runs
+    eagerly, so nothing is compiled (the name is the reference's); the
+    pair is built once per configuration and memoized, as the
+    reference's jitted pair is."""
+    key = (cfg, kernel_backend, act_bits, mesh,
+           None if spec is None else spec.key)
+    if key not in _SERVE_STEP_CACHE:
+        _, prefill_step, decode_step = make_serve_steps(
+            cfg, mesh, act_bits=act_bits, kernel_backend=kernel_backend,
+            spec=spec)
+        _SERVE_STEP_CACHE[key] = (prefill_step, decode_step)
+    return _SERVE_STEP_CACHE[key]
+
+
+# per-(cfg, backend, act_bits, mesh, placement) step pairs, built once;
+# what debug.sanitize.assert_no_recompiles probes
+_SERVE_STEP_CACHE: dict = {}
+compile_serve_steps._cache_size = lambda: len(_SERVE_STEP_CACHE)
+
+
+def place_on_mesh(mesh, cfg, params):
+    """``params`` as a serve loop holds them: on a ``mesh``, the rank's
+    :class:`MeshPlacement` (placed here unless it is one already; it must
+    be on ``mesh``); without one, ``params`` itself."""
+    if mesh is None:
+        return params
+    if isinstance(params, MeshPlacement):
+        if params.mesh != mesh:
+            raise ValueError("the MeshPlacement was placed on another mesh")
+        return params
+    return MeshPlacement.place(mesh, cfg, params)
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        with allowed_transfer():
+            torch.cuda.synchronize(dev)
 
 
 def serve_requests(cfg, model, params, prompts, *, gen: int,
@@ -165,27 +193,37 @@ def serve_requests(cfg, model, params, prompts, *, gen: int,
     ``params`` may be a placed ``launch.sharding.ServeSpec``: the loop then
     serves as one tensor-parallel rank, on the spec's local tree, with a
     cache of the rank's KV heads (``cache_stats`` counts the local bytes);
-    ``compiled`` must then be a pair built for the same spec.  Every rank
-    returns the same tokens and logits.  A ``mesh`` raises (the
-    reference's GSPMD serve path)."""
+    ``compiled`` must then be a pair built for the same spec.  With a
+    ``mesh`` the loop serves as one rank of the reference's GSPMD
+    placement: ``params`` (the global tree, or a ``MeshPlacement`` of it
+    on ``mesh``) are cut to the rank's slices once, before the timed
+    regions, the cache is the rank's slices, ``device`` is the mesh's, and
+    ``compiled`` must be a pair built for ``mesh``.  Every rank returns
+    the same tokens and logits."""
     from repro_torch.launch.scheduler import ServeResult, _latency_stats
-    check_serve_mesh(mesh)
-    params, spec = unplace(params)
+    check_serve_mesh(mesh, params)
+    params = place_on_mesh(mesh, cfg, params)     # what the steps take
+    tree, spec = unplace(params)
+    if spec is not None:
+        params = tree
+        model = spec.cache_model(model)
+    if mesh is not None:
+        device = mesh.device
+        model = mesh_cache_model(model, mesh, cfg)
     dev = resolve_device(device)
-    if _params_device(params).type != dev.type:
+    if _params_device(tree).type != dev.type:
         raise ValueError(f"serve_requests: params live on "
-                         f"{_params_device(params)}, device is {dev}")
+                         f"{_params_device(tree)}, device is {dev}")
     B, prompt_len = prompts.shape
     if max_seq is None:
         max_seq = prompt_len + gen
     elif max_seq < prompt_len + gen:
         raise ValueError(f"max_seq {max_seq} < prompt+gen "
                          f"{prompt_len + gen}")
-    if spec is not None:
-        model = spec.cache_model(model)
     pstep, dstep = (compiled if compiled is not None else
                     compile_serve_steps(cfg, kernel_backend=kernel_backend,
-                                        act_bits=act_bits, spec=spec))
+                                        act_bits=act_bits, mesh=mesh,
+                                        spec=spec))
 
     cache = model.init_cache(B, max_seq, device=dev)
     toks_in = torch.as_tensor(prompts, dtype=torch.long, device=dev)
@@ -211,9 +249,10 @@ def serve_requests(cfg, model, params, prompts, *, gen: int,
         _sync(dev)   # reprolint: ok[host-sync] — closes the decode timing region
         t_decode = time.perf_counter() - t0
     # off-clock host fetches: both timing regions are closed
-    tok_mat = torch.stack(toks, 1).to(torch.int32).cpu().numpy()
-    lg_mat = (torch.stack(all_logits, 1).float().cpu().numpy()
-              if collect_logits else None)                     # (B, gen, V)
+    with allowed_transfer():
+        tok_mat = torch.stack(toks, 1).to(torch.int32).cpu().numpy()
+        lg_mat = (torch.stack(all_logits, 1).float().cpu().numpy()
+                  if collect_logits else None)                 # (B, gen, V)
     res = {b: {"tokens": tok_mat[b],
                "logits": None if lg_mat is None else lg_mat[b],
                "arrival": 0, "admit_step": 0, "finish_step": gen - 1,

@@ -34,10 +34,15 @@ replicates, and the first dim to claim an axis keeps it), and
 :func:`param_shardings` / :func:`batch_shardings` give a tree of
 :class:`NamedSharding` for params (``QTensor``-aware) and batches.  Each
 rank holds the slice its shardings name (:func:`shard_tree`) and gathers
-whole leaves from the slices with :func:`unshard_tree`.  The reference's
-``cache_shardings`` and ``make_sharder`` serve only its GSPMD serve path
-and the dry-run, and wait with them (ROADMAP queue 1, "Parallelism on
-torch.distributed", item 9.5).
+whole leaves from the slices with :func:`unshard_tree`.
+
+The reference's GSPMD serve path reads the same rules: params under
+``param_shardings(..., SERVE_OVERRIDES)`` (weights resident over ``model``,
+no ``fsdp`` split), caches under :func:`cache_shardings`, and activations
+under the constraints whose specs :func:`make_sharder` names (the port
+applies none).  :class:`MeshPlacement` is one rank's placement of a serve
+param tree on such a mesh, and :func:`mesh_cache_model` a model whose
+caches are the rank's slices, their layout recorded on the mesh.
 """
 from __future__ import annotations
 
@@ -232,6 +237,10 @@ def logical_table(mesh, overrides=None) -> dict:
 
 
 def _axis_size(mesh, axes) -> int:
+    bad = [a for a in axes if a not in mesh.axis_names]
+    if bad:
+        raise ValueError(f"axes {bad} are not on the mesh's "
+                         f"{mesh.axis_names}")
     return math.prod(int(mesh.shape[mesh.axis_names.index(a)]) for a in axes)
 
 
@@ -424,6 +433,166 @@ def replicas(sharding) -> int:
     spec, mesh = _spec_of(sharding, None)
     split = math.prod(mesh.size_of(_axes_of(e)) for e in spec if e)
     return mesh.world // split
+
+
+def shard_shape(shape, sharding) -> tuple:
+    """The shape of a rank's slice of a leaf of ``shape`` under
+    ``sharding`` (the reference's ``NamedSharding.shard_shape``)."""
+    spec, mesh = _spec_of(sharding, None)
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        axes = _axes_of(entry)
+        if axes:
+            out[dim] //= mesh.size_of(axes)
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# the GSPMD serve half: activation constraints, cache and serve placement
+# --------------------------------------------------------------------------
+
+def check_overrides(mesh, overrides) -> None:
+    """Refuse logical-axis overrides that name an axis the mesh lacks (the
+    reference's ``resolve_spec`` fails on them at its first constraint)."""
+    for name, axes in (overrides or {}).items():
+        bad = [a for a in tuple(axes) if a not in mesh.axis_names]
+        if bad:
+            raise ValueError(f"shard override {name!r} -> {tuple(axes)} names "
+                             f"axes {bad} that are not on the mesh's "
+                             f"{mesh.axis_names}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharder:
+    """The reference's activation sharding constraints (``make_sharder``)
+    as the specs they name: :meth:`spec` resolves ``names`` through
+    :func:`resolve_spec` as the reference does, so a bad override raises
+    as the reference's would.  The port applies no constraint: one never
+    changes a value, and a rank of the port holds whole activations of its
+    own rows."""
+    mesh: Any
+    overrides: tuple = ()           # (logical name, axes) pairs
+
+    def spec(self, shape, names) -> PartitionSpec:
+        return resolve_spec(self.mesh, tuple(names), tuple(shape),
+                            dict(self.overrides))
+
+
+def make_sharder(mesh, overrides=None) -> Sharder:
+    return Sharder(mesh, tuple((k, tuple(v)) for k, v in
+                               (overrides or {}).items()))
+
+
+def _map_dict(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_dict(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def cache_shardings(mesh, cache_struct, cfg: ModelConfig):
+    """KV / state caches ``(L, B, ...)``: the batch dim over the DP axes
+    where they divide it; with a ``model`` axis, on a leaf of 4 dims or
+    more, the heads (dim -2) over it where it divides them, else, on a 5-D
+    leaf, the sequence dim (GQA with fewer KV heads than the TP degree),
+    else the last dim.  The reference's rule, leaf for leaf."""
+    dp = dp_axes(mesh)
+    dp_spec = dp if len(dp) > 1 else (dp[0] if dp else None)
+    tp = "model" if "model" in mesh.axis_names else None
+
+    def one(leaf):
+        spec = [None] * leaf.ndim
+        if leaf.ndim >= 2 and dp and leaf.shape[1] % _axis_size(mesh, dp) == 0:
+            spec[1] = dp_spec
+        if leaf.ndim >= 4 and tp:
+            n = _axis_size(mesh, (tp,))
+            hdim = leaf.ndim - 2
+            if leaf.shape[hdim] % n == 0:
+                spec[hdim] = tp
+            elif leaf.ndim == 5 and leaf.shape[2] % n == 0:
+                spec[2] = tp
+            elif leaf.ndim == 5 and leaf.shape[-1] % n == 0:
+                spec[-1] = tp
+        return NamedSharding(mesh, PartitionSpec(*spec))
+    return _map_dict(one, cache_struct)
+
+
+# the reference's serve_sharding="tp": weights resident over ``model``, no
+# ``fsdp`` split (an FSDP all-gather a decode step would dominate it)
+SERVE_OVERRIDES = {"fsdp": ()}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshPlacement:
+    """One rank's placement of a serve param tree on a mesh (the reference's
+    GSPMD serve path): ``shardings`` is ``param_shardings(mesh, params,
+    cfg, SERVE_OVERRIDES)`` of the global tree (by default) and ``params``
+    the rank's slices of it on ``mesh.device``, cut once by :meth:`place`.
+    The serve loops take it where they take a param tree; the steps of
+    ``launch.steps.make_serve_steps(cfg, mesh)`` gather its leaves whole
+    (:meth:`whole`) inside each step."""
+    mesh: Any
+    cfg: ModelConfig
+    shardings: Any = dataclasses.field(repr=False)
+    params: Any = dataclasses.field(repr=False)
+
+    @classmethod
+    def place(cls, mesh, cfg: ModelConfig, params,
+              overrides=SERVE_OVERRIDES) -> "MeshPlacement":
+        """Cut the rank's slices of the GLOBAL tree ``params`` where it lies
+        and move only them (and the replicated leaves) to ``mesh.device``.
+        ``overrides=None`` keeps the ``fsdp`` split (the dry-run's
+        ``--serve-sharding fsdp``)."""
+        validate_single_pod(mesh, "MeshPlacement.place")
+        specs = param_shardings(mesh, params, cfg, overrides)
+        local = _map_specs(lambda t, s: shard_leaf(t, s).to(mesh.device),
+                           params, specs)
+        return cls(mesh, cfg, specs, local)
+
+    def whole(self):
+        """Every leaf whole, gathered from the ranks' slices (a collective
+        of every rank of each ``model`` line)."""
+        return unshard_tree(self.params, self.shardings)
+
+
+def mesh_cache_model(model, mesh, cfg: ModelConfig):
+    """``model`` with an ``init_cache`` that allocates the rank's slices of
+    the global cache under :func:`cache_shardings` (zeros, as every
+    family's ``init_cache`` starts) and records those shardings on the
+    mesh, where :func:`mesh_cache_layout` reads them; everything else
+    stays ``model``'s."""
+    def init_cache(batch, max_seq, dtype=torch.bfloat16, device="cuda"):
+        struct = model.init_cache(batch, max_seq, dtype, "meta")
+        specs = cache_shardings(mesh, struct, cfg)
+        out = struct
+        for path in _leaf_paths(struct):
+            leaf = _get_leaf(struct, path)
+            out = _set_leaf(out, path, torch.zeros(
+                shard_shape(leaf.shape, _get_leaf(specs, path)),
+                dtype=leaf.dtype, device=device))
+        if mesh.cache_layouts.setdefault(_layout_key(cfg, batch, out),
+                                         specs) != specs:
+            raise ValueError(f"a {cfg.name} cache of {batch} rows and "
+                             f"max_seq {max_seq} has the slices of another "
+                             f"layout on this mesh")
+        return out
+
+    return dataclasses.replace(model, init_cache=init_cache)
+
+
+def _layout_key(cfg: ModelConfig, batch: int, cache) -> tuple:
+    return (cfg, batch, tuple(tuple(_get_leaf(cache, p).shape)
+                              for p in _leaf_paths(cache)))
+
+
+def mesh_cache_layout(mesh, cfg: ModelConfig, cache, batch: int):
+    """The :func:`cache_shardings` that :func:`mesh_cache_model` allocated
+    ``cache`` (the rank's slices of a cache of ``batch`` rows) under."""
+    try:
+        return mesh.cache_layouts[_layout_key(cfg, batch, cache)]
+    except KeyError:
+        raise ValueError(f"this {cfg.name} cache of {batch} rows was not "
+                         f"allocated on this mesh by mesh_cache_model(...)"
+                         f".init_cache") from None
 
 
 # leaf name -> split ("out" | "in" | "expert"), per family.  Absent names
@@ -709,8 +878,11 @@ class ServeSpec:
 
 def unplace(params):
     """A serve loop's ``params`` argument as ``(param tree, spec)``: a
-    placed :class:`ServeSpec` gives its local tree and itself, a param
-    tree itself and None."""
+    placed :class:`ServeSpec` gives its local tree and itself, a
+    :class:`MeshPlacement` its local tree and None, a param tree itself
+    and None."""
     if isinstance(params, ServeSpec):
         return params.params, params
+    if isinstance(params, MeshPlacement):
+        return params.params, None
     return params, None

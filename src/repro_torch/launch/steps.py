@@ -1,9 +1,11 @@
 """The train step on one device or on a mesh (``make_train_harness``,
-``jit_train_step``), the prefill/decode steps for single-device and
-tensor-parallel serving, the scheduler's masked decode step and the paged
-store's admission step."""
+``jit_train_step``), the prefill/decode steps for single-device,
+tensor-parallel and GSPMD-placed serving, the scheduler's masked decode
+step and the paged store's admission step, and the dry-run's input specs
+(fake tensors: shapes and dtypes, nothing allocated)."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -11,22 +13,27 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import flatten
-from repro_torch.configs.base import ModelConfig
-from repro_torch.core.qtensor import QTensor
-from repro_torch.launch.mesh import batch_rows, dp_size
-from repro_torch.launch.sharding import (MOE_EXPERT_LEAVES, NamedSharding,
-                                         PartitionSpec, batch_shardings,
-                                         param_shardings, replicas,
-                                         shard_tree, unshard_tree)
+from repro_torch.configs.base import ModelConfig, QuantConfig, ShapeConfig
+from repro_torch.core.blocks import QUANT_LEAF_NAMES
+from repro_torch.core.qtensor import PACK_FACTOR, QTensor
+from repro_torch.core.quantizer import resolve_group
+from repro_torch.launch.mesh import (batch_rows, dp_axes, dp_size,
+                                     validate_single_pod)
+from repro_torch.launch.sharding import (MOE_EXPERT_LEAVES, MeshPlacement,
+                                         NamedSharding, PartitionSpec,
+                                         ServeSpec, batch_shardings,
+                                         check_overrides, mesh_cache_layout,
+                                         mesh_cache_model, param_shardings,
+                                         replicas, shard_leaf, shard_tree,
+                                         unshard_leaf, unshard_tree)
 from repro_torch.models import get_model
-from repro_torch.models.common import (CACHE_SLOT_AXIS, _get_leaf, make_ctx,
-                                       page_rows)
+from repro_torch.models.common import (CACHE_SLOT_AXIS, _get_leaf,
+                                       _leaf_paths, _set_leaf, make_ctx,
+                                       page_rows, write_slot)
 from repro_torch.models.transformer import _DTYPES
 from repro_torch.optim.adam import (AdamW, clip_by_global_norm, tree_leaves,
                                     tree_map)
 from repro_torch.optim.compression import compress_decompress, init_error
-
-_PARALLEL = "ROADMAP queue 1, 'Parallelism on torch.distributed'"
 
 
 # --------------------------------------------------------------------------
@@ -91,19 +98,21 @@ def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
     On a ``mesh`` (a ``launch.mesh.Mesh``; every rank calls ``step_fn``)
     the params and the optimizer state are the rank's slices under
     ``param_shardings`` / ``opt_sharding_like`` and the batch is the
-    global one; see :func:`_mesh_step`.  ``seq_parallel`` and
-    ``extra_overrides`` remap only the reference's activation sharding
-    constraints, which wait with its GSPMD serve path, and raise."""
-    if seq_parallel or extra_overrides:
-        raise NotImplementedError(
-            "make_train_harness: sequence parallelism and sharding "
-            "overrides remap the reference's activation sharding "
-            f"constraints, which wait with make_sharder ({_PARALLEL}, "
-            "item 9.5)")
+    global one; see :func:`_mesh_step`.  ``seq_parallel`` (the residual
+    stream's sequence dim over ``model``) and ``extra_overrides`` are the
+    reference's remaps of its activation sharding constraints.  The port
+    has no such constraints: ``make_ctx`` checks that the remaps name the
+    mesh's axes, and they change nothing else, neither the values (the
+    reference's do not either) nor what the step moves (the reference's
+    do)."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    overrides = dict(extra_overrides or {})
+    if seq_parallel:
+        overrides["res_seq"] = ("model",)
     model = get_model(cfg)
-    ctx = make_ctx(cfg, attn_chunk=attn_chunk, mesh=mesh)
+    ctx = make_ctx(cfg, attn_chunk=attn_chunk, mesh=mesh,
+                   shard_overrides=overrides or None)
     acc_dt = _DTYPES[cfg.optimizer_dtype]           # Adam m/v and sums
     opt = AdamW(lr=lr, state_dtype=acc_dt)
 
@@ -318,9 +327,56 @@ def train_donate_argnums(*argnums: int) -> tuple:
 # --------------------------------------------------------------------------
 
 
+def quantize_param_struct(params_struct, cfg: ModelConfig,
+                          qcfg: QuantConfig):
+    """A param struct (:func:`param_struct`) in its packed ``QTensor``
+    deployment layout: every quantizable leaf whose in dim the container
+    packs becomes uint8 codes and f32 scales and zero points of its
+    groups, as fake tensors (the dry-run's serve cells)."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if (path[-1] in QUANT_LEAF_NAMES and node.ndim >= 2
+                and node.shape[-2] >= 2):
+            *lead, in_f, out_f = node.shape
+            g = resolve_group(in_f, qcfg.group_size)
+            ppb = PACK_FACTOR[qcfg.bits]
+            if in_f % ppb:
+                return node
+            dev = node.device
+            return QTensor(
+                packed=torch.empty((*lead, in_f // ppb, out_f),
+                                   dtype=torch.uint8, device=dev),
+                scale=torch.empty((*lead, in_f // g, out_f),
+                                  dtype=torch.float32, device=dev),
+                zero=torch.empty((*lead, in_f // g, out_f),
+                                 dtype=torch.float32, device=dev),
+                bits=qcfg.bits, group_size=g, shape=(in_f, out_f))
+        return node
+
+    with _fake_mode(params_struct):
+        return walk(params_struct, ())
+
+
+def check_serve_mesh(mesh, spec=None) -> None:
+    """A serve ``mesh`` is the reference's GSPMD-placed path
+    (:class:`launch.sharding.MeshPlacement`): it runs on one pod, and it
+    does not take a placed ``ServeSpec`` (tensor parallelism places the
+    params itself; the reference refuses overrides with ``tp_shard``)."""
+    if mesh is None:
+        return
+    validate_single_pod(mesh, "GSPMD serving")
+    if isinstance(spec, ServeSpec):
+        raise ValueError("serving on a mesh places the params by "
+                         "param_shardings (MeshPlacement); a placed "
+                         "ServeSpec carries its own placement: pass one or "
+                         "the other")
+
+
 def make_serve_steps(cfg: ModelConfig, mesh=None, *, act_bits=None,
                      attn_chunk: int = 512, kv_bits=None,
-                     kernel_backend=None, page_size: int = 0, spec=None):
+                     kernel_backend=None, page_size: int = 0, spec=None,
+                     extra_overrides=None):
     """Returns (model, prefill_step, decode_step).
 
     ``kernel_backend`` ("xla" | "pallas" | None = env/default) selects the
@@ -335,10 +391,20 @@ def make_serve_steps(cfg: ModelConfig, mesh=None, *, act_bits=None,
     ``spec`` (a placed ``launch.sharding.ServeSpec``) builds the steps of
     serve-time tensor parallelism: they take the rank's local params
     (``spec.params``) and cache, and the returned model allocates that
-    local cache.  ``mesh`` is the reference's GSPMD-annotated serve path,
-    which waits with the dry-run (ROADMAP queue 1, item 9.5) and raises."""
-    check_serve_mesh(mesh)
+    local cache.  ``mesh`` builds the reference's GSPMD-placed steps
+    (:func:`_make_gspmd_serve_steps`); they take a
+    ``launch.sharding.MeshPlacement`` where the others take params, and
+    the returned model allocates the rank's slices of a cache.
+    ``extra_overrides`` (the reference's remaps of its activation
+    constraints) must name the mesh's axes and change nothing else (see
+    :func:`make_train_harness`); it does not compose with ``spec``, as the
+    reference's with ``tp_shard``."""
+    check_serve_mesh(mesh, spec)
     if spec is not None:
+        if extra_overrides:
+            raise ValueError("make_serve_steps: shard overrides do not "
+                             "compose with a placed ServeSpec (it owns "
+                             "serve-time placement)")
         return _make_tp_serve_steps(
             cfg, spec, act_bits=act_bits, attn_chunk=attn_chunk,
             kv_bits=kv_bits, kernel_backend=kernel_backend,
@@ -346,6 +412,9 @@ def make_serve_steps(cfg: ModelConfig, mesh=None, *, act_bits=None,
     model = get_model(cfg)
     ctx = make_ctx(attn_chunk=attn_chunk, kernel_backend=kernel_backend,
                    act_bits=act_bits, kv_bits=kv_bits, page_size=page_size)
+    if mesh is not None:
+        return _make_gspmd_serve_steps(cfg, mesh, model, ctx,
+                                       extra_overrides)
 
     def prefill_step(params, batch, cache, start_pos=0, ptab=None):
         return model.prefill(params, batch, cache, ctx, start_pos=start_pos,
@@ -358,16 +427,105 @@ def make_serve_steps(cfg: ModelConfig, mesh=None, *, act_bits=None,
     return model, prefill_step, decode_step
 
 
-def check_serve_mesh(mesh) -> None:
-    """Refuse a serve ``mesh``: it is the reference's GSPMD-annotated serve
-    path, whose only users are the dry-run's serve sharding cells, so it
-    waits with ``dryrun`` / ``hlo_stats``.  Tensor-parallel serving takes a
-    placed ``launch.sharding.ServeSpec`` instead."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "serving on a mesh is the reference's GSPMD serve path, which "
-            f"waits with the dry-run ({_PARALLEL}, item 9.5); for tensor "
-            "parallelism, serve a placed launch.sharding.ServeSpec")
+def _dp_entry(mesh):
+    dp = dp_axes(mesh)
+    return dp if len(dp) > 1 else (dp[0] if dp else None)
+
+
+def _model_part(sharding):
+    """A cache leaf's sharding with its data-parallel entry dropped: what
+    the rank gathers of its own rows' lane (the ``model`` split)."""
+    return NamedSharding(sharding.mesh, PartitionSpec(*(
+        e if e == "model" else None for e in sharding.spec)))
+
+
+def _make_gspmd_serve_steps(cfg: ModelConfig, mesh, model, ctx,
+                            extra_overrides=None):
+    """The reference's GSPMD serve steps as one rank's eager steps.
+
+    The placement is the reference's: params under ``param_shardings(mesh,
+    params, cfg, {"fsdp": ()})`` (a ``MeshPlacement``, placed once by the
+    caller), caches under ``cache_shardings`` (the returned model
+    allocates the rank's slices and records their layout on the mesh,
+    ``mesh_cache_model``; a step reads it back), the batch under
+    ``batch_shardings`` (its rows over the data-parallel axes where they
+    divide them).  Each step:
+
+    * gathers the leaves split over ``model`` whole
+      (``MeshPlacement.whole``: ``unshard_tree``);
+    * gathers its rows' cache lane over ``model`` where
+      ``cache_shardings`` split it (heads, else GQA's sequence, else the
+      last dim);
+    * runs the unmeshed step, with the same kernels, on its rows;
+    * cuts its slice of the new cache;
+    * gathers the logits over the data-parallel axes, so every rank returns
+      the global logits, as the reference's GSPMD program does.
+
+    The values are the unmeshed step's on each row; the bytes moved are not
+    GSPMD's (the reference's partitioner shards the matmuls and reduces
+    partial sums; here a rank gathers whole weights and lanes), nor are
+    its FLOPs at a ``model`` axis over one rank (each rank runs the whole
+    model on its rows).  The ServeSpec TP steps are the port's serving
+    path on a mesh; these steps hold the reference's placement for its
+    tests and the dry-run.  The dense store only: a paged pool has no rows to split over the data
+    axes."""
+    if ctx.page_size:
+        raise ValueError("make_serve_steps(mesh): the GSPMD serve steps run "
+                         "on the dense store (page_size 0)")
+    check_overrides(mesh, extra_overrides)
+    dp = _dp_entry(mesh)
+
+    def run(params, cache, batch, call):
+        if not isinstance(params, MeshPlacement) or params.mesh != mesh:
+            raise ValueError("the GSPMD serve steps take a MeshPlacement "
+                             "on their own mesh (MeshPlacement.place(mesh, "
+                             "cfg, params))")
+        n = next(v for v in batch.values() if v is not None).shape[0]
+        specs = mesh_cache_layout(mesh, cfg, cache, n)
+        split = dp is not None and n % dp_size(mesh) == 0
+        if split:
+            rows = batch_rows(mesh, n)
+            batch = {k: None if v is None else v[rows]
+                     for k, v in batch.items()}
+        lane = cache
+        for p in _leaf_paths(cache):
+            lane = _set_leaf(lane, p, unshard_leaf(
+                _get_leaf(cache, p), _model_part(_get_leaf(specs, p))))
+        logits, new = call(params.whole(), lane, batch)
+        out = new
+        for p in _leaf_paths(new):
+            out = _set_leaf(out, p, shard_leaf(
+                _get_leaf(new, p), _model_part(_get_leaf(specs, p))))
+        if split:
+            logits = unshard_leaf(logits.contiguous(), NamedSharding(
+                mesh, PartitionSpec(dp)))
+        return logits, out
+
+    def prefill_step(params, batch, cache, start_pos=0, ptab=None):
+        return run(params, cache, batch, lambda p, c, b: model.prefill(
+            p, b, c, ctx, start_pos=start_pos, ptab=ptab))
+
+    def decode_step(params, cache, tokens, pos, active=None, ptab=None):
+        return run(params, cache, {"tokens": tokens, "pos": pos,
+                                   "active": active},
+                   lambda p, c, b: model.decode_step(
+                       p, c, b["tokens"], b["pos"], ctx, active=b["active"],
+                       ptab=ptab))
+
+    return mesh_cache_model(model, mesh, cfg), prefill_step, decode_step
+
+
+def mesh_write_slot(mesh, cache, slot_cache, slot: int, slots: int):
+    """``write_slot`` on a GSPMD-placed cache of ``slots`` slots: where the
+    slots split over the data-parallel axes, only the rank holding
+    ``slot`` writes it, at its local index; ``slot_cache`` (one request:
+    its row replicated) writes its model slice, which has the lane's."""
+    if _dp_entry(mesh) is not None and slots % dp_size(mesh) == 0:
+        rows = batch_rows(mesh, slots)
+        if not rows.start <= slot < rows.stop:
+            return cache
+        slot -= rows.start
+    return write_slot(cache, slot_cache, slot)
 
 
 def _make_tp_serve_steps(cfg: ModelConfig, spec, *, act_bits=None,
@@ -435,7 +593,7 @@ def make_paged_install_step(model, *, page_size: int):
 def make_sched_steps(cfg: ModelConfig, *, max_seq: int, act_bits=None,
                      attn_chunk: int = 512, kv_bits=None,
                      kernel_backend=None, page_size: int = 0, mesh=None,
-                     spec=None):
+                     spec=None, extra_overrides=None):
     """Step pair for the slot scheduler (``repro_torch.launch.scheduler``).
 
     Returns ``(model, prefill_step, sched_decode_step)``.  The decode step
@@ -453,12 +611,14 @@ def make_sched_steps(cfg: ModelConfig, *, max_seq: int, act_bits=None,
     Active rows see exactly the arguments the plain serve loop passes (same
     pos, same kv_len), which is what makes scheduled decode bit-compatible
     with serving a request alone.  ``spec``: the tensor-parallel steps of
-    ``make_serve_steps``; every rank then runs the same host loop on the
-    same logits (the all-reduce gives every rank the same bytes).  A
-    ``mesh`` raises, as in ``make_serve_steps``."""
+    ``make_serve_steps``; ``mesh``: its GSPMD-placed steps.  Every rank
+    then runs the same host loop on the same logits (the all-reduce, or
+    the logits' gather over the data axes, gives every rank the same
+    bytes)."""
     model, prefill_step, decode_step = make_serve_steps(
         cfg, mesh, act_bits=act_bits, attn_chunk=attn_chunk, kv_bits=kv_bits,
-        kernel_backend=kernel_backend, page_size=page_size, spec=spec)
+        kernel_backend=kernel_backend, page_size=page_size, spec=spec,
+        extra_overrides=extra_overrides)
 
     def sched_decode_step(params, cache, tok, pos, active, ptab=None):
         write_pos = torch.where(active, pos, max_seq)
@@ -470,3 +630,77 @@ def make_sched_steps(cfg: ModelConfig, *, max_seq: int, act_bits=None,
         return logits, tok, pos, cache
 
     return model, prefill_step, sched_decode_step
+
+
+# --------------------------------------------------------------------------
+# donation policy and the dry-run's input specs
+# --------------------------------------------------------------------------
+
+def cache_donate_argnums(*argnums: int) -> tuple:
+    """The reference's serve-step donation policy: the cache arguments are
+    donated.  Here a step writes the cache leaves it holds whole in place
+    (``update_cache``), and on a mesh it cuts a new slice of a gathered
+    lane, which replaces the rank's old slice once the caller rebinds it:
+    the cache arguments are the ones whose buffers the step reuses.
+    Returns ``argnums``."""
+    return argnums
+
+
+def _fake(shape, dtype, device="meta"):
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def _fake_mode(tree=None):
+    """The ``FakeTensorMode`` to make fakes under: the active one, else the
+    one ``tree``'s fakes were made under (fakes of two modes do not mix),
+    else a new one."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    if detect_fake_mode() is not None:
+        return contextlib.nullcontext()
+    mode = detect_fake_mode(tree_leaves(tree) if tree is not None else None)
+    return mode if mode is not None else FakeTensorMode()
+
+
+def _frontend_inputs(cfg: ModelConfig, B: int, S: int, batch: dict) -> dict:
+    dt = _DTYPES[cfg.dtype]
+    if cfg.family == "encdec":
+        F = cfg.frontend_len or S
+        batch["frames"] = _fake((B, F, cfg.d_model), dt)
+    if cfg.family == "vlm":
+        batch["patches"] = _fake((B, cfg.num_patches, cfg.d_model), dt)
+    return batch
+
+
+def train_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """A train step's batch as fake tensors: ``(B, S + 1)`` tokens (the
+    VLM's text after its patches, so patches + text = S), frames or
+    patches where the family takes them."""
+    B, S = shape.global_batch, shape.seq_len
+    with _fake_mode():
+        text = S - cfg.num_patches if cfg.family == "vlm" else S
+        return _frontend_inputs(cfg, B, S, {
+            "tokens": _fake((B, text + 1), torch.int32)})
+
+
+def serve_input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                      kv_bits=None) -> dict:
+    """A decode step's inputs as fake tensors: one new token a row against
+    a ``seq_len`` cache (int8 for ``kv_bits=8``)."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = torch.int8 if kv_bits == 8 else torch.bfloat16
+    with _fake_mode():
+        return {"cache": get_model(cfg).init_cache(B, S, dt, "meta"),
+                "tokens": _fake((B,), torch.int32),
+                "pos": _fake((B,), torch.int32)}
+
+
+def prefill_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """A prefill's inputs as fake tensors: ``(B, S)`` tokens (the VLM's
+    text after its patches) and a ``seq_len`` cache."""
+    B, S = shape.global_batch, shape.seq_len
+    with _fake_mode():
+        text = S - cfg.num_patches if cfg.family == "vlm" else S
+        return {"batch": _frontend_inputs(cfg, B, S, {
+                    "tokens": _fake((B, text), torch.int32)}),
+                "cache": get_model(cfg).init_cache(B, S, device="meta")}

@@ -58,9 +58,9 @@ class Ctx:
     over that axis (``models.moe.moe_ffn``).
 
     Fields of the reference's Ctx that are not here, and why: ``shard``
-    (its activation sharding constraints; a rank's activations are its own
-    rows, and the sequence-parallel remaps wait with the GSPMD serve path,
-    ROADMAP queue 1, item 9.5) and ``decode`` (read only by those rules).
+    (its activation sharding constraints: a constraint never changes a
+    value, and a rank of the port holds whole activations of its own
+    rows) and ``decode`` (read only by those constraints).
     """
     kernel_backend: Optional[str] = None
     act_bits: Optional[int] = None
@@ -81,15 +81,19 @@ _CTX_FIELDS = {f.name for f in dataclasses.fields(Ctx)}
 _MESH_FIELDS = {"mesh", "ep_axis", "dp_axes"}
 
 
-def make_ctx(cfg=None, *, mesh=None, **fields) -> Ctx:
+def make_ctx(cfg=None, *, mesh=None, shard_overrides=None, **fields) -> Ctx:
     """THE :class:`Ctx` constructor: validates the fields and rejects
     unknown names.  ``remat`` (omitted or None) defaults to ``cfg.remat``
     when a config is given, as the reference's ``make_ctx`` does, else to
     False (the serve steps).  ``kv_bits`` must be None or 8, as in the
     reference.  ``mesh`` derives ``dp_axes`` and ``ep_axis`` as the
     reference does: ``"model"`` only for the MoE family on a ``model``
-    axis of more than one rank.  Fields the reference has and this Ctx
-    has not (the class docstring says why) are unknown here."""
+    axis of more than one rank.  ``shard_overrides`` (the reference's
+    logical-axis remaps of its activation constraints, e.g.
+    ``{"seq": ("model",)}``) must name the mesh's axes and change nothing
+    else: this Ctx has no ``shard``; without a mesh they are ignored, as
+    in the reference.  Fields the reference has and this Ctx has not (the
+    class docstring says why) are unknown here."""
     unknown = set(fields) - (_CTX_FIELDS - _MESH_FIELDS)
     if unknown:
         raise TypeError(f"make_ctx: unknown Ctx field(s) {sorted(unknown)}; "
@@ -116,6 +120,8 @@ def make_ctx(cfg=None, *, mesh=None, **fields) -> Ctx:
     if mesh is not None:
         # lazy import: models sit below launch/ in the layering
         from repro_torch.launch.mesh import dp_axes, tp_axis, tp_size
+        from repro_torch.launch.sharding import check_overrides
+        check_overrides(mesh, shard_overrides)
         moe = cfg is not None and cfg.family == "moe"
         fields.update(mesh=mesh, dp_axes=dp_axes(mesh),
                       ep_axis=(tp_axis(mesh) if moe and tp_size(mesh) > 1

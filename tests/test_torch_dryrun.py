@@ -1,0 +1,316 @@
+"""``launch/dryrun.py`` on the port, against the JAX reference's dry-run
+and its input specs.
+
+* The reference's three dry-run cases (``tests/test_sharding.py``) run
+  through the port's CLI, each in its own process over torch's fake
+  process group, with the reference's JSON keys and statuses (the skip
+  rule included).
+* The argument bytes of two of those cells equal the sum of the
+  reference's per-device shard shapes (``NamedSharding.shard_shape``, in a
+  subprocess on eight forced host devices; nothing is lowered).
+* ``parse_quant`` (the reference's read in that subprocess: importing
+  ``repro.launch.dryrun`` sets ``XLA_FLAGS`` for the whole process),
+  ``quantize_param_struct`` and the three ``*_input_specs`` equal the
+  reference's for every arch and shape.
+* A reduced dense prefill's counted FLOPs equal the closed form, and a
+  cell's ``overhead + L * per_layer`` equals its whole program.
+
+Everything is held exactly: shapes, dtypes, byte and FLOP counts are
+integers (the collective bytes, priced by ring factors, to 1e-12).
+"""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import SHAPES as JSHAPES  # noqa: E402
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs.base import QuantConfig as JQuantConfig  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
+from repro.models import get_model as jget_model  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, SHAPES,  # noqa: E402
+                                 SHAPES_BY_NAME, ShapeConfig, get_config,
+                                 get_reduced_config)
+from repro_torch.launch import dryrun, hlo_stats  # noqa: E402
+from repro_torch.launch import steps as tsteps  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT_S = 300
+
+CLI_CASES = {
+    "train": ["--arch", "smollm-135m", "--shape", "train_4k", "--mesh",
+              "2,4", "--no-block-correction"],
+    "decode": ["--arch", "tinyllama-1.1b", "--shape", "decode_32k",
+               "--mesh", "2,4", "--quant", "W2A16g128",
+               "--no-block-correction"],
+    "skip": ["--arch", "tinyllama-1.1b", "--shape", "long_500k", "--mesh",
+             "2,4"],
+}
+# the reference's JSON keys of an "ok" cell
+KEYS = {"arch", "shape", "mesh", "chips", "quant", "kind", "status", "opts",
+        "compile_secs", "memory", "whole_program", "collectives",
+        "roofline", "model_flops", "useful_ratio", "kernel_modeled"}
+MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
+               "alias_bytes", "peak_hbm_per_device"}
+
+PARSE_TAGS = ("W2A16g128", "W4A16", "W4A8", "W3A16g64", "", "none")
+
+_REF_BYTES = r"""
+import json, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from repro.configs import SHAPES_BY_NAME, get_config
+from repro.launch.dryrun import parse_quant
+from repro.launch.mesh import make_mesh
+from repro.launch.sharding import (batch_shardings, cache_shardings,
+                                   param_shardings)
+from repro.launch.steps import (make_train_harness, opt_sharding_like,
+                                quantize_param_struct, serve_input_specs,
+                                train_input_specs)
+from repro.models import get_model
+
+
+def nbytes(struct, shardings):
+    return sum(int(np.prod(sh.shard_shape(s.shape)))
+               * jnp.dtype(s.dtype).itemsize
+               for s, sh in zip(jax.tree_util.tree_leaves(struct),
+                                jax.tree_util.tree_leaves(shardings)))
+
+
+mesh = make_mesh((2, 4))
+out = {}
+cfg = get_config("smollm-135m")
+ps = jax.eval_shape(get_model(cfg).init_params, jax.random.PRNGKey(0))
+opt = jax.eval_shape(make_train_harness(cfg, mesh).init_opt, ps)
+batch = train_input_specs(cfg, SHAPES_BY_NAME["train_4k"])
+out["train"] = (nbytes(ps, param_shardings(mesh, ps, cfg))
+                + nbytes(opt, opt_sharding_like(mesh, opt, ps, cfg))
+                + nbytes(batch, batch_shardings(mesh, batch)))
+cfg = get_config("tinyllama-1.1b")
+ps = jax.eval_shape(get_model(cfg).init_params, jax.random.PRNGKey(0))
+qs = quantize_param_struct(ps, cfg, parse_quant("W2A16g128"))
+ins = serve_input_specs(cfg, SHAPES_BY_NAME["decode_32k"])
+toks = {"t": ins["tokens"], "p": ins["pos"]}
+out["decode"] = (nbytes(qs, param_shardings(mesh, qs, cfg, {"fsdp": ()}))
+                 + nbytes(ins["cache"],
+                          cache_shardings(mesh, ins["cache"], cfg))
+                 + nbytes(toks, batch_shardings(mesh, toks)))
+out["parse"] = {t: (None if q is None else [q.bits, q.group_size, q.act_bits])
+                for t in sys.argv[2:] for q in [parse_quant(t)]}
+with open(sys.argv[1], "w") as f:
+    json.dump(out, f)
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def runs(tmp_path_factory):
+    """The port's three CLI cells and the reference's shard bytes, started
+    side by side before the first test: ``get(name)`` waits for one and
+    loads its JSON."""
+    tmp = tmp_path_factory.mktemp("dryrun")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    procs = {}
+    for name, args in CLI_CASES.items():
+        path = str(tmp / f"{name}.json")
+        procs[name] = (path, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", path], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    path = str(tmp / "ref.json")
+    procs["ref"] = (path, subprocess.Popen(
+        [sys.executable, "-c", _REF_BYTES, path, *PARSE_TAGS],
+        env=dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=8"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+    class Handle:
+        def get(self, name):
+            path, proc = procs[name]
+            _, err = proc.communicate(timeout=TIMEOUT_S)
+            assert proc.returncode == 0, err[-3000:]
+            with open(path) as f:
+                return json.load(f)
+    yield Handle()
+    for _, proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.fixture(scope="module")
+def fake_group():
+    """This process as rank 0 of a fake group, closed after the module (a
+    test process must not keep a process group for later modules)."""
+    yield dryrun._fake_group
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+# -- the reference's dry-run cases, through the port's CLI -----------------
+
+def test_dryrun_train_small_mesh(runs):
+    res = runs.get("train")
+    assert res["status"] == "ok" and KEYS <= set(res)
+    assert set(res["memory"]) == MEMORY_KEYS
+    assert res["roofline"]["flops"] > 0
+    assert res["chips"] == 8 and res["kind"] == "train"
+
+
+def test_dryrun_quantized_decode_small_mesh(runs):
+    res = runs.get("decode")
+    assert res["status"] == "ok" and KEYS <= set(res)
+    assert res["memory"]["argument_bytes"] > 0
+    assert res["host_transfers"] == 0
+    # the decode step's gathers are broadcasts, priced as all-gathers
+    assert set(res["collectives"]["per_kind"]) == {"all-gather"}
+
+
+def test_serve_cell_labels_the_port_gathers(runs):
+    """A serve cell says that its counts are the port's gather program, and
+    its fused line leaves those gathers and FLOPs out: ``t_step`` is the
+    larger of the modeled bytes' time and ``model_flops``' time."""
+    res = runs.get("decode")
+    assert "gathers" in res["counted"]
+    km, chips = res["kernel_modeled"], res["chips"]
+    assert km["t_step"] == max(
+        km["t_memory"], res["model_flops"] / (chips * hlo_stats.PEAK_FLOPS))
+    assert res["roofline"]["t_collective"] > 0
+    assert not res["opts"]["seq_parallel"]
+
+
+def test_counted_step_allocates_no_global_cache(runs):
+    """The step reads its cache layout from the mesh and allocates no
+    global cache while counted: on ``2,4`` the decode cell's high-water
+    mark (temp bytes plus the outputs still held at the end: the gathered
+    lanes of the rank's rows, the new slices) stays below the global
+    cache's bytes."""
+    ins = tsteps.serve_input_specs(get_config("tinyllama-1.1b"),
+                                   SHAPES_BY_NAME["decode_32k"])
+    mem = runs.get("decode")["memory"]
+    assert mem["temp_bytes"] + mem["output_bytes"] < \
+        dryrun._nbytes(ins["cache"])
+
+
+@pytest.mark.parametrize("flag", ("--seq-parallel", "--attn-seq-parallel"))
+def test_sequence_parallel_flags_are_refused(flag):
+    """The port has no activation sharding constraints, so the CLI refuses
+    the flags that remap them instead of counting another program."""
+    with pytest.raises(ValueError, match="activation sharding"):
+        dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k",
+                     "--mesh", "2,4", flag])
+
+
+def test_dryrun_skip_rule(runs):
+    res = runs.get("skip")
+    assert res["status"] == "skipped" and "attn" in res["why"]
+
+
+@pytest.mark.parametrize("cell", ("train", "decode"))
+def test_argument_bytes_match_reference_shards(runs, cell):
+    """The rank's argument bytes are the reference's per-device shard
+    bytes: params (and Adam state) under their shardings, the cache under
+    ``cache_shardings``, the batch's rows."""
+    assert runs.get(cell)["memory"]["argument_bytes"] == \
+        runs.get("ref")[cell]
+
+
+# -- specs against the reference ------------------------------------------
+
+@pytest.mark.parametrize("tag", PARSE_TAGS)
+def test_parse_quant_matches_reference(runs, tag):
+    got, want = dryrun.parse_quant(tag), runs.get("ref")["parse"][tag]
+    if want is None:
+        assert got is None
+        return
+    assert [got.bits, got.group_size, got.act_bits] == want
+    assert got.kernel_backend == "xla"
+
+
+def _dtype(d) -> str:
+    return str(d)[6:] if isinstance(d, torch.dtype) else jnp.dtype(d).name
+
+
+def _flat(tree, path=()):
+    """(path, shape, dtype name) of every array leaf of either package's
+    tree, QTensors as their bits, group and logical shape and their
+    packed / scale / zero."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k], path + (k,))]
+    if hasattr(tree, "packed"):
+        return ([(path + ("q",), tuple(tree.shape), tree.bits,
+                  tree.group_size)]
+                + [x for k in ("packed", "scale", "zero")
+                   for x in _flat(getattr(tree, k), path + (k,))])
+    return [(path, tuple(tree.shape), _dtype(tree.dtype))]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_structs_and_input_specs_match_reference(arch):
+    """``quantize_param_struct`` (W2 g128 and W4 per-channel) and the
+    train / decode / prefill input specs of every shape (the int8 cache at
+    ``kv_bits=8``) have the reference's shapes and dtypes."""
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    ps = tsteps.param_struct(cfg)
+    jps = jax.eval_shape(jget_model(jcfg).init_params, jax.random.PRNGKey(0))
+    for tag in ("W2A16g128", "W4A16"):
+        q = dryrun.parse_quant(tag)
+        got = tsteps.quantize_param_struct(ps, cfg, q)
+        want = jsteps.quantize_param_struct(jps, jcfg, JQuantConfig(
+            bits=q.bits, group_size=q.group_size, act_bits=q.act_bits))
+        assert _flat(got) == _flat(want)
+    for shape, jshape in zip(SHAPES, JSHAPES):
+        assert _flat(tsteps.train_input_specs(cfg, shape)) == _flat(
+            jsteps.train_input_specs(jcfg, jshape))
+        for kv in (None, 8):
+            assert _flat(tsteps.serve_input_specs(cfg, shape, kv)) == \
+                _flat(jsteps.serve_input_specs(jcfg, jshape, kv))
+        assert _flat(tsteps.prefill_input_specs(cfg, shape)) == _flat(
+            jsteps.prefill_input_specs(jcfg, jshape))
+
+
+# -- the counts -------------------------------------------------------------
+
+def test_dense_prefill_flops_closed_form(fake_group):
+    """A reduced llama2 prefill of B x S tokens into an S-position cache
+    (one attention chunk) counts, per layer, the q / k / v / o and FFN
+    products and both attention products over the whole cache, plus the
+    head on the last position."""
+    from repro_torch.launch.mesh import make_mesh
+    cfg = get_reduced_config("llama2-7b").replace(dtype="float32")
+    B, S = 2, 16
+    fake_group(1)
+    mesh = make_mesh((1, 1), device="meta")
+    counter, mem = dryrun._run_step(cfg, ShapeConfig("p", S, B, "prefill"),
+                                    mesh, None, attn_chunk=S)
+    d, hd, H, Hkv = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, \
+        cfg.num_kv_heads
+    T = B * S
+    per_layer = (2 * T * d * H * hd + 2 * 2 * T * d * Hkv * hd
+                 + 2 * T * H * hd * d + 3 * 2 * T * d * cfg.d_ff
+                 + 2 * 2 * B * H * S * S * hd)
+    assert counter.flops == cfg.num_layers * per_layer \
+        + 2 * B * d * cfg.vocab_size
+    assert counter.host_transfers == [] and counter.collectives == []
+    assert mem["argument_bytes"] > 0 and mem["temp_bytes"] > 0
+
+
+def test_overhead_plus_layers_is_whole(fake_group):
+    """The eager loop counts every layer, so the depth-1 / depth-2
+    differencing reproduces the whole program: ``overhead + L *
+    per_layer == whole`` for FLOPs, bytes and collective bytes."""
+    res = dryrun.run_cell("tinyllama-1.1b", "decode_32k", "1,2",
+                          "W2A16g128", verbose=False)
+    L = get_config("tinyllama-1.1b").num_layers
+    for k in ("flops", "bytes", "coll"):
+        assert res["overhead"][k] + L * res["per_layer"][k] == \
+            pytest.approx(res["whole_program"][k], rel=1e-12)
+    assert res["whole_program"]["flops"] > 0
+    assert res["roofline"]["flops"] == res["whole_program"]["flops"] * 2

@@ -10,10 +10,10 @@
   head counts, stacked containers) restated on the port, and
   ``shard_serve_params`` puts each split on the right trailing dim.
 * ``models.layers.PsumWeight`` rides ``take_layer`` / ``unstack_layers``;
-  a serve ``mesh=`` is the reference's GSPMD path, which raises naming
-  where it waits, with the dry-run (tensor parallelism serves a placed
-  ``ServeSpec``), and a placement moves only the rank's own tree to its
-  device.
+  a serve ``mesh=`` is the reference's GSPMD path (a ``MeshPlacement``;
+  ``tests/test_torch_mesh_serve.py`` holds it against the reference),
+  which refuses a placed ``ServeSpec`` beside it, and a placement moves
+  only the rank's own tree to its device.
 """
 import numpy as np
 import pytest
@@ -146,35 +146,78 @@ def test_serve_mesh_needs_a_process_group():
 
 
 def test_mesh_without_tp_shard_is_the_gspmd_path():
-    """A serve ``mesh=`` (the reference's GSPMD path, which waits with the
-    dry-run) raises at every entry point, a placed spec among the
-    arguments or not; steps refuse a spec
+    """A serve ``mesh=`` is the reference's GSPMD path: on a mesh of one
+    rank every entry point serves the unmeshed tokens, its steps take a
+    ``MeshPlacement`` and allocate the rank's slices of a cache, and a
+    placed ``ServeSpec`` beside a mesh is refused; steps refuse a spec
     placed for another config, and a scheduler step set one built for
     another placement."""
     from repro_torch.launch.scheduler import (Request, compile_sched_steps,
                                               serve_scheduled)
+    from repro_torch.launch.sharding import MeshPlacement
     cfg = get_reduced_config("llama2-7b")
     mesh = _local_mesh()
     model = get_model(cfg)
     params = model.init_params(0, "cpu")
     spec = ServeSpec.place(mesh, cfg, params)
-    with pytest.raises(NotImplementedError, match="waits with the dry-run"):
-        make_serve_steps(cfg, mesh)
-    with pytest.raises(NotImplementedError, match="waits with the dry-run"):
+    mmodel, pstep, _ = make_serve_steps(cfg, mesh)
+    cache = mmodel.init_cache(1, 8, device="cpu")
+    assert cache["k"].shape == model.init_cache(1, 8, device="cpu")["k"].shape
+    with pytest.raises(ValueError, match="MeshPlacement"):
+        pstep(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
+              cache)
+    with pytest.raises(ValueError, match="ServeSpec"):
         compile_serve_steps(cfg, mesh=mesh, spec=spec)
-    with pytest.raises(NotImplementedError, match="waits with the dry-run"):
-        compile_sched_steps(cfg, max_seq=8, mesh=mesh)
+    with pytest.raises(ValueError, match="ServeSpec"):
+        make_serve_steps(cfg, mesh, spec=spec)
+    steps = compile_sched_steps(cfg, max_seq=8, mesh=mesh)
+    assert steps.placement == mesh
     with pytest.raises(ValueError, match="placed for"):
         make_serve_steps(cfg.replace(num_layers=1), spec=spec)
-    with pytest.raises(NotImplementedError, match="waits with the dry-run"):
-        serve_requests(cfg, model, params, np.zeros((1, 4), np.int64),
-                       gen=2, device="cpu", mesh=mesh)
+    prompts = np.zeros((1, 4), np.int64)
+    want = serve_requests(cfg, model, params, prompts, gen=2, device="cpu")
+    got = serve_requests(cfg, model, MeshPlacement.place(mesh, cfg, params),
+                         prompts, gen=2, device="cpu", mesh=mesh)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    with pytest.raises(ValueError, match="ServeSpec"):
+        serve_requests(cfg, model, spec, prompts, gen=2, device="cpu",
+                       mesh=mesh)
     reqs = [Request(rid=0, prompt=np.zeros(4, np.int64), max_new_tokens=2)]
-    with pytest.raises(NotImplementedError, match="waits with the dry-run"):
-        serve_scheduled(cfg, params, reqs, slots=1, device="cpu", mesh=mesh)
+    want = serve_scheduled(cfg, params, reqs, slots=1, device="cpu")
+    got = serve_scheduled(cfg, params, reqs, slots=1, device="cpu",
+                          mesh=mesh)
+    np.testing.assert_array_equal(got.requests[0]["tokens"],
+                                  want.requests[0]["tokens"])
     with pytest.raises(ValueError, match="placement"):
         serve_scheduled(cfg, spec, reqs, slots=1, max_seq=8, device="cpu",
                         compiled=compile_sched_steps(cfg, max_seq=8))
+    with pytest.raises(ValueError, match="placement"):
+        serve_scheduled(cfg, params, reqs, slots=1, max_seq=8, device="cpu",
+                        mesh=mesh,
+                        compiled=compile_sched_steps(cfg, max_seq=8))
+
+
+def test_gspmd_steps_read_the_recorded_cache_layout():
+    """The mesh's cache model records the ``cache_shardings`` it allocated
+    a cache under; a step reads them back, and refuses a cache no mesh
+    cache model allocated on its mesh."""
+    from repro_torch.launch.sharding import (MeshPlacement, cache_shardings,
+                                             mesh_cache_layout)
+    cfg = get_reduced_config("llama2-7b")
+    mesh = _local_mesh()
+    model = get_model(cfg)
+    params = model.init_params(0, "cpu")
+    mmodel, pstep, _ = make_serve_steps(cfg, mesh)
+    cache = mmodel.init_cache(2, 8, device="cpu")
+    assert mesh_cache_layout(mesh, cfg, cache, 2) == cache_shardings(
+        mesh, model.init_cache(2, 8, device="meta"), cfg)
+    placed = MeshPlacement.place(mesh, cfg, params)
+    tokens = {"tokens": torch.zeros((2, 4), dtype=torch.long)}
+    assert pstep(placed, tokens, cache)[0].shape[0] == 2
+    with pytest.raises(ValueError, match="was not allocated"):
+        pstep(placed, tokens, model.init_cache(2, 12, device="cpu"))
+    with pytest.raises(ValueError, match="allocated"):
+        mesh_cache_layout(_local_mesh(), cfg, cache, 2)
 
 
 # -- the serve_plan pins, on the port ----------------------------------------

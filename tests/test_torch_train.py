@@ -264,19 +264,31 @@ def test_step_fn_is_pure():
 
 
 def test_parallel_paths_raise():
-    """A mesh harness now trains (held against the reference's
+    """A mesh harness trains (held against the reference's
     ``jit_train_step`` in ``tests/test_torch_train_mesh.py``; on a mesh of
     one rank it is the single-device step, and ``compressed_psum`` over a
     pod of one is the int8 round trip); ``seq_parallel`` and
-    ``extra_overrides`` remap the reference's activation sharding
-    constraints and still raise, naming item 9.5."""
+    ``extra_overrides`` remap only the reference's activation sharding
+    constraints, which the port does not have, so the step is the one
+    without them bit for bit; an override naming an axis the mesh lacks
+    raises."""
     from repro_torch.launch.mesh import make_mesh
     cfg = get_reduced_config("llama2-7b")
+    params = get_model(cfg).init_params(0, "cpu")
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 9)).astype(np.int32)}
+
+    def step(**kw):
+        h = tsteps.make_train_harness(cfg, lr=1e-2, **kw)
+        return flatten(h.step_fn(params, h.init_opt(params), batch)[:2])
+    base = step()
     for kw in (dict(seq_parallel=True),
                dict(extra_overrides={"seq": ("model",)})):
-        with pytest.raises(NotImplementedError, match="item 9.5"):
-            tsteps.make_train_harness(cfg, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(base, step(**kw)))
     mesh = make_mesh((1, 1), device="cpu")
+    with pytest.raises(ValueError, match="not on the mesh"):
+        tsteps.make_train_harness(cfg, mesh,
+                                  extra_overrides={"seq": ("pod",)})
     h = tsteps.make_train_harness(cfg, mesh, lr=1e-2)
     assert h.mesh is mesh and h.param_sharding is not None
     x = torch.linspace(-3, 3, 16)
