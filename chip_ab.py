@@ -3,7 +3,14 @@
 
     python3 chip_ab.py PARENT_DIR
         [--kernel quant_matmul|quant_gemv|decode_attention|decode_step|
-                  int8_matmul|soft_round|quant_matmul_experts|moe_step]
+                  int8_matmul|soft_round|quant_matmul_experts|moe_step|
+                  mesh_train] [--log DIR]
+
+``mesh_train`` is not a kernel: it runs the checkout's whole
+``chip_smoke.mesh_train_phase`` (phase 21, its checks included) and
+reports its ``(c)`` lines (TinyLlama on ``(2, 1)``, and ``(c')`` where the
+checkout has it) and its time; ``--log DIR`` writes each process's whole
+output to ``DIR/<n>_<tag>.log``.
 
 ``quant_matmul`` (the default) times ``chip_smoke.check_quant`` over
 LLaMA-2-7B's prefill projections (M=512, W2 g128, ``MAIN_SHAPES``, summed
@@ -561,6 +568,15 @@ elif name == "soft_round":
     out.append(soften_split())
 elif name == "decode_step":
     out.append(step_profile())
+elif name == "mesh_train":
+    import contextlib
+    import io
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        c.mesh_train_phase(card)
+    print(text.getvalue(), flush=True)
+    out += [ln for ln in text.getvalue().splitlines()
+            if ln.startswith(("[mesh-train] (c", "[time] phase 21"))]
 elif name == "moe_step":
     out.append(step_profile("qwen3-moe-30b-a3b", layers=16))
 elif name == "quant_matmul_experts":
@@ -608,8 +624,10 @@ def main():
     ap.add_argument("--kernel", choices=("quant_matmul", "quant_gemv",
                                          "decode_attention", "decode_step",
                                          "int8_matmul", "soft_round",
-                                         "quant_matmul_experts", "moe_step"),
+                                         "quant_matmul_experts", "moe_step",
+                                         "mesh_train"),
                     default="quant_matmul")
+    ap.add_argument("--log", help="directory for each process's output")
     args = ap.parse_args()
     parent = os.path.abspath(args.parent)
     if not os.path.isfile(os.path.join(parent, "chip_smoke.py")):
@@ -621,11 +639,15 @@ def main():
     print(card, flush=True)
     digests, big, small, gemv, routed = set(), set(), set(), set(), set()
     sr_digests = []
-    for tag, where in (("parent", parent), ("change", HERE),
-                       ("change", HERE), ("parent", parent)):
+    for n, (tag, where) in enumerate((("parent", parent), ("change", HERE),
+                                      ("change", HERE), ("parent", parent))):
         out = subprocess.run([sys.executable, "-c", CHILD, tag, args.kernel],
                              cwd=where, capture_output=True, text=True,
                              timeout=900)
+        if args.log:
+            os.makedirs(args.log, exist_ok=True)
+            with open(os.path.join(args.log, f"{n}_{tag}.log"), "w") as f:
+                f.write(out.stdout + out.stderr)
         lines = [ln for ln in out.stdout.splitlines()
                  if ln.startswith("RESULT")]
         if out.returncode or len(lines) != 1:

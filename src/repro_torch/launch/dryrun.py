@@ -38,14 +38,23 @@ equals the whole.  ``compile_secs`` is the seconds the counted run took:
 nothing is compiled.  The roofline is at the H100's data-sheet peaks
 (``hlo_stats``).
 
+A train cell counts the port's mesh train step
+(``launch.steps.make_train_harness``): for the dense and MoE families the
+leaves of ``train_plan`` stay split over ``model`` and the step's
+collectives are its region entries and exits (all-reduces over the model
+group; with ``--seq-parallel`` all-gathers and reduce-scatters of the
+residual rows), its vocab-parallel loss and the ``fsdp`` gathers over the
+data axes; every other leaf is gathered whole by broadcasts, as every
+leaf of the other families is.  ``--seq-parallel`` is taken by train cells
+of those two families and refused elsewhere (ROADMAP queue 1, items 11
+and 10); ``--attn-seq-parallel`` is refused (item 12).
+
 A serve cell counts the port's GSPMD serve steps, which gather every
 weight split over ``model`` and each row's cache lane on every step: its
 collectives, ``temp_bytes`` and FLOPs are that design's, not what a
 sharded program would move or hold, and the JSON's ``counted`` says so.
 Its ``kernel_modeled.t_step`` therefore leaves the counted collectives and
-FLOPs out (the fused line at ``model_flops``).  ``--seq-parallel`` and
-``--attn-seq-parallel`` are refused: they remap activation constraints the
-port does not have, so a cell would count another program than theirs.
+FLOPs out (the fused line at ``model_flops``).
 """
 from __future__ import annotations
 
@@ -67,7 +76,8 @@ from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.launch.sharding import (SERVE_OVERRIDES, MeshPlacement,
                                          batch_shardings, shard_shape,
                                          shard_tree)
-from repro_torch.launch.steps import (make_serve_steps, make_train_harness,
+from repro_torch.launch.steps import (SPLIT_FAMILIES, make_serve_steps,
+                                      make_train_harness,
                                       prefill_input_specs,
                                       quantize_param_struct,
                                       serve_input_specs, train_input_specs)
@@ -143,7 +153,7 @@ def _mesh(mesh_kind: str):
 
 def _run_step(cfg: ModelConfig, shape: ShapeConfig, mesh, qcfg, *,
               attn_chunk, microbatches=1, grad_compression=False,
-              serve_sharding="tp", kv_bits=None):
+              serve_sharding="tp", kv_bits=None, seq_parallel=False):
     """Run one step of ``cfg`` as rank 0 of ``mesh`` on fake tensors under
     an ``OpCounter``; returns (counter, memory dict)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -156,7 +166,8 @@ def _run_step(cfg: ModelConfig, shape: ShapeConfig, mesh, qcfg, *,
         if shape.kind == "train":
             h = make_train_harness(cfg, mesh, attn_chunk=attn_chunk,
                                    microbatches=microbatches,
-                                   grad_compression=grad_compression)
+                                   grad_compression=grad_compression,
+                                   seq_parallel=seq_parallel)
             local = shard_tree(params, h.param_sharding)
             del params
             opt = h.init_opt(local)
@@ -215,6 +226,12 @@ _COUNTED_SERVE = (
     "rows; the collectives and temp bytes are those gathers', the FLOPs "
     "past model_flops that whole model's; not what a sharded program "
     "moves or holds")
+_COUNTED_TRAIN = (
+    "the port's mesh train step: the leaves train_plan splits stay split "
+    "over model, its collectives the region entries' and exits' (with "
+    "seq_parallel all-gathers and reduce-scatters of the residual rows), "
+    "the vocab-parallel loss's and the fsdp gathers'; the other leaves "
+    "gathered whole by broadcasts")
 
 
 def _depth_cfg(cfg: ModelConfig, depth_mult: int) -> ModelConfig:
@@ -233,14 +250,23 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, quant: str = "",
              seq_parallel: bool = False, grad_compression: bool = False,
              serve_sharding: str = "tp", attn_seq_parallel: bool = False,
              kv_bits=None):
-    if seq_parallel or attn_seq_parallel:
-        raise ValueError(
-            "dryrun: --seq-parallel / --attn-seq-parallel remap the "
-            "reference's activation sharding constraints, which the port "
-            "does not have (ROADMAP, port deviations): a cell with them "
-            "would count the program without sequence parallelism")
     cfg = get_config(arch)
     shape = SHAPES_BY_NAME[shape_name]
+    if attn_seq_parallel:
+        raise ValueError(
+            "dryrun: --attn-seq-parallel (seq -> model for q / k / v: a "
+            "query split with gathered keys) is not ported (ROADMAP queue "
+            "1, item 12); a cell would count the program without it")
+    if seq_parallel and shape.kind != "train":
+        raise ValueError(
+            "dryrun: --seq-parallel splits the residual rows of the mesh "
+            "train step; the GSPMD serve steps gather whole weights and "
+            "split no rows (ROADMAP queue 1, item 10)")
+    if seq_parallel and cfg.family not in SPLIT_FAMILIES:
+        raise ValueError(
+            f"dryrun: --seq-parallel splits the train step's rows for the "
+            f"{' and '.join(SPLIT_FAMILIES)} families; the {cfg.family} "
+            f"family's split over model is ROADMAP queue 1, item 11")
     ok, why = cfg.shape_valid(shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
@@ -253,15 +279,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, quant: str = "",
     qcfg = parse_quant(quant)
     opts = dict(attn_chunk=attn_chunk, microbatches=microbatches,
                 grad_compression=grad_compression,
-                serve_sharding=serve_sharding, kv_bits=kv_bits)
+                serve_sharding=serve_sharding, kv_bits=kv_bits,
+                seq_parallel=seq_parallel)
 
     result = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
               "chips": chips, "quant": quant or "fp16",
               "kind": shape.kind, "status": "ok",
-              "opts": dict(opts, seq_parallel=False,
-                           attn_seq_parallel=False),
-              "counted": ("the port's mesh train step" if shape.kind
-                          == "train" else _COUNTED_SERVE)}
+              "opts": dict(opts, attn_seq_parallel=False),
+              "counted": (_COUNTED_TRAIN if shape.kind == "train"
+                          else _COUNTED_SERVE)}
 
     t0 = time.time()
     counter, result["memory"] = _run_step(cfg, shape, mesh, qcfg, **opts)

@@ -40,7 +40,9 @@ The reference's GSPMD serve path reads the same rules: params under
 ``param_shardings(..., SERVE_OVERRIDES)`` (weights resident over ``model``,
 no ``fsdp`` split), caches under :func:`cache_shardings`, and activations
 under the constraints whose specs :func:`make_sharder` names (the port
-applies none).  :class:`MeshPlacement` is one rank's placement of a serve
+applies none as constraints: its serve fork holds whole activations, and
+its mesh train step writes out the split the constraints on heads, vocab
+and ``res_seq`` ask for, ``launch.steps.train_plan``).  :class:`MeshPlacement` is one rank's placement of a serve
 param tree on such a mesh, and :func:`mesh_cache_model` a model whose
 caches are the rank's slices, their layout recorded on the mesh.
 """
@@ -468,8 +470,9 @@ class Sharder:
     as the specs they name: :meth:`spec` resolves ``names`` through
     :func:`resolve_spec` as the reference does, so a bad override raises
     as the reference's would.  The port applies no constraint: one never
-    changes a value, and a rank of the port holds whole activations of its
-    own rows."""
+    changes a value; its serve fork holds whole activations of the rank's
+    rows, and the mesh train step splits them itself
+    (``layers.ModelSplit``)."""
     mesh: Any
     overrides: tuple = ()           # (logical name, axes) pairs
 

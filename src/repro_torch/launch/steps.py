@@ -18,19 +18,22 @@ from repro_torch.core.blocks import QUANT_LEAF_NAMES
 from repro_torch.core.qtensor import PACK_FACTOR, QTensor
 from repro_torch.core.quantizer import resolve_group
 from repro_torch.launch.mesh import (batch_rows, dp_axes, dp_size,
-                                     validate_single_pod)
-from repro_torch.launch.sharding import (MOE_EXPERT_LEAVES, MeshPlacement,
-                                         NamedSharding, PartitionSpec,
-                                         ServeSpec, batch_shardings,
-                                         check_overrides, mesh_cache_layout,
-                                         mesh_cache_model, param_shardings,
-                                         replicas, shard_leaf, shard_tree,
+                                     tp_size, validate_single_pod)
+from repro_torch.launch.sharding import (MOE_EXPERT_LEAVES, SERVE_GROUPS,
+                                         MeshPlacement, NamedSharding,
+                                         PartitionSpec, ServeSpec,
+                                         batch_shardings, check_overrides,
+                                         localize_serve_cfg,
+                                         mesh_cache_layout, mesh_cache_model,
+                                         param_shardings, replicas,
+                                         serve_plan, shard_leaf, shard_tree,
                                          unshard_leaf, unshard_tree)
 from repro_torch.models import get_model
 from repro_torch.models.common import (CACHE_SLOT_AXIS, _get_leaf,
                                        _leaf_paths, _set_leaf, make_ctx,
                                        page_rows, write_slot)
-from repro_torch.models.transformer import _DTYPES
+from repro_torch.models.layers import ModelSplit
+from repro_torch.models.transformer import _DTYPES, ROW_PARAMS
 from repro_torch.optim.adam import (AdamW, clip_by_global_norm, tree_leaves,
                                     tree_map)
 from repro_torch.optim.compression import compress_decompress, init_error
@@ -47,7 +50,9 @@ class TrainHarness:
     ``init_params(seed, device)``; ``init_opt(params)``.  On a mesh
     ``param_sharding`` / ``opt_sharding`` are the placement ``step_fn``
     reads (trees of ``launch.sharding.NamedSharding``); None on one
-    device.  ``mesh`` is the harness's mesh."""
+    device.  ``mesh`` is the harness's mesh, ``plan`` the leaves its step
+    keeps split over ``model`` (:func:`train_plan`; empty without a
+    split)."""
     cfg: ModelConfig
     step_fn: Any
     init_params: Any
@@ -56,16 +61,20 @@ class TrainHarness:
     opt_sharding: Any = None
     batch_sharding: Any = None
     mesh: Any = None
+    plan: Any = dataclasses.field(default_factory=dict)
 
 
 def _value_and_grad(model, ctx, params, batch):
     """(loss, grads) of ``model.loss_fn``, taken by ``torch.autograd.grad``
     over fresh leaves that alias ``params`` (``detach`` copies nothing), so
-    the caller's tensors are neither modified nor marked."""
+    the caller's tensors are neither modified nor marked.  A leaf the loss
+    does not read (``embed`` of an untied model under a batch's
+    ``inputs_embeds``) gets a zero gradient, as ``jax.grad`` gives it."""
     p = tree_map(lambda t: t.detach().requires_grad_(), params)
     with torch.enable_grad():
         loss = model.loss_fn(p, batch, ctx)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(p)))
+        grads = iter(torch.autograd.grad(loss, tree_leaves(p),
+                                         materialize_grads=True))
     return loss.detach(), tree_map(lambda _: next(grads), p)
 
 
@@ -98,13 +107,16 @@ def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
     On a ``mesh`` (a ``launch.mesh.Mesh``; every rank calls ``step_fn``)
     the params and the optimizer state are the rank's slices under
     ``param_shardings`` / ``opt_sharding_like`` and the batch is the
-    global one; see :func:`_mesh_step`.  ``seq_parallel`` (the residual
-    stream's sequence dim over ``model``) and ``extra_overrides`` are the
-    reference's remaps of its activation sharding constraints.  The port
-    has no such constraints: ``make_ctx`` checks that the remaps name the
-    mesh's axes, and they change nothing else, neither the values (the
-    reference's do not either) nor what the step moves (the reference's
-    do)."""
+    global one; see :func:`_mesh_step`.  For the dense and MoE families
+    on a ``model`` axis of more than one rank the step splits its work
+    over that axis as the reference's partitioner does (:func:`train_plan`,
+    ``layers.ModelSplit``): each rank computes its heads, FFN columns or
+    experts and its vocab slice.  ``seq_parallel`` (the reference's
+    ``res_seq`` -> ``model``) also splits the residual stream's rows
+    between the regions over that axis, where the sequence divides by it.
+    Neither changes the values, as in the reference.  ``extra_overrides``
+    (the reference's other remaps of its activation constraints) must
+    name the mesh's axes (``make_ctx`` checks) and change nothing."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     overrides = dict(extra_overrides or {})
@@ -122,10 +134,11 @@ def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
             state["ef"] = init_error(params)
         return state
 
-    def grads_of(params, batch, local=None):
-        """(loss, grads) over ``microbatches`` slices of ``batch``.  On a
-        mesh ``local(ub) -> (rows, weight)`` cuts each slice to the rank's
-        rows and weighs its loss and gradients by the rank's share of it."""
+    def grads_of(params, batch, local=None, fwd=(model, ctx)):
+        """(loss, grads) over ``microbatches`` slices of ``batch``, by
+        ``fwd = (model, ctx)``.  On a mesh ``local(ub) -> (rows, weight)``
+        cuts each slice to the rank's rows and weighs its loss and
+        gradients by the rank's share of it."""
         n = next(iter(batch.values())).shape[0]
         if n % microbatches:
             raise ValueError(f"batch of {n} does not split into "
@@ -133,9 +146,9 @@ def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
 
         def one(ub):
             if local is None:
-                return _value_and_grad(model, ctx, params, ub)
+                return _value_and_grad(*fwd, params, ub)
             rows, w = local(ub)
-            l_i, g_i = _value_and_grad(model, ctx, params,
+            l_i, g_i = _value_and_grad(*fwd, params,
                                        {k: v[rows] for k, v in ub.items()})
             if w is None:
                 return l_i, g_i
@@ -176,14 +189,25 @@ def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
             return finish(params, opt_state, grads, loss)
         return TrainHarness(cfg, step_fn, model.init_params, init_opt)
 
-    pspec = param_shardings(mesh, param_struct(cfg), cfg)
+    struct = param_struct(cfg)
+    pspec = param_shardings(mesh, struct, cfg)
     ospec = _opt_sharding(mesh, pspec, grad_compression)
+    plan = train_plan(mesh, cfg, struct, pspec)
+    split = model_split(mesh, plan, ctx.ep_axis)
+    fwds = {False: (model, ctx)}
+    if split is not None:
+        lmodel = get_model(localize_serve_cfg(cfg, plan, split.size))
+        fwds[False] = (lmodel, dataclasses.replace(ctx, tp=split))
+        if seq_parallel:
+            fwds[True] = (lmodel, dataclasses.replace(
+                ctx, tp=dataclasses.replace(split, seq=True)))
 
     def step_fn(params, opt_state, batch):
-        return _mesh_step(mesh, cfg, pspec, grads_of, finish, params,
-                          opt_state, batch)
+        return _mesh_step(mesh, cfg, pspec, plan, fwds, grads_of, finish,
+                          params, opt_state, batch)
     return TrainHarness(cfg, step_fn, model.init_params, init_opt,
-                        param_sharding=pspec, opt_sharding=ospec, mesh=mesh)
+                        param_sharding=pspec, opt_sharding=ospec, mesh=mesh,
+                        plan=plan)
 
 
 def _opt_sharding(mesh, pspec, compressed: bool) -> dict:
@@ -226,11 +250,78 @@ def _specs(tree) -> list:
     return [s.spec for s in flatten(tree)]
 
 
-def entry_shardings(pspec, cfg: ModelConfig):
+# the families whose train step splits its work over ``model``
+SPLIT_FAMILIES = ("dense", "moe")
+# the dim of each vocab leaf that ``vocab`` splits
+_VOCAB_DIM = {"embed": -2, "head": -1}
+_SPLIT_DIM = {"out": -1, "in": -2, "expert": -3}
+
+
+def _on_model(sharding, dim: int) -> bool:
+    spec = tuple(sharding.spec)
+    return len(spec) >= -dim and spec[dim] == "model"
+
+
+def train_plan(mesh, cfg: ModelConfig, struct, pspec) -> dict:
+    """``{leaf name: split}`` of the leaves a mesh train step keeps split
+    over ``model`` (the rest are gathered whole, as before): for the
+    dense and MoE families on a ``model`` axis of more than one rank, the
+    groups ``launch.sharding.serve_plan`` splits (Megatron's out / in
+    split of the attention and FFN groups, the MoE's experts) whose every
+    member ``param_shardings`` places with that dim on ``model``, and
+    ``embed`` / ``head`` as ``"vocab"`` where the vocab dim of each is on
+    ``model``.  A group ``serve_plan`` refuses (heads that do not divide,
+    a dim that does not) is gathered whole."""
+    tp = tp_size(mesh)
+    if tp <= 1 or cfg.family not in SPLIT_FAMILIES:
+        return {}
+    placed: dict = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            placed.setdefault(path[-1], []).append(node)
+    walk(pspec, ())
+    plan = serve_plan(cfg, struct, tp)
+    for group in SERVE_GROUPS[cfg.family]:
+        names = [n for n in group if n in plan]
+        if not all(_on_model(sh, _SPLIT_DIM[plan[n]])
+                   for n in names for sh in placed[n]):
+            for n in names:
+                del plan[n]
+    vocab = [n for n in _VOCAB_DIM if n in placed]
+    if all(_on_model(sh, _VOCAB_DIM[n]) for n in vocab for sh in placed[n]):
+        plan.update((n, "vocab") for n in vocab)
+    return plan
+
+
+def model_split(mesh, plan: dict, ep_axis=None):
+    """The ``layers.ModelSplit`` of ``plan`` on ``mesh`` (None where
+    nothing splits): the regions whose leaves the plan keeps split, and
+    the MoE's experts exactly where the ctx has an ``ep_axis`` (which
+    makes ``moe_ffn`` compute the rank's experts alone: the plan must keep
+    them split)."""
+    if (plan.get("w_gate") == "expert") != (ep_axis is not None):
+        raise ValueError(f"the plan splits w_gate {plan.get('w_gate')!r} "
+                         f"but the ctx's ep_axis is {ep_axis!r}")
+    regions = {"wq": "attn", "w_gate": "ffn", "embed": "vocab"}
+    splits = {r for n, r in regions.items() if plan.get(n) in ("out", "vocab")}
+    if ep_axis is not None:
+        splits.add("experts")
+    if not splits:
+        return None
+    return ModelSplit(mesh.group_of("model"), tp_size(mesh),
+                      mesh.index_of("model"), frozenset(splits))
+
+
+def entry_shardings(pspec, cfg: ModelConfig, plan=None):
     """What a mesh step gathers of each leaf: its sharding, except that a
-    stacked MoE expert weight keeps its ``model`` split (the rank computes
-    its own experts) and gathers only its ``fsdp`` dim — the reference's
-    ``shard_map`` entry."""
+    leaf of ``plan`` (:func:`train_plan`) and a stacked MoE expert weight
+    keep their ``model`` split (the rank computes its own part) and
+    gather only their ``fsdp`` dim — the reference's ``shard_map``
+    entry."""
     def local(sh):
         if sh is None:
             return None
@@ -241,8 +332,9 @@ def entry_shardings(pspec, cfg: ModelConfig):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         spec = (node.packed if isinstance(node, QTensor) else node).spec
-        if (cfg.family != "moe" or path[-1] not in MOE_EXPERT_LEAVES
-                or len(spec) < 3):
+        expert = (cfg.family == "moe" and path[-1] in MOE_EXPERT_LEAVES
+                  and len(spec) >= 3)
+        if not (expert or path[-1] in (plan or {})):
             return node
         if isinstance(node, QTensor):
             return QTensor(local(node.packed), local(node.scale),
@@ -252,41 +344,65 @@ def entry_shardings(pspec, cfg: ModelConfig):
     return walk(pspec, ())
 
 
-def _reduce_over_data(mesh, loss, grads):
-    """Sum ``loss`` and ``grads`` over the mesh's data-parallel group, one
-    all-reduce a dtype over the flattened leaves."""
-    leaves = [loss] + tree_leaves(grads)
+def _sum_over(group, leaves: list) -> list:
+    """``leaves`` summed over ``group``, one all-reduce a dtype over the
+    flattened tensors."""
     by_dtype: dict = {}
     for i, t in enumerate(leaves):
         by_dtype.setdefault(t.dtype, []).append(i)
     out = list(leaves)
     for idx in by_dtype.values():
         flat = torch.cat([leaves[i].reshape(-1) for i in idx])
-        dist.all_reduce(flat, group=mesh.data_group)
+        dist.all_reduce(flat, group=group)
         o = 0
         for i in idx:
             n = leaves[i].numel()
             out[i] = flat[o:o + n].view(leaves[i].shape)
             o += n
+    return out
+
+
+def _reduce_over_data(mesh, loss, grads):
+    """Sum ``loss`` and ``grads`` over the mesh's data-parallel group."""
+    out = _sum_over(mesh.data_group, [loss] + tree_leaves(grads))
     it = iter(out[1:])
     return out[0], tree_map(lambda _: next(it), grads)
 
 
-def _mesh_step(mesh, cfg, pspec, grads_of, finish, params, opt_state, batch):
+def _reduce_rows(split, grads):
+    """Under a split of the residual rows each rank's gradient of a
+    :data:`models.transformer.ROW_PARAMS` leaf (the norms) is its rows'
+    part: sum those over the model group."""
+    paths = [p for p in _leaf_paths(grads)
+             if p.rsplit("/", 1)[-1] in ROW_PARAMS]
+    for p, g in zip(paths, _sum_over(split.group,
+                                     [_get_leaf(grads, p) for p in paths])):
+        grads = _set_leaf(grads, p, g)
+    return grads
+
+
+def _mesh_step(mesh, cfg, pspec, plan, fwds, grads_of, finish, params,
+               opt_state, batch):
     """One train step on a mesh, from the rank's slices:
 
-    * every leaf gathered whole over its split axes, except the MoE expert
-      weights, which gather only their ``fsdp`` dim
-      (:func:`entry_shardings`);
+    * the leaves of ``plan`` and the MoE expert weights keep their
+      ``model`` split and gather only their ``fsdp`` dim; every other leaf
+      is gathered whole over its split axes (:func:`entry_shardings`);
     * the loss and its gradients on the rank's rows of each microbatch
-      (its block over the data-parallel axes) under the mesh ctx;
+      (its block over the data-parallel axes) by ``fwds[rows]``: the
+      forward of the rank's heads, columns, experts and vocab slice under
+      the ``model`` split (``Ctx.tp``), with the residual rows split too
+      (``rows``) where ``seq_parallel`` asked for it and the sequence
+      divides by the model axis; the norms' gradients of split rows are
+      then summed over the model group;
     * loss and gradients summed over the data group, each rank's weighted
       by its share of the global batch's loss weights (``1 / D`` without a
       ``loss_mask``), so they are the global batch's mean;
-    * the gradients cut to the rank's slices, clipped by the global norm
-      (each distinct slice counted once), compressed with the whole leaf's
-      amax, and AdamW on the slices."""
-    entry = entry_shardings(pspec, cfg)
+    * the gradients cut to the rank's slices (those of ``plan``'s leaves
+      come out of the backward already cut over ``model``), clipped by
+      the global norm (each distinct slice counted once), compressed with
+      the whole leaf's amax, and AdamW on the slices."""
+    entry = entry_shardings(pspec, cfg, plan)
     batch = {k: torch.as_tensor(v, device=mesh.device)
              for k, v in batch.items()}
     D = dp_size(mesh)
@@ -302,9 +418,15 @@ def _mesh_step(mesh, cfg, pspec, grads_of, finish, params, opt_state, batch):
         return rows, (torch.clamp(lw[rows].sum(), min=1.0)
                       / torch.clamp(lw.sum(), min=1.0))
 
+    split = fwds[False][1].tp
+    S = (batch["inputs_embeds"].shape[1] if "inputs_embeds" in batch
+         else batch["tokens"].shape[1] - 1)
+    rows = True in fwds and S % split.size == 0
     whole = unshard_tree(params, entry)
-    loss, grads = grads_of(whole, batch, local)
+    loss, grads = grads_of(whole, batch, local, fwds[rows])
     del whole
+    if rows:
+        grads = _reduce_rows(split, grads)
     if D > 1:
         loss, grads = _reduce_over_data(mesh, loss, grads)
     grads = shard_tree(grads, entry)

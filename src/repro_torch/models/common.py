@@ -57,10 +57,20 @@ class Ctx:
     family on a ``model`` axis of more than one rank) splits the experts
     over that axis (``models.moe.moe_ffn``).
 
+    ``tp`` (a ``layers.ModelSplit``) is the mesh train step's split over
+    the ``model`` axis (``launch.steps.make_train_harness``): the
+    transformer's blocks enter and leave each region through
+    ``layers.enter`` / ``layers.leave``, which all-reduce (or, with the
+    residual rows split, all-gather and reduce-scatter) over its group,
+    the embedding and the loss run over the rank's vocab slice, and the
+    forward runs on a config with the rank's head counts.
+
     Fields of the reference's Ctx that are not here, and why: ``shard``
-    (its activation sharding constraints: a constraint never changes a
-    value, and a rank of the port holds whole activations of its own
-    rows) and ``decode`` (read only by those constraints).
+    (its activation sharding constraints, from which GSPMD derives the
+    split program; the port writes that program out: ``tp`` and the
+    region entries and exits are what the reference's constraints on
+    heads, vocab and ``res_seq`` make its partitioner do) and ``decode``
+    (read only by those constraints).
     """
     kernel_backend: Optional[str] = None
     act_bits: Optional[int] = None
@@ -73,6 +83,7 @@ class Ctx:
     ep_inner: Any = None
     mesh: Any = None
     dp_axes: tuple = ()
+    tp: Any = None
 
 
 DEFAULT_CTX = Ctx()

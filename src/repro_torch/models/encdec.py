@@ -225,9 +225,7 @@ def loss_fn(params, cfg: ModelConfig, batch, ctx: Ctx = DEFAULT_CTX):
     logits = forward(params, cfg, frames_of(batch), tokens[:, :-1],
                      ctx).to(torch.float32)
     targets = tokens[:, 1:].long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    return (lse - gold).mean()
+    return L.token_nll(logits, targets).mean()
 
 
 # -- serving ----------------------------------------------------------------

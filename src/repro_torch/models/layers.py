@@ -7,6 +7,13 @@ Functions over tensors and param dicts; weights use ``(in_features,
 out_features)`` (experts: ``(E, in, out)``).  QTensor matmuls dispatch per call on ``backend``:
 "xla" dequantizes in the activation dtype and runs a dense matmul, "pallas"
 runs the hand-written kernels (their plain versions on a CPU tensor).
+
+Across ranks: serve-time tensor parallelism all-reduces an in-split
+linear's product (``PsumWeight``); the mesh train step's split over the
+``model`` axis (``ModelSplit``) enters and leaves each region of a block
+through differentiable collectives (``enter`` / ``leave``) and takes the
+embedding and the cross entropy over the rank's vocab slice
+(``vocab_lookup``, ``token_nll``).
 """
 from __future__ import annotations
 
@@ -73,18 +80,159 @@ class _CopyToGroup(torch.autograd.Function):
         return dx, None
 
 
-def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
-    """The differentiable all-reduce (sum) over ``group`` of a value whose
-    consumers run alike on every rank of it (the expert-parallel MoE's
-    output): its gradient is the cotangent itself."""
-    return _ReduceFromGroup.apply(x, group)
-
-
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` unchanged, entering a computation that each rank of ``group``
     runs on its own part (its local experts): the gradient sums the
     ranks' parts over ``group``."""
     return _CopyToGroup.apply(x, group)
+
+
+# --------------------------------------------------------------------------
+# the train step's split over the ``model`` axis: region entries and exits
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """How a mesh train step splits its work over the ``model`` axis
+    (``Ctx.tp``; ``launch.steps.make_train_harness`` makes it).
+
+    ``group`` is the model axis's process group, ``size`` its extent and
+    ``rank`` this rank's index in it.  ``splits`` names the regions whose
+    weights the rank holds a slice of: ``"attn"`` (its heads of wq / wk /
+    wv, the matching rows of wo), ``"ffn"`` (its columns of w_gate / w_up,
+    the rows of w_down), ``"experts"`` (the MoE's ``E / size`` experts) and
+    ``"vocab"`` (its rows of embed, its columns of head).  A region not
+    named runs whole on every rank.  ``seq`` splits the residual stream's
+    rows (the sequence dim) over the group between the regions: the
+    reference's ``seq_parallel``."""
+    group: Any
+    size: int
+    rank: int
+    splits: frozenset = frozenset()
+    seq: bool = False
+
+
+def _gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, 1)
+
+
+def _scatter_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    parts = [p.contiguous() for p in x.chunk(size, 1)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out
+
+
+def _own_rows(x: torch.Tensor, size: int, rank: int) -> torch.Tensor:
+    n = x.shape[1] // size
+    return x.narrow(1, rank * n, n).contiguous()
+
+
+class _GatherRowsTo(torch.autograd.Function):
+    """Forward: the whole rows (dim 1) from every rank's block of them (an
+    all-gather).  Backward: with ``partial`` (each rank's consumer makes
+    its own part of the gradient) the sum over the group of the
+    cotangents, scattered back to each rank's block (a reduce-scatter);
+    without it (every rank's consumer runs alike) the rank's block of the
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, rank, partial):
+        ctx.args = group, size, rank, partial
+        return _gather_rows(x, group, size)
+
+    @staticmethod
+    def backward(ctx, dy):
+        group, size, rank, partial = ctx.args
+        dx = (_scatter_rows(dy, group, size) if partial
+              else _own_rows(dy, size, rank))
+        return dx, None, None, None, None
+
+
+class _ScatterRowsFrom(torch.autograd.Function):
+    """Forward: the rank's block of the rows (dim 1): with ``partial`` of
+    the sum over the group of every rank's part (a reduce-scatter), else
+    of the value itself.  Backward: the whole cotangent gathered from the
+    ranks' blocks (an all-gather)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, rank, partial):
+        ctx.args = group, size
+        return (_scatter_rows(x, group, size) if partial
+                else _own_rows(x, size, rank))
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _gather_rows(dy, *ctx.args), None, None, None, None
+
+
+def enter(h: torch.Tensor, tp: Optional[ModelSplit],
+          region: str) -> torch.Tensor:
+    """``h`` entering ``region`` of a block (its input, after the norm).
+    A split region computes the rank's part from the whole rows: ``h``
+    unchanged and its gradient all-reduced over the group, or, under
+    ``tp.seq``, the rows all-gathered and the gradient reduce-scattered.
+    A whole region under ``tp.seq`` all-gathers the rows and takes back
+    the rank's block of the gradient.  Without ``tp``: ``h``."""
+    if tp is None:
+        return h
+    split = region in tp.splits
+    if tp.seq:
+        return _GatherRowsTo.apply(h, tp.group, tp.size, tp.rank, split)
+    return _CopyToGroup.apply(h, tp.group) if split else h
+
+
+def leave(y: torch.Tensor, tp: Optional[ModelSplit],
+          region: str) -> torch.Tensor:
+    """``y`` leaving ``region`` for the residual stream: a split region's
+    partial sums all-reduced over the group (the gradient passes as it
+    is), or, under ``tp.seq``, reduce-scattered to the rank's rows (the
+    gradient all-gathered).  A whole region under ``tp.seq`` keeps the
+    rank's rows.  Without ``tp``: ``y``."""
+    if tp is None:
+        return y
+    split = region in tp.splits
+    if tp.seq:
+        return _ScatterRowsFrom.apply(y, tp.group, tp.size, tp.rank, split)
+    return _ReduceFromGroup.apply(y, tp.group) if split else y
+
+
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 rank: int) -> torch.Tensor:
+    """The rank's part of an embedding lookup over a vocab-split ``table``
+    (its rows ``[rank * n, (rank + 1) * n)``): the rows of the tokens it
+    holds, zero for the others; :func:`leave` sums the parts."""
+    n = table.shape[0]
+    t = tokens - rank * n
+    mine = (t >= 0) & (t < n)
+    e = table[torch.where(mine, t, 0)]
+    return torch.where(mine[..., None], e, e.new_zeros(()))
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor,
+              tp: Optional[ModelSplit] = None) -> torch.Tensor:
+    """Each position's cross entropy ``logsumexp(logits) - logits[target]``
+    in the logits' dtype (f32 for the losses).  Under ``tp`` with
+    ``"vocab"`` split the logits are the rank's vocab columns: the max is
+    all-reduced (no gradient flows through it), the sum of exponentials
+    and the gold logit, which only its owner holds, are summed over the
+    group."""
+    if tp is None or "vocab" not in tp.splits:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return lse - gold
+    n = logits.shape[-1]
+    m = logits.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+    sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
+    lse = m + torch.log(_ReduceFromGroup.apply(sumexp, tp.group))
+    t = targets - tp.rank * n
+    mine = (t >= 0) & (t < n)
+    gold = torch.gather(logits, -1, torch.where(mine, t, 0)[..., None])[..., 0]
+    gold = torch.where(mine, gold, gold.new_zeros(()))
+    return lse - _ReduceFromGroup.apply(gold, tp.group)
 
 
 def resolve_backend(backend: Optional[str]) -> str:

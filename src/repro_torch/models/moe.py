@@ -31,11 +31,16 @@ reference's mesh computes:
 * ``ctx.ep_axis`` set (the MoE family on a ``model`` axis of more than one
   rank): the rank routes its own rows, with the capacity of its data
   shard's tokens (the reference's ``B*S // dp_degree``), computes its
-  contiguous ``E / tp`` experts and all-reduces over the model group.
-  The all-reduce's gradient is the cotangent itself and the inputs' is
-  summed over the group (``layers.reduce_from_group`` /
-  ``copy_to_group``), as psum's transpose under the reference's
-  ``shard_map`` gives.
+  contiguous ``E / tp`` experts and sums them over the model group
+  through ``layers.leave`` (the train step's ``ctx.tp``, whose split
+  names the experts wherever ``ep_axis`` is set, or a split of the
+  experts alone): an all-reduce, whose gradient is the cotangent itself,
+  the inputs' summed over the group (``layers.copy_to_group``), as
+  psum's transpose under the reference's ``shard_map`` gives.  In the
+  mesh train step the rows come in whole on every rank (with the
+  residual rows split, gathered by ``layers.enter``), so the capacity
+  and the drops are the same; with the rows split the sum is a
+  reduce-scatter onto the rank's rows.
 * ``ctx.ep_axis`` None with data parallelism: the reference is one program
   over the global batch, so the capacity comes from the global token
   count and a pair's queue position from a cumsum over the global token
@@ -182,8 +187,14 @@ def moe_ffn(mp: dict, x: torch.Tensor, cfg: ModelConfig,
     x2d = x.reshape(B * S, d)
     idx, gate = _route(x2d, mp["router"], k)
     if ctx.ep_axis is not None:
-        return _moe_expert_parallel(mp, x2d, idx, gate, cfg, ctx).reshape(
+        y = _moe_expert_parallel(mp, x2d, idx, gate, cfg, ctx).reshape(
             B, S, d)
+        # the train step's split names the experts wherever ep_axis is set
+        # (launch.steps.model_split); elsewhere they split over ep_axis alone
+        tp = ctx.tp if ctx.tp is not None else L.ModelSplit(
+            ctx.mesh.group_of(ctx.ep_axis), ctx.mesh.size_of(ctx.ep_axis),
+            ctx.mesh.index_of(ctx.ep_axis), frozenset({"experts"}))
+        return L.leave(y, tp, "experts")
     if ctx.mesh is not None and dp_size(ctx.mesh) > 1:
         return _moe_global_queue(mp, x2d, idx, gate, cfg, ctx).reshape(
             B, S, d)
@@ -213,8 +224,8 @@ def _experts_held(mp: dict) -> int:
 
 def _moe_expert_parallel(mp, x2d, idx, gate, cfg, ctx):
     """``ctx.ep_axis``: the rank's rows through its contiguous experts,
-    summed over the model group.  Capacity is per data shard: the rank's
-    own tokens."""
+    the rank's part of the output, which the caller sums over the model
+    group.  Capacity is per data shard: the rank's own tokens."""
     mesh = ctx.mesh
     e = cfg.moe.num_experts
     tp = mesh.size_of(ctx.ep_axis)
@@ -229,13 +240,13 @@ def _moe_expert_parallel(mp, x2d, idx, gate, cfg, ctx):
     group = mesh.group_of(ctx.ep_axis)
     cap = _capacity(x2d.shape[0], e, cfg.moe.top_k,
                     cfg.moe.capacity_factor)
-    y = _expert_compute(L.copy_to_group(x2d, group), idx,
-                        L.copy_to_group(gate, group), mp["w_gate"],
-                        mp["w_up"], mp["w_down"], num_experts=e, capacity=cap,
-                        act_bits=ctx.act_bits, backend=ctx.kernel_backend,
-                        e_start=mesh.index_of(ctx.ep_axis) * e_local,
-                        e_local=e_local)
-    return L.reduce_from_group(y, group)
+    return _expert_compute(L.copy_to_group(x2d, group), idx,
+                           L.copy_to_group(gate, group), mp["w_gate"],
+                           mp["w_up"], mp["w_down"], num_experts=e,
+                           capacity=cap, act_bits=ctx.act_bits,
+                           backend=ctx.kernel_backend,
+                           e_start=mesh.index_of(ctx.ep_axis) * e_local,
+                           e_local=e_local)
 
 
 def _moe_global_queue(mp, x2d, idx, gate, cfg, ctx):

@@ -209,9 +209,7 @@ def loss_fn(params, cfg: ModelConfig, batch, ctx: Ctx = DEFAULT_CTX):
     tokens = batch["tokens"]
     logits = forward(params, cfg, tokens[:, :-1], ctx).to(torch.float32)
     targets = tokens[:, 1:].long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    return (lse - gold).mean()
+    return L.token_nll(logits, targets).mean()
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, ctx: Ctx = DEFAULT_CTX):

@@ -106,11 +106,12 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     paged decode kernel or gather a virtual slot-major cache shaped like
     the dense lane.  With ``ctx.kv_bits`` the cache holds k and v quantized
     (``Ctx``), and a paged pool is always gathered."""
-    Bb, S, d = x.shape
     hd = cfg.resolved_head_dim
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
     if ctx.act_bits:
         h = L.fake_quant_act(h, ctx.act_bits)
+    h = L.enter(h, ctx.tp, "attn")
+    Bb, S = h.shape[:2]
     kb = ctx.kernel_backend
     q = L.matmul(h, bp["wq"], kb).reshape(Bb, S, cfg.num_heads, hd)
     k = L.matmul(h, bp["wk"], kb).reshape(Bb, S, cfg.num_kv_heads, hd)
@@ -163,7 +164,7 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     o = o.reshape(Bb, S, cfg.num_heads * hd)
     if ctx.act_bits:
         o = L.fake_quant_act(o, ctx.act_bits)
-    return L.matmul(o, bp["wo"], kb), new_kv
+    return L.leave(L.matmul(o, bp["wo"], kb), ctx.tp, "attn"), new_kv
 
 
 def ffn(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
@@ -171,14 +172,17 @@ def ffn(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
     if ctx.act_bits:
         h = L.fake_quant_act(h, ctx.act_bits)
     if cfg.family == "moe":
-        return moe_ffn(bp["moe"], h, cfg, ctx)
+        # the router runs alike on every rank; the experts' split enters
+        # and leaves inside moe_ffn
+        return moe_ffn(bp["moe"], L.enter(h, ctx.tp, "router"), cfg, ctx)
+    h = L.enter(h, ctx.tp, "ffn")
     kb = ctx.kernel_backend
     g = L.matmul(h, bp["w_gate"], kb)
     u = L.matmul(h, bp["w_up"], kb)
     a = torch.nn.functional.silu(g) * u
     if ctx.act_bits:
         a = L.fake_quant_act(a, ctx.act_bits)
-    return L.matmul(a, bp["w_down"], kb)
+    return L.leave(L.matmul(a, bp["w_down"], kb), ctx.tp, "ffn")
 
 
 def block(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX,
@@ -197,16 +201,28 @@ def block(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX,
 # full model
 # --------------------------------------------------------------------------
 
-def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
-    e = params["embed"][tokens]
+def embed_tokens(params, cfg: ModelConfig, tokens,
+                 ctx: Ctx = DEFAULT_CTX) -> torch.Tensor:
+    """The token embeddings; under ``ctx.tp`` the residual stream's
+    input: with the vocab split the ranks' parts of the lookup
+    (``layers.vocab_lookup``) summed, and with ``ctx.tp.seq`` the rank's
+    block of the rows (``layers.leave``)."""
+    tp = ctx.tp
+    if tp is not None and "vocab" in tp.splits:
+        e = L.vocab_lookup(params["embed"], tokens, tp.rank)
+    else:
+        e = params["embed"][tokens]
     if cfg.family == "vlm":
         # gemma input scaling by sqrt(d_model) rounded to the embedding's
         # dtype, as the reference's; a host scalar, so nothing syncs
         e = e * torch.tensor(cfg.d_model ** 0.5, dtype=e.dtype).item()
-    return e
+    return L.leave(e, tp, "vocab")
 
 
 def unembed(params, cfg: ModelConfig, x, ctx: Ctx = DEFAULT_CTX) -> torch.Tensor:
+    """Logits; under ``ctx.tp`` with the vocab split, the rank's vocab
+    columns of them."""
+    x = L.enter(x, ctx.tp, "vocab")
     if cfg.tie_embeddings:
         return x @ params["embed"].T
     return L.matmul(x, params["head"], ctx.kernel_backend)
@@ -220,10 +236,20 @@ def forward(params, cfg: ModelConfig, tokens, ctx: Ctx = DEFAULT_CTX, *,
 
     The layers are taken apart once (``unstack_layers``: one ``unbind`` per
     stacked leaf, so the backward stacks the layers' gradients once) and
-    each runs through ``maybe_remat`` (``ctx.remat``)."""
-    x = (inputs_embeds if inputs_embeds is not None
-         else embed_tokens(params, cfg, tokens))
-    positions = torch.arange(x.shape[1], device=x.device)
+    each runs through ``maybe_remat`` (``ctx.remat``).
+
+    Under ``ctx.tp`` (the mesh train step's ``model`` split) the logits
+    are the rank's vocab columns where the vocab splits, and with
+    ``ctx.tp.seq`` the residual stream between the blocks holds the
+    rank's block of the rows (of ``inputs_embeds``, whole on every rank,
+    the rank keeps its own); RoPE reads the whole sequence's positions."""
+    if inputs_embeds is not None:
+        S = inputs_embeds.shape[1]
+        x = L.leave(inputs_embeds, ctx.tp, "inputs")
+    else:
+        S = tokens.shape[1]
+        x = embed_tokens(params, cfg, tokens, ctx)
+    positions = torch.arange(S, device=x.device)
 
     def step(h, bp):
         h, _ = block(bp, h, cfg, ctx, positions=positions,
@@ -237,10 +263,18 @@ def forward(params, cfg: ModelConfig, tokens, ctx: Ctx = DEFAULT_CTX, *,
     return unembed(params, cfg, x, ctx)
 
 
+# the params the forward applies to the residual stream's rows (its
+# norms): with the rows split over the model axis (``ctx.tp.seq``) a
+# rank's gradient of each is its own rows' part of the sum
+ROW_PARAMS = frozenset({"ln1", "ln2", "ln_f"})
+
+
 def loss_fn(params, cfg: ModelConfig, batch, ctx: Ctx = DEFAULT_CTX):
     """Next-token cross entropy in float32.  batch = {tokens, (optional)
     loss_mask, (optional) inputs_embeds}; the forward runs on
-    ``tokens[:, :-1]``."""
+    ``tokens[:, :-1]``.  Under ``ctx.tp`` with the vocab split the
+    cross entropy is taken over the ranks' vocab columns
+    (``layers.token_nll``)."""
     tokens = batch["tokens"]
     logits = forward(params, cfg, tokens[:, :-1], ctx,
                      inputs_embeds=batch.get("inputs_embeds"))
@@ -249,10 +283,7 @@ def loss_fn(params, cfg: ModelConfig, batch, ctx: Ctx = DEFAULT_CTX):
     lw = (lw[:, 1:].to(torch.float32) if lw is not None
           else torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device))
-    logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    nll = (lse - gold) * lw
+    nll = L.token_nll(logits.to(torch.float32), targets, ctx.tp) * lw
     return nll.sum() / torch.clamp(lw.sum(), min=1.0)
 
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.common import Ctx, DEFAULT_CTX
 
@@ -50,9 +51,7 @@ def loss_fn(params, cfg: ModelConfig, batch, ctx: Ctx = DEFAULT_CTX):
                      ctx).to(torch.float32)
     logits = logits[:, cfg.num_patches:]                   # text positions
     targets = tokens[:, 1:].long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    return (lse - gold).mean()
+    return L.token_nll(logits, targets).mean()
 
 
 def prefill(params, cfg: ModelConfig, patches, tokens, cache,

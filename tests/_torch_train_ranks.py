@@ -24,11 +24,14 @@ from repro_torch.launch.sharding import (param_shardings, shard_tree,
 from repro_torch.launch.steps import make_train_harness
 from repro_torch.optim.compression import compressed_psum
 
-# family -> reduced arch; the MoE's capacity factor drops routed pairs
+# family -> reduced arch; the MoE's capacity factor drops routed pairs.
+# "llama" is a dense config whose heads, KV heads, FFN and vocab divide by
+# 4 (tinyllama's one KV head keeps its attention whole on a model axis)
 ARCHS = {"moe": "qwen3-moe-30b-a3b", "dense": "tinyllama-1.1b",
-         "rwkv": "rwkv6-3b"}
+         "rwkv": "rwkv6-3b", "llama": "llama2-7b"}
 MOE_CF = 0.5
 STEPS, LR, BATCH = 3, 1e-3, (8, 33)
+ODD_BATCH = (8, 34)         # S = 33 does not split over 2 model ranks
 WORLD_MESHES = {1: ((1,), (1, 1)), 2: ((2,), (1, 2)), 4: ((4,), (2, 2))}
 ELASTIC = "dense"           # the family saved at (2, 2) and resumed
 SAVE_AT = 2
@@ -44,9 +47,9 @@ def config(family):
     return cfg
 
 
-def tokens(cfg):
+def tokens(cfg, shape=BATCH):
     return np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=BATCH).astype(np.int32)
+        0, cfg.vocab_size, size=shape).astype(np.int32)
 
 
 def loss_mask():
@@ -56,6 +59,14 @@ def loss_mask():
     m = (rng.random(BATCH) < 0.7).astype(np.int32)
     m[BATCH[0] // 2:, BATCH[1] // 2:] = 0
     return m
+
+
+def embeds(cfg, shape=BATCH):
+    """``inputs_embeds`` for the forward's ``S - 1`` positions of a batch of
+    ``shape`` (tokens' rows, length), from ``default_rng(2)``."""
+    rng = np.random.default_rng(2)
+    return rng.normal(size=(shape[0], shape[1] - 1, cfg.d_model)).astype(
+        np.float32)
 
 
 def psum_input(n):
@@ -70,16 +81,20 @@ def _numpy(tree):
 
 
 def train(family, params, mesh=None, steps=STEPS, microbatches=1,
-          ckpt=None, start=None, compression=False, mask=False):
+          ckpt=None, start=None, compression=False, mask=False,
+          seq_parallel=False, odd=False, inputs=False):
     """``steps`` steps of the harness on ``mesh`` (None: one device) from
     ``params`` (whole), or from ``start = (step, like)`` restored out of
     ``ckpt`` at the harness's shardings.  With ``ckpt`` and no ``start``
     the run saves at step ``SAVE_AT``.  ``compression``: int8 gradient
     compression with error feedback; ``mask``: the batch carries
-    :func:`loss_mask`.  Returns (metrics, whole params)."""
+    :func:`loss_mask`; ``odd``: the batch is ``ODD_BATCH``; ``inputs``:
+    the batch carries :func:`embeds` as ``inputs_embeds``.  Returns
+    (metrics, whole params)."""
     cfg = config(family)
     h = make_train_harness(cfg, mesh, lr=LR, microbatches=microbatches,
-                           grad_compression=compression)
+                           grad_compression=compression,
+                           seq_parallel=seq_parallel)
     shard = {"params": h.param_sharding, "opt": h.opt_sharding}
     p = params if mesh is None else shard_tree(params, h.param_sharding)
     o = h.init_opt(p)
@@ -88,9 +103,11 @@ def train(family, params, mesh=None, steps=STEPS, microbatches=1,
             start, {"params": p, "opt": o},
             shardings=None if mesh is None else shard)
         p, o = state["params"], state["opt"]
-    batch = {"tokens": tokens(cfg)}
+    batch = {"tokens": tokens(cfg, ODD_BATCH if odd else BATCH)}
     if mask:
         batch["loss_mask"] = loss_mask()
+    if inputs:
+        batch["inputs_embeds"] = embeds(cfg, batch["tokens"].shape)
     out = []
     for s in range(steps):
         p, o, m = h.step_fn(p, o, batch)
@@ -109,7 +126,8 @@ def train_rank(params, ckpt, cases):
     on ``make_mesh(shape)``; ``kw`` passes on to :func:`train` (``ckpt``
     joined in where it names ``"ckpt"``).  Returns {tag: (metrics, params)}
     on rank 0 and {tag: (metrics, None)} elsewhere, each rank's
-    coordinates, and whether ``unshard_tree(shard_tree(params))`` gave the
+    coordinates, the harness's plan (the leaves its step keeps split over
+    ``model``), and whether ``unshard_tree(shard_tree(params))`` gave the
     params back bit for bit."""
     torch.set_num_threads(1)
     rank = torch.distributed.get_rank()
@@ -122,6 +140,7 @@ def train_rank(params, ckpt, cases):
         metrics, p = train(family, params[family], mesh, **kw)
         out[tag] = (metrics, p) if rank == 0 else (metrics, None)
         out[tag + "/coords"] = (mesh.data_rank, mesh.model_rank)
+        out[tag + "/plan"] = make_train_harness(config(family), mesh).plan
         shard = param_shardings(mesh, params[family], config(family))
         back = unshard_tree(shard_tree(params[family], shard), shard)
         out[tag + "/roundtrip"] = all(
@@ -144,9 +163,72 @@ def psum_rank(shapes):
     return out
 
 
-def rank_main(params, ckpt, cases, psum_shapes):
-    """The spawned body: the training cases, then the psum cases."""
+def probe(family, params, shape, seq_parallel=False):
+    """One step of ``family`` on ``make_mesh(shape)`` with the work it
+    does recorded: the heads of each attention's q, the columns of the
+    logits the loss reads, the rows of each block's residual input, the
+    rank's experts, and every collective as ``(op, axis, shape)`` (the
+    axis its group runs over: ``"model"`` or ``"data"``).  Returns that
+    record and the harness's plan."""
+    from repro_torch.models import layers, moe, transformer
+    torch.set_num_threads(1)
+    dist = torch.distributed
+    cfg = config(family)
+    mesh = make_mesh(shape, device="cpu")
+    h = make_train_harness(cfg, mesh, lr=LR, seq_parallel=seq_parallel)
+    p = shard_tree(params[family], h.param_sharding)
+    o = h.init_opt(p)
+    rec = {"heads": set(), "vocab": set(), "rows": set(), "experts": set(),
+           "collectives": [], "plan": h.plan}
+    axis = {id(mesh.group): "model", id(mesh.data_group): "data"}
+    ops = ("broadcast", "all_reduce", "all_gather", "reduce_scatter")
+    real = {"attn": layers.flash_attention, "nll": layers.token_nll,
+            "block": transformer.block, "held": moe._experts_held,
+            **{op: getattr(dist, op) for op in ops}}
+
+    def attn(q, *a, **k):
+        rec["heads"].add(q.shape[2])
+        return real["attn"](q, *a, **k)
+
+    def nll(logits, *a, **k):
+        rec["vocab"].add(logits.shape[-1])
+        return real["nll"](logits, *a, **k)
+
+    def block(bp, x, *a, **k):
+        rec["rows"].add(x.shape[1])
+        return real["block"](bp, x, *a, **k)
+
+    def held(mp):
+        rec["experts"].add(real["held"](mp))
+        return real["held"](mp)
+
+    def counted(op):
+        def call(t, *a, group=None, **k):
+            x = t if isinstance(t, torch.Tensor) else a[0]
+            rec["collectives"].append(
+                (op, axis.get(id(group), "world"), tuple(x.shape)))
+            return real[op](t, *a, group=group, **k)
+        return call
+    layers.flash_attention, layers.token_nll = attn, nll
+    transformer.block, moe._experts_held = block, held
+    for op in ops:
+        setattr(dist, op, counted(op))
+    try:
+        h.step_fn(p, o, {"tokens": tokens(cfg)})
+    finally:
+        layers.flash_attention, layers.token_nll = real["attn"], real["nll"]
+        transformer.block, moe._experts_held = real["block"], real["held"]
+        for op in ops:
+            setattr(dist, op, real[op])
+    return rec
+
+
+def rank_main(params, ckpt, cases, psum_shapes, probes=()):
+    """The spawned body: the training cases, the psum cases, then each
+    ``(tag, family, shape, seq_parallel)`` of ``probes``."""
     out = train_rank(params, ckpt, cases)
     out["psum"] = psum_rank(psum_shapes)
+    for tag, family, shape, seq in probes:
+        out[tag] = probe(family, params, shape, seq)
     out["pid"] = os.getpid()
     return out

@@ -14,6 +14,10 @@ and its input specs.
   reference's for every arch and shape.
 * A reduced dense prefill's counted FLOPs equal the closed form, and a
   cell's ``overhead + L * per_layer`` equals its whole program.
+* A dense train cell on ``2,4`` with ``--seq-parallel`` counts the
+  residual rows' all-gathers and reduce-scatters and holds fewer temp
+  bytes than without; a train step broadcasts no leaf of a group it
+  splits over ``model``.
 
 Everything is held exactly: shapes, dtypes, byte and FLOP counts are
 integers (the collective bytes, priced by ring factors, to 1e-12).
@@ -47,6 +51,8 @@ TIMEOUT_S = 300
 CLI_CASES = {
     "train": ["--arch", "smollm-135m", "--shape", "train_4k", "--mesh",
               "2,4", "--no-block-correction"],
+    "train_seq": ["--arch", "smollm-135m", "--shape", "train_4k", "--mesh",
+                  "2,4", "--no-block-correction", "--seq-parallel"],
     "decode": ["--arch", "tinyllama-1.1b", "--shape", "decode_32k",
                "--mesh", "2,4", "--quant", "W2A16g128",
                "--no-block-correction"],
@@ -199,13 +205,42 @@ def test_counted_step_allocates_no_global_cache(runs):
         dryrun._nbytes(ins["cache"])
 
 
-@pytest.mark.parametrize("flag", ("--seq-parallel", "--attn-seq-parallel"))
+# flag -> (an arch whose train cell refuses it, the ROADMAP item named)
+REFUSED = {"--seq-parallel": ("rwkv6-3b", "item 11"),
+           "--attn-seq-parallel": ("smollm-135m", "item 12")}
+
+
+@pytest.mark.parametrize("flag", tuple(REFUSED))
 def test_sequence_parallel_flags_are_refused(flag):
-    """The port has no activation sharding constraints, so the CLI refuses
-    the flags that remap them instead of counting another program."""
-    with pytest.raises(ValueError, match="activation sharding"):
-        dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k",
-                     "--mesh", "2,4", flag])
+    """The CLI refuses what the port's train step does not split instead
+    of counting another program: ``--attn-seq-parallel`` everywhere, and
+    ``--seq-parallel`` outside the dense and MoE families, each naming its
+    ROADMAP item."""
+    arch, item = REFUSED[flag]
+    with pytest.raises(ValueError, match=item):
+        dryrun.main(["--arch", arch, "--shape", "train_4k", "--mesh", "2,4",
+                     flag])
+
+
+def test_seq_parallel_is_refused_on_serve_cells():
+    with pytest.raises(ValueError, match="item 10"):
+        dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "decode_32k",
+                     "--mesh", "2,4", "--seq-parallel"])
+
+
+def test_seq_parallel_train_cell_splits_rows(runs):
+    """A dense train cell on ``2,4`` takes ``--seq-parallel``: it counts
+    the residual rows' all-gathers and reduce-scatters, holds the same
+    arguments and fewer temp bytes than the same cell without it."""
+    res, base = runs.get("train_seq"), runs.get("train")
+    assert res["status"] == "ok" and res["opts"]["seq_parallel"]
+    assert not base["opts"]["seq_parallel"]
+    kinds = res["collectives"]["per_kind"]
+    assert kinds["all-gather"] > 0 and kinds["reduce-scatter"] > 0
+    assert "reduce-scatter" not in base["collectives"]["per_kind"]
+    assert res["memory"]["argument_bytes"] == \
+        base["memory"]["argument_bytes"]
+    assert res["memory"]["temp_bytes"] < base["memory"]["temp_bytes"]
 
 
 def test_dryrun_skip_rule(runs):
@@ -300,6 +335,56 @@ def test_dense_prefill_flops_closed_form(fake_group):
         + 2 * B * d * cfg.vocab_size
     assert counter.host_transfers == [] and counter.collectives == []
     assert mem["argument_bytes"] > 0 and mem["temp_bytes"] > 0
+
+
+def _train_collectives(arch, seq_parallel):
+    """A reduced f32 ``arch``'s train step (8 x 32 tokens) as rank 0 of
+    ``2,4``: ``(op, group size)`` of each collective it issues."""
+    from repro_torch.launch.mesh import make_mesh
+    cfg = get_reduced_config(arch).replace(dtype="float32")
+    mesh = make_mesh((2, 4), device="meta")
+    counter, _ = dryrun._run_step(cfg, ShapeConfig("t", 32, 8, "train"),
+                                  mesh, None, attn_chunk=32,
+                                  seq_parallel=seq_parallel)
+    return [(c.op, c.group) for c in counter.collectives]
+
+
+@pytest.mark.parametrize("seq_parallel", (False, True),
+                         ids=("whole-rows", "seq-parallel"))
+def test_train_step_broadcasts_no_split_leaf(fake_group, seq_parallel):
+    """Reduced llama2-7b (heads, FFN and vocab divide by 4) on ``2,4``:
+    its train step broadcasts leaves only over ``data`` (the ``fsdp``
+    gathers, groups of 2), none over ``model`` (groups of 4); over
+    ``model`` it all-reduces, and with ``--seq-parallel`` all-gathers and
+    reduce-scatters the rows.  tinyllama's attention, which does not
+    split, is broadcast over ``model``."""
+    fake_group(8)
+    got = _train_collectives("llama2-7b", seq_parallel)
+    assert ("broadcast_", 2) in got and ("broadcast_", 4) not in got
+    over_model = {op for op, n in got if n == 4}
+    assert "allreduce_" in over_model
+    assert ({"allgather_", "reduce_scatter_"} <= over_model) == seq_parallel
+    assert ("broadcast_", 4) in _train_collectives("tinyllama-1.1b",
+                                                   seq_parallel)
+
+
+def test_moe_train_step_splits_rows(fake_group):
+    """Reduced Qwen3 on ``2,4`` with ``--seq-parallel``: the MoE step
+    all-gathers and reduce-scatters its rows over ``model`` (the router
+    sees whole rows, the experts' sum leaves by reduce-scatter) and holds
+    fewer temp bytes than without."""
+    from repro_torch.launch.mesh import make_mesh
+    fake_group(8)
+    cfg = get_reduced_config("qwen3-moe-30b-a3b").replace(dtype="float32")
+    mesh = make_mesh((2, 4), device="meta")
+    runs = [dryrun._run_step(cfg, ShapeConfig("t", 32, 8, "train"), mesh,
+                             None, attn_chunk=32, seq_parallel=seq)
+            for seq in (False, True)]
+    (plain, plain_mem), (rows, rows_mem) = runs
+    assert {("reduce_scatter_", 4), ("allgather_", 4)} <= {
+        (c.op, c.group) for c in rows.collectives}
+    assert not any(c.op == "reduce_scatter_" for c in plain.collectives)
+    assert rows_mem["temp_bytes"] < plain_mem["temp_bytes"]
 
 
 def test_overhead_plus_layers_is_whole(fake_group):

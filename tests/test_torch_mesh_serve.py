@@ -227,10 +227,13 @@ def test_gspmd_chunked_prefill_and_paged_refusal(worlds, tparams):
 
 @pytest.mark.parametrize("world", (1, 2, 4))
 def test_train_step_unchanged_by_activation_remaps(worlds, tparams, world):
-    """``seq_parallel=True`` and ``extra_overrides={"seq": ("model",)}``
-    remap only the reference's activation constraints, which the port does
-    not have: the step is bit for bit the one without them, on a mesh and
-    without one."""
+    """``extra_overrides={"seq": ("model",)}`` remaps only the reference's
+    activation constraints: the step is bit for bit the one without it, on
+    a mesh and without one.  ``seq_parallel=True`` splits the residual
+    rows over ``model`` on ``(1, 2)`` and ``(2, 2)``; of the arithmetic
+    only the norms' gradients change association (each rank's half of the
+    rows, summed over the two), which at these shapes gives the same bits;
+    without a model axis it changes nothing."""
     for r in worlds[world]:
         base, *others = r["train"]
         for o in others:

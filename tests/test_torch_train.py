@@ -267,11 +267,11 @@ def test_parallel_paths_raise():
     """A mesh harness trains (held against the reference's
     ``jit_train_step`` in ``tests/test_torch_train_mesh.py``; on a mesh of
     one rank it is the single-device step, and ``compressed_psum`` over a
-    pod of one is the int8 round trip); ``seq_parallel`` and
-    ``extra_overrides`` remap only the reference's activation sharding
-    constraints, which the port does not have, so the step is the one
-    without them bit for bit; an override naming an axis the mesh lacks
-    raises."""
+    pod of one is the int8 round trip); without a mesh ``seq_parallel``
+    (a split of the residual rows over ``model``) and ``extra_overrides``
+    (the reference's remaps of its activation constraints) change nothing,
+    so the step is the one without them bit for bit; an override naming an
+    axis the mesh lacks raises."""
     from repro_torch.launch.mesh import make_mesh
     cfg = get_reduced_config("llama2-7b")
     params = get_model(cfg).init_params(0, "cpu")

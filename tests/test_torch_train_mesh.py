@@ -5,13 +5,22 @@ reference's ``jit_train_step``, on the CPU over gloo ranks.
   (``XLA_FLAGS=--xla_force_host_platform_device_count=4``; nothing of the
   JAX package changes): three steps (lr 1e-3, batch (8, 33) from
   ``numpy.random.default_rng(0)``) of the reduced f32 qwen3 MoE (capacity
-  factor 0.5: pairs are dropped), tinyllama and rwkv6 on no mesh and on
-  ``(2,)``, ``(4,)``, ``(1, 2)`` and ``(2, 2)``, the MoE's ``(2, 2)`` at two
-  microbatches, its placement of packed QTensors, and ``compressed_psum``
-  over a two-device ``("pod",)`` mesh.  It runs while the ranks train.
+  factor 0.5: pairs are dropped), tinyllama, llama2-7b and rwkv6 on no
+  mesh and on ``(2,)``, ``(4,)``, ``(1, 2)`` and ``(2, 2)``, the MoE's
+  ``(2, 2)`` at two microbatches, llama2-7b on ``(1, 4)``, on ``(1, 2)``
+  with ``seq_parallel`` and on ``(1, 2)`` at an odd sequence, its
+  placement of packed QTensors, and ``compressed_psum`` over a two-device
+  ``("pod",)`` mesh.  It runs while the ranks train.
 * The port trains the same params in one spawn each of one, two and four
   gloo ranks (``tests/_torch_train_ranks.py``, jax-free), and on no mesh in
-  this process.
+  this process.  On a ``model`` axis the dense and MoE steps split their
+  work (``launch.steps.train_plan``): reduced llama2-7b's heads, FFN and
+  vocab divide by 2 and 4; tinyllama's one KV head keeps its attention
+  whole (the group's fallback); with ``seq_parallel`` the residual rows
+  split too, and the reference's run without it is the one to match (the
+  reference's values do not depend on it).  A probe records, on the
+  ranks, the heads, logit columns, residual rows and collectives of one
+  step.
 
 Tolerances, and why:
 * loss and grad_norm within 1e-5 relative of the reference's run on the
@@ -97,13 +106,20 @@ for fam in [f for f in sys.argv[3].split(",") if f in R.ARCHS]:
         runs.append(((2, 2), 2, ""))
     if fam == "dense":
         runs += [((2, 2), 1, "comp"), ((2,), 1, "mask")]
+    if fam == "llama":
+        runs += [((1, 4), 1, ""), ((1, 2), 1, "seq"), ((1, 2), 1, "odd"),
+                 (None, 1, "inputs")]
     for shape, mb, var in runs:
-        batch = {"tokens": jnp.asarray(R.tokens(cfg))}
+        batch = {"tokens": jnp.asarray(R.tokens(
+            cfg, R.ODD_BATCH if var == "odd" else R.BATCH))}
         if var == "mask":
             batch["loss_mask"] = jnp.asarray(R.loss_mask())
+        if var == "inputs":
+            batch["inputs_embeds"] = jnp.asarray(R.embeds(cfg))
         mesh = None if shape is None else make_mesh(shape)
         h = make_train_harness(cfg, mesh, lr=R.LR, microbatches=mb,
-                               grad_compression=var == "comp")
+                               grad_compression=var == "comp",
+                               seq_parallel=var == "seq")
         if mesh is None:
             step, p, o = jax.jit(h.step_fn), params, h.init_opt(params)
         else:
@@ -166,7 +182,7 @@ def tparams(jparams):
 
 
 # the reference's runs, split over processes that run side by side
-REF_PARTS = ("moe", "dense", "rwkv", "psum,qspecs")
+REF_PARTS = ("moe", "dense", "llama", "rwkv", "psum,qspecs")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -227,18 +243,41 @@ def _cases(world):
         cases += [("dense|mask", "dense", (2,), {"mask": True}),
                   ("resume|(1, 2)", R.ELASTIC, (1, 2),
                    {"ckpt": True, "start": R.SAVE_AT,
-                    "steps": R.STEPS - R.SAVE_AT})]
+                    "steps": R.STEPS - R.SAVE_AT}),
+                  ("llama|(1, 2)|odd", "llama", (1, 2), {"odd": True}),
+                  ("llama|(1, 2)|odd|seq", "llama", (1, 2),
+                   {"odd": True, "seq_parallel": True}),
+                  ("llama|(1, 2)|inputs", "llama", (1, 2),
+                   {"inputs": True}),
+                  ("llama|(1, 2)|inputs|seq", "llama", (1, 2),
+                   {"inputs": True, "seq_parallel": True})]
+    if world == 4:
+        cases += [("llama|(1, 4)", "llama", (1, 4), {})]
+    cases += [(f"{fam}|{shape}|seq", fam, shape, {"seq_parallel": True})
+              for fam, shape in SEQ_CASES
+              if int(np.prod(shape)) == world]
     return cases
 
 
+# (family, mesh) of the seq_parallel runs
+SEQ_CASES = (("llama", (1, 2)), ("llama", (2, 2)), ("llama", (1, 4)),
+             ("moe", (1, 2)), ("moe", (2, 2)), ("dense", (1, 2)))
 PSUM_SHAPES = {1: [], 2: [((2,), ("pod",), "pod")],
                4: [((1, 2, 2), None, "pod"), ((1, 2, 2), None, "data")]}
+# (tag, family, mesh, seq_parallel) of the probed steps
+PROBES = {1: [],
+          2: [("probe|llama", "llama", (1, 2), False),
+              ("probe|llama|seq", "llama", (1, 2), True),
+              ("probe|moe|seq", "moe", (1, 2), True),
+              ("probe|dense", "dense", (1, 2), False)],
+          4: [("probe|llama|(2, 2)|seq", "llama", (2, 2), True)]}
 
 
 def _spawn(world, tparams, ckpt):
     return tmesh.run_ranks(R.rank_main, world, backend="gloo", device="cpu",
                            args=(tparams, ckpt, _cases(world),
-                                 PSUM_SHAPES[world]), timeout=SPAWN_S)
+                                 PSUM_SHAPES[world], PROBES[world]),
+                           timeout=SPAWN_S)
 
 
 @pytest.fixture(scope="module")
@@ -449,6 +488,199 @@ def test_mesh_steps_match_reference(reference, world2, world4, family,
     _assert_close(got, want, family, f"{family} {shape}")
     for r in ranks[1:]:       # every rank reads the same metrics
         assert r[f"{family}|{shape}"][0] == got[0]
+    _assert_plan(ranks, f"{family}|{shape}", family, shape)
+
+
+# -- the split over model ----------------------------------------------------
+
+ATTN = {"wq": "out", "wk": "out", "wv": "out", "wo": "in"}
+VOCAB = {"embed": "vocab", "head": "vocab"}
+# the leaves a step keeps split over a model axis of 2 or 4 ranks: every
+# group of llama2-7b's; the MoE's attention (its 2 KV heads divide by 2
+# only) and experts; tinyllama's FFN alone (its one KV head does not
+# divide); nothing of rwkv's (its split is ROADMAP queue 1, item 11)
+PLANS = {
+    ("llama", 2): {**ATTN, "w_gate": "out", "w_up": "out", "w_down": "in",
+                   **VOCAB},
+    ("moe", 2): {**ATTN, "w_gate": "expert", "w_up": "expert",
+                 "w_down": "expert", **VOCAB},
+    ("dense", 2): {"w_gate": "out", "w_up": "out", "w_down": "in", **VOCAB},
+    ("rwkv", 2): {},
+}
+PLANS[("llama", 4)] = PLANS[("llama", 2)]
+PLANS[("dense", 4)] = PLANS[("dense", 2)]
+
+
+def _assert_plan(ranks, tag, family, shape):
+    """Each rank's harness kept split what ``serve_plan`` splits at the
+    mesh's model degree (nothing without a model axis of 2 or more)."""
+    tp = shape[1] if len(shape) == 2 else 1
+    want = PLANS[(family, tp)] if tp > 1 else {}
+    for r in ranks:
+        assert r[tag + "/plan"] == want, (tag, r[tag + "/plan"])
+
+
+def test_model_split_names_the_experts_by_ep_axis():
+    """The MoE's expert region splits exactly where the ctx has an
+    ``ep_axis`` (under which ``moe_ffn`` computes the rank's experts
+    alone, so their sum always leaves through ``layers.leave``); a plan
+    that disagrees with the ctx is refused."""
+    mesh = _tstub((1, 2))
+    cfg = R.config("moe")
+    st = tsteps.param_struct(cfg)
+    plan = tsteps.train_plan(mesh, cfg, st,
+                             tsharding.param_shardings(mesh, st, cfg))
+    ep = make_ctx(cfg, mesh=mesh).ep_axis
+    assert ep == "model" and plan == PLANS[("moe", 2)]
+    assert tsteps.model_split(mesh, plan, ep).splits == {
+        "attn", "experts", "vocab"}
+    with pytest.raises(ValueError, match="ep_axis"):
+        tsteps.model_split(mesh, plan, None)
+    whole = {k: v for k, v in plan.items() if v != "expert"}
+    with pytest.raises(ValueError, match="ep_axis"):
+        tsteps.model_split(mesh, whole, ep)
+
+
+@pytest.mark.parametrize("family,shape", SEQ_CASES,
+                         ids=[f"{f}-{'x'.join(map(str, s))}"
+                              for f, s in SEQ_CASES])
+def test_seq_parallel_steps_match_reference(reference, world2, world4,
+                                            family, shape):
+    """``seq_parallel``: the residual rows split over ``model`` between the
+    regions, the norms' gradients summed over it; the metrics and params
+    of the reference's run on the same mesh (whose values do not depend on
+    ``seq_parallel``, :func:`test_reference_ignores_seq_parallel`)."""
+    ranks = world2 if int(np.prod(shape)) == 2 else world4
+    tag = f"{family}|{shape}|seq"
+    got = _rank0(ranks, tag)
+    want = _ref_run(reference.get(), _key(family, shape), len(got[1]))
+    _assert_close(got, want, family, f"{family} {shape} seq_parallel")
+    for r in ranks[1:]:
+        assert r[tag][0] == got[0]
+    _assert_plan(ranks, tag, family, shape)
+
+
+def test_llama_1x4_matches_reference(reference, world4):
+    """Four model ranks, each with a quarter of the heads, FFN columns and
+    vocab of reduced llama2-7b."""
+    got = _rank0(world4, "llama|(1, 4)")
+    want = _ref_run(reference.get(), _key("llama", (1, 4)), len(got[1]))
+    _assert_close(got, want, "llama", "llama (1, 4)")
+    _assert_plan(world4, "llama|(1, 4)", "llama", (1, 4))
+
+
+def test_reference_ignores_seq_parallel(reference):
+    """The reference's ``seq_parallel`` remaps an activation constraint:
+    its ``(1, 2)`` llama run with it is the run without it."""
+    ref = reference.get()
+    n = sum(1 for k in ref if k.startswith(_key("llama", (1, 2)) + "|p"))
+    _assert_close(_ref_run(ref, _key("llama", (1, 2), 1, "seq"), n),
+                  _ref_run(ref, _key("llama", (1, 2)), n), "llama",
+                  "reference seq_parallel")
+
+
+def test_odd_sequence_falls_back(reference, world2):
+    """S = 33 does not split over two model ranks: ``seq_parallel`` falls
+    back to whole rows (``resolve_spec``'s divisibility rule), bit for bit
+    the step without it, which matches the reference's odd-S run."""
+    plain = _rank0(world2, "llama|(1, 2)|odd")
+    seq = _rank0(world2, "llama|(1, 2)|odd|seq")
+    assert seq[0] == plain[0]
+    for a, b in zip(seq[1], plain[1]):
+        np.testing.assert_array_equal(a, b)
+    want = _ref_run(reference.get(), _key("llama", (1, 2), 1, "odd"),
+                    len(plain[1]))
+    _assert_close(plain, want, "llama", "llama (1, 2) odd S")
+    _assert_plan(world2, "llama|(1, 2)|odd|seq", "llama", (1, 2))
+
+
+@pytest.mark.parametrize("seq", [False, True], ids=["plain", "seq"])
+def test_inputs_embeds_on_1x2(reference, world2, tparams, seq):
+    """A batch that carries ``inputs_embeds`` (whole on every rank, not
+    the ranks' partial lookups) on ``(1, 2)``, with and without
+    ``seq_parallel``, and the port's step without a mesh on it: the
+    metrics and params of the reference's no-mesh run on the same batch
+    (``embed``, which no token reads, gets a zero gradient)."""
+    tag = "llama|(1, 2)|inputs" + ("|seq" if seq else "")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        plain = R.train("llama", tparams["llama"], inputs=True)
+    finally:
+        torch.set_num_threads(n)
+    got = _rank0(world2, tag)
+    want = _ref_run(reference.get(), _key("llama", None, 1, "inputs"),
+                    len(got[1]))
+    _assert_close(plain, want, "llama", "llama no mesh inputs_embeds")
+    _assert_close(got, want, "llama", f"llama (1, 2) inputs_embeds {seq}")
+    for r in world2[1:]:
+        assert r[tag][0] == got[0]
+    _assert_plan(world2, tag, "llama", (1, 2))
+
+
+def _broadcasts(rec, axis):
+    return [c for c in rec["collectives"]
+            if c[0] == "broadcast" and c[1] == axis]
+
+
+def _kinds(rec, axis):
+    return {c[0] for c in rec["collectives"] if c[1] == axis}
+
+
+def test_a_rank_splits_the_work(world2):
+    """On ``(1, 2)`` a rank's attention computes H / 2 heads, its logits
+    carry V / 2 columns, and with ``seq_parallel`` each block's residual
+    input S / 2 rows (S without it); no leaf is broadcast over ``model``
+    (the split leaves, embed and head stay slices, and the norms and the
+    router are replicated).  The collectives over ``model`` are the
+    regions' all-reduces, with ``seq_parallel`` their all-gathers and
+    reduce-scatters too; the MoE computes its E / 2 experts."""
+    S = R.BATCH[1] - 1
+    for tag, family, seq in (("probe|llama", "llama", False),
+                             ("probe|llama|seq", "llama", True),
+                             ("probe|moe|seq", "moe", True)):
+        cfg = R.config(family)
+        for r in world2:
+            rec = r[tag]
+            assert rec["plan"] == PLANS[(family, 2)]
+            assert rec["heads"] == {cfg.num_heads // 2}, tag
+            assert rec["vocab"] == {cfg.vocab_size // 2}, tag
+            assert rec["rows"] == {S // 2 if seq else S}, tag
+            assert _broadcasts(rec, "model") == [], tag
+            kinds = _kinds(rec, "model")
+            assert "all_reduce" in kinds
+            assert ({"all_gather", "reduce_scatter"} <= kinds) == seq, tag
+            if family == "moe":
+                assert rec["experts"] == {cfg.moe.num_experts // 2}
+
+
+def test_a_refused_group_is_gathered_whole(world2):
+    """tinyllama's one KV head does not split over two ranks: its
+    attention group is broadcast whole over ``model`` and runs all H heads
+    on both ranks, while its FFN and vocab split."""
+    cfg = R.config("dense")
+    for r in world2:
+        rec = r["probe|dense"]
+        assert rec["plan"] == PLANS[("dense", 2)]
+        assert rec["heads"] == {cfg.num_heads}
+        assert rec["vocab"] == {cfg.vocab_size // 2}
+        # wq, wk, wv and wo, each broadcast by both ranks
+        assert len(_broadcasts(rec, "model")) == 8
+
+
+def test_2x2_gathers_only_over_data(world4):
+    """On ``(2, 2)`` with ``seq_parallel`` a rank gathers its leaves'
+    ``fsdp`` slices over ``data`` and broadcasts nothing over ``model``;
+    it computes H / 2 heads and V / 2 logit columns on S / 2 residual
+    rows."""
+    cfg = R.config("llama")
+    for r in world4:
+        rec = r["probe|llama|(2, 2)|seq"]
+        assert _broadcasts(rec, "model") == []
+        assert _broadcasts(rec, "data")
+        assert rec["heads"] == {cfg.num_heads // 2}
+        assert rec["vocab"] == {cfg.vocab_size // 2}
+        assert rec["rows"] == {(R.BATCH[1] - 1) // 2}
 
 
 def test_moe_2x2_is_another_function(reference, world4, world2, no_mesh):
