@@ -170,7 +170,7 @@ Phases, each printing its own lines:
    scheduled on int8 dense and paged stores
    (equal tokens; the paged run's decode on the dense decode-attention
    kernel, exact launches); (f) phase 5's block at depth 1, in f32,
-   calibrated (K=2, T=2) on the ``"device"``, ``"reference"`` and
+   calibrated (K=2, T=1) on the ``"device"``, ``"reference"`` and
    ``"legacy"`` engines (reference
    equal to device bit for bit, legacy codes equal and scales within
    rtol 1e-5; ms per Soften step and host syncs of each), and OmniQuant
@@ -230,7 +230,7 @@ Phases, each printing its own lines:
 20. the mesh-sharded reconstruction engine (``engine="sharded"`` on
    ``torch.distributed``): LLaMA-2-7B at full width and 2 layers,
    W2A16g128, phase 5's 32 x 512 tokens at bs 4, AWQ + TesseraQ at K=2,
-   T=2 on block 0 against the device engine in this process: (a) one NCCL
+   T=1 on block 0 against the device engine in this process: (a) one NCCL
    rank on the ``(1,)`` and ``(1, 1)`` meshes, (b) two gloo ranks sharing
    the card on ``(2,)``, (c) the same ranks on ``(1, 2)`` (TP = 2): the
    control's hardened masks, codes and folded scales bit for bit, its
@@ -259,7 +259,18 @@ Phases, each printing its own lines:
    kernels within ``MESH_PPL_REL`` of the no-mesh one, with the exact
    launches of kernel 1 and the expert kernel on each rank; (e) TinyLlama
    saved from ``(2, 1)``, restored without a mesh, one more step against
-   the control's;
+   the control's; (f) in the same two ranks, PaliGemma-3B (2 of 18 layers,
+   256 seeded patches), RWKV6-3B (2 of 32), Zamba2-1.2B (6 of 38: one
+   shared site) and whisper-small (2 + 2, 1500 seeded frames) at full
+   width on ``(1, 2)`` with ``seq_parallel``, 2 steps each against its
+   no-mesh bf16 control: losses within ``MESH_REL``, grad norms within
+   ``MESH_REL`` or ``MESH_NOISE_X`` times the farthest of the control's
+   twins at that step (RWKV6's: the scan over chunks of 64; Zamba2's:
+   that, and Mamba's ``out_proj`` product summed from two halves), and
+   Zamba2 in f32 beside an f32 control within ``MESH_F32_REL``; the
+   split each plan gives (RWKV6's time mix by heads, Mamba's ``out_proj``,
+   whisper's cross-attention; only the leaves gathered by design
+   broadcast), its exchange, bytes kept and peak;
 22. the reference's GSPMD serve path (``make_serve_steps(cfg, mesh)``, a
    ``MeshPlacement``): LLaMA-2-7B at full width and 2 of 32 layers, RTN
    W2A16g128, 4 x (128 + 8) and a scheduled run against the no-mesh
@@ -281,6 +292,7 @@ it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -4019,9 +4031,10 @@ KV_REL_DEEP = 1e-1
 # the engines on phase 5's block, at depth 1 since PR 26 (the run's time
 # limit: the host-loop engines took ~70 s at depth 2), a short schedule
 # (T cut from 10 to 5, then K from 3 to 2, T to 2 and the
-# OmniQuant / SignRound host steps from 20 to 10, for the run's time: the
-# host engines pay a NumPy harden a PAR iteration: PERF.md §4)
-ENGINE_K, ENGINE_T, ENGINE_LAYERS = 2, 2, 1
+# OmniQuant / SignRound host steps from 20 to 10, then T to 1, for the
+# run's time: the host engines pay a NumPy harden a PAR iteration: PERF.md
+# §4)
+ENGINE_K, ENGINE_T, ENGINE_LAYERS = 2, 1, 1
 METHOD_HOST_STEPS = 10
 # the legacy host loop against the device engine on the card, in f32: its
 # one batched backward and the canonical per-sample lanes take different
@@ -4443,9 +4456,10 @@ def _differ(a, b, keys):
 
 def engines_phase(card):
     """Phase 16 (f): AWQ + TesseraQ on phase 5's LLaMA-2-7B at depth 1 in
-    f32 (K=3, T=5) on the ``"device"``, ``"reference"`` and ``"legacy"``
-    engines, with ms per Soften step (hardens and host transfers included)
-    and host syncs per PAR iteration of each: the reference engine's codes,
+    f32 (K = ``ENGINE_K``, T = ``ENGINE_T``) on the ``"device"``,
+    ``"reference"`` and ``"legacy"`` engines, with ms per Soften step
+    (hardens and host transfers included) and host syncs per PAR
+    iteration of each: the reference engine's codes,
     masks and folded scales equal to the device engine's; the legacy
     engine's within ``LEGACY_*``.  Then OmniQuant and SignRound,
     ``METHOD_HOST_STEPS`` steps on block 0, on the ``"legacy"`` host loop
@@ -6084,7 +6098,7 @@ def tp_serve_phase(card):
 # phase 20: the mesh-sharded reconstruction engine on torch.distributed
 # --------------------------------------------------------------------------
 
-SHARD_K, SHARD_T = 2, 2         # T cut from 5 for the run's time
+SHARD_K, SHARD_T = 2, 1         # T cut from 5, then 2, for the run's time
 # (d)'s walk; (a)-(c) calibrate its block 0 (phase 5's data: 32 x 512
 # tokens, bs 4, so C = 4 canonical chunks)
 SHARD_LAYERS = 2
@@ -6556,6 +6570,36 @@ MESH_NOISE_X = 2.0              # (b)'s grad-norm bound over the twin's
 MESH_F32_REL = 1e-3             # f32 losses / grad norms, (1, 2) vs control
 MESH_F32_LAYERS = 1             # the f32 run's depth (its control peaks ~45 GB)
 MESH_SPAWN_S = 600
+# (f) the four other families at full width on (1, 2) with seq_parallel,
+# each at a cut depth (PaliGemma 2 of 18, RWKV6 2 of 32, Zamba2 6 of 38:
+# one shared site, whisper 2 + 2 of 12 + 12), MESH_F_STEPS steps of
+# MESH_BATCH x (MESH_SEQ + 1) tokens (PaliGemma's after 256 seeded
+# patches, whisper's beside 1500 seeded frames) against each one's no-mesh
+# bf16 control: losses within MESH_REL, grad norms within MESH_REL or
+# MESH_NOISE_X times the farthest of the control's twins at that step, as
+# (b)'s.  The recurrent families' twins (PERF.md §6): the scan over chunks
+# of MESH_NOISE_CHUNK (a reordering of f32 sums), and Zamba2's Mamba
+# out_proj product as the sum of its two halves over the inner width,
+# each rounded to bf16 first (the same sum, split where (1, 2) splits it:
+# each later Mamba layer reads that rounding).  MESH_F32 trains in f32 at
+# the same depth beside its f32 control, within MESH_F32_REL
+MESH_FAMILIES = (("paligemma-3b", 2), ("rwkv6-3b", 2), ("zamba2-1.2b", 6),
+                 ("whisper-small", 2))
+MESH_F_STEPS = 2
+MESH_F32 = "zamba2-1.2b"
+_ATTN = {"wq": "out", "wk": "out", "wv": "out", "wo": "in"}
+_FFN = {"w_gate": "out", "w_up": "out", "w_down": "in"}
+_VOCAB = {"embed": "vocab", "head": "vocab"}
+# what each keeps split over model, and the leaves on model it gathers
+# whole by broadcasts (PaliGemma's attention: one KV head; RWKV6's cr);
+# whisper's 51865-token vocab does not divide by 2
+MESH_F_PLANS = {
+    "paligemma-3b": ({**_FFN, **_VOCAB}, 4),
+    "rwkv6-3b": ({"wr": "out", "wk": "out", "wv": "out", "wg": "out",
+                  "wo": "in", "ck": "out", "cv": "in", **_VOCAB}, 1),
+    "zamba2-1.2b": ({**_ATTN, **_FFN, "out_proj": "in", **_VOCAB}, 0),
+    "whisper-small": ({**_ATTN, "w_up": "out", "w_down": "in"}, 0),
+}
 
 
 def _leaf_bytes(tree):
@@ -6740,14 +6784,78 @@ def mesh_rank_a(cfg, batches, want_digest, want_metrics):
     return out
 
 
-def mesh_rank_b(cfg, batches, dcfg, dbatches, ckpt, eval_batch, cfg32):
-    """Phase 21 (b)-(e) on one of two gloo ranks sharing the card: (b)
+def mesh_family(arch, layers):
+    """``arch`` at its widths and ``layers`` layers (an encoder-decoder's
+    encoder cut alike)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    kw = {"encoder_layers": layers} if cfg.family == "encdec" else {}
+    return cfg.replace(num_layers=layers, **kw)
+
+
+class _OutProjHalves:
+    """``repro_torch.models.layers`` for ``ssm`` in the hybrid's twin: the
+    product with Mamba's ``out_proj`` (``di`` rows) is the sum of its two
+    halves over ``di``, each rounded to the operands' dtype first."""
+
+    def __init__(self, di):
+        self.di = di
+
+    def __getattr__(self, name):
+        from repro_torch.models import layers
+        return getattr(layers, name)
+
+    def matmul(self, x, w, backend=None):
+        from repro_torch.models import layers
+        if w.shape[0] != self.di:
+            return layers.matmul(x, w, backend)
+        n = self.di // 2
+        return (layers.matmul(x[..., :n], w[:n], backend)
+                + layers.matmul(x[..., n:], w[n:], backend))
+
+
+def mesh_family_twins(cfg):
+    """A recurrent family's control twins, ``{tag: (cfg, context)}``, the
+    same function each (none for the other families): its scan over chunks
+    of ``MESH_NOISE_CHUNK``, and the hybrid's under a context in which
+    Mamba's ``out_proj`` product is summed from two halves."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch.models import ssm
+    if cfg.family not in ("rwkv", "hybrid"):
+        return {}
+    scan = cfg.replace(ssm=dataclasses.replace(cfg.ssm,
+                                               chunk_size=MESH_NOISE_CHUNK))
+    twins = {f"scan over chunks of {MESH_NOISE_CHUNK}":
+             (scan, contextlib.nullcontext())}
+    if cfg.family == "hybrid":
+        twins["out_proj summed from two halves"] = (cfg, mock.patch.object(
+            ssm, "L", _OutProjHalves(ssm._dims(cfg)[0])))
+    return twins
+
+
+def mesh_family_batches(cfg):
+    """``MESH_F_STEPS`` batches of :func:`mesh_batches`' tokens, with
+    seeded patches or frames where the family reads them, on the card."""
+    out = mesh_batches(cfg, MESH_F_STEPS)
+    for s, b in enumerate(out):
+        if cfg.family == "vlm":
+            b["patches"] = seeded_patches(cfg, MESH_BATCH, s)
+        if cfg.family == "encdec":
+            b["frames"] = seeded_frames(cfg, MESH_BATCH, s)
+    return out
+
+
+def mesh_rank_b(cfg, batches, dcfg, dbatches, ckpt, eval_batch, cfg32,
+                fams):
+    """Phase 21 (b)-(f) on one of two gloo ranks sharing the card: (b)
     Qwen3 on ``(1, 2)``, its work split over ``model``; (d) its trained
     params gathered, RTN-packed, sliced and the packed perplexity on ``(1,
     2)`` and without a mesh, with the launches of each; (c) TinyLlama on
     ``(2, 1)``, (e) saved there after its steps; (c') TinyLlama on ``(1,
     2)`` with ``seq_parallel``; (b32) Qwen3 in f32 at ``MESH_F32_LAYERS``
-    on ``(1, 2)``."""
+    on ``(1, 2)``; (f) each ``(tag, cfg, batches)`` of ``fams`` on ``(1,
+    2)`` with ``seq_parallel``."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core.pipeline import pack_model, quantize_model
     from repro_torch.eval.ppl import perplexity
@@ -6842,6 +6950,18 @@ def mesh_rank_b(cfg, batches, dcfg, dbatches, ckpt, eval_batch, cfg32):
         out["b32"]["s"] = time.perf_counter() - t0
         out["b32_coords"] = out["c_seq_coords"]
         del p, o
+        _free()
+        # (f) the other families on (1, 2), the residual rows split too
+        out["f"] = {}
+        for tag, fcfg, fb in fams:
+            t0 = time.perf_counter()
+            p, o, h, rec = mesh_train(
+                fcfg, get_model(fcfg).init_params(0, "cuda"), on_card(fb),
+                mesh, MESH_F_STEPS, meter=meter, seq_parallel=True)
+            rec["s"] = time.perf_counter() - t0
+            out["f"][tag] = rec
+            del p, o, h
+            _free()
     finally:
         meter.close()
     return out
@@ -6905,7 +7025,17 @@ def mesh_train_phase(card):
     the expert kernel and kernel 1 launched the counts the config gives on
     each rank, beside the no-mesh run's.  (e) TinyLlama saved from ``(2,
     1)`` (whole leaves), restored without a mesh here, one more step:
-    within ``MESH_REL`` of the control's step 4.  Returns the launch
+    within ``MESH_REL`` of the control's next step.  (f) PaliGemma-3B,
+    RWKV6-3B, Zamba2-1.2B and whisper-small at full width and the depths
+    of ``MESH_FAMILIES`` on ``(1, 2)`` with ``seq_parallel`` in the same
+    ranks, ``MESH_F_STEPS`` steps each: every loss within ``MESH_REL`` of
+    its no-mesh control here and every grad norm within ``MESH_REL`` or
+    ``MESH_NOISE_X`` times the farthest of its twins'
+    (:func:`mesh_family_twins`) distance at that step; ``MESH_F32`` in f32
+    within ``MESH_F32_REL`` of its f32 control; the split of
+    ``MESH_F_PLANS`` (the leaves gathered whole by design broadcast, no
+    leaf of the plan), rows reduce-scattered, less kept than the
+    control.  Returns the launch
     counts by part."""
     import tempfile
     from repro_torch.checkpoint.manager import CheckpointManager
@@ -6920,7 +7050,9 @@ def mesh_train_phase(card):
     cfg32 = get_config(MESH_ARCH).replace(num_layers=MESH_F32_LAYERS,
                                           dtype="float32")
     dcfg = get_config(MESH_DENSE).replace(num_layers=MESH_LAYERS)
-    for c, shape in ((cfg, (1, 2)), (dcfg, (2, 1)), (dcfg, (1, 2))):
+    fcfgs = {a: mesh_family(a, n) for a, n in MESH_FAMILIES}
+    for c, shape in ((cfg, (1, 2)), (dcfg, (2, 1)), (dcfg, (1, 2)),
+                     *((c, (1, 2)) for c in fcfgs.values())):
         r = mesh_reckon(c, shape)
         print(f"[mesh-train] {c.name} L={c.num_layers}: {r['params']} params;"
               f" params + grads + Adam moments whole "
@@ -6953,14 +7085,40 @@ def mesh_train_phase(card):
     del dp, do
     ctrl_counts = dict(build.LAUNCHES)
     _free()
+    # (f)'s controls, keyed as the ranks' runs: each family's bf16 one,
+    # its twins, and MESH_F32's f32 one
+    fcfgs[f"{MESH_F32} f32"] = fcfgs[MESH_F32].replace(dtype="float32")
+    fbatches, fctrl, ftwin = {}, {}, {}
+    for a, c in fcfgs.items():
+        fbatches[a] = mesh_family_batches(c)
+        runs = {None: (c, contextlib.nullcontext())}
+        if c.dtype != "float32":
+            runs.update(mesh_family_twins(c))
+        for tag, (fc, context) in runs.items():
+            with context:
+                _, _, _, rec = mesh_train(fc, get_model(fc).init_params(
+                    0, "cuda"), fbatches[a], None, MESH_F_STEPS)
+            if tag is None:
+                fctrl[a] = rec
+            else:
+                ftwin.setdefault(a, {})[tag] = rec
+            _free()
     # the ranks take host copies: CUDA IPC is refused with expandable
     # segments on this machine
     host = lambda bs: [{k: v.cpu() for k, v in b.items()}  # noqa: E731
                        for b in bs]
     times["controls"] = time.perf_counter() - t0
     for tag, rec in (("control qwen3", ctrl), ("control tinyllama", dctrl),
-                     (f"control qwen3 f32 L={cfg32.num_layers}", ctrl32)):
+                     (f"control qwen3 f32 L={cfg32.num_layers}", ctrl32),
+                     *((f"control {a} L={c.num_layers}", fctrl[a])
+                       for a, c in fcfgs.items())):
         print(_mesh_line(tag, rec, rec, card), flush=True)
+    for a, twins in ftwin.items():
+        for tag, rec in twins.items():
+            print(f"[mesh-train] control {fcfgs[a].name}'s twin ({tag}): "
+                  f"{rec['metrics']}; its distance from the control a step "
+                  f"{_rel(rec['metrics'], fctrl[a]['metrics'])}; "
+                  f"card=[{card}]", flush=True)
     print(f"[mesh-train] control qwen3's twin (attention over KV chunks of "
           f"{MESH_NOISE_CHUNK}): {twin['metrics']}; its distance from the "
           f"control a step {_rel(twin['metrics'], ctrl['metrics'])}; "
@@ -6978,7 +7136,9 @@ def mesh_train_phase(card):
         two = run_ranks(mesh_rank_b, 2, backend="gloo", device="cuda",
                         args=(cfg, host(batches), dcfg,
                               host(dbatches[:MESH_STEPS]), ckpt,
-                              host([eval_batch])[0], cfg32),
+                              host([eval_batch])[0], cfg32,
+                              [(a, c, host(fbatches[a]))
+                               for a, c in fcfgs.items()]),
                         timeout=MESH_SPAWN_S)
         times["b-d"] = time.perf_counter() - t0
         # (e) the (2, 1) checkpoint restored without a mesh, one more step
@@ -7074,6 +7234,46 @@ def mesh_train_phase(card):
                      f"{d[tag]['counts']}, expected {want_counts}")
         if d["local_experts"] != cfg.moe.num_experts // 2:
             fail(f"mesh-train (d): {d['local_experts']} experts a rank")
+    # (f)'s bounds a step (loss, grad_norm): bf16 as (b)'s, over the
+    # farthest twin; MESH_F32's f32 run within MESH_F32_REL
+    f_bounds = {}
+    for a, want in fctrl.items():
+        if fcfgs[a].dtype == "float32":
+            f_bounds[a] = [(MESH_F32_REL, MESH_F32_REL)] * MESH_F_STEPS
+            continue
+        far = [max([abs(t["metrics"][s][1] - w) / abs(w)
+                    for t in ftwin.get(a, {}).values()], default=0.0)
+               for s, (_, w) in enumerate(want["metrics"])]
+        f_bounds[a] = [(MESH_REL, max(MESH_REL, MESH_NOISE_X * d))
+                       for d in far]
+    shown = {a: [tuple(float(f"{x:.3g}") for x in b) for b in bs]
+             for a, bs in f_bounds.items()}
+    print(f"[mesh-train] (f)'s bounds a step (loss, grad_norm): {shown}",
+          flush=True)
+    for r in two:
+        for a, c in fcfgs.items():
+            rec, want = r["f"][a], fctrl[a]
+            plan, whole = MESH_F_PLANS[a.split()[0]]
+            x = rec["exchange"]
+            print(_mesh_line(f"(f) {a} L={c.num_layers} gloo rank "
+                             f"{r['rank']} on (1, 2) seq_parallel", rec,
+                             want, card)
+                  + f"; distance a step "
+                  f"{_rel(rec['metrics'], want['metrics'])}; split over "
+                  f"model {sorted(rec['plan'])}; {rec['s']:.1f} s",
+                  flush=True)
+            if not _within(rec["metrics"], want["metrics"], f_bounds[a]):
+                fail(f"mesh-train (f) {a} rank {r['rank']}: "
+                     f"{rec['metrics']} vs the control's {want['metrics']}, "
+                     f"bounds {f_bounds[a]}")
+            if rec["kept"] >= want["kept"]:
+                fail(f"mesh-train (f) {a} rank {r['rank']} keeps "
+                     f"{rec['kept']} B, the control {want['kept']}")
+            if rec["plan"] != plan or x["gather"]["n"] != 2 * whole \
+                    or not x["reduce_scatter"]["n"]:
+                fail(f"mesh-train (f) {a} rank {r['rank']}: split "
+                     f"{rec['plan']}, {x['gather']['n']} broadcasts and "
+                     f"{x['reduce_scatter']['n']} reduce-scatters a step")
     print(f"[mesh-train] (e) {dcfg.name} saved from (2, 1) at step "
           f"{MESH_STEPS} ({two[0]['e_save_s']:.1f} s), restored without a "
           f"mesh, step {MESH_STEPS + 1}: {e_metrics} (control "
@@ -7087,8 +7287,9 @@ def mesh_train_phase(card):
         fail(f"mesh-train control: {ctrl['syncs']} syncs in a step at "
              f"{ctrl['sync_sites']}")
     print(f"[time] phase 21: controls {times['controls']:.1f}s, (a) "
-          f"{times['a']:.1f}s, (b)-(d) {times['b-d']:.1f}s, (e) "
-          f"{times['e']:.1f}s", flush=True)
+          f"{times['a']:.1f}s, (b)-(d), (f) {times['b-d']:.1f}s (of which "
+          f"(f) {max(sum(f['s'] for f in r['f'].values()) for r in two):.1f}"
+          f"s), (e) {times['e']:.1f}s", flush=True)
     return {"control": ctrl_counts,
             **{f"gloo rank {r['rank']} (d)": _sum_counts(
                 r["d"]["mesh"]["counts"], r["d"]["none"]["counts"])

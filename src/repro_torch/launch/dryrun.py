@@ -4,6 +4,7 @@ the hardware.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \
         --shape train_4k --mesh single [--quant W2A16g128] [--out f.json]
+        [--layers N] [--tokens B,S]
 
 A cell runs in its own process (this CLI) as rank 0 of torch's ``"fake"``
 process group at the mesh's world size (256 for ``single``, 512 for
@@ -39,15 +40,17 @@ nothing is compiled.  The roofline is at the H100's data-sheet peaks
 (``hlo_stats``).
 
 A train cell counts the port's mesh train step
-(``launch.steps.make_train_harness``): for the dense and MoE families the
-leaves of ``train_plan`` stay split over ``model`` and the step's
-collectives are its region entries and exits (all-reduces over the model
-group; with ``--seq-parallel`` all-gathers and reduce-scatters of the
-residual rows), its vocab-parallel loss and the ``fsdp`` gathers over the
-data axes; every other leaf is gathered whole by broadcasts, as every
-leaf of the other families is.  ``--seq-parallel`` is taken by train cells
-of those two families and refused elsewhere (ROADMAP queue 1, items 11
-and 10); ``--attn-seq-parallel`` is refused (item 12).
+(``launch.steps.make_train_harness``) of any family: the leaves of
+``train_plan`` stay split over ``model`` and the step's collectives are
+its region entries and exits (all-reduces over the model group; with
+``--seq-parallel`` all-gathers and reduce-scatters of the residual rows),
+the sums of the replicated leaves a split region reads, its
+vocab-parallel loss and the ``fsdp`` gathers over the data axes; a leaf
+placed on ``model`` that the plan leaves whole (a group that does not
+divide, such as PaliGemma's attention with its one KV head, or RWKV's
+``cr``) is gathered whole by broadcasts.  ``--seq-parallel`` is taken by
+every train cell and refused on serve cells (ROADMAP queue 1, item 10);
+``--attn-seq-parallel`` is refused (item 12).
 
 A serve cell counts the port's GSPMD serve steps, which gather every
 weight split over ``model`` and each row's cache lane on every step: its
@@ -55,10 +58,18 @@ collectives, ``temp_bytes`` and FLOPs are that design's, not what a
 sharded program would move or hold, and the JSON's ``counted`` says so.
 Its ``kernel_modeled.t_step`` therefore leaves the counted collectives and
 FLOPs out (the fused line at ``model_flops``).
+
+``--layers`` cuts the arch to ``N`` layers (an encoder-decoder's encoder
+alike) and ``--tokens`` sets the shape's rows and sequence length (the
+VLM's sequence holds its patches): a cell at the size a smaller run
+trains, whose ``collective_ops`` (calls and bytes a torch op, as the
+counter records them) are that run's exchange a step, from the shapes
+alone.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -76,8 +87,7 @@ from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.launch.sharding import (SERVE_OVERRIDES, MeshPlacement,
                                          batch_shardings, shard_shape,
                                          shard_tree)
-from repro_torch.launch.steps import (SPLIT_FAMILIES, make_serve_steps,
-                                      make_train_harness,
+from repro_torch.launch.steps import (make_serve_steps, make_train_harness,
                                       prefill_input_specs,
                                       quantize_param_struct,
                                       serve_input_specs, train_input_specs)
@@ -230,8 +240,9 @@ _COUNTED_TRAIN = (
     "the port's mesh train step: the leaves train_plan splits stay split "
     "over model, its collectives the region entries' and exits' (with "
     "seq_parallel all-gathers and reduce-scatters of the residual rows), "
-    "the vocab-parallel loss's and the fsdp gathers'; the other leaves "
-    "gathered whole by broadcasts")
+    "the replicated leaves' gradient sums, the vocab-parallel loss's and "
+    "the fsdp gathers'; the leaves on model the plan leaves whole "
+    "gathered by broadcasts")
 
 
 def _depth_cfg(cfg: ModelConfig, depth_mult: int) -> ModelConfig:
@@ -249,9 +260,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, quant: str = "",
              verbose: bool = True, microbatches: int = 1,
              seq_parallel: bool = False, grad_compression: bool = False,
              serve_sharding: str = "tp", attn_seq_parallel: bool = False,
-             kv_bits=None):
+             kv_bits=None, layers=None, tokens=None):
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers, **(
+            {"encoder_layers": layers} if cfg.family == "encdec" else {}))
     shape = SHAPES_BY_NAME[shape_name]
+    if tokens is not None:
+        shape = dataclasses.replace(shape, global_batch=tokens[0],
+                                    seq_len=tokens[1])
     if attn_seq_parallel:
         raise ValueError(
             "dryrun: --attn-seq-parallel (seq -> model for q / k / v: a "
@@ -262,11 +279,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, quant: str = "",
             "dryrun: --seq-parallel splits the residual rows of the mesh "
             "train step; the GSPMD serve steps gather whole weights and "
             "split no rows (ROADMAP queue 1, item 10)")
-    if seq_parallel and cfg.family not in SPLIT_FAMILIES:
-        raise ValueError(
-            f"dryrun: --seq-parallel splits the train step's rows for the "
-            f"{' and '.join(SPLIT_FAMILIES)} families; the {cfg.family} "
-            f"family's split over model is ROADMAP queue 1, item 11")
     ok, why = cfg.shape_valid(shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
@@ -296,6 +308,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, quant: str = "",
     result["whole_program"] = {k: v for k, v in whole.items()
                                if k != "coll_detail"}
     result["collectives"] = whole["coll_detail"]
+    ops: dict = {}
+    for c in counter.collectives:
+        calls, nbytes = ops.get(c.op, (0, 0))
+        ops[c.op] = (calls + 1, nbytes + c.nbytes)
+    result["collective_ops"] = ops
     result["host_transfers"] = hlo_stats.host_transfer_ops(counter)
 
     if block_correction:
@@ -336,6 +353,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, quant: str = "",
               f"collective={r['t_collective']:.3e}s -> {r['bottleneck']} "
               f"(counted in {result['compile_secs']:.0f}s)")
         print("  memory:", result["memory"])
+        print("  collectives:", "; ".join(
+            f"{op} {n} calls, {b / 1e9:.4f} GB" for op, (n, b) in
+            sorted(result["collective_ops"].items())) or "none")
     return result
 
 
@@ -356,6 +376,10 @@ def main(argv=None):
     ap.add_argument("--serve-sharding", default="tp", choices=["tp", "fsdp"])
     ap.add_argument("--kv-bits", type=int, default=0)
     ap.add_argument("--out", default="")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the arch to this many layers")
+    ap.add_argument("--tokens", default="",
+                    help="'B,S': the shape's rows and sequence length")
     args = ap.parse_args(argv)
 
     try:
@@ -367,7 +391,9 @@ def main(argv=None):
                        attn_seq_parallel=args.attn_seq_parallel,
                        grad_compression=args.grad_compression,
                        serve_sharding=args.serve_sharding,
-                       kv_bits=args.kv_bits or None)
+                       kv_bits=args.kv_bits or None, layers=args.layers,
+                       tokens=(tuple(int(x) for x in args.tokens.split(","))
+                               if args.tokens else None))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

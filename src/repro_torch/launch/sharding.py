@@ -625,8 +625,24 @@ SERVE_GROUPS = {
 SERVE_GROUPS["vlm"] = SERVE_GROUPS["dense"]
 SERVE_GROUPS["hybrid"] = SERVE_GROUPS["dense"]
 
+# the mesh train step's groups beside the serve ones (``serve_plan(...,
+# train=True)``): RWKV's time mix by heads (serving keeps it whole, since
+# its cache replicates the per-head state; training has no cache) and
+# Mamba's out_proj over its inner width (the rank's rows of ``di``)
+TRAIN_SPLIT_TABLES = {
+    "rwkv": {"wr": "out", "wk": "out", "wv": "out", "wg": "out",
+             "wo": "in"},
+    "hybrid": {"out_proj": "in"},
+}
+TRAIN_GROUPS = {
+    "rwkv": (frozenset({"wr", "wk", "wv", "wg", "wo"}),),
+    "hybrid": (frozenset({"out_proj"}),),
+}
+
 # the group whose split makes attention head-local (cfg and cache localize)
 _ATTN_GROUP_MEMBER = "wq"
+# a member of each group split by heads -> the head counts it cuts
+_HEAD_GROUPS = {"wq": ("num_heads", "num_kv_heads"), "wr": ("num_heads",)}
 
 # the dim each split cuts: of a weight (..., in, out) and its packed /
 # scale / zero, and of an AWQ act_scale (..., in)
@@ -662,15 +678,21 @@ def _split_ok(leaf, split: str, tp: int) -> bool:
     return False
 
 
-def serve_plan(cfg: ModelConfig, params, tp: int) -> dict:
+def serve_plan(cfg: ModelConfig, params, tp: int,
+               train: bool = False) -> dict:
     """The placement decision: ``{leaf name: split}`` for every leaf that
-    splits over the TP axis (absent = replicated).  The attention group
-    also needs ``num_heads`` and ``num_kv_heads`` divisible by ``tp`` (the
-    forward reshapes heads)."""
+    splits over the TP axis (absent = replicated).  A group split by heads
+    (the attention's, RWKV's time mix) also needs its head counts
+    divisible by ``tp`` (the forward reshapes heads).  ``train`` adds the
+    mesh train step's groups (:data:`TRAIN_GROUPS`)."""
     if tp < 1:
         raise ValueError(f"serve_plan: TP degree must be >= 1, got {tp}")
-    table = SERVE_SPLIT_TABLES.get(cfg.family, SERVE_SPLIT_TABLES["dense"])
+    table = dict(SERVE_SPLIT_TABLES.get(cfg.family,
+                                        SERVE_SPLIT_TABLES["dense"]))
     groups = SERVE_GROUPS.get(cfg.family, SERVE_GROUPS["dense"])
+    if train:
+        table.update(TRAIN_SPLIT_TABLES.get(cfg.family, {}))
+        groups = groups + TRAIN_GROUPS.get(cfg.family, ())
 
     found: dict = {}
 
@@ -691,9 +713,9 @@ def serve_plan(cfg: ModelConfig, params, tp: int) -> dict:
             continue
         ok = all(_split_ok(leaf, table[n], tp)
                  for n in members for leaf in found[n])
-        if _ATTN_GROUP_MEMBER in group:
-            ok = ok and cfg.num_heads % tp == 0 \
-                and cfg.num_kv_heads % tp == 0
+        for member, counts in _HEAD_GROUPS.items():
+            if member in group:
+                ok = ok and all(getattr(cfg, c) % tp == 0 for c in counts)
         if ok:
             for n in members:
                 plan[n] = table[n]
@@ -770,10 +792,11 @@ def shard_serve_params(params, plan: dict, rank: int, size: int,
 
 def localize_serve_cfg(cfg: ModelConfig, plan: dict, tp: int) -> ModelConfig:
     """Per-shard model config: head counts divided by the TP degree when
-    the attention group splits, with ``head_dim`` pinned to its resolved
-    value.  ``d_ff`` never appears in a forward reshape, and the MoE's
-    ``num_experts`` stays global (routing is over global expert ids)."""
-    if tp <= 1 or plan.get(_ATTN_GROUP_MEMBER) != "out":
+    a group split by heads splits (the attention's; RWKV's time mix in the
+    train step), with ``head_dim`` pinned to its resolved value.  ``d_ff``
+    never appears in a forward reshape, and the MoE's ``num_experts``
+    stays global (routing is over global expert ids)."""
+    if tp <= 1 or not any(plan.get(m) == "out" for m in _HEAD_GROUPS):
         return cfg
     return cfg.replace(num_heads=cfg.num_heads // tp,
                        num_kv_heads=cfg.num_kv_heads // tp,

@@ -20,7 +20,8 @@ from repro_torch.core.quantizer import resolve_group
 from repro_torch.launch.mesh import (batch_rows, dp_axes, dp_size,
                                      tp_size, validate_single_pod)
 from repro_torch.launch.sharding import (MOE_EXPERT_LEAVES, SERVE_GROUPS,
-                                         MeshPlacement, NamedSharding,
+                                         TRAIN_GROUPS, MeshPlacement,
+                                         NamedSharding,
                                          PartitionSpec, ServeSpec,
                                          batch_shardings, check_overrides,
                                          localize_serve_cfg,
@@ -107,13 +108,15 @@ def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
     On a ``mesh`` (a ``launch.mesh.Mesh``; every rank calls ``step_fn``)
     the params and the optimizer state are the rank's slices under
     ``param_shardings`` / ``opt_sharding_like`` and the batch is the
-    global one; see :func:`_mesh_step`.  For the dense and MoE families
-    on a ``model`` axis of more than one rank the step splits its work
-    over that axis as the reference's partitioner does (:func:`train_plan`,
-    ``layers.ModelSplit``): each rank computes its heads, FFN columns or
-    experts and its vocab slice.  ``seq_parallel`` (the reference's
-    ``res_seq`` -> ``model``) also splits the residual stream's rows
-    between the regions over that axis, where the sequence divides by it.
+    global one; see :func:`_mesh_step`.  On a ``model`` axis of more than
+    one rank every family's step splits its work over that axis as the
+    reference's partitioner does (:func:`train_plan`,
+    ``layers.ModelSplit``): each rank computes its attention heads, FFN
+    or channel-mix columns, experts, RWKV time-mix heads, rows of Mamba's
+    ``out_proj`` and vocab slice, where their group divides.
+    ``seq_parallel`` (the reference's ``res_seq`` -> ``model``) also
+    splits the residual stream's rows between the regions over that axis,
+    where every stream divides by it.
     Neither changes the values, as in the reference.  ``extra_overrides``
     (the reference's other remaps of its activation constraints) must
     name the mesh's axes (``make_ctx`` checks) and change nothing."""
@@ -250,11 +253,13 @@ def _specs(tree) -> list:
     return [s.spec for s in flatten(tree)]
 
 
-# the families whose train step splits its work over ``model``
-SPLIT_FAMILIES = ("dense", "moe")
 # the dim of each vocab leaf that ``vocab`` splits
 _VOCAB_DIM = {"embed": -2, "head": -1}
 _SPLIT_DIM = {"out": -1, "in": -2, "expert": -3}
+# a member of each split group -> the ``layers.ModelSplit`` region its
+# leaves run in (the MoE's experts split by ``ep_axis``, not by name)
+_REGIONS = {"wq": "attn", "w_up": "ffn", "ck": "ffn", "wr": "time",
+            "out_proj": "out_proj", "embed": "vocab", "head": "vocab"}
 
 
 def _on_model(sharding, dim: int) -> bool:
@@ -264,16 +269,19 @@ def _on_model(sharding, dim: int) -> bool:
 
 def train_plan(mesh, cfg: ModelConfig, struct, pspec) -> dict:
     """``{leaf name: split}`` of the leaves a mesh train step keeps split
-    over ``model`` (the rest are gathered whole, as before): for the
-    dense and MoE families on a ``model`` axis of more than one rank, the
-    groups ``launch.sharding.serve_plan`` splits (Megatron's out / in
-    split of the attention and FFN groups, the MoE's experts) whose every
-    member ``param_shardings`` places with that dim on ``model``, and
-    ``embed`` / ``head`` as ``"vocab"`` where the vocab dim of each is on
-    ``model``.  A group ``serve_plan`` refuses (heads that do not divide,
-    a dim that does not) is gathered whole."""
+    over ``model`` on a ``model`` axis of more than one rank (the rest are
+    gathered whole): the groups ``launch.sharding.serve_plan(...,
+    train=True)`` splits whose every member ``param_shardings`` places with
+    that dim on ``model``, and ``embed`` / ``head`` as ``"vocab"`` where
+    the vocab dim of each is on ``model``.  The groups are Megatron's out /
+    in split of each family's attention and FFN (the VLM's, Zamba2's
+    shared block's, whisper's self- and cross-attention and MLP), the
+    MoE's experts, RWKV's time mix by heads and its channel mix, and
+    Mamba's ``out_proj`` over its inner width.  A group that does not
+    divide (heads, a dim) is gathered whole, as the reference's
+    divisibility fallback leaves it replicated."""
     tp = tp_size(mesh)
-    if tp <= 1 or cfg.family not in SPLIT_FAMILIES:
+    if tp <= 1:
         return {}
     placed: dict = {}
 
@@ -284,8 +292,8 @@ def train_plan(mesh, cfg: ModelConfig, struct, pspec) -> dict:
         else:
             placed.setdefault(path[-1], []).append(node)
     walk(pspec, ())
-    plan = serve_plan(cfg, struct, tp)
-    for group in SERVE_GROUPS[cfg.family]:
+    plan = serve_plan(cfg, struct, tp, train=True)
+    for group in SERVE_GROUPS[cfg.family] + TRAIN_GROUPS.get(cfg.family, ()):
         names = [n for n in group if n in plan]
         if not all(_on_model(sh, _SPLIT_DIM[plan[n]])
                    for n in names for sh in placed[n]):
@@ -299,15 +307,15 @@ def train_plan(mesh, cfg: ModelConfig, struct, pspec) -> dict:
 
 def model_split(mesh, plan: dict, ep_axis=None):
     """The ``layers.ModelSplit`` of ``plan`` on ``mesh`` (None where
-    nothing splits): the regions whose leaves the plan keeps split, and
+    nothing splits): the region of each group the plan keeps split, and
     the MoE's experts exactly where the ctx has an ``ep_axis`` (which
     makes ``moe_ffn`` compute the rank's experts alone: the plan must keep
     them split)."""
     if (plan.get("w_gate") == "expert") != (ep_axis is not None):
         raise ValueError(f"the plan splits w_gate {plan.get('w_gate')!r} "
                          f"but the ctx's ep_axis is {ep_axis!r}")
-    regions = {"wq": "attn", "w_gate": "ffn", "embed": "vocab"}
-    splits = {r for n, r in regions.items() if plan.get(n) in ("out", "vocab")}
+    splits = {r for n, r in _REGIONS.items()
+              if plan.get(n) not in (None, "expert")}
     if ep_axis is not None:
         splits.add("experts")
     if not splits:
@@ -381,6 +389,20 @@ def _reduce_rows(split, grads):
     return grads
 
 
+def _streams(cfg: ModelConfig, batch) -> tuple:
+    """The lengths of the residual streams the forward runs on ``batch``:
+    the text (or ``inputs_embeds``), the VLM's patches and text as one,
+    and the encoder-decoder's frames and text as two."""
+    if "inputs_embeds" in batch:
+        return (batch["inputs_embeds"].shape[1],)
+    S = batch["tokens"].shape[1] - 1
+    if cfg.family == "vlm":
+        return (batch["patches"].shape[1] + S,)
+    if cfg.family == "encdec":
+        return (batch["frames"].shape[1], S)
+    return (S,)
+
+
 def _mesh_step(mesh, cfg, pspec, plan, fwds, grads_of, finish, params,
                opt_state, batch):
     """One train step on a mesh, from the rank's slices:
@@ -392,9 +414,11 @@ def _mesh_step(mesh, cfg, pspec, plan, fwds, grads_of, finish, params,
       (its block over the data-parallel axes) by ``fwds[rows]``: the
       forward of the rank's heads, columns, experts and vocab slice under
       the ``model`` split (``Ctx.tp``), with the residual rows split too
-      (``rows``) where ``seq_parallel`` asked for it and the sequence
-      divides by the model axis; the norms' gradients of split rows are
-      then summed over the model group;
+      (``rows``) where ``seq_parallel`` asked for it and every residual
+      stream divides by the model axis (:func:`_streams`: the
+      encoder-decoder splits its frames and its text both or neither);
+      the norms' gradients of split rows are then summed over the model
+      group;
     * loss and gradients summed over the data group, each rank's weighted
       by its share of the global batch's loss weights (``1 / D`` without a
       ``loss_mask``), so they are the global batch's mean;
@@ -419,9 +443,8 @@ def _mesh_step(mesh, cfg, pspec, plan, fwds, grads_of, finish, params,
                       / torch.clamp(lw.sum(), min=1.0))
 
     split = fwds[False][1].tp
-    S = (batch["inputs_embeds"].shape[1] if "inputs_embeds" in batch
-         else batch["tokens"].shape[1] - 1)
-    rows = True in fwds and S % split.size == 0
+    rows = True in fwds and all(n % split.size == 0
+                                for n in _streams(cfg, batch))
     whole = unshard_tree(params, entry)
     loss, grads = grads_of(whole, batch, local, fwds[rows])
     del whole

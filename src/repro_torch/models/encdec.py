@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import transformer
 from repro_torch.models.common import (Ctx, DEFAULT_CTX, maybe_remat,
                                        page_update_cache, take_layer,
                                        unstack_layers, update_cache)
@@ -133,18 +134,27 @@ def _mlp(bp, x, cfg, ctx):
     h = _ln(x, bp["ln_m"], cfg.norm_eps)
     if ctx.act_bits:
         h = L.fake_quant_act(h, ctx.act_bits)
+    h = L.enter(h, ctx.tp, "ffn")
     kb = ctx.kernel_backend
     u = L.matmul(h, bp["w_up"], kb)
     # jax.nn.gelu's default is the tanh approximation
-    return L.matmul(torch.nn.functional.gelu(u, approximate="tanh"),
-                    bp["w_down"], kb)
+    return L.leave(L.matmul(torch.nn.functional.gelu(u, approximate="tanh"),
+                            bp["w_down"], kb), ctx.tp, "ffn")
+
+
+def _normed(x, g, cfg, ctx):
+    """An attention's input: the norm, the activations' fake-quant, and
+    the ``"attn"`` region's entry."""
+    h = _ln(x, g, cfg.norm_eps)
+    if ctx.act_bits:
+        h = L.fake_quant_act(h, ctx.act_bits)
+    return L.enter(h, ctx.tp, "attn")
 
 
 def encoder_block(bp, x, cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX):
-    h = _ln(x, bp["ln1"], cfg.norm_eps)
-    if ctx.act_bits:
-        h = L.fake_quant_act(h, ctx.act_bits)
-    x = x + _attn(bp["attn"], h, h, cfg, ctx, causal=False)
+    h = _normed(x, bp["ln1"], cfg, ctx)
+    x = x + L.leave(_attn(bp["attn"], h, h, cfg, ctx, causal=False),
+                    ctx.tp, "attn")
     return x + _mlp(bp, x, cfg, ctx)
 
 
@@ -152,18 +162,17 @@ def decoder_block(bp, x, enc_out, cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX,
                   *, q_offset=0, self_kv=None, cache_pos=None, kv_len=None,
                   cross_kv=None, active=None, ptab=None):
     """Causal self-attention (over ``self_kv`` when given), cross-attention
-    over ``enc_out`` (or the precomputed ``cross_kv``), then the MLP."""
-    h = _ln(x, bp["ln1"], cfg.norm_eps)
-    if ctx.act_bits:
-        h = L.fake_quant_act(h, ctx.act_bits)
-    x = x + _attn(bp["attn"], h, h, cfg, ctx, causal=True, q_offset=q_offset,
-                  kv_cache=self_kv, cache_pos=cache_pos, kv_len=kv_len,
-                  active=active, ptab=ptab)
-    hx = _ln(x, bp["ln_x"], cfg.norm_eps)
-    if ctx.act_bits:
-        hx = L.fake_quant_act(hx, ctx.act_bits)
-    x = x + _attn(bp["xattn"], hx, enc_out, cfg, ctx, causal=False,
-                  precomputed_kv=cross_kv)
+    over ``enc_out`` (or the precomputed ``cross_kv``), then the MLP.
+    Under ``ctx.tp``, ``enc_out`` has entered the ``"attn"`` region
+    (:func:`forward`)."""
+    h = _normed(x, bp["ln1"], cfg, ctx)
+    x = x + L.leave(_attn(bp["attn"], h, h, cfg, ctx, causal=True,
+                          q_offset=q_offset, kv_cache=self_kv,
+                          cache_pos=cache_pos, kv_len=kv_len, active=active,
+                          ptab=ptab), ctx.tp, "attn")
+    hx = _normed(x, bp["ln_x"], cfg, ctx)
+    x = x + L.leave(_attn(bp["xattn"], hx, enc_out, cfg, ctx, causal=False,
+                          precomputed_kv=cross_kv), ctx.tp, "attn")
     return x + _mlp(bp, x, cfg, ctx)
 
 
@@ -171,27 +180,31 @@ def decoder_block(bp, x, enc_out, cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX,
 # full model
 # --------------------------------------------------------------------------
 
-def embed_frames(params, cfg: ModelConfig, frames) -> torch.Tensor:
+def embed_frames(params, cfg: ModelConfig, frames,
+                 ctx: Ctx = DEFAULT_CTX) -> torch.Tensor:
     """The encoder's input stream: the stub frame embeddings in the model's
-    dtype plus sinusoidal positions.  (The reference adds the positions in
-    the frames' own dtype; for frames in the model's dtype the two agree.)"""
+    dtype plus sinusoidal positions, under ``ctx.tp.seq`` the rank's block
+    of its rows.  (The reference adds the positions in the frames' own
+    dtype; for frames in the model's dtype the two agree.)"""
     f = frames.to(params["embed"].dtype)
-    return f + L.sinusoidal_pos(f.shape[1], cfg.d_model, f.dtype,
-                                f.device)[None]
+    return L.leave(f + L.sinusoidal_pos(f.shape[1], cfg.d_model, f.dtype,
+                                        f.device)[None], ctx.tp, "inputs")
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
-    """The decoder's input stream: token embeddings plus sinusoidal
-    positions [0, S)."""
-    x = params["embed"][tokens]
-    return x + L.sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype,
-                                x.device)[None]
+def embed_tokens(params, cfg: ModelConfig, tokens,
+                 ctx: Ctx = DEFAULT_CTX) -> torch.Tensor:
+    """The decoder's input stream: token embeddings (the ranks' vocab
+    parts summed under ``ctx.tp``) plus sinusoidal positions [0, S), each
+    at the rank's rows under ``ctx.tp.seq``."""
+    x = transformer.embed_tokens(params, cfg, tokens, ctx)
+    pe = L.sinusoidal_pos(tokens.shape[1], cfg.d_model, x.dtype, x.device)
+    return x + L.leave(pe[None], ctx.tp, "inputs")
 
 
 def encode(params, cfg: ModelConfig, frames, ctx: Ctx = DEFAULT_CTX):
     """frames: precomputed (B, F, d) frontend embeddings (stub).  Returns
     ``ln_enc`` of the encoder's final stream."""
-    x = embed_frames(params, cfg, frames)
+    x = embed_frames(params, cfg, frames, ctx)
 
     def step(h, bp):
         return encoder_block(bp, h, cfg, ctx)
@@ -204,9 +217,14 @@ def encode(params, cfg: ModelConfig, frames, ctx: Ctx = DEFAULT_CTX):
 
 def forward(params, cfg: ModelConfig, frames, tokens,
             ctx: Ctx = DEFAULT_CTX) -> torch.Tensor:
-    """Training forward without cache.  Returns logits (B, S, V)."""
-    enc = encode(params, cfg, frames, ctx)
-    x = embed_tokens(params, cfg, tokens)
+    """Training forward without cache.  Returns logits (B, S, V); under
+    ``ctx.tp`` the rank's vocab columns where the vocab splits.  The
+    encoder's output enters the cross-attention's region once for every
+    layer (its gradient, the layers' parts summed, leaves once); with
+    ``ctx.tp.seq`` both streams hold the rank's block of their rows
+    between the regions."""
+    enc = L.enter(encode(params, cfg, frames, ctx), ctx.tp, "attn")
+    x = embed_tokens(params, cfg, tokens, ctx)
 
     def step(h, bp):
         return decoder_block(bp, h, enc, cfg, ctx)
@@ -215,17 +233,18 @@ def forward(params, cfg: ModelConfig, frames, tokens,
     for bp in unstack_layers(params["decoder"], cfg.num_layers):
         x = step(x, bp)
     x = _ln(x, params["ln_f"], cfg.norm_eps)
-    return L.matmul(x, params["head"], ctx.kernel_backend)
+    return transformer.unembed(params, cfg, x, ctx)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, ctx: Ctx = DEFAULT_CTX):
-    """Next-token cross entropy in float32 (the mean over every position).
-    batch = {tokens, frames}."""
+    """Next-token cross entropy in float32 (the mean over every position;
+    over the ranks' vocab columns under ``ctx.tp``).  batch = {tokens,
+    frames}."""
     tokens = batch["tokens"]
     logits = forward(params, cfg, frames_of(batch), tokens[:, :-1],
                      ctx).to(torch.float32)
     targets = tokens[:, 1:].long()
-    return L.token_nll(logits, targets).mean()
+    return L.token_nll(logits, targets, ctx.tp).mean()
 
 
 # -- serving ----------------------------------------------------------------

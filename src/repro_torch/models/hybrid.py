@@ -69,9 +69,13 @@ def _shared_block(params, x, cfg, ctx, *, positions, kv_cache=None,
 
 def forward(params, cfg: ModelConfig, tokens,
             ctx: Ctx = DEFAULT_CTX) -> torch.Tensor:
-    """Training forward without cache.  Returns logits (B, S, V)."""
-    x = params["embed"][tokens]
-    positions = torch.arange(x.shape[1], device=x.device)
+    """Training forward without cache.  Returns logits (B, S, V); under
+    ``ctx.tp`` the rank's vocab columns where the vocab splits, and with
+    ``ctx.tp.seq`` the residual stream between the regions holds the
+    rank's block of the rows (the mixer and the shared block read them
+    whole, gathered as each region enters)."""
+    x = transformer.embed_tokens(params, cfg, tokens, ctx)
+    positions = torch.arange(tokens.shape[1], device=x.device)
 
     def step(h, bp):
         return ssm.mamba_block(bp, h, cfg, ctx)[0]
@@ -84,15 +88,16 @@ def forward(params, cfg: ModelConfig, tokens,
         if attn_after:
             x, _ = _shared_block(params, x, cfg, ctx, positions=positions)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.matmul(x, params["head"], ctx.kernel_backend)
+    return transformer.unembed(params, cfg, x, ctx)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, ctx: Ctx = DEFAULT_CTX):
-    """Next-token cross entropy in float32 (the mean over every position)."""
+    """Next-token cross entropy in float32 (the mean over every position;
+    over the ranks' vocab columns under ``ctx.tp``)."""
     tokens = batch["tokens"]
     logits = forward(params, cfg, tokens[:, :-1], ctx).to(torch.float32)
     targets = tokens[:, 1:].long()
-    return L.token_nll(logits, targets).mean()
+    return L.token_nll(logits, targets, ctx.tp).mean()
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,

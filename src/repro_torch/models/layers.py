@@ -63,28 +63,38 @@ class _ReduceFromGroup(torch.autograd.Function):
 
 
 class _CopyToGroup(torch.autograd.Function):
-    """Forward: the identity.  Backward: the sum of the ranks' cotangents
-    over ``group``: the transpose of handing one replicated input to every
-    shard of a ``shard_map``, each of which takes its own part of the
-    gradient."""
+    """Forward: the tensors as they are.  Backward: each one's cotangent
+    summed over ``group`` (one all-reduce a dtype over them flattened):
+    the transpose of handing one replicated input to every shard of a
+    ``shard_map``, each of which takes its own part of the gradient."""
 
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, group, *ts):
         ctx.group = group
-        return x.view_as(x)
+        return tuple(t.view_as(t) for t in ts)
 
     @staticmethod
-    def backward(ctx, dy):
-        dx = dy.contiguous().clone()
-        dist.all_reduce(dx, group=ctx.group)
-        return dx, None
+    def backward(ctx, *dys):
+        out = list(dys)
+        by_dtype: dict = {}
+        for i, d in enumerate(dys):
+            by_dtype.setdefault(d.dtype, []).append(i)
+        for idx in by_dtype.values():
+            flat = torch.cat([dys[i].reshape(-1) for i in idx])
+            dist.all_reduce(flat, group=ctx.group)
+            o = 0
+            for i in idx:
+                n = dys[i].numel()
+                out[i] = flat[o:o + n].view(dys[i].shape)
+                o += n
+        return (None, *out)
 
 
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` unchanged, entering a computation that each rank of ``group``
     runs on its own part (its local experts): the gradient sums the
     ranks' parts over ``group``."""
-    return _CopyToGroup.apply(x, group)
+    return _CopyToGroup.apply(group, x)[0]
 
 
 # --------------------------------------------------------------------------
@@ -99,12 +109,17 @@ class ModelSplit:
     ``group`` is the model axis's process group, ``size`` its extent and
     ``rank`` this rank's index in it.  ``splits`` names the regions whose
     weights the rank holds a slice of: ``"attn"`` (its heads of wq / wk /
-    wv, the matching rows of wo), ``"ffn"`` (its columns of w_gate / w_up,
-    the rows of w_down), ``"experts"`` (the MoE's ``E / size`` experts) and
-    ``"vocab"`` (its rows of embed, its columns of head).  A region not
-    named runs whole on every rank.  ``seq`` splits the residual stream's
-    rows (the sequence dim) over the group between the regions: the
-    reference's ``seq_parallel``."""
+    wv, the matching rows of wo: every self- and cross-attention),
+    ``"ffn"`` (its columns of w_gate / w_up, the rows of w_down; RWKV's
+    channel mix: its columns of ck, the rows of cv), ``"experts"`` (the
+    MoE's ``E / size`` experts), ``"time"`` (RWKV's time mix: its heads of
+    wr / wk / wv / wg and of the decay, bonus and group norm, the rows of
+    wo), ``"out_proj"`` (Mamba's: its ``di / size`` rows, against its
+    columns of the mixer's whole output) and ``"vocab"`` (its rows of
+    embed, its columns of head).  A region not named runs whole on every
+    rank.  ``seq`` splits the residual stream's rows (the sequence dim)
+    over the group between the regions: the reference's
+    ``seq_parallel``."""
     group: Any
     size: int
     rank: int
@@ -168,6 +183,37 @@ class _ScatterRowsFrom(torch.autograd.Function):
         return _gather_rows(dy, *ctx.args), None, None, None, None
 
 
+class _OwnColumns(torch.autograd.Function):
+    """Forward: the rank's block of the last dim of a tensor every rank
+    holds whole.  Backward: the whole cotangent gathered from the ranks'
+    blocks (an all-gather): each rank's consumer reads only its block, so
+    the blocks of the cotangent are disjoint."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, rank):
+        ctx.args = group, size
+        n = x.shape[-1] // size
+        return x.narrow(-1, rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        group, size = ctx.args
+        parts = [torch.empty_like(dy) for _ in range(size)]
+        dist.all_gather(parts, dy.contiguous(), group=group)
+        return torch.cat(parts, -1), None, None, None
+
+
+def own_columns(x: torch.Tensor, tp: Optional[ModelSplit],
+                region: str) -> torch.Tensor:
+    """The rank's ``1 / size`` block of ``x``'s last dim where ``region``
+    splits (``x`` whole on every rank, read by the rank's rows of an
+    in-split weight); its gradient gathers the ranks' blocks.  Elsewhere
+    ``x``."""
+    if tp is None or region not in tp.splits:
+        return x
+    return _OwnColumns.apply(x, tp.group, tp.size, tp.rank)
+
+
 def enter(h: torch.Tensor, tp: Optional[ModelSplit],
           region: str) -> torch.Tensor:
     """``h`` entering ``region`` of a block (its input, after the norm).
@@ -181,7 +227,7 @@ def enter(h: torch.Tensor, tp: Optional[ModelSplit],
     split = region in tp.splits
     if tp.seq:
         return _GatherRowsTo.apply(h, tp.group, tp.size, tp.rank, split)
-    return _CopyToGroup.apply(h, tp.group) if split else h
+    return _CopyToGroup.apply(tp.group, h)[0] if split else h
 
 
 def leave(y: torch.Tensor, tp: Optional[ModelSplit],
@@ -197,6 +243,18 @@ def leave(y: torch.Tensor, tp: Optional[ModelSplit],
     if tp.seq:
         return _ScatterRowsFrom.apply(y, tp.group, tp.size, tp.rank, split)
     return _ReduceFromGroup.apply(y, tp.group) if split else y
+
+
+def share(tp: Optional[ModelSplit], region: str, *ts):
+    """Tensors every rank holds whole (replicated leaves, or a value every
+    rank computed alike), read inside ``region``.  Where it splits, each
+    rank's reading makes its own part of their gradient: the parts are
+    summed over the group on the way back (the transpose of handing one
+    replicated input to every shard).  Elsewhere they pass as they are.
+    Returns the one tensor, or a tuple of them."""
+    if tp is not None and region in tp.splits:
+        ts = _CopyToGroup.apply(tp.group, *ts)
+    return ts[0] if len(ts) == 1 else tuple(ts)
 
 
 def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor,

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import transformer
 from repro_torch.models.common import (Ctx, DEFAULT_CTX, maybe_remat,
                                        take_layer, unstack_layers)
 from repro_torch.models.ssm import (chunked_linear_attention,
@@ -96,11 +97,24 @@ def _shift(x: torch.Tensor, last: Optional[torch.Tensor]) -> torch.Tensor:
 
 def time_mix(bp, x, cfg: ModelConfig, ctx: Ctx, *, shift_state=None,
              wkv_state=None, decode=False):
-    """Returns (out, the token to cache as shift1, the new wkv state)."""
-    B, S, d = x.shape
+    """Returns (out, the token to cache as shift1, the new wkv state).
+
+    Under ``ctx.tp`` with ``"time"`` split, ``cfg`` holds the rank's head
+    count: the rank computes r / k / v / g, the decay, the wkv scan and
+    the group norm of its heads (its slices of ``w0``, ``wB``, ``u`` and
+    ``gn``) and its part of the ``wo`` product, which ``layers.leave``
+    sums; the leaves it reads whole have their gradients summed over the
+    group (``layers.share``)."""
+    B, S, _ = x.shape
     H, Dh = cfg.num_heads, cfg.resolved_head_dim
     xs = _shift(x, shift_state)
-    mu = bp["mu"]
+    tp = ctx.tp
+    mu, w0, wA, wB, u, gn = L.share(tp, "time", *(
+        bp[k] for k in ("mu", "w0", "wA", "wB", "u", "gn")))
+    if tp is not None and "time" in tp.splits:
+        c = slice(tp.rank * H * Dh, (tp.rank + 1) * H * Dh)
+        w0, wB, gn = w0[c], wB[:, c], gn[c]
+        u = u[tp.rank * H:(tp.rank + 1) * H]
 
     def mix(i):
         return x + (xs - x) * mu[i][None, None, :]
@@ -114,33 +128,42 @@ def time_mix(bp, x, cfg: ModelConfig, ctx: Ctx, *, shift_state=None,
     v = L.matmul(mixed[2], bp["wv"], kb).reshape(B, S, H, Dh)
     g = torch.nn.functional.silu(L.matmul(mixed[3], bp["wg"], kb))
     # data-dependent decay (per channel), clamped for stability
-    lora = torch.tanh(mixed[4].float() @ bp["wA"]) @ bp["wB"]
-    log_decay = -torch.exp(torch.clamp(bp["w0"][None, None, :] + lora,
+    lora = torch.tanh(mixed[4].float() @ wA) @ wB
+    log_decay = -torch.exp(torch.clamp(w0[None, None, :] + lora,
                                        -10.0, 4.0))
     log_decay = log_decay.reshape(B, S, H, Dh)
 
     if decode:
         y1, new_state = step_linear_attention(
             wkv_state, r[:, 0], k[:, 0], v[:, 0], log_decay[:, 0],
-            inclusive=False, u=bp["u"])
+            inclusive=False, u=u)
         y = y1[:, None]
     else:
         y, new_state = chunked_linear_attention(
-            r, k, v, log_decay, inclusive=False, u=bp["u"],
+            r, k, v, log_decay, inclusive=False, u=u,
             chunk=cfg.ssm.chunk_size, initial_state=wkv_state)
     # per-head group norm, then the output gate
     yf = y.reshape(B, S, H, Dh).float()
     yf = (yf - yf.mean(-1, keepdim=True)) * torch.rsqrt(
         yf.var(-1, unbiased=False, keepdim=True) + 64e-5)
-    yf = yf.reshape(B, S, d).to(x.dtype) * bp["gn"][None, None, :]
+    yf = yf.reshape(B, S, H * Dh).to(x.dtype) * gn[None, None, :]
     out = L.matmul(yf * g, bp["wo"], kb)
     return out, x[:, -1:], new_state
 
 
 def channel_mix(bp, x, cfg: ModelConfig, ctx: Ctx, *, shift_state=None):
-    """Returns (out, the token to cache as shift2)."""
+    """Returns (out, the token to cache as shift2).
+
+    Under ``ctx.tp`` with ``"ffn"`` split the rank holds its columns of
+    ``ck`` and rows of ``cv``; ``cr`` is gathered whole on every rank
+    (split, its gate would need the summed ``kv`` first: one more
+    collective), and the receptance gate multiplies the rank's partial
+    ``kv`` before ``layers.leave`` sums it:
+    ``sigmoid(xr @ cr) * sum(kv_r) == sum(sigmoid(xr @ cr) * kv_r)``.  The
+    gradients of ``mu`` and ``cr`` are summed over the group
+    (``layers.share``)."""
     xs = _shift(x, shift_state)
-    mu = bp["mu"]
+    mu, cr = L.share(ctx.tp, "ffn", bp["mu"], bp["cr"])
     xk = x + (xs - x) * mu[5][None, None, :]
     xr = x + (xs - x) * mu[6][None, None, :]
     if ctx.act_bits:
@@ -149,7 +172,7 @@ def channel_mix(bp, x, cfg: ModelConfig, ctx: Ctx, *, shift_state=None):
     kb = ctx.kernel_backend
     k = torch.square(torch.relu(L.matmul(xk, bp["ck"], kb)))
     kv = L.matmul(k, bp["cv"], kb)
-    return torch.sigmoid(L.matmul(xr, bp["cr"], kb)) * kv, x[:, -1:]
+    return torch.sigmoid(L.matmul(xr, cr, kb)) * kv, x[:, -1:]
 
 
 def block(bp, x, cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX, *, cache=None,
@@ -157,18 +180,18 @@ def block(bp, x, cfg: ModelConfig, ctx: Ctx = DEFAULT_CTX, *, cache=None,
     """One RWKV block.  ``cache`` (one layer's {shift1, shift2, wkv} views)
     is read, then written in place; returns (x, cache)."""
     c = cache or {}
-    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    h = L.enter(L.rms_norm(x, bp["ln1"], cfg.norm_eps), ctx.tp, "time")
     a, s1, wkv = time_mix(bp, h, cfg, ctx, shift_state=c.get("shift1"),
                           wkv_state=c.get("wkv"), decode=decode)
     if cache is not None:            # time_mix is done with the old state
         cache["shift1"].copy_(s1)
         cache["wkv"].copy_(wkv)
-    x = x + a
-    h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    x = x + L.leave(a, ctx.tp, "time")
+    h2 = L.enter(L.rms_norm(x, bp["ln2"], cfg.norm_eps), ctx.tp, "ffn")
     m, s2 = channel_mix(bp, h2, cfg, ctx, shift_state=c.get("shift2"))
     if cache is not None:
         cache["shift2"].copy_(s2)
-    return x + m, cache
+    return x + L.leave(m, ctx.tp, "ffn"), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int = 0,
@@ -191,8 +214,12 @@ def _layer_cache(cache, i):
 
 def forward(params, cfg: ModelConfig, tokens,
             ctx: Ctx = DEFAULT_CTX) -> torch.Tensor:
-    """Training forward without cache.  Returns logits (B, S, V)."""
-    x = params["embed"][tokens]
+    """Training forward without cache.  Returns logits (B, S, V); under
+    ``ctx.tp`` the rank's vocab columns where the vocab splits, and with
+    ``ctx.tp.seq`` the residual stream between the regions holds the
+    rank's block of the rows (the token shift and the scan read them
+    whole, gathered as each region enters)."""
+    x = transformer.embed_tokens(params, cfg, tokens, ctx)
 
     def step(h, bp):
         return block(bp, h, cfg, ctx)[0]
@@ -201,15 +228,16 @@ def forward(params, cfg: ModelConfig, tokens,
     for bp in unstack_layers(params["blocks"], cfg.num_layers):
         x = step(x, bp)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.matmul(x, params["head"], ctx.kernel_backend)
+    return transformer.unembed(params, cfg, x, ctx)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, ctx: Ctx = DEFAULT_CTX):
-    """Next-token cross entropy in float32 (the mean over every position)."""
+    """Next-token cross entropy in float32 (the mean over every position;
+    over the ranks' vocab columns under ``ctx.tp``)."""
     tokens = batch["tokens"]
     logits = forward(params, cfg, tokens[:, :-1], ctx).to(torch.float32)
     targets = tokens[:, 1:].long()
-    return L.token_nll(logits, targets).mean()
+    return L.token_nll(logits, targets, ctx.tp).mean()
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, ctx: Ctx = DEFAULT_CTX):

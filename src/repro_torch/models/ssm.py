@@ -182,11 +182,15 @@ def _causal_conv(x, w, b):
 
 
 def _mamba_inner(bp, x, cfg, *, conv_state=None, ssm_state=None,
-                 decode=False, backend=None):
+                 decode=False, backend=None, tp=None):
     """The mamba2 mixer after the input norm.  x: (B,S,d); decode runs
     S == 1 against the threaded states.  Returns (y, new_conv_state,
     new_ssm_state), the states as new tensors (the caller writes them into
-    its cache after this returns)."""
+    its cache after this returns).  Under ``tp`` (a ``layers.ModelSplit``)
+    with ``"out_proj"`` split, the mixer runs whole on every rank and
+    ``out_proj`` (the rank's ``di / size`` rows) multiplies the rank's
+    columns of its output (``layers.own_columns``: their gradients
+    gathered back), ``out`` the rank's part of the product."""
     di, N, P, H = _dims(cfg)
     Wc = cfg.ssm.conv_width
     B_, S, _ = x.shape
@@ -229,20 +233,25 @@ def _mamba_inner(bp, x, cfg, *, conv_state=None, ssm_state=None,
     y = y.reshape(B_, S, di).to(x.dtype)
     y = L.rms_norm(y * torch.nn.functional.silu(z).to(x.dtype),
                    bp["out_norm"], cfg.norm_eps).to(x.dtype)
-    out = L.matmul(y, bp["out_proj"], backend)
+    out = L.matmul(L.own_columns(y, tp, "out_proj"), bp["out_proj"],
+                   backend)
     return out, new_conv_state, new_ssm
 
 
 def mamba_block(bp, x, cfg, ctx, *, conv_state=None, ssm_state=None,
                 decode=False):
-    """x + mixer(rms_norm(x)); returns (x', new_conv_state, new_ssm)."""
+    """x + mixer(rms_norm(x)); returns (x', new_conv_state, new_ssm).
+    Under ``ctx.tp`` the mixer is a whole region (under ``ctx.tp.seq`` its
+    rows gathered: the causal conv and the scan read them all) and its
+    output leaves through ``out_proj``'s."""
     h = L.rms_norm(x, bp["ln"], cfg.norm_eps)
     if ctx.act_bits:
         h = L.fake_quant_act(h, ctx.act_bits)
-    out, ncs, nss = _mamba_inner(bp, h, cfg, conv_state=conv_state,
-                                 ssm_state=ssm_state, decode=decode,
-                                 backend=ctx.kernel_backend)
-    return x + out, ncs, nss
+    out, ncs, nss = _mamba_inner(bp, L.enter(h, ctx.tp, "mixer"), cfg,
+                                 conv_state=conv_state, ssm_state=ssm_state,
+                                 decode=decode, backend=ctx.kernel_backend,
+                                 tp=ctx.tp)
+    return x + L.leave(out, ctx.tp, "out_proj"), ncs, nss
 
 
 def init_mamba_cache(cfg, batch: int, n_layers: int, device="cuda"):

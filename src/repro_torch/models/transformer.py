@@ -263,10 +263,13 @@ def forward(params, cfg: ModelConfig, tokens, ctx: Ctx = DEFAULT_CTX, *,
     return unembed(params, cfg, x, ctx)
 
 
-# the params the forward applies to the residual stream's rows (its
-# norms): with the rows split over the model axis (``ctx.tp.seq``) a
-# rank's gradient of each is its own rows' part of the sum
-ROW_PARAMS = frozenset({"ln1", "ln2", "ln_f"})
+# the params every family's forward applies to the residual stream's rows
+# (its norms: the decoder's and RWKV's ln1 / ln2 / ln_f, Mamba's ln,
+# whisper's ln1 / ln_m / ln_x / ln_enc / ln_f): with the rows split over
+# the model axis (``ctx.tp.seq``) a rank's gradient of each is its own
+# rows' part of the sum
+ROW_PARAMS = frozenset({"ln1", "ln2", "ln_f", "ln", "ln_m", "ln_x",
+                        "ln_enc"})
 
 
 def loss_fn(params, cfg: ModelConfig, batch, ctx: Ctx = DEFAULT_CTX):

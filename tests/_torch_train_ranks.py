@@ -26,12 +26,19 @@ from repro_torch.optim.compression import compressed_psum
 
 # family -> reduced arch; the MoE's capacity factor drops routed pairs.
 # "llama" is a dense config whose heads, KV heads, FFN and vocab divide by
-# 4 (tinyllama's one KV head keeps its attention whole on a model axis)
+# 4 (tinyllama's one KV head keeps its attention whole on a model axis,
+# as PaliGemma's does)
 ARCHS = {"moe": "qwen3-moe-30b-a3b", "dense": "tinyllama-1.1b",
-         "rwkv": "rwkv6-3b", "llama": "llama2-7b"}
+         "rwkv": "rwkv6-3b", "llama": "llama2-7b", "vlm": "paligemma-3b",
+         "hybrid": "zamba2-1.2b", "encdec": "whisper-small"}
 MOE_CF = 0.5
 STEPS, LR, BATCH = 3, 1e-3, (8, 33)
 ODD_BATCH = (8, 34)         # S = 33 does not split over 2 model ranks
+# the families whose (1, 2) seq_parallel run the reference makes too, and
+# the one besides llama it runs at ODD_BATCH (whisper's 32 frames split,
+# its 33 tokens do not)
+REF_SEQ = ("rwkv", "vlm", "hybrid", "encdec")
+ODD_FAMILY = "encdec"
 WORLD_MESHES = {1: ((1,), (1, 1)), 2: ((2,), (1, 2)), 4: ((4,), (2, 2))}
 ELASTIC = "dense"           # the family saved at (2, 2) and resumed
 SAVE_AT = 2
@@ -47,9 +54,19 @@ def config(family):
     return cfg
 
 
-def tokens(cfg, shape=BATCH):
-    return np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=shape).astype(np.int32)
+def batch(cfg, shape=BATCH):
+    """A batch of ``shape`` tokens from ``default_rng(0)``, then from the
+    same generator the VLM's patches (B, num_patches, d) or the
+    encoder-decoder's frames (B, frontend_len, d)."""
+    rng = np.random.default_rng(0)
+    out = {"tokens": rng.integers(0, cfg.vocab_size,
+                                  size=shape).astype(np.int32)}
+    lead = {"vlm": ("patches", cfg.num_patches),
+            "encdec": ("frames", cfg.frontend_len)}.get(cfg.family)
+    if lead is not None:
+        out[lead[0]] = rng.normal(size=(shape[0], lead[1], cfg.d_model)
+                                  ).astype(np.float32)
+    return out
 
 
 def loss_mask():
@@ -103,14 +120,14 @@ def train(family, params, mesh=None, steps=STEPS, microbatches=1,
             start, {"params": p, "opt": o},
             shardings=None if mesh is None else shard)
         p, o = state["params"], state["opt"]
-    batch = {"tokens": tokens(cfg, ODD_BATCH if odd else BATCH)}
+    b = batch(cfg, ODD_BATCH if odd else BATCH)
     if mask:
-        batch["loss_mask"] = loss_mask()
+        b["loss_mask"] = loss_mask()
     if inputs:
-        batch["inputs_embeds"] = embeds(cfg, batch["tokens"].shape)
+        b["inputs_embeds"] = embeds(cfg, b["tokens"].shape)
     out = []
     for s in range(steps):
-        p, o, m = h.step_fn(p, o, batch)
+        p, o, m = h.step_fn(p, o, b)
         out.append((float(m["loss"]), float(m["grad_norm"])))
         if ckpt is not None and start is None and s + 1 == SAVE_AT:
             CheckpointManager(ckpt).save(
@@ -165,12 +182,16 @@ def psum_rank(shapes):
 
 def probe(family, params, shape, seq_parallel=False):
     """One step of ``family`` on ``make_mesh(shape)`` with the work it
-    does recorded: the heads of each attention's q, the columns of the
+    does recorded: the heads of each attention's q (of each
+    cross-attention's too), of each RWKV time mix, the columns of the
     logits the loss reads, the rows of each block's residual input, the
-    rank's experts, and every collective as ``(op, axis, shape)`` (the
-    axis its group runs over: ``"model"`` or ``"data"``).  Returns that
-    record and the harness's plan."""
-    from repro_torch.models import layers, moe, transformer
+    (in, out) of each Mamba product, the rank's experts, the leaves split
+    over ``model`` that the step gathers whole, and every collective as
+    ``(op, axis, shape)`` (the axis its group runs over: ``"model"`` or
+    ``"data"``).  Returns that record and the harness's plan."""
+    import types
+    from repro_torch.models import encdec, layers, moe, rwkv, ssm, \
+        transformer
     torch.set_num_threads(1)
     dist = torch.distributed
     cfg = config(family)
@@ -179,12 +200,20 @@ def probe(family, params, shape, seq_parallel=False):
     p = shard_tree(params[family], h.param_sharding)
     o = h.init_opt(p)
     rec = {"heads": set(), "vocab": set(), "rows": set(), "experts": set(),
-           "collectives": [], "plan": h.plan}
+           "time_heads": set(), "cross_heads": set(),
+           "mamba_products": set(), "collectives": [], "plan": h.plan,
+           "gathered": {n for n, sh in _named(h.param_sharding)
+                        if "model" in tuple(sh.spec) and n not in h.plan}}
     axis = {id(mesh.group): "model", id(mesh.data_group): "data"}
     ops = ("broadcast", "all_reduce", "all_gather", "reduce_scatter")
+    blocks = ((transformer, "block"), (rwkv, "block"),
+              (ssm, "mamba_block"), (encdec, "encoder_block"),
+              (encdec, "decoder_block"))
     real = {"attn": layers.flash_attention, "nll": layers.token_nll,
-            "block": transformer.block, "held": moe._experts_held,
-            **{op: getattr(dist, op) for op in ops}}
+            "held": moe._experts_held, "scan": rwkv.chunked_linear_attention,
+            "xattn": encdec._attn, "ssm_L": ssm.L,
+            **{op: getattr(dist, op) for op in ops},
+            **{(m, n): getattr(m, n) for m, n in blocks}}
 
     def attn(q, *a, **k):
         rec["heads"].add(q.shape[2])
@@ -194,13 +223,28 @@ def probe(family, params, shape, seq_parallel=False):
         rec["vocab"].add(logits.shape[-1])
         return real["nll"](logits, *a, **k)
 
-    def block(bp, x, *a, **k):
-        rec["rows"].add(x.shape[1])
-        return real["block"](bp, x, *a, **k)
+    def rows(fn):
+        def call(bp, x, *a, **k):
+            rec["rows"].add(x.shape[1])
+            return fn(bp, x, *a, **k)
+        return call
 
     def held(mp):
         rec["experts"].add(real["held"](mp))
         return real["held"](mp)
+
+    def scan(q, *a, **k):
+        rec["time_heads"].add(q.shape[2])
+        return real["scan"](q, *a, **k)
+
+    def xattn(ap, x, kv_src, c, *a, **k):
+        if kv_src is not x:
+            rec["cross_heads"].add(ap["wq"].shape[-1] // c.resolved_head_dim)
+        return real["xattn"](ap, x, kv_src, c, *a, **k)
+
+    def mamba_matmul(x, w, *a, **k):
+        rec["mamba_products"].add((x.shape[-1], w.shape[-1]))
+        return layers.matmul(x, w, *a, **k)
 
     def counted(op):
         def call(t, *a, group=None, **k):
@@ -210,17 +254,33 @@ def probe(family, params, shape, seq_parallel=False):
             return real[op](t, *a, group=group, **k)
         return call
     layers.flash_attention, layers.token_nll = attn, nll
-    transformer.block, moe._experts_held = block, held
+    moe._experts_held, rwkv.chunked_linear_attention = held, scan
+    encdec._attn = xattn
+    ssm.L = types.SimpleNamespace(**{**vars(layers),
+                                     "matmul": mamba_matmul})
+    for m, n in blocks:
+        setattr(m, n, rows(real[(m, n)]))
     for op in ops:
         setattr(dist, op, counted(op))
     try:
-        h.step_fn(p, o, {"tokens": tokens(cfg)})
+        h.step_fn(p, o, batch(cfg))
     finally:
         layers.flash_attention, layers.token_nll = real["attn"], real["nll"]
-        transformer.block, moe._experts_held = real["block"], real["held"]
+        moe._experts_held = real["held"]
+        rwkv.chunked_linear_attention = real["scan"]
+        encdec._attn, ssm.L = real["xattn"], real["ssm_L"]
+        for m, n in blocks:
+            setattr(m, n, real[(m, n)])
         for op in ops:
             setattr(dist, op, real[op])
     return rec
+
+
+def _named(tree, name=None):
+    """(leaf name, leaf) of every leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _named(v, k)]
+    return [(name, tree)]
 
 
 def rank_main(params, ckpt, cases, psum_shapes, probes=()):

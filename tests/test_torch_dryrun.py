@@ -16,8 +16,11 @@ and its input specs.
   cell's ``overhead + L * per_layer`` equals its whole program.
 * A dense train cell on ``2,4`` with ``--seq-parallel`` counts the
   residual rows' all-gathers and reduce-scatters and holds fewer temp
-  bytes than without; a train step broadcasts no leaf of a group it
-  splits over ``model``.
+  bytes than without, as a train cell of every other family takes the
+  flag too; a train step broadcasts no leaf of a group it splits over
+  ``model``.
+* ``--layers`` / ``--tokens`` cut a cell to a smaller run's size, whose
+  ``collective_ops`` count that run's exchange a step.
 
 Everything is held exactly: shapes, dtypes, byte and FLOP counts are
 integers (the collective bytes, priced by ring factors, to 1e-12).
@@ -206,16 +209,14 @@ def test_counted_step_allocates_no_global_cache(runs):
 
 
 # flag -> (an arch whose train cell refuses it, the ROADMAP item named)
-REFUSED = {"--seq-parallel": ("rwkv6-3b", "item 11"),
-           "--attn-seq-parallel": ("smollm-135m", "item 12")}
+REFUSED = {"--attn-seq-parallel": ("smollm-135m", "item 12")}
 
 
 @pytest.mark.parametrize("flag", tuple(REFUSED))
 def test_sequence_parallel_flags_are_refused(flag):
     """The CLI refuses what the port's train step does not split instead
-    of counting another program: ``--attn-seq-parallel`` everywhere, and
-    ``--seq-parallel`` outside the dense and MoE families, each naming its
-    ROADMAP item."""
+    of counting another program: ``--attn-seq-parallel`` everywhere,
+    naming its ROADMAP item."""
     arch, item = REFUSED[flag]
     with pytest.raises(ValueError, match=item):
         dryrun.main(["--arch", arch, "--shape", "train_4k", "--mesh", "2,4",
@@ -366,6 +367,54 @@ def test_train_step_broadcasts_no_split_leaf(fake_group, seq_parallel):
     assert ({"allgather_", "reduce_scatter_"} <= over_model) == seq_parallel
     assert ("broadcast_", 4) in _train_collectives("tinyllama-1.1b",
                                                    seq_parallel)
+
+
+@pytest.mark.parametrize("arch", ("rwkv6-3b", "paligemma-3b",
+                                  "zamba2-1.2b", "whisper-small"))
+def test_seq_parallel_train_cells_of_every_family(fake_group, monkeypatch,
+                                                  arch):
+    """A train cell of each family beyond the dense and MoE ones takes
+    ``--seq-parallel`` on ``2,4`` (its reduced config at 8 x 64 tokens,
+    so the cell is quick) and counts the residual rows' all-gathers and
+    reduce-scatters beside its all-reduces."""
+    monkeypatch.setattr(dryrun, "get_config", get_reduced_config)
+    monkeypatch.setitem(dryrun.SHAPES_BY_NAME, "train_64",
+                        ShapeConfig("train_64", 64, 8, "train"))
+    res = dryrun.run_cell(arch, "train_64", "2,4", verbose=False,
+                          block_correction=False, seq_parallel=True)
+    assert res["status"] == "ok" and res["opts"]["seq_parallel"]
+    kinds = res["collectives"]["per_kind"]
+    assert kinds["all-gather"] > 0 and kinds["reduce-scatter"] > 0
+    assert kinds["all-reduce"] > 0
+
+
+def test_cut_cell_counts_out_proj_gathers(fake_group):
+    """``--layers`` / ``--tokens`` cut a cell to a smaller run's size:
+    Zamba2 at full width, 2 layers, 4 x 128 tokens on ``1,2``.  Each Mamba
+    layer's ``out_proj`` cotangent comes back by one all-gather of the
+    whole (B, S, di) bf16 tensor, and ``collective_ops`` counts them per
+    op."""
+    cfg = get_config("zamba2-1.2b")
+    di = cfg.ssm.expand * cfg.d_model
+    res = dryrun.run_cell("zamba2-1.2b", "train_4k", "1,2", verbose=False,
+                          block_correction=False, layers=2, tokens=(4, 128))
+    assert res["status"] == "ok"
+    assert tuple(res["collective_ops"]["allgather_"]) == (2, 2 * 4 * 128 * di
+                                                          * 2)
+    assert "broadcast_" not in res["collective_ops"]
+
+
+def test_rwkv_train_step_splits_over_model(fake_group):
+    """Reduced RWKV6 on ``2,4`` with ``--seq-parallel``: its step
+    all-gathers and reduce-scatters the rows over ``model`` (groups of
+    4) and broadcasts over it only ``cr``, the one leaf placed on
+    ``model`` that the plan gathers whole, once from each model rank:
+    no leaf of its time mix, channel mix or vocab."""
+    fake_group(8)
+    got = _train_collectives("rwkv6-3b", True)
+    assert {("allgather_", 4), ("reduce_scatter_", 4),
+            ("allreduce_", 4)} <= set(got)
+    assert got.count(("broadcast_", 4)) == 4
 
 
 def test_moe_train_step_splits_rows(fake_group):

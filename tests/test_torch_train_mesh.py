@@ -1,26 +1,33 @@
 """The port's train step on a mesh over torch.distributed, against the JAX
 reference's ``jit_train_step``, on the CPU over gloo ranks.
 
-* The reference runs once, in a subprocess on four forced host devices
+* The reference runs once, in subprocesses on four forced host devices
   (``XLA_FLAGS=--xla_force_host_platform_device_count=4``; nothing of the
   JAX package changes): three steps (lr 1e-3, batch (8, 33) from
-  ``numpy.random.default_rng(0)``) of the reduced f32 qwen3 MoE (capacity
-  factor 0.5: pairs are dropped), tinyllama, llama2-7b and rwkv6 on no
-  mesh and on ``(2,)``, ``(4,)``, ``(1, 2)`` and ``(2, 2)``, the MoE's
-  ``(2, 2)`` at two microbatches, llama2-7b on ``(1, 4)``, on ``(1, 2)``
-  with ``seq_parallel`` and on ``(1, 2)`` at an odd sequence, its
-  placement of packed QTensors, and ``compressed_psum`` over a two-device
-  ``("pod",)`` mesh.  It runs while the ranks train.
+  ``numpy.random.default_rng(0)``, with PaliGemma's patches or whisper's
+  frames drawn after the tokens) of the reduced f32 qwen3 MoE (capacity
+  factor 0.5: pairs are dropped), tinyllama, llama2-7b, rwkv6,
+  paligemma, zamba2 and whisper-small on no mesh and on ``(2,)``,
+  ``(4,)``, ``(1, 2)`` and ``(2, 2)``, the MoE's ``(2, 2)`` at two
+  microbatches, llama2-7b on ``(1, 4)``, on ``(1, 2)`` with
+  ``seq_parallel`` and on ``(1, 2)`` at an odd sequence, the other four
+  on ``(1, 2)`` with ``seq_parallel`` and whisper at an odd sequence too,
+  its placement of packed QTensors, and ``compressed_psum`` over a
+  two-device ``("pod",)`` mesh.  It runs while the ranks train.
 * The port trains the same params in one spawn each of one, two and four
   gloo ranks (``tests/_torch_train_ranks.py``, jax-free), and on no mesh in
-  this process.  On a ``model`` axis the dense and MoE steps split their
-  work (``launch.steps.train_plan``): reduced llama2-7b's heads, FFN and
-  vocab divide by 2 and 4; tinyllama's one KV head keeps its attention
-  whole (the group's fallback); with ``seq_parallel`` the residual rows
-  split too, and the reference's run without it is the one to match (the
-  reference's values do not depend on it).  A probe records, on the
-  ranks, the heads, logit columns, residual rows and collectives of one
-  step.
+  this process.  On a ``model`` axis every family's step splits its work
+  (``launch.steps.train_plan``): reduced llama2-7b's heads, FFN and vocab
+  divide by 2 and 4; tinyllama's and PaliGemma's one KV head keeps their
+  attention whole (the group's fallback); RWKV6 splits its time mix by
+  heads and its channel mix, Zamba2 its shared block and every mamba
+  layer's ``out_proj``, whisper its attention, cross-attention and MLP;
+  with ``seq_parallel`` the residual rows split too (whisper's frames and
+  text both or neither), and the reference's run on the same mesh is
+  the one to match (its values do not depend on ``seq_parallel``).  A
+  probe records, on the ranks, the heads, time-mix heads, Mamba
+  products, logit columns, residual rows, whole-gathered leaves and
+  collectives of one step.
 
 Tolerances, and why:
 * loss and grad_norm within 1e-5 relative of the reference's run on the
@@ -109,9 +116,13 @@ for fam in [f for f in sys.argv[3].split(",") if f in R.ARCHS]:
     if fam == "llama":
         runs += [((1, 4), 1, ""), ((1, 2), 1, "seq"), ((1, 2), 1, "odd"),
                  (None, 1, "inputs")]
+    if fam in R.REF_SEQ:
+        runs.append(((1, 2), 1, "seq"))
+    if fam == R.ODD_FAMILY:
+        runs.append(((1, 2), 1, "odd"))
     for shape, mb, var in runs:
-        batch = {"tokens": jnp.asarray(R.tokens(
-            cfg, R.ODD_BATCH if var == "odd" else R.BATCH))}
+        batch = {k: jnp.asarray(v) for k, v in R.batch(
+            cfg, R.ODD_BATCH if var == "odd" else R.BATCH).items()}
         if var == "mask":
             batch["loss_mask"] = jnp.asarray(R.loss_mask())
         if var == "inputs":
@@ -182,7 +193,8 @@ def tparams(jparams):
 
 
 # the reference's runs, split over processes that run side by side
-REF_PARTS = ("moe", "dense", "llama", "rwkv", "psum,qspecs")
+REF_PARTS = ("moe", "dense,vlm", "llama", "rwkv,hybrid",
+             "psum,qspecs,encdec")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -250,7 +262,11 @@ def _cases(world):
                   ("llama|(1, 2)|inputs", "llama", (1, 2),
                    {"inputs": True}),
                   ("llama|(1, 2)|inputs|seq", "llama", (1, 2),
-                   {"inputs": True, "seq_parallel": True})]
+                   {"inputs": True, "seq_parallel": True}),
+                  (f"{R.ODD_FAMILY}|(1, 2)|odd", R.ODD_FAMILY, (1, 2),
+                   {"odd": True}),
+                  (f"{R.ODD_FAMILY}|(1, 2)|odd|seq", R.ODD_FAMILY, (1, 2),
+                   {"odd": True, "seq_parallel": True})]
     if world == 4:
         cases += [("llama|(1, 4)", "llama", (1, 4), {})]
     cases += [(f"{fam}|{shape}|seq", fam, shape, {"seq_parallel": True})
@@ -261,7 +277,8 @@ def _cases(world):
 
 # (family, mesh) of the seq_parallel runs
 SEQ_CASES = (("llama", (1, 2)), ("llama", (2, 2)), ("llama", (1, 4)),
-             ("moe", (1, 2)), ("moe", (2, 2)), ("dense", (1, 2)))
+             ("moe", (1, 2)), ("moe", (2, 2)), ("dense", (1, 2))) + tuple(
+                 (fam, (1, 2)) for fam in R.REF_SEQ)
 PSUM_SHAPES = {1: [], 2: [((2,), ("pod",), "pod")],
                4: [((1, 2, 2), None, "pod"), ((1, 2, 2), None, "data")]}
 # (tag, family, mesh, seq_parallel) of the probed steps
@@ -269,7 +286,9 @@ PROBES = {1: [],
           2: [("probe|llama", "llama", (1, 2), False),
               ("probe|llama|seq", "llama", (1, 2), True),
               ("probe|moe|seq", "moe", (1, 2), True),
-              ("probe|dense", "dense", (1, 2), False)],
+              ("probe|dense", "dense", (1, 2), False)] + [
+                  (f"probe|{fam}|seq", fam, (1, 2), True)
+                  for fam in R.REF_SEQ],
           4: [("probe|llama|(2, 2)|seq", "llama", (2, 2), True)]}
 
 
@@ -494,18 +513,25 @@ def test_mesh_steps_match_reference(reference, world2, world4, family,
 # -- the split over model ----------------------------------------------------
 
 ATTN = {"wq": "out", "wk": "out", "wv": "out", "wo": "in"}
+FFN = {"w_gate": "out", "w_up": "out", "w_down": "in"}
 VOCAB = {"embed": "vocab", "head": "vocab"}
 # the leaves a step keeps split over a model axis of 2 or 4 ranks: every
 # group of llama2-7b's; the MoE's attention (its 2 KV heads divide by 2
-# only) and experts; tinyllama's FFN alone (its one KV head does not
-# divide); nothing of rwkv's (its split is ROADMAP queue 1, item 11)
+# only) and experts; tinyllama's and PaliGemma's FFN alone (their one KV
+# head does not divide); RWKV's time mix by heads and its channel mix
+# (cr is gathered whole); Zamba2's shared block and every mamba layer's
+# out_proj; whisper's attention, cross-attention and MLP.  Every reduced
+# vocab of 256 divides
 PLANS = {
-    ("llama", 2): {**ATTN, "w_gate": "out", "w_up": "out", "w_down": "in",
-                   **VOCAB},
+    ("llama", 2): {**ATTN, **FFN, **VOCAB},
     ("moe", 2): {**ATTN, "w_gate": "expert", "w_up": "expert",
                  "w_down": "expert", **VOCAB},
-    ("dense", 2): {"w_gate": "out", "w_up": "out", "w_down": "in", **VOCAB},
-    ("rwkv", 2): {},
+    ("dense", 2): {**FFN, **VOCAB},
+    ("rwkv", 2): {"wr": "out", "wk": "out", "wv": "out", "wg": "out",
+                  "wo": "in", "ck": "out", "cv": "in", **VOCAB},
+    ("vlm", 2): {**FFN, **VOCAB},
+    ("hybrid", 2): {**ATTN, **FFN, "out_proj": "in", **VOCAB},
+    ("encdec", 2): {**ATTN, "w_up": "out", "w_down": "in", **VOCAB},
 }
 PLANS[("llama", 4)] = PLANS[("llama", 2)]
 PLANS[("dense", 4)] = PLANS[("dense", 2)]
@@ -548,12 +574,17 @@ def test_seq_parallel_steps_match_reference(reference, world2, world4,
                                             family, shape):
     """``seq_parallel``: the residual rows split over ``model`` between the
     regions, the norms' gradients summed over it; the metrics and params
-    of the reference's run on the same mesh (whose values do not depend on
-    ``seq_parallel``, :func:`test_reference_ignores_seq_parallel`)."""
+    of the reference's run on the same mesh with ``seq_parallel`` where
+    it made one (RWKV6, PaliGemma, Zamba2, whisper), else without it
+    (whose values do not depend on it,
+    :func:`test_reference_ignores_seq_parallel`)."""
     ranks = world2 if int(np.prod(shape)) == 2 else world4
     tag = f"{family}|{shape}|seq"
     got = _rank0(ranks, tag)
-    want = _ref_run(reference.get(), _key(family, shape), len(got[1]))
+    ref = reference.get()
+    key = _key(family, shape, 1, "seq")
+    want = _ref_run(ref, key if key + "|metrics" in ref
+                    else _key(family, shape), len(got[1]))
     _assert_close(got, want, family, f"{family} {shape} seq_parallel")
     for r in ranks[1:]:
         assert r[tag][0] == got[0]
@@ -592,6 +623,23 @@ def test_odd_sequence_falls_back(reference, world2):
                     len(plain[1]))
     _assert_close(plain, want, "llama", "llama (1, 2) odd S")
     _assert_plan(world2, "llama|(1, 2)|odd|seq", "llama", (1, 2))
+
+
+def test_odd_text_falls_back_with_its_frames(reference, world2):
+    """whisper's 32 frames split over two model ranks but its 33 tokens
+    do not: ``seq_parallel`` splits neither stream (the encoder-decoder
+    splits both or neither), bit for bit the step without it, which
+    matches the reference's odd-S run."""
+    fam = R.ODD_FAMILY
+    plain = _rank0(world2, f"{fam}|(1, 2)|odd")
+    seq = _rank0(world2, f"{fam}|(1, 2)|odd|seq")
+    assert seq[0] == plain[0]
+    for a, b in zip(seq[1], plain[1]):
+        np.testing.assert_array_equal(a, b)
+    want = _ref_run(reference.get(), _key(fam, (1, 2), 1, "odd"),
+                    len(plain[1]))
+    _assert_close(plain, want, fam, f"{fam} (1, 2) odd S")
+    _assert_plan(world2, f"{fam}|(1, 2)|odd|seq", fam, (1, 2))
 
 
 @pytest.mark.parametrize("seq", [False, True], ids=["plain", "seq"])
@@ -652,6 +700,51 @@ def test_a_rank_splits_the_work(world2):
             assert ({"all_gather", "reduce_scatter"} <= kinds) == seq, tag
             if family == "moe":
                 assert rec["experts"] == {cfg.moe.num_experts // 2}
+
+
+# the leaves of each family a (1, 2) step gathers whole over ``model``: a
+# group that does not split (PaliGemma's attention: one KV head), and
+# RWKV's cr (used whole, see ``models.rwkv.channel_mix``)
+GATHERED = {"rwkv": {"cr"}, "vlm": set(ATTN), "hybrid": set(),
+            "encdec": set()}
+
+
+@pytest.mark.parametrize("family", R.REF_SEQ)
+def test_a_rank_splits_the_work_of_every_family(world2, family):
+    """On ``(1, 2)`` with ``seq_parallel`` a rank of RWKV6 runs H / 2
+    time-mix heads, Zamba2's ``out_proj`` multiplies ``di / 2`` columns,
+    whisper's attention and cross-attention H / 2 heads (PaliGemma's
+    attention all H: its group is gathered whole); the logits carry
+    V / 2 columns and each block's residual input S / 2 rows (the VLM's
+    patches and text, whisper's frames and text alike).  Over ``model``
+    the rank broadcasts only the leaves gathered by design, once each,
+    never one of the plan's; it all-reduces, all-gathers and
+    reduce-scatters."""
+    cfg = R.config(family)
+    S = R.BATCH[1] - 1
+    rows = {"vlm": {(cfg.num_patches + S) // 2},
+            "encdec": {cfg.frontend_len // 2, S // 2}}.get(family, {S // 2})
+    H = cfg.num_heads
+    heads = {"rwkv": set(), "vlm": {H}}.get(family, {H // 2})
+    for r in world2:
+        rec = r[f"probe|{family}|seq"]
+        assert rec["plan"] == PLANS[(family, 2)]
+        assert rec["gathered"] == GATHERED[family]
+        assert not rec["gathered"] & set(rec["plan"])
+        assert len(_broadcasts(rec, "model")) == 2 * len(rec["gathered"])
+        assert rec["vocab"] == {cfg.vocab_size // 2}
+        assert rec["rows"] == rows, rec["rows"]
+        assert rec["heads"] == heads
+        assert _kinds(rec, "model") >= {"all_reduce", "all_gather",
+                                        "reduce_scatter"}
+        if family == "rwkv":
+            assert rec["time_heads"] == {H // 2}
+        if family == "encdec":
+            assert rec["cross_heads"] == {H // 2}
+        if family == "hybrid":
+            di = cfg.d_model * cfg.ssm.expand
+            assert (di // 2, cfg.d_model) in rec["mamba_products"]
+            assert (di, cfg.d_model) not in rec["mamba_products"]
 
 
 def test_a_refused_group_is_gathered_whole(world2):
