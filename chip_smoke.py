@@ -6587,6 +6587,12 @@ MESH_FAMILIES = (("paligemma-3b", 2), ("rwkv6-3b", 2), ("zamba2-1.2b", 6),
                  ("whisper-small", 2))
 MESH_F_STEPS = 2
 MESH_F32 = "zamba2-1.2b"
+# (c'') TinyLlama on (1, 2) with seq_parallel and the reference's
+# --attn-seq-parallel remap: each rank's attention runs its half of the
+# query rows with all 32 heads against every rank's k / v (one all-gather
+# a layer forward, one reduce-scatter back), MESH_F_STEPS steps against
+# (c)'s control, bounded as (b) is by the control's own twin
+MESH_QUERY_SPLIT = {"seq": ("model",)}
 _ATTN = {"wq": "out", "wk": "out", "wv": "out", "wo": "in"}
 _FFN = {"w_gate": "out", "w_up": "out", "w_down": "in"}
 _VOCAB = {"embed": "vocab", "head": "vocab"}
@@ -6688,8 +6694,14 @@ class MeshMeter:
                 rec = meter.x[kind]
                 rec["n"] += 1
                 rec["ms"] += (time.perf_counter() - t0) * 1e3
-                rec["bytes"] += size(a[0] if kind == "reduce_scatter"
-                                     else tensor)
+                nbytes = size(a[0] if kind == "reduce_scatter" else tensor)
+                rec["bytes"] += nbytes
+                part = tensor[0] if isinstance(tensor, (list, tuple)) \
+                    else tensor
+                by = meter.by_shape.setdefault(
+                    (kind, tuple(part.shape)), {"n": 0, "bytes": 0})
+                by["n"] += 1
+                by["bytes"] += nbytes
                 return out
             return call
         for kind, op in self.KINDS.items():
@@ -6697,6 +6709,8 @@ class MeshMeter:
 
     def reset(self):
         self.x = {k: {"n": 0, "ms": 0.0, "bytes": 0} for k in self.KINDS}
+        # (kind, the shape of a rank's part) -> calls and bytes
+        self.by_shape = {}
 
     def close(self):
         for kind, op in self.KINDS.items():
@@ -6704,9 +6718,11 @@ class MeshMeter:
 
 
 def mesh_train(cfg, params, batches, mesh, steps, sync_debug=False,
-               meter=None, seq_parallel=False, attn_chunk=512):
-    """``steps`` steps of the train harness (lr MESH_LR, ``seq_parallel``)
-    on ``mesh`` (None: the control) from ``params`` (whole); returns
+               meter=None, seq_parallel=False, attn_chunk=512,
+               extra_overrides=None):
+    """``steps`` steps of the train harness (lr MESH_LR, ``seq_parallel``,
+    ``extra_overrides``) on ``mesh`` (None: the control) from ``params``
+    (whole); returns
     (params, opt state, the harness, record): (loss, grad_norm) a step, ms
     a step after the first, the bytes kept between steps, the peak above
     what was allocated before, the leaves the step keeps split over
@@ -6720,7 +6736,8 @@ def mesh_train(cfg, params, batches, mesh, steps, sync_debug=False,
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     h = make_train_harness(cfg, mesh, lr=MESH_LR, seq_parallel=seq_parallel,
-                           attn_chunk=attn_chunk)
+                           attn_chunk=attn_chunk,
+                           extra_overrides=extra_overrides)
     p = params if mesh is None else shard_tree(params, h.param_sharding)
     o = h.init_opt(p)
     kept = _leaf_bytes(p) + _leaf_bytes(o)
@@ -6755,6 +6772,8 @@ def mesh_train(cfg, params, batches, mesh, steps, sync_debug=False,
     if meter is not None:
         rec["exchange"] = {k: {f: v / max(steps - 1, 1) for f, v in r.items()}
                            for k, r in meter.x.items()}
+        rec["by_shape"] = {k: {f: v / max(steps - 1, 1) for f, v in r.items()}
+                           for k, r in meter.by_shape.items()}
     return p, o, h, rec
 
 
@@ -6940,6 +6959,26 @@ def mesh_rank_b(cfg, batches, dcfg, dbatches, ckpt, eval_batch, cfg32,
                                            MESH_STEPS, meter=meter,
                                            seq_parallel=True)
         out["c_seq"]["s"] = time.perf_counter() - t0
+        del p, o
+        _free()
+        # (c'') the same with the attention split by its query rows: a
+        # rank's q rows and heads read where the attention runs
+        from repro_torch.models import layers
+        real, seen = layers.flash_attention, set()
+
+        def attn(q, *a, **k):
+            seen.add(tuple(q.shape[1:3]))
+            return real(q, *a, **k)
+        layers.flash_attention = attn
+        try:
+            t0 = time.perf_counter()
+            p, o, h, out["c_q"] = mesh_train(
+                dcfg, dparams, dbatches, mesh, MESH_F_STEPS, meter=meter,
+                seq_parallel=True, extra_overrides=MESH_QUERY_SPLIT)
+            out["c_q"]["s"] = time.perf_counter() - t0
+        finally:
+            layers.flash_attention = real
+        out["c_q"]["q_rows_heads"] = sorted(seen)
         del p, o, dparams
         _free()
         # (b32) Qwen3 in f32 on (1, 2)
@@ -7018,7 +7057,13 @@ def mesh_train_phase(card):
     (DP with FSDP slices) in the same ranks, the same checks against its
     own control; (c') the same on ``(1, 2)`` with ``seq_parallel`` (heads,
     FFN columns and vocab split, the residual rows too: all-gathers and
-    reduce-scatters, no broadcast).  (d) Qwen3's trained
+    reduce-scatters, no broadcast); (c'') the same with the reference's
+    ``--attn-seq-parallel`` remap (``MESH_QUERY_SPLIT``), ``MESH_F_STEPS``
+    steps: the attention of a rank runs its ``MESH_SEQ / 2`` query rows
+    with all 32 heads, each layer all-gathers its rows' k / v once a
+    forward and reduce-scatters their gradient once, at the bytes the
+    shapes give; its metrics within (b)'s bounds over TinyLlama's own
+    twin, its ms a step and peak beside (c')'s.  (d) Qwen3's trained
     params from (b) gathered, RTN W2A16g128-packed and sliced by
     ``param_shardings``: the packed perplexity of 4 x 128 tokens on ``(1,
     2)`` through the kernels within ``MESH_PPL_REL`` of the no-mesh one,
@@ -7085,6 +7130,11 @@ def mesh_train_phase(card):
     del dp, do
     ctrl_counts = dict(build.LAUNCHES)
     _free()
+    # TinyLlama's control twin, the noise floor of (c'')'s bound
+    _, _, _, dtwin = mesh_train(dcfg, get_model(dcfg).init_params(
+        0, "cuda"), dbatches, None, MESH_F_STEPS,
+        attn_chunk=MESH_NOISE_CHUNK)
+    _free()
     # (f)'s controls, keyed as the ranks' runs: each family's bf16 one,
     # its twins, and MESH_F32's f32 one
     fcfgs[f"{MESH_F32} f32"] = fcfgs[MESH_F32].replace(dtype="float32")
@@ -7119,10 +7169,11 @@ def mesh_train_phase(card):
                   f"{rec['metrics']}; its distance from the control a step "
                   f"{_rel(rec['metrics'], fctrl[a]['metrics'])}; "
                   f"card=[{card}]", flush=True)
-    print(f"[mesh-train] control qwen3's twin (attention over KV chunks of "
-          f"{MESH_NOISE_CHUNK}): {twin['metrics']}; its distance from the "
-          f"control a step {_rel(twin['metrics'], ctrl['metrics'])}; "
-          f"card=[{card}]", flush=True)
+    for name, t, c in ((cfg.name, twin, ctrl), (dcfg.name, dtwin, dctrl)):
+        print(f"[mesh-train] control {name}'s twin (attention over KV chunks "
+              f"of {MESH_NOISE_CHUNK}): {t['metrics']}; its distance from "
+              f"the control a step {_rel(t['metrics'], c['metrics'])}; "
+              f"card=[{card}]", flush=True)
     eval_batch = {"tokens": batches[0]["tokens"]}
 
     with tempfile.TemporaryDirectory(prefix="mesh_train_") as ckpt:
@@ -7234,6 +7285,55 @@ def mesh_train_phase(card):
                      f"{d[tag]['counts']}, expected {want_counts}")
         if d["local_experts"] != cfg.moe.num_experts // 2:
             fail(f"mesh-train (d): {d['local_experts']} experts a rank")
+    # (c''): (b)'s bounds over TinyLlama's twin; each layer's k / v
+    # all-gather (the rank's part (B, S / 2, Hkv, 2 hd): k and v joined)
+    # moves 2 x B x S x Hkv x hd x 2 B a forward, the remat backward runs
+    # each forward again, and the reduce-scatter of their gradient moves
+    # as much once
+    q_bounds = [(MESH_REL, max(MESH_REL,
+                               MESH_NOISE_X * abs(g - w) / abs(w)))
+                for (_, g), (_, w) in zip(dtwin["metrics"],
+                                          dctrl["metrics"])]
+    hkv, hd, L = dcfg.num_kv_heads, dcfg.resolved_head_dim, dcfg.num_layers
+    kv_part = (MESH_BATCH, MESH_SEQ // 2, hkv, 2 * hd)
+    kv_layer = 2 * MESH_BATCH * MESH_SEQ * hkv * hd * 2
+    fwd = 2 if dcfg.remat else 1
+    none = {"n": 0, "bytes": 0}
+    for r in two:
+        rec, cs = r["c_q"], r["c_seq"]
+        ag = rec["by_shape"].get(("all_gather", kv_part), none)
+        rs = rec["by_shape"].get(("reduce_scatter", kv_part), none)
+        print(_mesh_line(f"(c'') gloo rank {r['rank']} on (1, 2) "
+                         f"seq_parallel + attn-seq-parallel", rec, dctrl,
+                         card)
+              + f"; (c') {cs['step_ms']:.1f} ms a step, peak "
+              f"{cs['peak'] / 1e9:.3f} GB; k / v all-gather a step "
+              f"{ag['bytes']:.0f} B in {ag['n']:.0f} calls (shapes: {fwd} "
+              f"forwards x {L} layers x {kv_layer} B), their gradient's "
+              f"reduce-scatter {rs['bytes']:.0f} B in {rs['n']:.0f} calls "
+              f"(shapes: {L} x {kv_layer} B); a rank's (query rows, heads) "
+              f"{rec['q_rows_heads']}; distance a step "
+              f"{_rel(rec['metrics'], dctrl['metrics'])}, bounds "
+              f"{[tuple(float(f'{x:.3g}') for x in b) for b in q_bounds]}; "
+              f"split over model {sorted(rec['plan'])}; {rec['s']:.1f} s",
+              flush=True)
+        if not _within(rec["metrics"], dctrl["metrics"][:MESH_F_STEPS],
+                       q_bounds):
+            fail(f"mesh-train (c'') rank {r['rank']}: {rec['metrics']} vs "
+                 f"the control's {dctrl['metrics']}")
+        if (ag["n"], ag["bytes"], rs["n"], rs["bytes"]) != (
+                fwd * L, fwd * L * kv_layer, L, L * kv_layer):
+            fail(f"mesh-train (c'') rank {r['rank']}: k / v exchange "
+                 f"{ag}, {rs} a step")
+        if rec["q_rows_heads"] != [(MESH_SEQ // 2, dcfg.num_heads)]:
+            fail(f"mesh-train (c'') rank {r['rank']}: the attention ran "
+                 f"(rows, heads) {rec['q_rows_heads']}")
+        if split["c_seq"].items() - rec["plan"].items() \
+                or rec["exchange"]["gather"]["n"] \
+                or rec["kept"] >= dctrl["kept"]:
+            fail(f"mesh-train (c'') rank {r['rank']}: split {rec['plan']}, "
+                 f"{rec['exchange']['gather']['n']} broadcasts a step, keeps "
+                 f"{rec['kept']} B")
     # (f)'s bounds a step (loss, grad_norm): bf16 as (b)'s, over the
     # farthest twin; MESH_F32's f32 run within MESH_F32_REL
     f_bounds = {}

@@ -49,8 +49,15 @@ vocab-parallel loss and the ``fsdp`` gathers over the data axes; a leaf
 placed on ``model`` that the plan leaves whole (a group that does not
 divide, such as PaliGemma's attention with its one KV head, or RWKV's
 ``cr``) is gathered whole by broadcasts.  ``--seq-parallel`` is taken by
-every train cell and refused on serve cells (ROADMAP queue 1, item 10);
-``--attn-seq-parallel`` is refused (item 12).
+every train cell.  ``--attn-seq-parallel`` (the reference's ``{"seq":
+("model",)}``) is taken by every train cell too: the attention of the
+dense, MoE, VLM and hybrid families then splits by its query rows where
+the sequence divides by ``model`` (all-gathers of each layer's k / v and
+of its attention weights, reduce-scatters of their gradients), and RWKV6's
+and the encoder-decoder's steps, which carry no ``"seq"`` label, count as
+without it.  Serve cells refuse both flags (ROADMAP queue 1, item 10):
+the GSPMD serve steps split no activations, so a cell would count the
+program without them.
 
 A serve cell counts the port's GSPMD serve steps, which gather every
 weight split over ``model`` and each row's cache lane on every step: its
@@ -163,7 +170,8 @@ def _mesh(mesh_kind: str):
 
 def _run_step(cfg: ModelConfig, shape: ShapeConfig, mesh, qcfg, *,
               attn_chunk, microbatches=1, grad_compression=False,
-              serve_sharding="tp", kv_bits=None, seq_parallel=False):
+              serve_sharding="tp", kv_bits=None, seq_parallel=False,
+              attn_seq_parallel=False):
     """Run one step of ``cfg`` as rank 0 of ``mesh`` on fake tensors under
     an ``OpCounter``; returns (counter, memory dict)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -177,7 +185,10 @@ def _run_step(cfg: ModelConfig, shape: ShapeConfig, mesh, qcfg, *,
             h = make_train_harness(cfg, mesh, attn_chunk=attn_chunk,
                                    microbatches=microbatches,
                                    grad_compression=grad_compression,
-                                   seq_parallel=seq_parallel)
+                                   seq_parallel=seq_parallel,
+                                   extra_overrides=(
+                                       {"seq": ("model",)}
+                                       if attn_seq_parallel else None))
             local = shard_tree(params, h.param_sharding)
             del params
             opt = h.init_opt(local)
@@ -239,10 +250,13 @@ _COUNTED_SERVE = (
 _COUNTED_TRAIN = (
     "the port's mesh train step: the leaves train_plan splits stay split "
     "over model, its collectives the region entries' and exits' (with "
-    "seq_parallel all-gathers and reduce-scatters of the residual rows), "
-    "the replicated leaves' gradient sums, the vocab-parallel loss's and "
-    "the fsdp gathers'; the leaves on model the plan leaves whole "
-    "gathered by broadcasts")
+    "seq_parallel all-gathers and reduce-scatters of the residual rows; "
+    "with attn_seq_parallel each layer's all-gather of its rows' k / v and "
+    "reduce-scatter of their gradient, and the all-gather of its "
+    "attention weights and reduce-scatter of theirs), the replicated "
+    "leaves' gradient sums, the vocab-parallel loss's and the fsdp "
+    "gathers'; the leaves on model the plan leaves whole gathered by "
+    "broadcasts")
 
 
 def _depth_cfg(cfg: ModelConfig, depth_mult: int) -> ModelConfig:
@@ -269,16 +283,14 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, quant: str = "",
     if tokens is not None:
         shape = dataclasses.replace(shape, global_batch=tokens[0],
                                     seq_len=tokens[1])
-    if attn_seq_parallel:
-        raise ValueError(
-            "dryrun: --attn-seq-parallel (seq -> model for q / k / v: a "
-            "query split with gathered keys) is not ported (ROADMAP queue "
-            "1, item 12); a cell would count the program without it")
-    if seq_parallel and shape.kind != "train":
-        raise ValueError(
-            "dryrun: --seq-parallel splits the residual rows of the mesh "
-            "train step; the GSPMD serve steps gather whole weights and "
-            "split no rows (ROADMAP queue 1, item 10)")
+    for flag, on in (("--seq-parallel", seq_parallel),
+                     ("--attn-seq-parallel", attn_seq_parallel)):
+        if on and shape.kind != "train":
+            raise ValueError(
+                f"dryrun: {flag} splits rows of the mesh train step; the "
+                f"GSPMD serve steps gather whole weights and split no "
+                f"activations, so a serve cell would count the program "
+                f"without it (ROADMAP queue 1, item 10)")
     ok, why = cfg.shape_valid(shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
@@ -292,12 +304,13 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, quant: str = "",
     opts = dict(attn_chunk=attn_chunk, microbatches=microbatches,
                 grad_compression=grad_compression,
                 serve_sharding=serve_sharding, kv_bits=kv_bits,
-                seq_parallel=seq_parallel)
+                seq_parallel=seq_parallel,
+                attn_seq_parallel=attn_seq_parallel)
 
     result = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
               "chips": chips, "quant": quant or "fp16",
               "kind": shape.kind, "status": "ok",
-              "opts": dict(opts, attn_seq_parallel=False),
+              "opts": dict(opts),
               "counted": (_COUNTED_TRAIN if shape.kind == "train"
                           else _COUNTED_SERVE)}
 

@@ -117,9 +117,16 @@ def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
     ``seq_parallel`` (the reference's ``res_seq`` -> ``model``) also
     splits the residual stream's rows between the regions over that axis,
     where every stream divides by it.
-    Neither changes the values, as in the reference.  ``extra_overrides``
-    (the reference's other remaps of its activation constraints) must
-    name the mesh's axes (``make_ctx`` checks) and change nothing."""
+    ``extra_overrides`` are the reference's remaps of its activation
+    constraints; they must name the mesh's axes (``make_ctx`` checks).
+    ``{"seq": ("model",)}`` (the reference's ``--attn-seq-parallel``) on
+    such an axis splits the attention of the families whose forward
+    carries the reference's ``"seq"`` label (:data:`QUERY_SPLIT_FAMILIES`)
+    by its query rows instead of its heads (``ModelSplit.qrows``), where
+    every stream divides by the axis; elsewhere (another stream length,
+    RWKV6, the encoder-decoder) the step is the one without it.  Every
+    other remap changes nothing.  None of these changes the values, as in
+    the reference."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     overrides = dict(extra_overrides or {})
@@ -197,13 +204,24 @@ def make_train_harness(cfg: ModelConfig, mesh=None, *, lr=3e-4,
     ospec = _opt_sharding(mesh, pspec, grad_compression)
     plan = train_plan(mesh, cfg, struct, pspec)
     split = model_split(mesh, plan, ctx.ep_axis)
-    fwds = {False: (model, ctx)}
+    qsplit = (tp_size(mesh) > 1 and cfg.family in QUERY_SPLIT_FAMILIES
+              and tuple(overrides.get("seq", ())) == ("model",))
+    # (rows split, queries split) -> (model, ctx) of that forward.  The
+    # query split runs every head, and the attention is the one group of
+    # QUERY_SPLIT_FAMILIES split by heads: its forward is the global one
+    fwds = {(False, False): (model, ctx)}
+    rows_options = (False, True) if seq_parallel else (False,)
     if split is not None:
         lmodel = get_model(localize_serve_cfg(cfg, plan, split.size))
-        fwds[False] = (lmodel, dataclasses.replace(ctx, tp=split))
-        if seq_parallel:
-            fwds[True] = (lmodel, dataclasses.replace(
-                ctx, tp=dataclasses.replace(split, seq=True)))
+        for rows in rows_options:
+            fwds[(rows, False)] = (lmodel, dataclasses.replace(
+                ctx, tp=dataclasses.replace(split, seq=rows)))
+    if qsplit:
+        base = split or ModelSplit(mesh.group_of("model"), tp_size(mesh),
+                                   mesh.index_of("model"))
+        for rows in rows_options:
+            fwds[(rows, True)] = (model, dataclasses.replace(
+                ctx, tp=dataclasses.replace(base, seq=rows, qrows=True)))
 
     def step_fn(params, opt_state, batch):
         return _mesh_step(mesh, cfg, pspec, plan, fwds, grads_of, finish,
@@ -403,6 +421,13 @@ def _streams(cfg: ModelConfig, batch) -> tuple:
     return (S,)
 
 
+# the families whose forward carries the reference's ``"seq"`` label (the
+# constraints on q / k / v in ``transformer.attention``, which the VLM and
+# Zamba2's shared block run too): ``{"seq": ("model",)}`` splits their
+# attention by its query rows.  RWKV6 and the encoder-decoder carry none
+QUERY_SPLIT_FAMILIES = frozenset({"dense", "moe", "vlm", "hybrid"})
+
+
 def _mesh_step(mesh, cfg, pspec, plan, fwds, grads_of, finish, params,
                opt_state, batch):
     """One train step on a mesh, from the rank's slices:
@@ -411,14 +436,16 @@ def _mesh_step(mesh, cfg, pspec, plan, fwds, grads_of, finish, params,
       ``model`` split and gather only their ``fsdp`` dim; every other leaf
       is gathered whole over its split axes (:func:`entry_shardings`);
     * the loss and its gradients on the rank's rows of each microbatch
-      (its block over the data-parallel axes) by ``fwds[rows]``: the
+      (its block over the data-parallel axes) by ``fwds[(rows,
+      queries)]``: the
       forward of the rank's heads, columns, experts and vocab slice under
       the ``model`` split (``Ctx.tp``), with the residual rows split too
       (``rows``) where ``seq_parallel`` asked for it and every residual
       stream divides by the model axis (:func:`_streams`: the
-      encoder-decoder splits its frames and its text both or neither);
-      the norms' gradients of split rows are then summed over the model
-      group;
+      encoder-decoder splits its frames and its text both or neither),
+      and the attention split by its query rows where the harness took
+      ``{"seq": ("model",)}`` and the streams divide alike; the norms'
+      gradients of split rows are then summed over the model group;
     * loss and gradients summed over the data group, each rank's weighted
       by its share of the global batch's loss weights (``1 / D`` without a
       ``loss_mask``), so they are the global batch's mean;
@@ -442,14 +469,14 @@ def _mesh_step(mesh, cfg, pspec, plan, fwds, grads_of, finish, params,
         return rows, (torch.clamp(lw[rows].sum(), min=1.0)
                       / torch.clamp(lw.sum(), min=1.0))
 
-    split = fwds[False][1].tp
-    rows = True in fwds and all(n % split.size == 0
-                                for n in _streams(cfg, batch))
+    divides = all(n % tp_size(mesh) == 0 for n in _streams(cfg, batch))
+    rows = divides and (True, False) in fwds
+    fwd = fwds[(rows, divides and (rows, True) in fwds)]
     whole = unshard_tree(params, entry)
-    loss, grads = grads_of(whole, batch, local, fwds[rows])
+    loss, grads = grads_of(whole, batch, local, fwd)
     del whole
     if rows:
-        grads = _reduce_rows(split, grads)
+        grads = _reduce_rows(fwd[1].tp, grads)
     if D > 1:
         loss, grads = _reduce_over_data(mesh, loss, grads)
     grads = shard_tree(grads, entry)

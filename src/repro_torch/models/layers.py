@@ -119,12 +119,21 @@ class ModelSplit:
     embed, its columns of head).  A region not named runs whole on every
     rank.  ``seq`` splits the residual stream's rows (the sequence dim)
     over the group between the regions: the reference's
-    ``seq_parallel``."""
+    ``seq_parallel``.
+
+    ``qrows`` splits the ``"attn"`` region by its query rows instead of
+    its heads (the reference's ``{"seq": ("model",)}`` remap): the rank
+    computes q, k and v of its block of the rows with every head, against
+    the keys and values of every rank's rows (one all-gather of k and v;
+    its backward reduce-scatters the partial dk / dv of each rank's
+    queries), and its rows of ``o @ wo``.  The region's weights are whole
+    inside it (:func:`attn_weights`)."""
     group: Any
     size: int
     rank: int
     splits: frozenset = frozenset()
     seq: bool = False
+    qrows: bool = False
 
 
 def _gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
@@ -214,6 +223,10 @@ def own_columns(x: torch.Tensor, tp: Optional[ModelSplit],
     return _OwnColumns.apply(x, tp.group, tp.size, tp.rank)
 
 
+def _query_split(tp: Optional[ModelSplit], region: str) -> bool:
+    return tp is not None and tp.qrows and region == "attn"
+
+
 def enter(h: torch.Tensor, tp: Optional[ModelSplit],
           region: str) -> torch.Tensor:
     """``h`` entering ``region`` of a block (its input, after the norm).
@@ -221,9 +234,15 @@ def enter(h: torch.Tensor, tp: Optional[ModelSplit],
     unchanged and its gradient all-reduced over the group, or, under
     ``tp.seq``, the rows all-gathered and the gradient reduce-scattered.
     A whole region under ``tp.seq`` all-gathers the rows and takes back
-    the rank's block of the gradient.  Without ``tp``: ``h``."""
+    the rank's block of the gradient.  The attention under ``tp.qrows``
+    takes the rank's block of the rows: under ``tp.seq`` ``h`` itself,
+    else its block of the whole rows, the gradient gathered back from the
+    ranks' blocks.  Without ``tp``: ``h``."""
     if tp is None:
         return h
+    if _query_split(tp, region):
+        return h if tp.seq else _ScatterRowsFrom.apply(
+            h, tp.group, tp.size, tp.rank, False)
     split = region in tp.splits
     if tp.seq:
         return _GatherRowsTo.apply(h, tp.group, tp.size, tp.rank, split)
@@ -236,9 +255,14 @@ def leave(y: torch.Tensor, tp: Optional[ModelSplit],
     partial sums all-reduced over the group (the gradient passes as it
     is), or, under ``tp.seq``, reduce-scattered to the rank's rows (the
     gradient all-gathered).  A whole region under ``tp.seq`` keeps the
-    rank's rows.  Without ``tp``: ``y``."""
+    rank's rows.  The attention under ``tp.qrows`` made the whole sum of
+    its rows: they stay under ``tp.seq``, else every rank's are gathered
+    (the gradient: the rank's block).  Without ``tp``: ``y``."""
     if tp is None:
         return y
+    if _query_split(tp, region):
+        return y if tp.seq else _GatherRowsTo.apply(
+            y, tp.group, tp.size, tp.rank, False)
     split = region in tp.splits
     if tp.seq:
         return _ScatterRowsFrom.apply(y, tp.group, tp.size, tp.rank, split)
@@ -255,6 +279,80 @@ def share(tp: Optional[ModelSplit], region: str, *ts):
     if tp is not None and region in tp.splits:
         ts = _CopyToGroup.apply(tp.group, *ts)
     return ts[0] if len(ts) == 1 else tuple(ts)
+
+
+class _GatherSlices(torch.autograd.Function):
+    """Forward: each tensor whole from every rank's block of its dim
+    ``dims[i]`` (one all-gather of them flattened together).  Backward:
+    the sum over the group of each whole cotangent, cut to the rank's
+    block (one reduce-scatter): every rank's rows make their own part of
+    the weights' gradient."""
+
+    @staticmethod
+    def forward(ctx, group, size, dims, *ws):
+        ctx.args = group, size, dims, [w.shape for w in ws]
+        flat = torch.cat([w.reshape(-1) for w in ws])
+        parts = [torch.empty_like(flat) for _ in range(size)]
+        dist.all_gather(parts, flat, group=group)
+        out, o = [], 0
+        for w, d in zip(ws, dims):
+            n = w.numel()
+            out.append(torch.cat([p[o:o + n].view(w.shape) for p in parts], d))
+            o += n
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        group, size, dims, shapes = ctx.args
+        send = [torch.cat([dy.chunk(size, d)[r].reshape(-1)
+                           for dy, d in zip(dys, dims)]) for r in range(size)]
+        mine = torch.empty_like(send[0])
+        dist.reduce_scatter(mine, send, group=group)
+        out, o = [], 0
+        for s in shapes:
+            n = math.prod(s)
+            out.append(mine[o:o + n].view(s))
+            o += n
+        return (None, None, None, *out)
+
+
+def attn_weights(tp: Optional[ModelSplit], wq, wk, wv, wo) -> tuple:
+    """The attention's weights as its region reads them.  Under
+    ``tp.qrows`` they are whole: where the region's heads split (the
+    rank holds its columns of wq / wk / wv and rows of wo) gathered over
+    the group, the gradient reduce-scattered back to the rank's heads;
+    where they are whole already, their gradient summed over the group.
+    Elsewhere as they are."""
+    if tp is None or not tp.qrows:
+        return wq, wk, wv, wo
+    if "attn" in tp.splits:
+        return _GatherSlices.apply(tp.group, tp.size, (-1, -1, -1, -2),
+                                   wq, wk, wv, wo)
+    return _CopyToGroup.apply(tp.group, wq, wk, wv, wo)
+
+
+def query_block(tp: Optional[ModelSplit], positions: torch.Tensor,
+                rows: int) -> tuple:
+    """Under ``tp.qrows``, the positions of the rank's block of ``rows``
+    rows (``positions`` those of the whole sequence, last dim) and the
+    absolute position of its first row; elsewhere ``(positions, 0)``."""
+    if tp is None or not tp.qrows:
+        return positions, 0
+    q0 = tp.rank * rows
+    return positions.narrow(-1, q0, rows), q0
+
+
+def gather_keys(k: torch.Tensor, v: torch.Tensor,
+                tp: Optional[ModelSplit]) -> tuple:
+    """Under ``tp.qrows``, the keys and values of every rank's rows from
+    the rank's block of them (one all-gather of the two joined on the
+    head dim); the backward reduce-scatters the partial dk / dv that each
+    rank's queries made.  Elsewhere ``(k, v)``."""
+    if tp is None or not tp.qrows:
+        return k, v
+    kv = _GatherRowsTo.apply(torch.cat([k, v], -1), tp.group, tp.size,
+                             tp.rank, True)
+    return kv.split(k.shape[-1], -1)
 
 
 def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor,

@@ -105,7 +105,13 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     scatter through the page table, and reads either walk the table in the
     paged decode kernel or gather a virtual slot-major cache shaped like
     the dense lane.  With ``ctx.kv_bits`` the cache holds k and v quantized
-    (``Ctx``), and a paged pool is always gathered."""
+    (``Ctx``), and a paged pool is always gathered.
+
+    Under ``ctx.tp.qrows`` (the mesh train step's query split, no cache)
+    ``h`` holds the rank's block of the rows: q, k and v of those rows
+    with every head, RoPE at their absolute positions, the keys and values
+    of every rank's rows gathered (``layers.gather_keys``), the causal
+    mask offset to the block's first row."""
     hd = cfg.resolved_head_dim
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
     if ctx.act_bits:
@@ -113,12 +119,16 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     h = L.enter(h, ctx.tp, "attn")
     Bb, S = h.shape[:2]
     kb = ctx.kernel_backend
-    q = L.matmul(h, bp["wq"], kb).reshape(Bb, S, cfg.num_heads, hd)
-    k = L.matmul(h, bp["wk"], kb).reshape(Bb, S, cfg.num_kv_heads, hd)
-    v = L.matmul(h, bp["wv"], kb).reshape(Bb, S, cfg.num_kv_heads, hd)
+    wq, wk, wv, wo = L.attn_weights(ctx.tp, bp["wq"], bp["wk"], bp["wv"],
+                                    bp["wo"])
+    q = L.matmul(h, wq, kb).reshape(Bb, S, cfg.num_heads, hd)
+    k = L.matmul(h, wk, kb).reshape(Bb, S, cfg.num_kv_heads, hd)
+    v = L.matmul(h, wv, kb).reshape(Bb, S, cfg.num_kv_heads, hd)
+    positions, q0 = L.query_block(ctx.tp, positions, S)
     if cfg.rope_theta:
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
+    k, v = L.gather_keys(k, v, ctx.tp)
 
     new_kv = None
     pages = None
@@ -155,7 +165,7 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
         valid = kv_len if kv_len is not None else cache_pos + S
     else:
         attn_k, attn_v = k, v
-        q_offset = 0
+        q_offset = q0
         valid = None
 
     o = L.flash_attention(q, attn_k, attn_v, q_offset=q_offset, kv_len=valid,
@@ -164,7 +174,7 @@ def attention(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     o = o.reshape(Bb, S, cfg.num_heads * hd)
     if ctx.act_bits:
         o = L.fake_quant_act(o, ctx.act_bits)
-    return L.leave(L.matmul(o, bp["wo"], kb), ctx.tp, "attn"), new_kv
+    return L.leave(L.matmul(o, wo, kb), ctx.tp, "attn"), new_kv
 
 
 def ffn(bp: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:

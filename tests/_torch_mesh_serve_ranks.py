@@ -134,5 +134,6 @@ def rank_main(params, world):
     mesh = make_mesh(WORLD_MESHES[world][0], device="cpu")
     out["train"] = [train_step(cfg, params["dense"], mesh, **kw)
                     for kw in ({}, {"seq_parallel": True},
+                               {"extra_overrides": {"seq": ("data",)}},
                                {"extra_overrides": {"seq": ("model",)}})]
     return out

@@ -40,6 +40,14 @@ ODD_BATCH = (8, 34)         # S = 33 does not split over 2 model ranks
 REF_SEQ = ("rwkv", "vlm", "hybrid", "encdec")
 ODD_FAMILY = "encdec"
 WORLD_MESHES = {1: ((1,), (1, 1)), 2: ((2,), (1, 2)), 4: ((4,), (2, 2))}
+# the reference's ``--attn-seq-parallel`` remap, and (family, mesh, variant)
+# of the runs with it the reference makes too ("q": the remap, "qseq": the
+# remap and seq_parallel)
+QUERY_SPLIT = {"seq": ("model",)}
+QUERY_CASES = tuple(
+    ("llama", shape, var) for shape in ((1, 2), (2, 2), (1, 4))
+    for var in ("q", "qseq")) + tuple(
+        (fam, (1, 2), "q") for fam in ("moe", "vlm", "hybrid"))
 ELASTIC = "dense"           # the family saved at (2, 2) and resumed
 SAVE_AT = 2
 
@@ -99,19 +107,21 @@ def _numpy(tree):
 
 def train(family, params, mesh=None, steps=STEPS, microbatches=1,
           ckpt=None, start=None, compression=False, mask=False,
-          seq_parallel=False, odd=False, inputs=False):
+          seq_parallel=False, odd=False, inputs=False, queries=False):
     """``steps`` steps of the harness on ``mesh`` (None: one device) from
     ``params`` (whole), or from ``start = (step, like)`` restored out of
     ``ckpt`` at the harness's shardings.  With ``ckpt`` and no ``start``
     the run saves at step ``SAVE_AT``.  ``compression``: int8 gradient
     compression with error feedback; ``mask``: the batch carries
     :func:`loss_mask`; ``odd``: the batch is ``ODD_BATCH``; ``inputs``:
-    the batch carries :func:`embeds` as ``inputs_embeds``.  Returns
-    (metrics, whole params)."""
+    the batch carries :func:`embeds` as ``inputs_embeds``; ``queries``:
+    the harness takes :data:`QUERY_SPLIT` (the reference's
+    ``--attn-seq-parallel``).  Returns (metrics, whole params)."""
     cfg = config(family)
     h = make_train_harness(cfg, mesh, lr=LR, microbatches=microbatches,
                            grad_compression=compression,
-                           seq_parallel=seq_parallel)
+                           seq_parallel=seq_parallel,
+                           extra_overrides=QUERY_SPLIT if queries else None)
     shard = {"params": h.param_sharding, "opt": h.opt_sharding}
     p = params if mesh is None else shard_tree(params, h.param_sharding)
     o = h.init_opt(p)
@@ -180,13 +190,15 @@ def psum_rank(shapes):
     return out
 
 
-def probe(family, params, shape, seq_parallel=False):
-    """One step of ``family`` on ``make_mesh(shape)`` with the work it
-    does recorded: the heads of each attention's q (of each
-    cross-attention's too), of each RWKV time mix, the columns of the
-    logits the loss reads, the rows of each block's residual input, the
-    (in, out) of each Mamba product, the rank's experts, the leaves split
-    over ``model`` that the step gathers whole, and every collective as
+def probe(family, params, shape, seq_parallel=False, queries=False):
+    """One step of ``family`` on ``make_mesh(shape)`` (with ``queries``
+    the harness takes :data:`QUERY_SPLIT`) with the work it does
+    recorded: the heads and rows of each attention's q (of each
+    cross-attention's too), the heads of each RWKV time mix, the columns
+    of the logits the loss reads, the rows of each block's residual
+    input, the (in, out) of each Mamba product, the rank's experts, the
+    leaves split over ``model`` that the step gathers whole, and every
+    collective as
     ``(op, axis, shape)`` (the axis its group runs over: ``"model"`` or
     ``"data"``).  Returns that record and the harness's plan."""
     import types
@@ -196,10 +208,12 @@ def probe(family, params, shape, seq_parallel=False):
     dist = torch.distributed
     cfg = config(family)
     mesh = make_mesh(shape, device="cpu")
-    h = make_train_harness(cfg, mesh, lr=LR, seq_parallel=seq_parallel)
+    h = make_train_harness(cfg, mesh, lr=LR, seq_parallel=seq_parallel,
+                           extra_overrides=QUERY_SPLIT if queries else None)
     p = shard_tree(params[family], h.param_sharding)
     o = h.init_opt(p)
-    rec = {"heads": set(), "vocab": set(), "rows": set(), "experts": set(),
+    rec = {"heads": set(), "qrows": set(), "vocab": set(), "rows": set(),
+           "experts": set(),
            "time_heads": set(), "cross_heads": set(),
            "mamba_products": set(), "collectives": [], "plan": h.plan,
            "gathered": {n for n, sh in _named(h.param_sharding)
@@ -217,6 +231,7 @@ def probe(family, params, shape, seq_parallel=False):
 
     def attn(q, *a, **k):
         rec["heads"].add(q.shape[2])
+        rec["qrows"].add(q.shape[1])
         return real["attn"](q, *a, **k)
 
     def nll(logits, *a, **k):
@@ -285,10 +300,10 @@ def _named(tree, name=None):
 
 def rank_main(params, ckpt, cases, psum_shapes, probes=()):
     """The spawned body: the training cases, the psum cases, then each
-    ``(tag, family, shape, seq_parallel)`` of ``probes``."""
+    ``(tag, family, shape, seq_parallel[, queries])`` of ``probes``."""
     out = train_rank(params, ckpt, cases)
     out["psum"] = psum_rank(psum_shapes)
-    for tag, family, shape, seq in probes:
-        out[tag] = probe(family, params, shape, seq)
+    for tag, family, shape, *kw in probes:
+        out[tag] = probe(family, params, shape, *kw)
     out["pid"] = os.getpid()
     return out

@@ -18,7 +18,9 @@ and its input specs.
   residual rows' all-gathers and reduce-scatters and holds fewer temp
   bytes than without, as a train cell of every other family takes the
   flag too; a train step broadcasts no leaf of a group it splits over
-  ``model``.
+  ``model``.  A train cell with ``--attn-seq-parallel`` counts each
+  layer's k / v all-gather at the bytes the shapes give; a serve cell
+  refuses both flags.
 * ``--layers`` / ``--tokens`` cut a cell to a smaller run's size, whose
   ``collective_ops`` count that run's exchange a step.
 
@@ -208,19 +210,55 @@ def test_counted_step_allocates_no_global_cache(runs):
         dryrun._nbytes(ins["cache"])
 
 
-# flag -> (an arch whose train cell refuses it, the ROADMAP item named)
-REFUSED = {"--attn-seq-parallel": ("smollm-135m", "item 12")}
+# flag -> (an arch and shape whose serve cell refuses it, the ROADMAP item
+# named)
+REFUSED = {"--attn-seq-parallel": ("tinyllama-1.1b", "decode_32k",
+                                   "item 10")}
 
 
 @pytest.mark.parametrize("flag", tuple(REFUSED))
 def test_sequence_parallel_flags_are_refused(flag):
-    """The CLI refuses what the port's train step does not split instead
-    of counting another program: ``--attn-seq-parallel`` everywhere,
-    naming its ROADMAP item."""
-    arch, item = REFUSED[flag]
+    """The CLI refuses what the port's serve steps do not split instead
+    of counting another program: ``--attn-seq-parallel`` on a serve cell
+    (the GSPMD serve steps split no activations), naming its ROADMAP
+    item."""
+    arch, shape, item = REFUSED[flag]
     with pytest.raises(ValueError, match=item):
-        dryrun.main(["--arch", arch, "--shape", "train_4k", "--mesh", "2,4",
+        dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "2,4",
                      flag])
+
+
+def test_attn_seq_parallel_train_cell_gathers_keys(fake_group):
+    """A train cell takes ``--attn-seq-parallel``: TinyLlama at full width
+    (32 heads, 4 KV heads), ``--layers 2 --tokens 4,128`` on ``1,2``
+    records it in ``opts``, and each layer all-gathers its rows' k and v
+    over ``model`` once a forward (twice with the config's remat: the
+    backward recomputes the forward), 2 x B x S x Hkv x hd x 2 bytes of
+    bf16, and reduce-scatters their gradient once (the rank's half);
+    its four attention weights are all-gathered alike, and their
+    gradient reduce-scattered."""
+    arch, L, B, S = "tinyllama-1.1b", 2, 4, 128
+    res = dryrun.run_cell(arch, "train_4k", "1,2", verbose=False,
+                          block_correction=False, layers=L, tokens=(B, S),
+                          attn_seq_parallel=True)
+    assert res["status"] == "ok" and res["opts"]["attn_seq_parallel"]
+    cfg = get_config(arch).replace(num_layers=L)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    kv = 2 * B * S * Hkv * hd * 2
+    w = (2 * d * H * hd + 2 * d * Hkv * hd) * 2
+    from repro_torch.launch.mesh import make_mesh
+    counter, _ = dryrun._run_step(
+        cfg, ShapeConfig("t", S, B, "train"), make_mesh((1, 2),
+                                                        device="meta"),
+        None, attn_chunk=512, attn_seq_parallel=True)
+    got = [(c.op, c.nbytes) for c in counter.collectives if c.group == 2]
+    fwd = L * (2 if cfg.remat else 1)
+    assert got.count(("allgather_", kv)) == fwd
+    assert got.count(("reduce_scatter_", kv // 2)) == L
+    assert got.count(("allgather_", w)) == fwd
+    assert got.count(("reduce_scatter_", w // 2)) == L
+    assert "broadcast_" not in res["collective_ops"]
 
 
 def test_seq_parallel_is_refused_on_serve_cells():

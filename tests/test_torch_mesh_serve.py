@@ -227,17 +227,30 @@ def test_gspmd_chunked_prefill_and_paged_refusal(worlds, tparams):
 
 @pytest.mark.parametrize("world", (1, 2, 4))
 def test_train_step_unchanged_by_activation_remaps(worlds, tparams, world):
-    """``extra_overrides={"seq": ("model",)}`` remaps only the reference's
-    activation constraints: the step is bit for bit the one without it, on
-    a mesh and without one.  ``seq_parallel=True`` splits the residual
-    rows over ``model`` on ``(1, 2)`` and ``(2, 2)``; of the arithmetic
-    only the norms' gradients change association (each rank's half of the
-    rows, summed over the two), which at these shapes gives the same bits;
-    without a model axis it changes nothing."""
+    """A remap of the reference's activation constraints that the port's
+    step does not act on (``{"seq": ("data",)}``: the batch dim takes
+    ``data`` first) leaves the step bit for bit the one without it, on a
+    mesh and without one.  ``seq_parallel=True`` splits the residual rows
+    over ``model`` on ``(1, 2)`` and ``(2, 2)``; of the arithmetic only the
+    norms' gradients change association (each rank's half of the rows,
+    summed over the two), which at these shapes gives the same bits;
+    without a model axis it changes nothing.  ``{"seq": ("model",)}`` (the
+    reference's ``--attn-seq-parallel``) splits the attention by query
+    rows on a model axis of two or more ranks: the same function in
+    another association, its loss within 1e-5 relative and its params
+    within 0.1 x lr (Adam's first step moves a near-zero gradient's
+    element by up to lr), as ``tests/test_torch_train_mesh.py`` holds the
+    split steps against the reference; on ``(1, 1)`` bit for bit."""
     for r in worlds[world]:
-        base, *others = r["train"]
+        base, *others, queries = r["train"]
         for o in others:
             assert all(np.array_equal(a, b) for a, b in zip(base, o))
+        if world == 1:
+            assert all(np.array_equal(a, b) for a, b in zip(base, queries))
+            continue
+        np.testing.assert_allclose(queries[-1], base[-1], rtol=1e-5)
+        for a, b in zip(queries[:-1], base[:-1]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=0.1 * R.LR)
     if world == 1:
         cfg = R.config("dense")
         runs = [R.train_step(cfg, tparams["dense"], None, **kw)

@@ -270,22 +270,30 @@ def test_parallel_paths_raise():
     pod of one is the int8 round trip); without a mesh ``seq_parallel``
     (a split of the residual rows over ``model``) and ``extra_overrides``
     (the reference's remaps of its activation constraints) change nothing,
-    so the step is the one without them bit for bit; an override naming an
-    axis the mesh lacks raises."""
+    so the step is the one without them bit for bit, as on a ``(1, 1)``
+    mesh, whose one model rank has no queries to split; an override naming
+    an axis the mesh lacks raises."""
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import shard_tree
     cfg = get_reduced_config("llama2-7b")
     params = get_model(cfg).init_params(0, "cpu")
     batch = {"tokens": np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(2, 9)).astype(np.int32)}
 
-    def step(**kw):
-        h = tsteps.make_train_harness(cfg, lr=1e-2, **kw)
-        return flatten(h.step_fn(params, h.init_opt(params), batch)[:2])
+    def step(mesh=None, **kw):
+        h = tsteps.make_train_harness(cfg, mesh, lr=1e-2, **kw)
+        p = params if mesh is None else shard_tree(params, h.param_sharding)
+        return flatten(h.step_fn(p, h.init_opt(p), batch)[:2])
     base = step()
     for kw in (dict(seq_parallel=True),
                dict(extra_overrides={"seq": ("model",)})):
         assert all(torch.equal(a, b) for a, b in zip(base, step(**kw)))
     mesh = make_mesh((1, 1), device="cpu")
+    base = step(mesh=mesh)
+    for kw in (dict(extra_overrides={"seq": ("model",)}),
+               dict(extra_overrides={"seq": ("model",)}, seq_parallel=True)):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(base, step(mesh=mesh, **kw)))
     with pytest.raises(ValueError, match="not on the mesh"):
         tsteps.make_train_harness(cfg, mesh,
                                   extra_overrides={"seq": ("pod",)})

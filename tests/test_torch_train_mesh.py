@@ -12,6 +12,7 @@ reference's ``jit_train_step``, on the CPU over gloo ranks.
   microbatches, llama2-7b on ``(1, 4)``, on ``(1, 2)`` with
   ``seq_parallel`` and on ``(1, 2)`` at an odd sequence, the other four
   on ``(1, 2)`` with ``seq_parallel`` and whisper at an odd sequence too,
+  the runs of ``R.QUERY_CASES`` with ``{"seq": ("model",)}``,
   its placement of packed QTensors, and ``compressed_psum`` over a
   two-device ``("pod",)`` mesh.  It runs while the ranks train.
 * The port trains the same params in one spawn each of one, two and four
@@ -24,9 +25,15 @@ reference's ``jit_train_step``, on the CPU over gloo ranks.
   layer's ``out_proj``, whisper its attention, cross-attention and MLP;
   with ``seq_parallel`` the residual rows split too (whisper's frames and
   text both or neither), and the reference's run on the same mesh is
-  the one to match (its values do not depend on ``seq_parallel``).  A
-  probe records, on the ranks, the heads, time-mix heads, Mamba
-  products, logit columns, residual rows, whole-gathered leaves and
+  the one to match (its values do not depend on ``seq_parallel``).  With
+  ``extra_overrides={"seq": ("model",)}`` (the reference's
+  ``--attn-seq-parallel``) the attention of llama2-7b on ``(1, 2)``,
+  ``(2, 2)`` and ``(1, 4)`` with and without ``seq_parallel``, and of the
+  MoE, PaliGemma and Zamba2 on ``(1, 2)``, splits by its query rows, held
+  against the reference's runs with the same override; at S = 33 and for
+  RWKV6 and whisper the step is the one without it, bit for bit.  A
+  probe records, on the ranks, the heads and query rows, time-mix heads,
+  Mamba products, logit columns, residual rows, whole-gathered leaves and
   collectives of one step.
 
 Tolerances, and why:
@@ -41,7 +48,14 @@ Tolerances, and why:
   step already differs from the reference's by 2.1e-5 at the second — so
   no reduction order holds 1e-5 to all of them.  For the same reason its
   params are held at 3e-4 absolute: the port's single-device run (not a
-  mesh) differs from the reference's by 2.2e-4 after three steps;
+  mesh) differs from the reference's by 2.2e-4 after three steps.  An
+  element past those bounds passes if it lies within the spread the
+  reference's own runs of the same function show at that element in this
+  fixture (no mesh, every mesh, ``seq_parallel``, the query split): one
+  element of Zamba2's layer-0 ``in_proj`` has a first gradient of f32
+  rounding noise near Adam's eps, and the reference's ``seq_parallel``
+  run lands 2.99e-4 from its no-mesh run there.  At most ``WIDEN_MAX``
+  elements of a run may pass so;
 * a mesh of one rank: bit-equal to the step without a mesh;
 * restoring a checkpoint on the mesh that saved it: bit-equal to the run
   that went on; on another mesh or none, the bounds above;
@@ -83,6 +97,7 @@ FAMILIES = tuple(R.ARCHS)
 MESHES = ((2,), (4,), (1, 2), (2, 2))
 REL, ATOL = 1e-5, 1e-4
 RWKV_GN_REL, RWKV_ATOL = 5e-5, 3e-4
+WIDEN_MAX = 4
 STUB_SHAPES = ((2, 2), (1, 4))
 
 _REF = r"""
@@ -120,6 +135,7 @@ for fam in [f for f in sys.argv[3].split(",") if f in R.ARCHS]:
         runs.append(((1, 2), 1, "seq"))
     if fam == R.ODD_FAMILY:
         runs.append(((1, 2), 1, "odd"))
+    runs += [(shape, 1, var) for f, shape, var in R.QUERY_CASES if f == fam]
     for shape, mb, var in runs:
         batch = {k: jnp.asarray(v) for k, v in R.batch(
             cfg, R.ODD_BATCH if var == "odd" else R.BATCH).items()}
@@ -130,7 +146,10 @@ for fam in [f for f in sys.argv[3].split(",") if f in R.ARCHS]:
         mesh = None if shape is None else make_mesh(shape)
         h = make_train_harness(cfg, mesh, lr=R.LR, microbatches=mb,
                                grad_compression=var == "comp",
-                               seq_parallel=var == "seq")
+                               seq_parallel=var in ("seq", "qseq"),
+                               extra_overrides=(R.QUERY_SPLIT
+                                                if var.startswith("q")
+                                                else None))
         if mesh is None:
             step, p, o = jax.jit(h.step_fn), params, h.init_opt(params)
         else:
@@ -272,23 +291,45 @@ def _cases(world):
     cases += [(f"{fam}|{shape}|seq", fam, shape, {"seq_parallel": True})
               for fam, shape in SEQ_CASES
               if int(np.prod(shape)) == world]
+    cases += [(f"{fam}|{shape}|{var}", fam, shape,
+               {"queries": True, "seq_parallel": var == "qseq"})
+              for fam, shape, var in R.QUERY_CASES
+              if int(np.prod(shape)) == world]
+    if world == 2:
+        cases += [(tag, fam, (1, 2), {"queries": True, **kw})
+                  for tag, (fam, kw, _) in QUERY_FALLBACKS.items()]
     return cases
 
 
+# the query split's fallbacks on (1, 2): tag -> (family, what else the
+# run takes, the tag of its run without the split, which it equals bit
+# for bit): S = 33 does not divide by 2; RWKV6 and whisper carry no
+# ``"seq"`` label
+QUERY_FALLBACKS = {
+    "llama|(1, 2)|odd|q": ("llama", {"odd": True}, "llama|(1, 2)|odd"),
+    "rwkv|(1, 2)|q": ("rwkv", {}, "rwkv|(1, 2)"),
+    "encdec|(1, 2)|q": ("encdec", {}, "encdec|(1, 2)")}
+
+
+# (family, seq_parallel) of the probed query-split steps on (1, 2):
+# llama2-7b's attention split by heads in storage, tinyllama's whole
+QUERY_PROBES = (("llama", False), ("llama", True), ("dense", False))
 # (family, mesh) of the seq_parallel runs
 SEQ_CASES = (("llama", (1, 2)), ("llama", (2, 2)), ("llama", (1, 4)),
              ("moe", (1, 2)), ("moe", (2, 2)), ("dense", (1, 2))) + tuple(
                  (fam, (1, 2)) for fam in R.REF_SEQ)
 PSUM_SHAPES = {1: [], 2: [((2,), ("pod",), "pod")],
                4: [((1, 2, 2), None, "pod"), ((1, 2, 2), None, "data")]}
-# (tag, family, mesh, seq_parallel) of the probed steps
+# (tag, family, mesh, seq_parallel[, the query split]) of the probed steps
 PROBES = {1: [],
           2: [("probe|llama", "llama", (1, 2), False),
               ("probe|llama|seq", "llama", (1, 2), True),
               ("probe|moe|seq", "moe", (1, 2), True),
               ("probe|dense", "dense", (1, 2), False)] + [
                   (f"probe|{fam}|seq", fam, (1, 2), True)
-                  for fam in R.REF_SEQ],
+                  for fam in R.REF_SEQ] + [
+                  (f"probe|{fam}|q{'|seq' * seq}", fam, (1, 2), seq, True)
+                  for fam, seq in QUERY_PROBES],
           4: [("probe|llama|(2, 2)|seq", "llama", (2, 2), True)]}
 
 
@@ -331,7 +372,51 @@ def _ref_run(ref, key, n_leaves):
             [ref[f"{key}|p{i}"] for i in range(n_leaves)])
 
 
-def _assert_close(got, want, family, what):
+# the variants of the reference's runs that compute the function of its
+# no-mesh run (not another batch, mask, compression or microbatching)
+SPREAD_VARS = ("", "seq", "q", "qseq")
+_SPREADS: dict = {}
+
+
+def _spread_keys(ref, family):
+    """The reference's runs of ``family`` in the fixture that compute the
+    function of its no-mesh run: every mesh and the no-mesh run, plain,
+    with ``seq_parallel`` or the query split, but the MoE's ``(2, 2)``
+    (its capacity is per data shard: another function,
+    :func:`test_moe_2x2_is_another_function`)."""
+    out = []
+    for k in ref:
+        if not k.endswith("|metrics"):
+            continue
+        fam, shape, mbvar = k[:-len("|metrics")].split("|")
+        if (fam == family and mbvar[:1] == "1" and mbvar[1:] in SPREAD_VARS
+                and not (fam == "moe" and shape == "(2, 2)")):
+            out.append(k[:-len("|metrics")])
+    return sorted(out)
+
+
+def _spread(ref, family, n_leaves):
+    """Per param leaf of ``family``, the spread (max - min) the reference
+    itself shows at each element across :func:`_spread_keys`' runs,
+    measured in this run of the fixture."""
+    key = (id(ref), family)
+    if key not in _SPREADS:
+        runs = _spread_keys(ref, family)
+        assert len(runs) >= 3, runs
+        _SPREADS[key] = [np.ptp(np.stack([ref[f"{k}|p{i}"] for k in runs]),
+                                axis=0) for i in range(n_leaves)]
+    return _SPREADS[key]
+
+
+def _assert_close(got, want, family, what, ref=None):
+    """Losses within ``REL`` relative, grad norms too (RWKV6's from its
+    second step within ``RWKV_GN_REL``), every param element within
+    ``ATOL`` (RWKV6's ``RWKV_ATOL``), or, where ``want`` is the
+    reference's run (``ref`` its fixture), within the larger of that and
+    the reference's own spread at that element (:func:`_spread`): an
+    element whose gradient is f32 rounding noise near Adam's eps moves by
+    up to lr in the reference's own runs too.  At most ``WIDEN_MAX``
+    elements of a run may pass by the spread alone."""
     (gm, gp), (wm, wp) = got, want
     gm, wm = np.asarray(gm), np.asarray(wm)
     np.testing.assert_allclose(gm[:, 0], wm[:, 0], rtol=REL, err_msg=what)
@@ -343,8 +428,25 @@ def _assert_close(got, want, family, what):
                                    err_msg=f"{what} grad_norm step {s + 1}")
     assert len(gp) == len(wp)
     atol = RWKV_ATOL if family == "rwkv" else ATOL
-    for a, b in zip(gp, wp):
-        np.testing.assert_allclose(a, b, rtol=0, atol=atol, err_msg=what)
+    spread = (_spread(ref, family, len(wp)) if ref is not None
+              else [0.0] * len(wp))
+    widened = 0
+    for i, (a, b, sp) in enumerate(zip(gp, wp, spread)):
+        diff = np.abs(np.asarray(a, np.float64) - b)
+        tol = np.maximum(atol, sp)
+        widened += int(((diff > atol) & (diff <= tol)).sum())
+        bad = diff > tol
+        if bad.any():
+            tol = np.broadcast_to(tol, diff.shape)
+            j = np.unravel_index(np.argmax(diff - tol), diff.shape)
+            raise AssertionError(
+                f"{what}: leaf {i}: {int(bad.sum())} of {diff.size} elements "
+                f"past max(atol {atol}, the reference's spread), the worst "
+                f"{j}: {diff[j]:.3g} against {tol[j]:.3g}; {widened} "
+                f"elements so far held by the spread alone")
+    assert widened <= WIDEN_MAX, (
+        f"{what}: {widened} elements held by the reference's spread alone "
+        f"(past atol {atol}), more than {WIDEN_MAX}")
 
 
 def _rank0(ranks, tag):
@@ -494,7 +596,8 @@ def test_moe_capacity_drops_pairs(tparams):
 def test_no_mesh_steps_match_reference(reference, no_mesh, family):
     want = _ref_run(reference.get(), _key(family, None),
                     len(no_mesh[family][1]))
-    _assert_close(no_mesh[family], want, family, f"{family} no mesh")
+    _assert_close(no_mesh[family], want, family, f"{family} no mesh",
+                  reference.get())
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=["dp2", "dp4", "tp2", "2x2"])
@@ -504,7 +607,8 @@ def test_mesh_steps_match_reference(reference, world2, world4, family,
     ranks = world2 if int(np.prod(shape)) == 2 else world4
     got = _rank0(ranks, f"{family}|{shape}")
     want = _ref_run(reference.get(), _key(family, shape), len(got[1]))
-    _assert_close(got, want, family, f"{family} {shape}")
+    _assert_close(got, want, family, f"{family} {shape}",
+                  reference.get())
     for r in ranks[1:]:       # every rank reads the same metrics
         assert r[f"{family}|{shape}"][0] == got[0]
     _assert_plan(ranks, f"{family}|{shape}", family, shape)
@@ -585,7 +689,7 @@ def test_seq_parallel_steps_match_reference(reference, world2, world4,
     key = _key(family, shape, 1, "seq")
     want = _ref_run(ref, key if key + "|metrics" in ref
                     else _key(family, shape), len(got[1]))
-    _assert_close(got, want, family, f"{family} {shape} seq_parallel")
+    _assert_close(got, want, family, f"{family} {shape} seq_parallel", ref)
     for r in ranks[1:]:
         assert r[tag][0] == got[0]
     _assert_plan(ranks, tag, family, shape)
@@ -596,8 +700,82 @@ def test_llama_1x4_matches_reference(reference, world4):
     vocab of reduced llama2-7b."""
     got = _rank0(world4, "llama|(1, 4)")
     want = _ref_run(reference.get(), _key("llama", (1, 4)), len(got[1]))
-    _assert_close(got, want, "llama", "llama (1, 4)")
+    _assert_close(got, want, "llama", "llama (1, 4)",
+                  reference.get())
     _assert_plan(world4, "llama|(1, 4)", "llama", (1, 4))
+
+
+@pytest.mark.parametrize("family,shape,var", R.QUERY_CASES,
+                         ids=[f"{f}-{'x'.join(map(str, s))}-{v}"
+                              for f, s, v in R.QUERY_CASES])
+def test_query_split_steps_match_reference(reference, world2, world4,
+                                           family, shape, var):
+    """``extra_overrides={"seq": ("model",)}`` (the reference's
+    ``--attn-seq-parallel``; ``qseq``: with ``seq_parallel`` too): the
+    attention split by its query rows, k / v gathered over ``model``; the
+    metrics and params of the reference's run with the same override on
+    the same mesh.  The plan (what stays split in storage) is unchanged."""
+    ranks = world2 if int(np.prod(shape)) == 2 else world4
+    tag = f"{family}|{shape}|{var}"
+    got = _rank0(ranks, tag)
+    want = _ref_run(reference.get(), _key(family, shape, 1, var), len(got[1]))
+    _assert_close(got, want, family, f"{family} {shape} {var}",
+                  reference.get())
+    for r in ranks[1:]:
+        assert r[tag][0] == got[0]
+    _assert_plan(ranks, tag, family, shape)
+
+
+@pytest.mark.parametrize("tag", tuple(QUERY_FALLBACKS),
+                         ids=["odd-S", "rwkv", "encdec"])
+def test_query_split_falls_back(world2, tag):
+    """Where the query split does not apply the step is the one without
+    the override, bit for bit: S = 33 does not divide by two model ranks
+    (the reference's divisibility fallback leaves its heads split), and
+    RWKV6's and whisper's forwards carry no ``"seq"`` label."""
+    got, plain = _rank0(world2, tag), _rank0(world2, QUERY_FALLBACKS[tag][2])
+    assert got[0] == plain[0]
+    for a, b in zip(got[1], plain[1]):
+        np.testing.assert_array_equal(a, b)
+    for r in world2[1:]:
+        assert r[tag][0] == got[0]
+
+
+def _count(rec, op, shape):
+    return sum(1 for c in rec["collectives"]
+               if c[:2] == (op, "model") and c[2] == shape)
+
+
+def test_a_rank_splits_its_queries(world2):
+    """On ``(1, 2)`` with the query split a rank's attention computes S / 2
+    query rows with all H heads (S / 2 residual rows with
+    ``seq_parallel``, S without).  A layer all-gathers its rows' k and v
+    (joined: (B, S / 2, Hkv, 2 hd)) once over ``model`` and
+    reduce-scatters their gradient once; where the attention's heads
+    split in storage (llama2-7b) it all-gathers its four weights (one
+    flat tensor) and reduce-scatters their gradient once each, and
+    broadcasts nothing over ``model``; tinyllama's whole attention
+    weights are broadcast at entry as without the split and gather
+    nothing more."""
+    B, S = R.BATCH[0], R.BATCH[1] - 1
+    for family, seq in QUERY_PROBES:
+        tag = f"probe|{family}|q{'|seq' * seq}"
+        cfg = R.config(family)
+        L, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
+        H, Hkv = cfg.num_heads, cfg.num_kv_heads
+        kv = (B, S // 2, Hkv, 2 * hd)
+        w = ((2 * d * H * hd + 2 * d * Hkv * hd) // 2,)
+        split = "wq" in PLANS[(family, 2)]
+        for r in world2:
+            rec = r[tag]
+            assert rec["plan"] == PLANS[(family, 2)], tag
+            assert rec["heads"] == {H} and rec["qrows"] == {S // 2}, tag
+            assert rec["rows"] == {S // 2 if seq else S}, tag
+            assert _count(rec, "all_gather", kv) == L, tag
+            assert _count(rec, "reduce_scatter", kv) == L, tag
+            assert _count(rec, "all_gather", w) == L * split, tag
+            assert _count(rec, "reduce_scatter", w) == L * split, tag
+            assert len(_broadcasts(rec, "model")) == (0 if split else 8)
 
 
 def test_reference_ignores_seq_parallel(reference):
@@ -621,7 +799,8 @@ def test_odd_sequence_falls_back(reference, world2):
         np.testing.assert_array_equal(a, b)
     want = _ref_run(reference.get(), _key("llama", (1, 2), 1, "odd"),
                     len(plain[1]))
-    _assert_close(plain, want, "llama", "llama (1, 2) odd S")
+    _assert_close(plain, want, "llama", "llama (1, 2) odd S",
+                  reference.get())
     _assert_plan(world2, "llama|(1, 2)|odd|seq", "llama", (1, 2))
 
 
@@ -638,7 +817,8 @@ def test_odd_text_falls_back_with_its_frames(reference, world2):
         np.testing.assert_array_equal(a, b)
     want = _ref_run(reference.get(), _key(fam, (1, 2), 1, "odd"),
                     len(plain[1]))
-    _assert_close(plain, want, fam, f"{fam} (1, 2) odd S")
+    _assert_close(plain, want, fam, f"{fam} (1, 2) odd S",
+                  reference.get())
     _assert_plan(world2, f"{fam}|(1, 2)|odd|seq", fam, (1, 2))
 
 
@@ -659,8 +839,10 @@ def test_inputs_embeds_on_1x2(reference, world2, tparams, seq):
     got = _rank0(world2, tag)
     want = _ref_run(reference.get(), _key("llama", None, 1, "inputs"),
                     len(got[1]))
-    _assert_close(plain, want, "llama", "llama no mesh inputs_embeds")
-    _assert_close(got, want, "llama", f"llama (1, 2) inputs_embeds {seq}")
+    _assert_close(plain, want, "llama", "llama no mesh inputs_embeds",
+                  reference.get())
+    _assert_close(got, want, "llama", f"llama (1, 2) inputs_embeds {seq}",
+                  reference.get())
     for r in world2[1:]:
         assert r[tag][0] == got[0]
     _assert_plan(world2, tag, "llama", (1, 2))
@@ -794,7 +976,8 @@ def test_moe_2x2_is_another_function(reference, world4, world2, no_mesh):
 def test_microbatches_on_2x2(reference, world4):
     got = _rank0(world4, "moe|mb2")
     want = _ref_run(reference.get(), _key("moe", (2, 2), 2), len(got[1]))
-    _assert_close(got, want, "moe", "moe (2, 2) microbatches=2")
+    _assert_close(got, want, "moe", "moe (2, 2) microbatches=2",
+                  reference.get())
 
 
 def test_compression_on_2x2(reference, world4):
@@ -804,7 +987,8 @@ def test_compression_on_2x2(reference, world4):
     got = _rank0(world4, "dense|comp")
     want = _ref_run(reference.get(), _key("dense", (2, 2), 1, "comp"),
                     len(got[1]))
-    _assert_close(got, want, "dense", "dense (2, 2) compressed")
+    _assert_close(got, want, "dense", "dense (2, 2) compressed",
+                  reference.get())
 
 
 def test_loss_mask_on_dp2(reference, world2):
@@ -815,7 +999,8 @@ def test_loss_mask_on_dp2(reference, world2):
     got = _rank0(world2, "dense|mask")
     want = _ref_run(reference.get(), _key("dense", (2,), 1, "mask"),
                     len(got[1]))
-    _assert_close(got, want, "dense", "dense (2,) loss_mask")
+    _assert_close(got, want, "dense", "dense (2,) loss_mask",
+                  reference.get())
 
 
 @pytest.mark.parametrize("shape", [(1,), (1, 1)], ids=["1", "1x1"])
